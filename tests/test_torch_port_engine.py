@@ -1,0 +1,150 @@
+"""The port's serving layer (virnet_tpu_torch/eval, cli, ops I/O) against
+the JAX package's, on the CPU in fp32, plus the port's import hygiene and
+its refusal to run on the CPU unasked."""
+
+import ast
+import subprocess
+import sys
+from pathlib import Path
+
+import cv2
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from virnet_tpu.eval.engine import Restorer as JaxRestorer
+from virnet_tpu.eval.tiling import forward_chop as jax_forward_chop
+from virnet_tpu.ops.augment import dihedral_inverse_np as jax_dinv
+from virnet_tpu.ops.augment import dihedral_np as jax_d
+from virnet_tpu_torch.eval.engine import Restorer
+from virnet_tpu_torch.eval.tiling import bucket_size, forward_chop
+from virnet_tpu_torch.ops.augment import dihedral_inverse_np, dihedral_np
+
+ROOT = Path(__file__).resolve().parents[1]
+SYN = str(ROOT / "model_zoo" / "virnet_denoising_syn_demo.pth")
+
+
+@pytest.fixture(scope="module")
+def restorers():
+    return (JaxRestorer("denoising-syn", ckpt_path=SYN),
+            Restorer("denoising-syn", ckpt_path=SYN, device="cpu"))
+
+
+def _im(seed, h, w):
+    return np.random.default_rng(seed).random((h, w, 3), dtype=np.float32)
+
+
+def test_restore_image_odd_size(restorers):
+    jr, tr = restorers
+    im = _im(0, 29, 35)
+    np.testing.assert_allclose(tr.restore_image(im), jr.restore_image(im),
+                               atol=1e-5)
+
+
+def test_restore_image_tta(restorers):
+    jr, tr = restorers
+    im = _im(1, 20, 28)
+    np.testing.assert_allclose(tr.restore_image_tta(im),
+                               jr.restore_image_tta(im), atol=1e-5)
+
+
+def test_restore_images_groups_shapes(restorers):
+    jr, tr = restorers
+    ims = [_im(2, 24, 32), _im(3, 29, 35), _im(4, 24, 32)[..., 0]]
+    for a, b in zip(tr.restore_images(ims, batch_size=2),
+                    jr.restore_images(ims, batch_size=2)):
+        assert a.shape == b.shape
+        np.testing.assert_allclose(a, b, atol=1e-5)
+
+
+def test_pad_buckets_match_jax():
+    jr = JaxRestorer("denoising-syn", ckpt_path=SYN, pad_multiple=16)
+    tr = Restorer("denoising-syn", ckpt_path=SYN, pad_multiple=16,
+                  device="cpu")
+    im = _im(5, 21, 30)
+    np.testing.assert_allclose(tr.restore_image(im), jr.restore_image(im),
+                               atol=1e-5)
+
+
+def test_forward_chop_and_buckets_match_jax():
+    x = np.random.default_rng(6).random((1, 37, 50, 3), dtype=np.float32)
+
+    def fwd(t):   # any per-pixel map that tells tiles apart
+        return t * 2.0 + 1.0
+
+    want = jax_forward_chop(fwd, jnp.asarray(x), shave=3, min_size=200)
+    got = forward_chop(fwd, torch.from_numpy(x), shave=3, min_size=200)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert [bucket_size(n, m) for n, m in ((37, 16), (64, 16), (5, 0))] \
+        == [48, 64, 5]
+
+
+def test_dihedral_matches_jax():
+    im = _im(7, 5, 7)
+    for m in range(8):
+        np.testing.assert_array_equal(dihedral_np(im, m), jax_d(im, m))
+        np.testing.assert_array_equal(dihedral_inverse_np(dihedral_np(im, m),
+                                                          m), im)
+        np.testing.assert_array_equal(dihedral_inverse_np(im, m),
+                                      jax_dinv(im, m))
+
+
+def test_demo_cli_writes_restored_png(tmp_path):
+    from virnet_tpu_torch.cli.demo import main
+
+    im = (_im(8, 29, 35) * 255).round().astype(np.uint8)
+    src = tmp_path / "noisy.png"
+    cv2.imwrite(str(src), im)
+    main(["--task", "denoising-syn", "--in_path", str(src), "--out_path",
+          str(tmp_path / "out"), "--ckpt_path", SYN, "--device", "cpu"])
+    out = cv2.imread(str(tmp_path / "out" / "restored_noisy.png"))
+    assert out is not None and out.shape == (29, 35, 3)
+    rgb = cv2.cvtColor(im, cv2.COLOR_BGR2RGB).astype(np.float32) / 255
+    want = Restorer("denoising-syn", ckpt_path=SYN, device="cpu") \
+        .restore_image(rgb)
+    want = np.rint(np.clip(want, 0, 1) * 255).astype(np.uint8)
+    np.testing.assert_array_equal(cv2.cvtColor(out, cv2.COLOR_BGR2RGB),
+                                  want)
+
+
+def test_entry_points_need_cuda_unless_cpu_is_asked():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Restorer("denoising-syn", ckpt_path=SYN)
+
+
+FORBIDDEN = ("jax", "flax", "virnet_tpu")
+
+
+def _forbidden(name: str) -> bool:
+    return any(name == f or name.startswith(f + ".") for f in FORBIDDEN)
+
+
+def test_port_imports_no_jax():
+    code = (
+        "import sys, importlib\n"
+        "mods = ['virnet_tpu_torch', 'virnet_tpu_torch.eval.engine',\n"
+        "        'virnet_tpu_torch.cli.demo', 'virnet_tpu_torch.convert',\n"
+        "        'virnet_tpu_torch.models.fused', 'chip_smoke']\n"
+        "for m in mods: importlib.import_module(m)\n"
+        "bad = [m for m in sys.modules if m in ('jax', 'flax', 'virnet_tpu')"
+        " or m.startswith(('jax.', 'flax.', 'virnet_tpu.'))]\n"
+        "print(bad); sys.exit(1 if bad else 0)\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stdout + res.stderr
+
+
+def test_port_sources_name_no_jax():
+    files = sorted((ROOT / "virnet_tpu_torch").rglob("*.py"))
+    files.append(ROOT / "chip_smoke.py")
+    for f in files:
+        for node in ast.walk(ast.parse(f.read_text())):
+            names = []
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module or ""]
+            assert not any(_forbidden(n) for n in names), (f, names)

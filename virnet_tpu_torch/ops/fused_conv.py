@@ -1,0 +1,294 @@
+"""The four CUDA kernels of the denoising forward, each beside its plain
+PyTorch version (counterpart of virnet_tpu/ops/pallas_conv.py).
+
+  K1 ``conv3x3_mid``           <- pallas_conv.conv3x3_mid_pair,
+                                  conv3x3_mid_stack_pair (as L launches)
+  K2 ``dncnn_fused``           <- pallas_conv.dncnn_pair_fused
+  K3 ``dncnn_head_fused``      <- pallas_conv.dncnn_head_fused (halo, carry)
+  K4 ``conv3x3_tail_residual`` <- pallas_conv.conv3x3_tail_residual
+
+All tensors are NHWC and conv weights HWIO, as in the JAX package.  Every
+conv accumulates in f32 and rounds once to the activation dtype (float32
+or bfloat16); the plain versions (``*_plain``) follow the same rounding
+with ``F.conv2d`` in f32.  A wrapper given CPU tensors runs the plain
+version; given CUDA tensors it launches its kernel or raises — there is no
+fallback.  ``LAUNCHES`` counts kernel launches per wrapper.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+import torch.nn.functional as F
+
+from . import _build
+
+LAUNCHES = {"conv3x3_mid": 0, "dncnn_fused": 0, "dncnn_head_fused": 0,
+            "conv3x3_tail_residual": 0}
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+_SIGNATURES = {
+    "vt_conv3x3_mid": ("conv3x3_mid",
+                       [_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P]),
+    "vt_dncnn_grid": ("dncnn_fused", [_I, _I, _I, _I, _I,
+                                      ctypes.POINTER(_I)]),
+    "vt_dncnn_scratch_elems": ("dncnn_fused", [_I, _I]),
+    "vt_dncnn_fused": ("dncnn_fused",
+                       [_P] * 12 + [_I] * 9 + [_F, _F, _F, _P]),
+    "vt_tail_residual": ("tail_residual", [_P] * 5 + [_I] * 7 + [_P]),
+}
+_FNS: dict = {}
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def _fn(symbol: str):
+    fn = _FNS.get(symbol)
+    if fn is None:
+        lib, argtypes = _SIGNATURES[symbol]
+        fn = getattr(_build.load(lib), symbol)
+        fn.argtypes = argtypes
+        fn.restype = (ctypes.c_longlong if symbol == "vt_dncnn_scratch_elems"
+                      else ctypes.c_int)
+        _FNS[symbol] = fn
+    return fn
+
+
+def _on_cpu(*ts) -> bool:
+    """True when every tensor lies on the CPU; raises on a mix or on a
+    device that is neither CPU nor CUDA."""
+    kinds = {t.device.type for t in ts}
+    if kinds == {"cpu"}:
+        return True
+    if kinds == {"cuda"} and len({t.device for t in ts}) == 1:
+        return False
+    raise ValueError(f"tensors must all lie on the CPU or on one CUDA "
+                     f"device, got {sorted(str(t.device) for t in ts)}")
+
+
+def _check(t: torch.Tensor, name: str, dtype, shape) -> None:
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected "
+                         f"{tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: must be contiguous (NHWC / HWIO)")
+
+
+def _dtype_code(x: torch.Tensor) -> int:
+    if x.dtype not in _DTYPES:
+        raise TypeError(f"kernels take float32 or bfloat16, got {x.dtype}")
+    return _DTYPES[x.dtype]
+
+
+def _ret(err: int, symbol: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{symbol} failed: cudaError {err}")
+
+
+def _stream(x: torch.Tensor):
+    return torch.cuda.current_stream(x.device).cuda_stream
+
+
+def _stack(ws) -> torch.Tensor:
+    return ws if isinstance(ws, torch.Tensor) else torch.stack(list(ws))
+
+
+# ---------------------------------------------------------------------------
+# plain versions
+# ---------------------------------------------------------------------------
+
+def conv3x3_f32(x: torch.Tensor, w: torch.Tensor,
+                b: torch.Tensor) -> torch.Tensor:
+    """'same' 3x3 conv in f32 of NHWC x with HWIO w, + b; NHWC f32 out."""
+    y = F.conv2d(x.float().permute(0, 3, 1, 2).contiguous(),
+                 w.float().permute(3, 2, 0, 1).contiguous(), b.float(),
+                 padding=1)
+    return y.permute(0, 2, 3, 1)
+
+
+def conv3x3_plain(x, w, b, slope=None) -> torch.Tensor:
+    """'same' 3x3 conv + bias (+ LeakyReLU), f32 accumulation, one rounding
+    to x's dtype.  Also the port of the XLA-only pallas_conv helpers
+    (conv3x3_in_pair, conv3x3_narrow_out, conv3x3_out_pair)."""
+    y = conv3x3_f32(x, w, b)
+    if slope is not None:
+        y = F.leaky_relu(y, slope)
+    return y.to(x.dtype).contiguous()
+
+
+conv3x3_mid_plain = conv3x3_plain
+
+
+def dncnn_fused_plain(x, w1, b1, wms, bms, wl, bl, slope=0.25):
+    y = conv3x3_plain(x, w1, b1, slope)
+    for wm, bm in zip(wms, bms):
+        y = conv3x3_plain(y, wm, bm, slope)
+    return conv3x3_plain(y, wl, bl)
+
+
+def exp_clip(logits, lmin, lmax) -> torch.Tensor:
+    """exp(clip(logits, lmin, lmax)) in float64.  float64 because
+    PyTorch's CPU float32 exp was measured to lose up to 1.5e-4 relative
+    precision in some processes (its vector-math path), which is above
+    the sigma tolerances; rounded back, the result is exp to <= 1 ulp."""
+    return torch.exp(torch.clamp(logits.double(), lmin, lmax))
+
+
+def dncnn_head_fused_plain(x, w1, b1, wms, bms, wl, bl, wh, bh, slope=0.25,
+                           lmin=-23.025850929940457, lmax=4.605170185988092):
+    logits = dncnn_fused_plain(x, w1, b1, wms, bms, wl, bl, slope)
+    sig = exp_clip(logits, lmin, lmax)
+    ext = torch.sqrt(sig).to(x.dtype)
+    head = conv3x3_plain(torch.cat([x, ext], dim=-1), wh, bh)
+    return head, sig.to(x.dtype)
+
+
+def conv3x3_tail_residual_plain(feats, x_in, w, b):
+    h, w_img = x_in.shape[1], x_in.shape[2]
+    y = conv3x3_plain(feats, w, b)[:, :h, :w_img]
+    return (y.float() + x_in.float()).to(x_in.dtype)
+
+
+# ---------------------------------------------------------------------------
+# kernel wrappers
+# ---------------------------------------------------------------------------
+
+def conv3x3_mid(x, w, b, slope=None) -> torch.Tensor:
+    """K1: x (N, H, W, 64), w HWIO (3, 3, 64, 64), b (64,) -> (N, H, W,
+    64), all in x's dtype."""
+    if _on_cpu(x, w, b):
+        return conv3x3_mid_plain(x, w, b, slope)
+    n, h, wd, c = x.shape
+    if c != 64:
+        raise ValueError(f"conv3x3_mid takes 64 channels, got {c}")
+    code = _dtype_code(x)
+    _check(x, "x", x.dtype, (n, h, wd, 64))
+    _check(w, "w", x.dtype, (3, 3, 64, 64))
+    _check(b, "b", x.dtype, (64,))
+    y = torch.empty_like(x)
+    _ret(_fn("vt_conv3x3_mid")(
+        x.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(), n, h, wd,
+        code, float(slope or 0.0), int(slope is not None), _stream(x)),
+        "vt_conv3x3_mid")
+    LAUNCHES["conv3x3_mid"] += 1
+    return y
+
+
+def conv3x3_mid_stack(x, wms, bms, slope=None) -> torch.Tensor:
+    """L chained K1 convs (counterpart of conv3x3_mid_stack_pair): one
+    launch per conv; fusing the stack is later work."""
+    for w, b in zip(wms, bms):
+        x = conv3x3_mid(x, w, b, slope)
+    return x
+
+
+def _dncnn_launch(head: bool, x, w1, b1, wms, bms, wl, bl, wh, bh, slope,
+                  lmin, lmax):
+    n, h, wd, ci = x.shape
+    dt = x.dtype
+    code = _dtype_code(x)
+    wm = _stack(wms)
+    bm = _stack(bms)
+    L = wm.shape[0]
+    co = wl.shape[3]
+    _check(x, "x", dt, (n, h, wd, 3))
+    _check(w1, "w1", dt, (3, 3, 3, 64))
+    _check(b1, "b1", dt, (64,))
+    _check(wm, "wms", dt, (L, 3, 3, 64, 64))
+    _check(bm, "bms", dt, (L, 64))
+    if co not in (1, 2, 3):
+        raise ValueError(f"conv_last must have 1-3 outputs, got {co}")
+    _check(wl, "wl", dt, (3, 3, 64, co))
+    _check(bl, "bl", dt, (co,))
+    if L < 1:
+        raise ValueError("the fused SNet needs at least one mid conv")
+    cf = 0
+    if head:
+        cf = wh.shape[3]
+        if cf % 16 or cf > 256:
+            raise ValueError(f"head width must be a multiple of 16 up to "
+                             f"256, got {cf}")
+        _check(wh, "wh", dt, (3, 3, 3 + co, cf))
+        _check(bh, "bh", dt, (cf,))
+    grid = ctypes.c_int(0)
+    _ret(_fn("vt_dncnn_grid")(code, int(head), n, h, wd, ctypes.byref(grid)),
+         "vt_dncnn_grid")
+    per_block = _fn("vt_dncnn_scratch_elems")(L, int(head))
+    scratch = torch.empty(grid.value * per_block, dtype=dt, device=x.device)
+    if head:
+        out0 = torch.empty((n, h, wd, cf), dtype=dt, device=x.device)
+        out1 = torch.empty((n, h, wd, co), dtype=dt, device=x.device)
+        whp, bhp = wh.data_ptr(), bh.data_ptr()
+    else:
+        out0 = torch.empty((n, h, wd, co), dtype=dt, device=x.device)
+        out1 = None
+        whp = bhp = None
+    _ret(_fn("vt_dncnn_fused")(
+        x.data_ptr(), w1.data_ptr(), b1.data_ptr(), wm.data_ptr(),
+        bm.data_ptr(), wl.data_ptr(), bl.data_ptr(), whp, bhp,
+        out0.data_ptr(), None if out1 is None else out1.data_ptr(),
+        scratch.data_ptr(), grid.value, n, h, wd, L, co, cf, code, int(head),
+        float(slope), float(lmin), float(lmax), _stream(x)),
+        "vt_dncnn_fused")
+    return out0, out1
+
+
+def dncnn_fused(x, w1, b1, wms, bms, wl, bl, slope=0.25) -> torch.Tensor:
+    """K2, the whole SNet in one launch: x (N, H, W, 3) -> logits (N, H,
+    W, co), any H and W.  wms/bms: list of HWIO (3, 3, 64, 64) / (64,)
+    or the stacked (L, ...) tensors."""
+    if _on_cpu(x, w1, b1, wl, bl):
+        return dncnn_fused_plain(x, w1, b1, wms, bms, wl, bl, slope)
+    out, _ = _dncnn_launch(False, x, w1, b1, wms, bms, wl, bl, None, None,
+                           slope, 0.0, 0.0)
+    LAUNCHES["dncnn_fused"] += 1
+    return out
+
+
+def dncnn_head_fused(x, w1, b1, wms, bms, wl, bl, wh, bh, slope=0.25,
+                     lmin=-23.025850929940457, lmax=4.605170185988092):
+    """K3, SNet + sigma epilogue + RNet head conv in one launch: x (N, H,
+    W, 3) -> (head (N, H, W, cf), sigma (N, H, W, co)).  sigma =
+    exp(clip(logits, lmin, lmax)); head = conv3x3([x | sqrt(sigma)], wh)
+    + bh with sqrt(sigma) zero outside the image."""
+    if _on_cpu(x, w1, b1, wl, bl, wh, bh):
+        return dncnn_head_fused_plain(x, w1, b1, wms, bms, wl, bl, wh, bh,
+                                      slope, lmin, lmax)
+    head, sigma = _dncnn_launch(True, x, w1, b1, wms, bms, wl, bl, wh, bh,
+                                slope, lmin, lmax)
+    LAUNCHES["dncnn_head_fused"] += 1
+    return head, sigma
+
+
+def conv3x3_tail_residual(feats, x_in, w, b) -> torch.Tensor:
+    """K4: conv3x3(feats, w) + b, rounded to feats' dtype, then + x_in in
+    f32.  feats (N, Hp, Wp, C) at the padded size, x_in (N, h, w, 3) f32
+    with h <= Hp, w <= Wp -> (N, h, w, 3) f32."""
+    if _on_cpu(feats, x_in, w, b):
+        return conv3x3_tail_residual_plain(feats, x_in, w, b)
+    n, hp, wp, c = feats.shape
+    h, w_img = x_in.shape[1], x_in.shape[2]
+    code = _dtype_code(feats)
+    if c % 4 or c > 256 or h > hp or w_img > wp:
+        raise ValueError(f"tail: features {tuple(feats.shape)} and x_in "
+                         f"{tuple(x_in.shape)} do not fit the kernel")
+    _check(feats, "feats", feats.dtype, (n, hp, wp, c))
+    _check(x_in, "x_in", torch.float32, (n, h, w_img, 3))
+    _check(w, "w", feats.dtype, (3, 3, c, 3))
+    _check(b, "b", feats.dtype, (3,))
+    out = torch.empty_like(x_in)
+    _ret(_fn("vt_tail_residual")(
+        feats.data_ptr(), x_in.data_ptr(), w.data_ptr(), b.data_ptr(),
+        out.data_ptr(), n, hp, wp, h, w_img, c, code, _stream(feats)),
+        "vt_tail_residual")
+    LAUNCHES["conv3x3_tail_residual"] += 1
+    return out
