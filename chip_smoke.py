@@ -7,8 +7,9 @@
 Phases (all by default; any failure raises and the exit code is not 0):
   build      nvcc-builds the four CUDA kernels from virnet_tpu_torch/csrc/
   kernels    holds each kernel (K1-K4) against its plain PyTorch version on
-             the card at the main path's shapes, in fp32 (TF32 off) and
-             bf16, and times kernel, plain version and library call
+             the card at the main paths' shapes, with the weights of both
+             presets (syn: L=3, co=1; real: L=6, co=3), in fp32 (TF32 off)
+             and bf16, and times kernel, plain version and library call
   serve      Restorer('denoising-syn', bf16) on the flagship 32x256^2 batch
              (K3 + K4), MP/s
   profile    torch.profiler device-time breakdown of that forward by kernel
@@ -17,12 +18,16 @@ Phases (all by default; any failure raises and the exit code is not 0):
              gate (K2 + K4)
   ops        the same image on SNet's per-op route, conv_impl='ops' (K1)
   real       the denoising-real demo weights on a 4x256^2 batch (co=3, L=6)
-  fp32       card forward vs the same model on the CPU (plain versions)
+  fp32       card forward vs the same model on the CPU (plain versions),
+             both presets, one shape through K3 and one through K2
   psnr       denoising a seeded smooth image with sigma=25/255 noise
 
-Every main-path phase zeroes the launch counters before it runs and reads
-them after; it fails if a kernel of its path did not launch.  The line
-before the card's line is one JSON object with the kernels' numbers; the
+Every main-path phase (serve, serve_odd, ops, real) zeroes the launch
+counters, drives its path once and reads them; it fails if a kernel of
+its path did not launch.  The line before the card's line is one JSON
+object with the kernels' numbers: times and errors from the syn weights
+in bf16, and each kernel's launches in the one run of the path it serves
+(``launches_path``; every path's count is in ``launches_by_path``).  The
 last line is {"ok": true, "device": {...}}.  ``--report PATH`` also
 writes a fuller JSON report.  Needs the repo checkout beside this script,
 a CUDA device and nvcc; imports nothing of JAX.
@@ -58,18 +63,18 @@ PEAKS = {
 
 KERNELS = {
     "conv3x3_mid": dict(
-        source="virnet_tpu_torch/csrc/conv3x3_mid.cu",
+        path="ops", source="virnet_tpu_torch/csrc/conv3x3_mid.cu",
         replaces="virnet_tpu/ops/pallas_conv.py:627 (conv3x3_mid_pair), "
                  ":297 (conv3x3_mid_stack_pair)"),
     "dncnn_fused": dict(
-        source="virnet_tpu_torch/csrc/dncnn_fused.cu",
+        path="serve_odd", source="virnet_tpu_torch/csrc/dncnn_fused.cu",
         replaces="virnet_tpu/ops/pallas_conv.py:474 (dncnn_pair_fused)"),
     "dncnn_head_fused": dict(
-        source="virnet_tpu_torch/csrc/dncnn_fused.cu",
+        path="serve", source="virnet_tpu_torch/csrc/dncnn_fused.cu",
         replaces="virnet_tpu/ops/pallas_conv.py:1289 (dncnn_head_fused "
                  "halo :1512, carry :1459)"),
     "conv3x3_tail_residual": dict(
-        source="virnet_tpu_torch/csrc/tail_residual.cu",
+        path="serve", source="virnet_tpu_torch/csrc/tail_residual.cu",
         replaces="virnet_tpu/ops/pallas_conv.py:841 "
                  "(conv3x3_tail_residual)"),
 }
@@ -166,32 +171,43 @@ def snet_params(sd, dtype, dev):
 
 
 def phase_kernels(report, peaks):
-    """K1-K4 against their plain versions at main-path shapes."""
+    """K1-K4 against their plain versions at the main paths' shapes, for
+    both presets: denoising-syn (L=3, co=1) with the flagship batch of 32
+    and denoising-real (L=6, co=3) with the `real` phase's batch of 4."""
+    from virnet_tpu_torch.convert import load_pth
+    from virnet_tpu_torch.models import ARCH_PRESETS
+
+    results: dict = {}
+    for label, ckpt, batch in (("syn", SYN_CKPT, 32), ("real", REAL_CKPT, 4)):
+        mod = 2 ** (len(ARCH_PRESETS[f"denoising-{label}"]["n_feat"]) - 1)
+        check_kernels(load_pth(ckpt), label, batch, mod, peaks, results)
+    report["kernels"] = results
+
+
+def check_kernels(sd, label, batch, mod, peaks, results):
     import torch.nn.functional as F
 
-    from virnet_tpu_torch.convert import load_pth
     from virnet_tpu_torch.ops import fused_conv as fc
 
     dev = torch.device("cuda")
-    sd = load_pth(SYN_CKPT)
     g = torch.Generator(device="cpu").manual_seed(0)
 
     def rand(*shape, scale=1.0):
         return (torch.rand(*shape, generator=g) * scale).to(dev)
 
-    x_flag = rand(32, 256, 256, 3)               # flagship batch
+    hp, wp = (-(-321 // mod) * mod, -(-481 // mod) * mod)
+    x_flag = rand(batch, 256, 256, 3)            # the gated batch
     x_odd = rand(1, 321, 481, 3)                 # fails the gate
     mid_in = rand(1, 321, 481, 64, scale=2.0)    # a mid conv's input there
-    feats_flag = rand(32, 256, 256, 96) - 0.5    # RNet tail input
-    feats_pad = rand(1, 324, 484, 96) - 0.5      # padded for 321x481
-    results = {}
+    feats_flag = rand(batch, 256, 256, 96) - 0.5  # RNet tail input
+    feats_pad = rand(1, hp, wp, 96) - 0.5        # padded for 321x481
     for dtype in (torch.float32, torch.bfloat16):
-        tag = "fp32" if dtype == torch.float32 else "bf16"
+        tag = f"{label} {'fp32' if dtype == torch.float32 else 'bf16'}"
         p = snet_params(sd, dtype, dev)
         esz = torch.finfo(dtype).bits // 8
         peak = peaks["bf16"] if dtype == torch.bfloat16 else peaks["fp32"]
         L, co, cf = p["wms"].shape[0], p["wl"].shape[3], p["wh"].shape[3]
-        log(f"[kernels {tag}] L={L} co={co} cf={cf}")
+        log(f"[kernels {tag}] L={L} co={co} cf={cf}, batch {batch}x256^2")
 
         def bound(flops, nbytes):
             t_ops, t_mem = flops / peak * 1e3, nbytes / peaks["bytes"] * 1e3
@@ -241,7 +257,7 @@ def phase_kernels(report, peaks):
               lambda: fc.dncnn_fused_plain(*args2), None,
               snet_flops * npx, npx * (3 + co) * esz + weights_b, 5)
 
-        # K3 at the flagship shape
+        # K3 at the gated batch
         xf = x_flag.to(dtype)
         args3 = args2[1:]
         kw = dict(lmin=math.log(1e-10), lmax=math.log(1e2))
@@ -252,7 +268,7 @@ def phase_kernels(report, peaks):
         err = max(check_close("dncnn_head_fused head", head, head_ref, dtype),
                   check_close("dncnn_head_fused sigma", sig, sig_ref, dtype,
                               kind="sigma"))
-        npx = 32 * 256 * 256
+        npx = batch * 256 * 256
         entry("dncnn_head_fused", err,
               lambda: fc.dncnn_head_fused(xf, *args3, p["wh"], p["bh"], **kw),
               lambda: fc.dncnn_head_fused_plain(xf, *args3, p["wh"], p["bh"],
@@ -261,7 +277,7 @@ def phase_kernels(report, peaks):
               npx * (3 + co + cf) * esz + weights_b
               + (p["wh"].numel() + cf) * esz, 3)
 
-        # K4: flagship (pad-free) and the padded 321x481 case
+        # K4: the gated batch (pad-free) and the padded 321x481 case
         wt, bt = p["wt"], p["bt"]
         fp = feats_pad.to(dtype)
         got = fc.conv3x3_tail_residual(fp, x_odd, wt, bt)
@@ -282,7 +298,6 @@ def phase_kernels(report, peaks):
               lambda: fc.conv3x3_tail_residual_plain(ff, x_flag, wt, bt),
               lambda: F.conv2d(ff_nchw, wt_oihw, bt, padding=1) + x_nchw,
               2 * 9 * 96 * 3 * npx, npx * (96 * esz + 3 * 4 + 3 * 4), 10)
-    report["kernels"] = results
 
 
 GROUPS = (("K3/K2 dncnn_fused.cu", ("dncnn_kernel",)),
@@ -339,24 +354,6 @@ def phase_profile(restorer, x, report, iters=2):
                              kernels=kernels, torch_ops=ops)
 
 
-def sigma_f64(sd, x):
-    """sigma of the SNet in float64 on the CPU, a reference for both."""
-    import torch.nn.functional as F
-
-    def c(v, name, slope=None):
-        y = F.conv2d(v, sd[f"{name}.weight"].double(),
-                     sd[f"{name}.bias"].double(), padding=1)
-        return F.leaky_relu(y, slope) if slope else y
-
-    y = c(x.double().permute(0, 3, 1, 2), "SNet.conv1", 0.25)
-    mids = sorted({int(k.split(".")[2]) for k in sd
-                   if k.startswith("SNet.mid_layer.")})
-    for i in mids:
-        y = c(y, f"SNet.mid_layer.{i}", 0.25)
-    lg = c(y, "SNet.conv_last").permute(0, 2, 3, 1)
-    return torch.exp(torch.clamp(lg, math.log(1e-10), math.log(1e2)))
-
-
 def run_path(name, fn, expect):
     """Drive one main path with the counters zeroed just before and read
     just after; fail if a kernel of the path did not launch."""
@@ -371,11 +368,6 @@ def run_path(name, fn, expect):
     if missing:
         raise AssertionError(f"{name}: kernels {missing} never launched")
     return out, counts
-
-
-def add_counts(total, counts):
-    for k, v in counts.items():
-        total[k] = total.get(k, 0) + v
 
 
 def check_image(name, out, shape):
@@ -453,30 +445,26 @@ def main(argv=None) -> int:
     if "kernels" in phases:
         phase_kernels(report, peaks)
 
-    totals: dict = {}
+    launches: dict = {}       # path -> the counts of its one run
     rng = np.random.default_rng(0)
     odd = rng.random((321, 481, 3), dtype=np.float32)
-    if any(p in phases for p in ("serve", "profile", "serve_odd", "psnr")):
+    if any(p in phases for p in ("serve", "profile", "serve_odd", "ops",
+                                 "psnr")):
         syn = Restorer("denoising-syn", ckpt_path=SYN_CKPT, compute="bf16")
 
     if "serve" in phases:
+        log("[serve] denoising-syn bf16, restore_batch 32x256x256")
         x = torch.as_tensor(rng.random((32, 256, 256, 3), dtype=np.float32),
                             device="cuda")
-        syn.restore_batch(x)                     # warm-up
-        torch.cuda.synchronize()
-
-        def serve():
-            t0 = time.perf_counter()
-            out = None
-            for _ in range(3):
-                out = syn.restore_batch(x)
-            torch.cuda.synchronize()
-            return out, (time.perf_counter() - t0) / 3
-        log("[serve] denoising-syn bf16, restore_batch 32x256x256")
-        (out, sec), counts = run_path(
-            "serve", serve, ("dncnn_head_fused", "conv3x3_tail_residual"))
-        add_counts(totals, counts)
+        out, launches["serve"] = run_path(
+            "serve", lambda: syn.restore_batch(x),
+            ("dncnn_head_fused", "conv3x3_tail_residual"))
         check_image("serve", out.cpu(), (32, 256, 256, 3))
+        t0 = time.perf_counter()
+        for _ in range(3):
+            syn.restore_batch(x)
+        torch.cuda.synchronize()
+        sec = (time.perf_counter() - t0) / 3
         report["serve"] = dict(s_per_batch=sec,
                                mp_per_s=32 * 256 * 256 / sec / 1e6)
         log(f"  {sec * 1e3:.2f} ms per batch, "
@@ -491,26 +479,23 @@ def main(argv=None) -> int:
 
     if "serve_odd" in phases:
         log("[serve_odd] restore_image 321x481 (K2 + K4)")
-        out_odd, counts = run_path(
+        out_odd, launches["serve_odd"] = run_path(
             "serve_odd", lambda: syn.restore_image(odd),
             ("dncnn_fused", "conv3x3_tail_residual"))
-        add_counts(totals, counts)
         check_image("serve_odd", out_odd, (321, 481, 3))
 
     if "ops" in phases:
         log("[ops] restore_image 321x481 on the per-op SNet route (K1)")
         syn_ops = Restorer("denoising-syn", ckpt_path=SYN_CKPT,
                            compute="bf16", conv_impl="ops")
-        out_ops, counts = run_path(
+        out_ops, launches["ops"] = run_path(
             "ops", lambda: syn_ops.restore_image(odd),
             ("conv3x3_mid", "conv3x3_tail_residual"))
-        add_counts(totals, counts)
         check_image("ops", out_ops, (321, 481, 3))
-        if "serve_odd" in phases:
-            d = float(np.abs(out_ops - out_odd).max())
-            log(f"  max diff vs the fused route {d:.3g} (bound 4/255)")
-            if d > 4 / 255:
-                raise AssertionError("ops route disagrees with fused route")
+        d = float(np.abs(out_ops - syn.restore_image(odd)).max())
+        log(f"  max diff vs the fused route {d:.3g} (bound 4/255)")
+        if d > 4 / 255:
+            raise AssertionError("ops route disagrees with fused route")
         del syn_ops
 
     if "real" in phases:
@@ -519,9 +504,9 @@ def main(argv=None) -> int:
                         compute="bf16")
         x = torch.as_tensor(rng.random((4, 256, 256, 3), dtype=np.float32),
                             device="cuda")
-        out, counts = run_path("real", lambda: real.restore_batch(x),
-                               ("dncnn_head_fused", "conv3x3_tail_residual"))
-        add_counts(totals, counts)
+        out, launches["real"] = run_path(
+            "real", lambda: real.restore_batch(x),
+            ("dncnn_head_fused", "conv3x3_tail_residual"))
         check_image("real", out.cpu(), (4, 256, 256, 3))
         del real
 
@@ -529,40 +514,33 @@ def main(argv=None) -> int:
         from virnet_tpu_torch.convert import load_pth
         from virnet_tpu_torch.models import build_model
 
-        log("[fp32] card forward vs CPU plain versions")
-        sd = load_pth(SYN_CKPT)
-        cpu = build_model("denoising-syn")
-        cpu.load_state_dict(sd, strict=True)
-        gpu = build_model("denoising-syn")
-        gpu.load_state_dict(sd, strict=True)
-        gpu = gpu.cuda().eval()
-        cpu.eval()
-        worst = {}
-        for hw in ((64, 64), (29, 35)):
-            x = rng.random((1, *hw, 3), dtype=np.float32)
-            with torch.inference_mode():
-                mu_c, s_c = cpu(torch.from_numpy(x))
-                mu_g, s_g = gpu(torch.from_numpy(x).cuda())
-            e_mu = max_err(mu_g.cpu(), mu_c)
-            e_s = float(((s_g.cpu() - s_c).abs() / s_c.abs()).max())
-            log(f"  {hw}: mu max diff {e_mu:.3g} (atol 1e-4), sigma max "
-                f"rel diff {e_s:.3g} (rtol 1e-5)")
-            if e_mu > 1e-4 or e_s > 1e-5:
-                rel = ((s_g.cpu() - s_c).abs() / s_c.abs())
-                idx = np.unravel_index(int(rel.argmax()), rel.shape)
-                s64 = sigma_f64(sd, torch.from_numpy(x))
-                e_c = float(((s_c.double() - s64).abs() / s64).max())
-                e_g = float(((s_g.cpu().double() - s64).abs() / s64).max())
-                bad = (rel > 1e-5).nonzero()
-                log(f"  worst sigma at {idx}: card {s_g.cpu()[idx].item()!r}"
-                    f" cpu {s_c[idx].item()!r} f64 {s64[idx].item()!r}; "
-                    f"count > 1e-5: {len(bad)} in rows "
-                    f"{bad[:, 1].unique().tolist()} cols "
-                    f"{bad[:, 2].unique().tolist()}; vs f64: cpu {e_c:.3g}"
-                    f" card {e_g:.3g}")
-                raise AssertionError(f"fp32 card forward disagrees at {hw}")
-            worst[str(hw)] = dict(mu_abs=e_mu, sigma_rel=e_s)
-        report["fp32"] = worst
+        report["fp32"] = {}
+        for task, ckpt in (("denoising-syn", SYN_CKPT),
+                           ("denoising-real", REAL_CKPT)):
+            log(f"[fp32] {task}: card forward vs CPU plain versions")
+            sd = load_pth(ckpt)
+            cpu = build_model(task)
+            cpu.load_state_dict(sd, strict=True)
+            gpu = build_model(task)
+            gpu.load_state_dict(sd, strict=True)
+            gpu = gpu.cuda().eval()
+            cpu.eval()
+            # (64, 64) passes the fused-head gate (K3), (29, 35) fails it (K2)
+            for hw in ((64, 64), (29, 35)):
+                x = rng.random((1, *hw, 3), dtype=np.float32)
+                with torch.inference_mode():
+                    mu_c, s_c = cpu(torch.from_numpy(x))
+                    mu_g, s_g = gpu(torch.from_numpy(x).cuda())
+                e_mu = max_err(mu_g.cpu(), mu_c)
+                e_s = float(((s_g.cpu() - s_c).abs() / s_c.abs()).max())
+                log(f"  {hw}: mu max diff {e_mu:.3g} (atol 1e-4), sigma max "
+                    f"rel diff {e_s:.3g} (rtol 1e-5)")
+                if e_mu > 1e-4 or e_s > 1e-5:
+                    raise AssertionError(
+                        f"fp32 card forward of {task} disagrees at {hw}: "
+                        f"mu {e_mu}, sigma rel {e_s}")
+                report["fp32"][f"{task} {hw}"] = dict(mu_abs=e_mu,
+                                                      sigma_rel=e_s)
 
     if "psnr" in phases:
         log("[psnr] sigma=25/255 noise on a smooth image, syn demo bf16")
@@ -576,18 +554,23 @@ def main(argv=None) -> int:
         if not p_out > p_in:
             raise AssertionError("restoration did not raise the PSNR")
 
-    report["launches"] = totals
+    report["launches"] = launches
     report["total_s"] = time.perf_counter() - t_all
     if args.report is not None:
         args.report.parent.mkdir(parents=True, exist_ok=True)
         args.report.write_text(json.dumps(report, indent=1))
 
+    # one row per kernel: its times and error at the flagship checkpoint
+    # in bf16, and its launches in the one run of the path it serves
     rows = []
     for name, meta in KERNELS.items():
-        m = report.get("kernels", {}).get(name, {}).get("bf16", {})
+        m = report.get("kernels", {}).get(name, {}).get("syn bf16", {})
         rows.append(dict(
             name=name, route="cuda", source=meta["source"],
-            replaces=meta["replaces"], launches=totals.get(name, 0),
+            replaces=meta["replaces"],
+            launches=launches.get(meta["path"], {}).get(name, 0),
+            launches_path=meta["path"],
+            launches_by_path={p: c[name] for p, c in launches.items()},
             max_abs_err=m.get("max_abs_err"), ms=m.get("ms"),
             plain_ms=m.get("plain_ms"), bound_ms=m.get("bound_ms"),
             bound_by=m.get("bound_by"), library_ms=m.get("library_ms")))

@@ -17,6 +17,7 @@ from virnet_tpu.models import build_model as jax_build_model
 from virnet_tpu.models.fused import denoise_forward_fused as jax_fused
 from virnet_tpu_torch.convert import from_jax_params, load_pth
 from virnet_tpu_torch.models import VIRNet, build_model
+from virnet_tpu_torch.models.common import conv_hwio, hwio
 from virnet_tpu_torch.models.fused import fused_head_supported
 
 SMALL = dict(sigma_chn=1, n_feat=(16, 24, 32), dep_S=4, n_resblocks=2)
@@ -119,3 +120,36 @@ def test_fused_gate():
                                     (1, 64, 64, 3))
     with pytest.raises(ValueError):
         build_model("sisr")
+
+
+def test_kernel_layout_is_cached_and_follows_the_weights():
+    """The kernels' HWIO weights are built once, rebuilt when the weights
+    are loaded, cast or updated in place, and differentiable while
+    autograd records."""
+    torch.manual_seed(0)
+    m = VIRNet(**SMALL).eval()
+    torch.manual_seed(1)
+    other = VIRNet(**SMALL)
+    with torch.inference_mode():
+        p1 = m.SNet.kernel_params()
+        assert m.SNet.kernel_params() is p1
+        assert conv_hwio(m.RNet.tail) is conv_hwio(m.RNet.tail)
+    m.load_state_dict(other.state_dict(), strict=True)
+    with torch.inference_mode():
+        p2 = m.SNet.kernel_params()
+    assert p2 is not p1
+    torch.testing.assert_close(p2["wms"][1],
+                               hwio(other.SNet.mid_layer[2].weight),
+                               atol=0, rtol=0)
+    m.to(torch.bfloat16)
+    with torch.inference_mode():
+        assert m.SNet.kernel_params()["wms"].dtype == torch.bfloat16
+    m.float()
+    with torch.no_grad():
+        m.RNet.tail.weight.add_(1.0)
+        torch.testing.assert_close(conv_hwio(m.RNet.tail),
+                                   hwio(m.RNet.tail.weight), atol=0, rtol=0)
+    x = torch.from_numpy(np.random.default_rng(4).random(
+        (1, 16, 16, 3), dtype=np.float32))
+    m.SNet(x).sum().backward()
+    assert m.SNet.mid_layer[0].weight.grad.abs().sum() > 0

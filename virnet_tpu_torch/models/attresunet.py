@@ -28,7 +28,7 @@ import torch.nn.functional as F
 from ..ops.fused_conv import conv3x3_tail_residual
 from ..ops.pad import pad_to_multiple
 from ..ops.upsample import conv_transpose_2x2
-from .common import (conv, hwio, lrelu, make_conv, to_nchw, to_nhwc,
+from .common import (conv, conv_hwio, lrelu, make_conv, to_nchw, to_nhwc,
                      torch_default_init_)
 
 MODES = ("null", "input", "down", "both")
@@ -170,4 +170,4 @@ class AttResUNet(nn.Module):
         for k, up in enumerate(self.up_path):
             x = up(x, bridges[depth - 2 - k])
         return conv3x3_tail_residual(to_nhwc(x), x_in.contiguous(),
-                                     hwio(self.tail.weight), self.tail.bias)
+                                     conv_hwio(self.tail), self.tail.bias)

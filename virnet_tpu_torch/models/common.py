@@ -64,6 +64,32 @@ def hwio(w: torch.Tensor) -> torch.Tensor:
     return w.permute(2, 3, 1, 0).contiguous()
 
 
+def kernel_layout(module: nn.Module, build):
+    """``build(module)``, the module's weights in the kernels' layout,
+    cached on the module.  The cache holds on to the parameters' storage
+    and version counters, so it is rebuilt when a parameter is moved, cast,
+    loaded or updated in place.  While autograd records, it is built anew
+    every call so that gradients reach the parameters."""
+    params = list(module.parameters())
+    if torch.is_grad_enabled() and any(p.requires_grad for p in params):
+        return build(module)
+    hit = module.__dict__.get("_kernel_layout")
+    if hit is not None and len(hit[0]) == len(params) and all(
+            p.data_ptr() == s.data_ptr() and p._version == v
+            for p, (s, v) in zip(params, hit[0])):
+        return hit[1]
+    with torch.no_grad():
+        out = build(module)
+    module.__dict__["_kernel_layout"] = (
+        [(p.detach(), p._version) for p in params], out)
+    return out
+
+
+def conv_hwio(m: nn.Conv2d) -> torch.Tensor:
+    """``m``'s weight in HWIO, cached (``kernel_layout``)."""
+    return kernel_layout(m, lambda mod: hwio(mod.weight))
+
+
 def to_nhwc(x: torch.Tensor) -> torch.Tensor:
     """NCHW-shaped tensor -> contiguous NHWC (a view when ``x`` is
     channels_last)."""

@@ -13,7 +13,8 @@ import torch
 import torch.nn as nn
 
 from ..ops import fused_conv as fc
-from .common import hwio, leaky_relu_gain, orthogonal_gain_init_
+from .common import (hwio, kernel_layout, leaky_relu_gain,
+                     orthogonal_gain_init_)
 
 
 class DnCNN(nn.Module):
@@ -48,13 +49,15 @@ class DnCNN(nn.Module):
 
     def kernel_params(self) -> dict:
         """HWIO weights and biases in the parameter dtype, the mids
-        stacked as (L, 3, 3, 64, 64) / (L, 64)."""
-        mids = self.mids()
-        return dict(
-            w1=hwio(self.conv1.weight), b1=self.conv1.bias,
-            wms=torch.stack([hwio(m.weight) for m in mids]),
-            bms=torch.stack([m.bias for m in mids]),
-            wl=hwio(self.conv_last.weight), bl=self.conv_last.bias)
+        stacked as (L, 3, 3, 64, 64) / (L, 64); cached (``kernel_layout``)."""
+        def build(m):
+            mids = m.mids()
+            return dict(
+                w1=hwio(m.conv1.weight), b1=m.conv1.bias,
+                wms=torch.stack([hwio(c.weight) for c in mids]),
+                bms=torch.stack([c.bias for c in mids]),
+                wl=hwio(m.conv_last.weight), bl=m.conv_last.bias)
+        return kernel_layout(self, build)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """x (N, H, W, in_chn) -> logits (N, H, W, out_chn), NHWC, in the

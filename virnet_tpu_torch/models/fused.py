@@ -11,7 +11,7 @@ from __future__ import annotations
 import torch
 
 from ..ops import fused_conv as fc
-from .common import hwio
+from .common import conv_hwio
 from .virnet import LOG_MAX, LOG_MIN, VIRNet
 
 
@@ -35,6 +35,6 @@ def denoise_forward_fused(model: VIRNet, x: torch.Tensor):
     xk = x.to(model.dtype).contiguous()
     head, sigma = fc.dncnn_head_fused(
         xk, p["w1"], p["b1"], p["wms"], p["bms"], p["wl"], p["bl"],
-        hwio(head_conv.weight), head_conv.bias, slope=model.SNet.slope,
+        conv_hwio(head_conv), head_conv.bias, slope=model.SNet.slope,
         lmin=LOG_MIN, lmax=LOG_MAX)
     return model.restore_from_head(x, head), sigma
