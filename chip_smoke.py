@@ -2,14 +2,20 @@
 """Smoke run of the virnet_tpu_torch port on one NVIDIA GPU (H100).
 
     python3 chip_smoke.py [--phases build,kernels,serve,profile,serve_odd,
-                           ops,real,fp32,psnr] [--report PATH]
+                           ops,real,fp32,psnr,sisr_fwd,train_fp32,
+                           train_sisr] [--report PATH]
 
 Phases (all by default; any failure raises and the exit code is not 0):
-  build      nvcc-builds the four CUDA kernels from virnet_tpu_torch/csrc/
+  build      nvcc-builds the CUDA kernels from virnet_tpu_torch/csrc/
   kernels    holds each kernel (K1-K4) against its plain PyTorch version on
              the card at the main paths' shapes, with the weights of both
              presets (syn: L=3, co=1; real: L=6, co=3), in fp32 (TF32 off)
-             and bf16, and times kernel, plain version and library call
+             and bf16, and times kernel, plain version and library call;
+             then the blur kernels (K5 forward, K6 dX, K7 dW) in f32 at the
+             training shape (16x192^2x3, k=21; also through the public op
+             in both pad modes with autograd), one eval shape (1x512^2x3)
+             and one awkward shape (2x13x17x2, k=5), K6 and K7 run twice
+             for equal bits
   serve      Restorer('denoising-syn', bf16) on the flagship 32x256^2 batch
              (K3 + K4), MP/s
   profile    torch.profiler device-time breakdown of that forward by kernel
@@ -21,12 +27,22 @@ Phases (all by default; any failure raises and the exit code is not 0):
   fp32       card forward vs the same model on the CPU (plain versions),
              both presets, one shape through K3 and one through K2
   psnr       denoising a seeded smooth image with sigma=25/255 noise
+  sisr_fwd   VIRNetSR with the x4 demo weights on a 4x48x48 LR batch, card
+             (K2 + K4) vs CPU in fp32
+  train_fp32 one SISR training step at 2x96^2 (full width) in fp32 with
+             injected noise, card vs CPU: loss, ELBO terms, gradient norms
+  train_sisr the SISR trainer built from configs/sisr_x4.json (full width,
+             batch 16, 192^2, bf16 autocast) for 30 steps on seeded smooth
+             HR batches: launches of one step (K5 x2, K6, K7), ms per step,
+             peak memory, a device-time breakdown of one step, and the
+             ELBO on a fixed batch with fixed noise before and after
 
-Every main-path phase (serve, serve_odd, ops, real) zeroes the launch
-counters, drives its path once and reads them; it fails if a kernel of
-its path did not launch.  The line before the card's line is one JSON
+Every main-path phase (serve, serve_odd, ops, real, train_sisr) zeroes the
+launch counters, drives its path once and reads them; it fails if a kernel
+of its path did not launch.  The line before the card's line is one JSON
 object with the kernels' numbers: times and errors from the syn weights
-in bf16, and each kernel's launches in the one run of the path it serves
+in bf16 (K1-K4) or at the training shape in f32 (K5-K7), and each kernel's
+launches in the one run of the path it serves
 (``launches_path``; every path's count is in ``launches_by_path``).  The
 last line is {"ok": true, "device": {...}}.  ``--report PATH`` also
 writes a fuller JSON report.  Needs the repo checkout beside this script,
@@ -48,9 +64,11 @@ import torch
 
 ROOT = Path(__file__).resolve().parent
 ALL_PHASES = ("build", "kernels", "serve", "profile", "serve_odd", "ops",
-              "real", "fp32", "psnr")
+              "real", "fp32", "psnr", "sisr_fwd", "train_fp32", "train_sisr")
 SYN_CKPT = ROOT / "model_zoo" / "virnet_denoising_syn_demo.pth"
 REAL_CKPT = ROOT / "model_zoo" / "virnet_denoising_real_demo.pth"
+SISR_CKPT = ROOT / "model_zoo" / "virnet_sisr_x4_demo.pth"
+SISR_CONFIG = ROOT / "configs" / "sisr_x4.json"
 
 # card peaks (NVIDIA data sheets, dense): bf16 tensor-core FLOP/s, fp32
 # CUDA-core FLOP/s (the kernels run f32 on CUDA cores with TF32 off), and
@@ -77,7 +95,22 @@ KERNELS = {
         path="serve", source="virnet_tpu_torch/csrc/tail_residual.cu",
         replaces="virnet_tpu/ops/pallas_conv.py:841 "
                  "(conv3x3_tail_residual)"),
+    "blur_valid": dict(
+        path="train_sisr", source="virnet_tpu_torch/csrc/blur.cu",
+        replaces="virnet_tpu/ops/pallas_blur.py:307 (_blur_pallas_valid), "
+                 ":118 (_blur_mxu_valid)"),
+    "blur_dx": dict(
+        path="train_sisr", source="virnet_tpu_torch/csrc/blur.cu",
+        replaces="virnet_tpu/ops/pallas_blur.py:237 (_blur_mxu_dx; fallback "
+                 "_dx_blur :271)"),
+    "blur_dw": dict(
+        path="train_sisr", source="virnet_tpu_torch/csrc/blur.cu",
+        replaces="virnet_tpu/ops/pallas_blur.py:180 (_blur_mxu_dw), "
+                 ":374 (_blur_pallas_dw)"),
 }
+# the measurement a kernel's row of the last-but-two line is taken from
+ROW_TAG = {name: "train f32" if name.startswith("blur") else "syn bf16"
+           for name in KERNELS}
 
 
 def log(msg: str) -> None:
@@ -210,9 +243,7 @@ def check_kernels(sd, label, batch, mod, peaks, results):
         log(f"[kernels {tag}] L={L} co={co} cf={cf}, batch {batch}x256^2")
 
         def bound(flops, nbytes):
-            t_ops, t_mem = flops / peak * 1e3, nbytes / peaks["bytes"] * 1e3
-            return (max(t_ops, t_mem),
-                    "operations" if t_ops >= t_mem else "bytes")
+            return bound_ms(flops, nbytes, peak, peaks)
 
         def entry(name, err, k_fn, p_fn, l_fn, flops, nbytes, iters):
             ms = time_ms(k_fn, iters)
@@ -300,17 +331,162 @@ def check_kernels(sd, label, batch, mod, peaks, results):
               2 * 9 * 96 * 3 * npx, npx * (96 * esz + 3 * 4 + 3 * 4), 10)
 
 
+
+def bound_ms(flops, nbytes, peak_flops, peaks):
+    t_ops, t_mem = flops / peak_flops * 1e3, nbytes / peaks["bytes"] * 1e3
+    return max(t_ops, t_mem), "operations" if t_ops >= t_mem else "bytes"
+
+
+def check_abs(name, got, want, atol):
+    if not torch.isfinite(got).all():
+        raise AssertionError(f"{name}: non-finite kernel output")
+    err = max_err(got, want)
+    ok = err <= atol
+    log(f"  {name}: max diff {err:.3g} (atol {atol:.3g}) "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{name}: kernel disagrees with plain version "
+                             f"({err} vs atol {atol})")
+    return err
+
+
+def phase_blur_kernels(report, peaks):
+    """K5-K7 against their plain versions on the card in f32.  Bounds:
+    forward and dX atol 2e-5 on inputs in [0, 1) with taps summing to 1
+    (the same k*k products summed in another order), dW 1e-5 of max|dW| (a
+    sum of H*W*C products per tap).  K6 and K7 run twice: equal bits."""
+    import torch.nn.functional as F
+
+    from virnet_tpu_torch.ops import blur
+    from virnet_tpu_torch.ops.degrade import blur_per_sample
+
+    dev = torch.device("cuda")
+    results = report.setdefault("kernels", {})
+    gen = torch.Generator(device="cpu").manual_seed(1)
+
+    def case(n, h, w, c, k):
+        x = torch.rand(n, h, w, c, generator=gen).to(dev)
+        g = torch.rand(n, h, w, c, generator=gen).to(dev)
+        kern = torch.rand(n, k, k, generator=gen)
+        return x, g, (kern / kern.sum((1, 2), keepdim=True)).to(dev)
+
+    for label, (n, h, w, c, k) in (("train", (16, 192, 192, 3, 21)),
+                                   ("eval", (1, 512, 512, 3, 21)),
+                                   ("awkward", (2, 13, 17, 2, 5))):
+        tag = f"{label} f32"
+        log(f"[kernels {tag}] blur {n}x{h}x{w}x{c}, k={k}")
+        x, g, kern = case(n, h, w, c, k)
+        xp = blur.pad_hw(x, k // 2, "reflect")
+        out, dxp, dw = (blur.blur_valid(xp, kern), blur.blur_dx(g, kern),
+                        blur.blur_dw(xp, g))
+        torch.cuda.synchronize()
+        dw_ref = blur.blur_dw_plain(xp, g)
+        errs = dict(
+            blur_valid=check_abs("blur_valid", out,
+                                 blur.blur_valid_plain(xp, kern), 2e-5),
+            blur_dx=check_abs("blur_dx", dxp, blur.blur_dx_plain(g, kern),
+                              2e-5),
+            blur_dw=check_abs("blur_dw", dw, dw_ref,
+                              1e-5 * float(dw_ref.abs().max())))
+        if not (torch.equal(blur.blur_dx(g, kern), dxp)
+                and torch.equal(blur.blur_dw(xp, g), dw)):
+            raise AssertionError(f"{tag}: blur_dx or blur_dw gave other "
+                                 f"bits on a second run")
+        log("  blur_dx, blur_dw: a second run gives the same bits")
+
+        # one library call per function (timed here, used nowhere else):
+        # a grouped convolution with one group per (sample, channel)
+        hp, wp = h + k - 1, w + k - 1
+        xp_l = xp.permute(0, 3, 1, 2).reshape(1, n * c, hp, wp).contiguous()
+        g_l = g.permute(0, 3, 1, 2).reshape(1, n * c, h, w).contiguous()
+        w_l = kern.repeat_interleave(c, 0).unsqueeze(1).contiguous()
+        libs = dict(
+            blur_valid=lambda: F.conv2d(xp_l, w_l, groups=n * c),
+            blur_dx=lambda: F.conv_transpose2d(g_l, w_l, groups=n * c),
+            blur_dw=lambda: torch.nn.grad.conv2d_weight(
+                xp_l, w_l.shape, g_l, groups=n * c).view(n, c, k, k).sum(1))
+        if label == "train":
+            lib_dw = libs["blur_dw"]()
+            check_abs("library dW vs plain (the yardstick computes the same "
+                      "function)", lib_dw, dw_ref,
+                      1e-4 * float(dw_ref.abs().max()))
+        kerns = dict(blur_valid=lambda: blur.blur_valid(xp, kern),
+                     blur_dx=lambda: blur.blur_dx(g, kern),
+                     blur_dw=lambda: blur.blur_dw(xp, g))
+        plains = dict(blur_valid=lambda: blur.blur_valid_plain(xp, kern),
+                      blur_dx=lambda: blur.blur_dx_plain(g, kern),
+                      blur_dw=lambda: blur.blur_dw_plain(xp, g))
+        # each input read once, each output written once; 2 FLOPs per tap
+        # and output (forward, dW: per cotangent element)
+        work = dict(
+            blur_valid=(2 * n * c * h * w * k * k,
+                        4 * (xp.numel() + kern.numel() + out.numel())),
+            blur_dx=(2 * n * c * hp * wp * k * k,
+                     4 * (g.numel() + kern.numel() + dxp.numel())),
+            blur_dw=(2 * n * c * h * w * k * k,
+                     4 * (xp.numel() + g.numel() + dw.numel())))
+        for name in ("blur_valid", "blur_dx", "blur_dw"):
+            small = label == "awkward"
+            ms = time_ms(kerns[name], 20)
+            plain_ms = time_ms(plains[name], 2 if not small else 5, warmup=1)
+            lib_ms = time_ms(libs[name], 10)
+            b_ms, b_by = bound_ms(*work[name], peaks["fp32"], peaks)
+            log(f"  {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                f"library {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+            results.setdefault(name, {})[tag] = dict(
+                max_abs_err=errs[name], ms=ms, plain_ms=plain_ms,
+                library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
+                flops=work[name][0], bytes=work[name][1])
+
+        if label != "train":
+            continue
+        # the public op: both pad modes, correlation and convolution, value
+        # and gradients (K5 forward, K6 + K7 backward) against autograd of
+        # the plain op
+        for pad_mode, correlate in (("reflect", True), ("symmetric", False)):
+            xk = x.clone().requires_grad_()
+            kk = kern.clone().requires_grad_()
+            got = blur_per_sample(xk, kk, correlate=correlate,
+                                  pad_mode=pad_mode)
+            d_got = torch.autograd.grad((got * g).sum(), (xk, kk))
+            xr = x.clone().requires_grad_()
+            kr = kern.clone().requires_grad_()
+            want = blur.blur_valid_plain(
+                blur.pad_hw(xr, k // 2, pad_mode),
+                kr if correlate else kr.flip(-2, -1))
+            d_want = torch.autograd.grad((want * g).sum(), (xr, kr))
+            what = f"blur_per_sample {pad_mode}/" + (
+                "correlate" if correlate else "convolve")
+            check_abs(what, got.detach(), want.detach(), 2e-5)
+            check_abs(what + " dX", d_got[0], d_want[0], 2e-5)
+            check_abs(what + " dW", d_got[1], d_want[1],
+                      1e-5 * float(d_want[1].abs().max()))
+
+
+# kernel-name keys of each group, the first match wins
 GROUPS = (("K3/K2 dncnn_fused.cu", ("dncnn_kernel",)),
           ("K4 tail_residual.cu", ("tail_kernel",)),
           ("K1 conv3x3_mid.cu", ("conv3x3_mid_kernel",)),
           ("library convolutions", ("conv", "cudnn", "xmma", "gemm",
                                     "cutlass", "implicit")))
+TRAIN_GROUPS = (
+    ("K5 blur_valid", ("blur_valid_kernel",)),
+    ("K6 blur_dx", ("blur_dx_kernel",)),
+    ("K7 blur_dw", ("blur_dw_partial", "blur_dw_reduce")),
+    ("optimizer", ("multi_tensor", "adam", "foreach", "lpnorm")),
+    ("cuDNN layout transposes", ("nchwtonhwc", "nhwctonchw")),
+    ("cuDNN backward", ("dgrad", "wgrad", "bwd", "backward", "bprop")),
+    ("cuDNN forward", ("cudnn", "xmma", "implicit", "conv", "fprop",
+                       "cutlass")),
+    ("matmul", ("gemm", "gemv", "cublas")))
 
 
-def phase_profile(restorer, x, report, iters=2):
-    """Device time of the flagship forward by kernel group, from
-    torch.profiler (CUPTI), and the share of the wall time the device was
-    idle (the profiler's own overhead counts as idle)."""
+def phase_profile(fn, report, key, what, groups=GROUPS, iters=2, top_ops=6,
+                  rest="other"):
+    """Device time of ``fn()`` by kernel group (``rest`` names the kernels
+    no group claims), from torch.profiler (CUPTI), and the share of the
+    wall time the device was idle (the profiler's own overhead counts as
+    idle)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -319,7 +495,7 @@ def phase_profile(restorer, x, report, iters=2):
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(iters):
-            restorer.restore_batch(x)
+            fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / iters
     kernels: dict = {}
@@ -329,18 +505,18 @@ def phase_profile(restorer, x, report, iters=2):
                                + e.time_range.elapsed_us() / 1e3 / iters)
     if not kernels:
         log("  device time: not measured (the profiler saw no kernels)")
-        report["profile"] = None
+        report[key] = None
         return
-    groups: dict = {}
+    by_group: dict = {}
     for name, ms in kernels.items():
         low = name.lower()
-        group = next((g for g, keys in GROUPS
-                      if any(k in low for k in keys)), "other")
-        groups[group] = groups.get(group, 0.0) + ms
+        group = next((g for g, keys in groups
+                      if any(k in low for k in keys)), rest)
+        by_group[group] = by_group.get(group, 0.0) + ms
     busy = sum(kernels.values())
-    log(f"  per forward: wall {wall_ms:.2f} ms (profiled), device busy "
+    log(f"  per {what}: wall {wall_ms:.2f} ms (profiled), device busy "
         f"{busy:.2f} ms, idle share {1 - busy / wall_ms:.3f}")
-    for g, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
+    for g, ms in sorted(by_group.items(), key=lambda kv: -kv[1]):
         log(f"  {g}: {ms:.3f} ms ({ms / busy:.1%} of device time)")
     for name, ms in sorted(kernels.items(), key=lambda kv: -kv[1])[:8]:
         log(f"    {ms:8.3f} ms  {name[:90]}")
@@ -348,10 +524,11 @@ def phase_profile(restorer, x, report, iters=2):
                    e.count // iters) for e in prof.key_averages()
                   if e.key.startswith("aten::")
                   and e.self_device_time_total > 0), key=lambda r: -r[1])
-    for key, ms, count in ops[:6]:
-        log(f"    {ms:8.3f} ms  {key} x{count} (torch op, own kernels)")
-    report["profile"] = dict(wall_ms=wall_ms, busy_ms=busy, groups=groups,
-                             kernels=kernels, torch_ops=ops)
+    for op, ms, count in ops[:top_ops]:
+        log(f"    {ms:8.3f} ms  {op} x{count} (torch op, own kernels)")
+    report[key] = dict(wall_ms=wall_ms, busy_ms=busy, groups=by_group,
+                       idle_share=1 - busy / wall_ms, kernels=kernels,
+                       torch_ops=ops)
 
 
 def run_path(name, fn, expect):
@@ -394,6 +571,196 @@ def smooth_image(rng, h, w) -> np.ndarray:
                 2 * np.pi * (fy * yy + fx * xx) + ph)
     im = (im - im.min()) / (im.max() - im.min())
     return (0.1 + 0.8 * im).astype(np.float32)
+
+
+def rel_err(a, b) -> float:
+    a, b = float(a), float(b)
+    return abs(a - b) / max(abs(b), 1e-30)
+
+
+def sisr_noise(n, hr, sf, kappa0, seed, device):
+    """Injected draws for one SISR training step (the synthesis draws and
+    the ELBO's), made on the CPU from a seed so that two devices get the
+    same numbers."""
+    g = torch.Generator().manual_seed(seed)
+    lr = hr // sf
+
+    def u(lo, hi, *shape):
+        return lo + (hi - lo) * torch.rand(*shape, generator=g)
+
+    noise = dict(
+        synth=dict(lam1=u(0.2, float(sf), n), lam2_u=u(0, 1, n),
+                   iso_u=u(0, 1, n), theta=u(0, math.pi, n),
+                   nlevel=u(0.01 / 255, 15 / 255, n),
+                   noise=torch.randn(n, lr, lr, 3, generator=g)),
+        elbo=dict(gamma_draw=torch._standard_gamma(
+                      torch.full((n, 2), kappa0 - 1.0), generator=g),
+                  rho_eps=torch.randn(n, generator=g),
+                  z_eps=torch.randn(n, hr, hr, 3, generator=g)))
+    return {k: {kk: t.to(device) for kk, t in v.items()}
+            for k, v in noise.items()}
+
+
+def smooth_batch(rng, n, size) -> np.ndarray:
+    return np.stack([smooth_image(rng, size, size) for _ in range(n)])
+
+
+def phase_sisr_fwd(report):
+    """VIRNetSR with the x4 demo weights (strict load), card vs CPU in
+    fp32: mu atol 1e-4, kinfo and sigma rtol 1e-4 (the same function, sums
+    in another order)."""
+    from virnet_tpu_torch.convert import load_pth
+    from virnet_tpu_torch.models import build_model
+
+    sd = load_pth(SISR_CKPT)
+    x = torch.from_numpy(np.random.default_rng(3).random(
+        (4, 48, 48, 3), dtype=np.float32))
+    outs = []
+    for dev in ("cpu", "cuda"):
+        model = build_model("sisr")
+        model.load_state_dict(sd, strict=True)
+        model = model.to(dev).eval()
+        with torch.inference_mode():
+            outs.append([t.float().cpu() for t in model(x.to(dev), 4)])
+    (mu_c, k_c, s_c), (mu_g, k_g, s_g) = outs
+    if tuple(mu_g.shape) != (4, 192, 192, 3):
+        raise AssertionError(f"sisr_fwd: mu shape {tuple(mu_g.shape)}")
+    e_mu = max_err(mu_g, mu_c)
+    e_k = float(((k_g - k_c).abs() / k_c.abs().clamp_min(1e-3)).max())
+    e_s = float(((s_g - s_c).abs() / s_c.abs()).max())
+    log(f"  mu max diff {e_mu:.3g} (atol 1e-4), kinfo max rel diff "
+        f"{e_k:.3g}, sigma max rel diff {e_s:.3g} (rtol 1e-4)")
+    report["sisr_fwd"] = dict(mu_abs=e_mu, kinfo_rel=e_k, sigma_rel=e_s)
+    if not (e_mu <= 1e-4 and e_k <= 1e-4 and e_s <= 1e-4):
+        raise AssertionError("sisr_fwd: card forward disagrees with the CPU")
+
+
+def sisr_config(**overrides) -> dict:
+    from virnet_tpu_torch.config import load_config
+
+    cfg = load_config(SISR_CONFIG)
+    cfg["save_dir"] = str(ROOT / "build" / "chip_smoke_sisr")
+    cfg.update(overrides)
+    return cfg
+
+
+def phase_train_fp32(report):
+    """One run_step at 2x96^2, full width, fp32, injected noise, on the
+    card and on the CPU: loss and every ELBO term rtol 1e-4, per-subnet
+    gradient norms rtol 1e-3 (cuDNN's and oneDNN's sums differ in order
+    through ~60 conv layers)."""
+    from virnet_tpu_torch.cli.train_sisr import build_trainer
+
+    cfg = sisr_config(batch_size=2, hr_size=96, mixed_precision=False)
+    hr = smooth_batch(np.random.default_rng(4), 2, 96)
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        trainer = build_trainer(cfg, device=dev)
+        noise = sisr_noise(2, 96, cfg["sf"], cfg["kappa0"], 5, dev)
+        out = trainer.run_step(hr, 0, noise)
+        outs[dev] = {k: float(v) for k, v in out.items()}
+        del trainer
+    worst = {}
+    for k, want in outs["cpu"].items():
+        tol = 1e-3 if k.startswith("gnorm") else 1e-4
+        worst[k] = rel_err(outs["cuda"][k], want)
+        log(f"  {k}: card {outs['cuda'][k]:.7g}, CPU {want:.7g}, rel diff "
+            f"{worst[k]:.3g} (rtol {tol:g})")
+        if not (math.isfinite(outs["cuda"][k]) and worst[k] <= tol):
+            raise AssertionError(f"train_fp32: {k} disagrees with the CPU")
+    report["train_fp32"] = dict(card=outs["cuda"], cpu=outs["cpu"],
+                                rel=worst)
+
+
+def phase_train_sisr(report, launches, steps=30):
+    """The SISR trainer of configs/sisr_x4.json at full width (batch 16,
+    192^2, bf16 autocast) through cli.train_sisr.build_trainer and
+    SISRTrainer.run_step."""
+    from virnet_tpu_torch.cli.train_sisr import build_trainer
+    from virnet_tpu_torch.ops import fused_conv as fc
+
+    cfg = sisr_config()
+    trainer = build_trainer(cfg)
+    tc = trainer.cfg
+    log(f"[train_sisr] n_feat {tc.n_feat}, dep_S {tc.dep_S}, dep_K "
+        f"{tc.dep_K}, batch {tc.batch_size}, HR {tc.hr_size}^2, sf {tc.sf}, "
+        f"k {tc.k_size}, {tc.downsampler}, bf16 autocast "
+        f"{tc.mixed_precision}, device {trainer.device}")
+    if (tuple(tc.n_feat), tc.batch_size, tc.hr_size, tc.sf, tc.k_size) != (
+            (96, 160, 224), 16, 192, 4, 21) or trainer.device.type != "cuda":
+        raise AssertionError("train_sisr: not the full-width configuration")
+    rng = np.random.default_rng(6)
+    pool = torch.from_numpy(smooth_batch(rng, 64, tc.hr_size)).cuda()
+    fixed = torch.from_numpy(smooth_batch(rng, tc.batch_size,
+                                          tc.hr_size)).cuda()
+    fixed_noise = sisr_noise(tc.batch_size, tc.hr_size, tc.sf, tc.kappa0, 7,
+                             "cuda")
+
+    def batch():
+        return pool[torch.from_numpy(rng.choice(64, tc.batch_size,
+                                                replace=False)).cuda()]
+
+    def fixed_elbo():
+        loss, _ = trainer.loss_and_grads(fixed, 0, fixed_noise)
+        return float(loss)
+
+    before = fixed_elbo()
+    torch.cuda.reset_peak_memory_stats()
+
+    fc.reset_launches()
+    out = trainer.run_step(batch(), 0)
+    torch.cuda.synchronize()
+    counts = dict(fc.LAUNCHES)
+    launches["train_sisr"] = counts
+    log(f"  launches in one step {counts}, copies {dict(fc.COPIES)}")
+    if (counts["blur_valid"], counts["blur_dx"], counts["blur_dw"]) != (
+            2, 1, 1):
+        raise AssertionError("train_sisr: one step must launch blur_valid "
+                             "twice and blur_dx, blur_dw once each")
+
+    times, scalars = [], []
+    for _ in range(steps - 1):
+        x = batch()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = trainer.run_step(x, 0)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        scalars.append({k: float(v) for k, v in out.items()})
+    bad = [k for sc in scalars for k, v in sc.items() if not math.isfinite(v)]
+    if bad:
+        raise AssertionError(f"train_sisr: non-finite {sorted(set(bad))}")
+    ms = float(np.median(times[-20:]))
+    peak = torch.cuda.max_memory_allocated()
+    last = scalars[-1]
+    log(f"  {ms:.2f} ms per step (median of the last 20), "
+        f"{1e3 / ms:.2f} steps/s, peak memory {peak / 2 ** 30:.2f} GiB")
+    log(f"  step {trainer.step}: loss {last['loss']:.4g}, lh {last['lh']:.4g}"
+        f", KLR {last['kl_rnet']:.4g}, KLS {last['kl_snet']:.4g}, KLK "
+        f"{last['kl_knet']:.4g}, gnorm R/S/K {last['gnorm_r']:.4g}/"
+        f"{last['gnorm_s']:.4g}/{last['gnorm_k']:.4g}")
+    x = batch()
+    phase_profile(lambda: trainer.run_step(x, 0), report, "train_profile",
+                  "step", groups=TRAIN_GROUPS, iters=2, top_ops=12,
+                  rest="elementwise, copies, reductions (PyTorch)")
+    prof = report.get("train_profile")
+    idle = None
+    if prof:
+        # the profiler slows the host down; against the unprofiled step time
+        # the same device work leaves this share of the step idle
+        idle = max(0.0, 1 - prof["busy_ms"] / ms)
+        log(f"  device busy {prof['busy_ms']:.2f} ms of the {ms:.2f} ms "
+            f"unprofiled step: idle share {idle:.3f}")
+    after = fixed_elbo()
+    log(f"  ELBO on the fixed batch with fixed noise: {before:.6g} before, "
+        f"{after:.6g} after {trainer.step} steps")
+    report["train_sisr"] = dict(
+        ms_per_step=ms, steps_per_s=1e3 / ms, peak_bytes=peak,
+        step_ms=times, elbo_before=before, elbo_after=after, last=last,
+        launches=counts, copies=dict(fc.COPIES), idle_share=idle)
+    if not (math.isfinite(after) and after < before):
+        raise AssertionError("train_sisr: the ELBO on the fixed batch did "
+                             "not go down")
 
 
 def main(argv=None) -> int:
@@ -444,6 +811,7 @@ def main(argv=None) -> int:
 
     if "kernels" in phases:
         phase_kernels(report, peaks)
+        phase_blur_kernels(report, peaks)
 
     launches: dict = {}       # path -> the counts of its one run
     rng = np.random.default_rng(0)
@@ -475,7 +843,8 @@ def main(argv=None) -> int:
         x = torch.as_tensor(rng.random((32, 256, 256, 3), dtype=np.float32),
                             device="cuda")
         syn.restore_batch(x)                     # warm-up
-        phase_profile(syn, x, report)
+        phase_profile(lambda: syn.restore_batch(x), report, "profile",
+                      "forward")
 
     if "serve_odd" in phases:
         log("[serve_odd] restore_image 321x481 (K2 + K4)")
@@ -554,23 +923,36 @@ def main(argv=None) -> int:
         if not p_out > p_in:
             raise AssertionError("restoration did not raise the PSNR")
 
+    if "sisr_fwd" in phases:
+        log("[sisr_fwd] VIRNetSR x4 demo weights, card vs CPU, fp32")
+        phase_sisr_fwd(report)
+
+    if "train_fp32" in phases:
+        log("[train_fp32] one SISR training step at 2x96^2, card vs CPU")
+        phase_train_fp32(report)
+
+    if "train_sisr" in phases:
+        phase_train_sisr(report, launches)
+
     report["launches"] = launches
     report["total_s"] = time.perf_counter() - t_all
     if args.report is not None:
         args.report.parent.mkdir(parents=True, exist_ok=True)
         args.report.write_text(json.dumps(report, indent=1))
 
-    # one row per kernel: its times and error at the flagship checkpoint
-    # in bf16, and its launches in the one run of the path it serves
+    # one row per kernel: its times and error (K1-K4 at the flagship
+    # checkpoint in bf16, K5-K7 at the training shape in f32), and its
+    # launches in the one run of the path it serves
     rows = []
     for name, meta in KERNELS.items():
-        m = report.get("kernels", {}).get(name, {}).get("syn bf16", {})
+        m = report.get("kernels", {}).get(name, {}).get(ROW_TAG[name], {})
         rows.append(dict(
             name=name, route="cuda", source=meta["source"],
             replaces=meta["replaces"],
             launches=launches.get(meta["path"], {}).get(name, 0),
             launches_path=meta["path"],
-            launches_by_path={p: c[name] for p, c in launches.items()},
+            launches_by_path={p: c.get(name, 0)
+                              for p, c in launches.items()},
             max_abs_err=m.get("max_abs_err"), ms=m.get("ms"),
             plain_ms=m.get("plain_ms"), bound_ms=m.get("bound_ms"),
             bound_by=m.get("bound_by"), library_ms=m.get("library_ms")))

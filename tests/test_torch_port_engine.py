@@ -109,6 +109,9 @@ def test_demo_cli_writes_restored_png(tmp_path):
 
 
 def test_entry_points_need_cuda_unless_cpu_is_asked():
+    with pytest.raises(NotImplementedError, match="SISR"):
+        Restorer("sisr", ckpt_path="model_zoo/virnet_sisr_x4_demo.pth",
+                 device="cpu")
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -127,7 +130,12 @@ def test_port_imports_no_jax():
         "import sys, importlib\n"
         "mods = ['virnet_tpu_torch', 'virnet_tpu_torch.eval.engine',\n"
         "        'virnet_tpu_torch.cli.demo', 'virnet_tpu_torch.convert',\n"
-        "        'virnet_tpu_torch.models.fused', 'chip_smoke']\n"
+        "        'virnet_tpu_torch.models.fused', 'chip_smoke',\n"
+        "        'virnet_tpu_torch.cli.train_sisr',\n"
+        "        'virnet_tpu_torch.train.loop_sisr',\n"
+        "        'virnet_tpu_torch.losses.elbo',\n"
+        "        'virnet_tpu_torch.data.sisr_synth',\n"
+        "        'virnet_tpu_torch.data.sources']\n"
         "for m in mods: importlib.import_module(m)\n"
         "bad = [m for m in sys.modules if m in ('jax', 'flax', 'virnet_tpu')"
         " or m.startswith(('jax.', 'flax.', 'virnet_tpu.'))]\n"

@@ -118,14 +118,18 @@ def test_fused_gate():
     assert not fused_head_supported(real, (1, 68, 64, 3))
     assert not fused_head_supported(VIRNet(extra_mode="down", **SMALL),
                                     (1, 64, 64, 3))
+    assert not fused_head_supported(VIRNet(conv_impl="torch", **SMALL),
+                                    (1, 64, 64, 3))
+    assert not fused_head_supported(build_model("sisr"), (1, 64, 64, 3))
     with pytest.raises(ValueError):
-        build_model("sisr")
+        build_model("deblurring")
 
 
 def test_kernel_layout_is_cached_and_follows_the_weights():
-    """The kernels' HWIO weights are built once, rebuilt when the weights
-    are loaded, cast or updated in place, and differentiable while
-    autograd records."""
+    """The kernels' HWIO weights are built once and rebuilt when the
+    weights are loaded, cast or updated in place; while autograd records
+    the forward-only kernels refuse them, and the 'torch' route
+    differentiates."""
     torch.manual_seed(0)
     m = VIRNet(**SMALL).eval()
     torch.manual_seed(1)
@@ -151,5 +155,8 @@ def test_kernel_layout_is_cached_and_follows_the_weights():
                                    hwio(m.RNet.tail.weight), atol=0, rtol=0)
     x = torch.from_numpy(np.random.default_rng(4).random(
         (1, 16, 16, 3), dtype=np.float32))
-    m.SNet(x).sum().backward()
-    assert m.SNet.mid_layer[0].weight.grad.abs().sum() > 0
+    with pytest.raises(RuntimeError, match="forward-only"):
+        m.SNet(x)
+    t = VIRNet(conv_impl="torch", **SMALL)
+    t.SNet(x).sum().backward()
+    assert t.SNet.mid_layer[0].weight.grad.abs().sum() > 0

@@ -1,19 +1,26 @@
 """virnet_tpu_torch — the PyTorch/CUDA port of virnet_tpu for NVIDIA Hopper.
 
-The denoising VIRNet forward (SNet -> sigma epilogue -> RNet) served by
-``Restorer`` and the demo CLI.  Every Pallas kernel on that path is a CUDA
-C++ kernel for ``sm_90a`` under ``csrc/``, built with nvcc at first use and
-bound with ctypes (``ops/_build.py``); each sits beside its plain PyTorch
-version in ``ops/fused_conv.py``.  Public tensors are NHWC, like the JAX
-package.  Entry points run on the card unless the caller passes
-``device="cpu"``.
+Two paths so far: the denoising VIRNet forward (SNet -> sigma epilogue ->
+RNet) served by ``Restorer`` and the demo CLI, and the blind-SISR training
+step (``SISRTrainer``: on-device degradation synthesis, VIRNetSR, the SISR
+ELBO through the per-sample blur, clipped Adam).  Every Pallas kernel on
+those paths is a CUDA C++ kernel for ``sm_90a`` under ``csrc/``, built with
+nvcc at first use and bound with ctypes (``ops/_build.py``); each sits
+beside its plain PyTorch version in ``ops/fused_conv.py`` (the conv
+kernels K1-K4, forward-only) or ``ops/blur.py`` (the blur kernels K5-K7,
+forward and backward).  Public tensors are NHWC, like the JAX package.
+Entry points run on the card unless the caller passes ``device="cpu"``.
 
 Layout
 ------
-ops/      padding, ConvTranspose, the four kernel wrappers, image I/O, TTA
+ops/      the kernel wrappers, padding, blur/downsample degradation, blur
+          kernel synthesis, ResizeRight matrices, image I/O, TTA
 models/   torch.nn modules under the reference torch state-dict keys
+losses/   the SISR ELBO
+data/     on-device SISR batch synthesis, host patch sampling
+train/    optimizer stack, checkpoints, the SISR trainer
 eval/     Restorer (pad buckets, TTA, folder batches) and tiled inference
-cli/      the demo command line
+cli/      the demo and train_sisr command lines
 csrc/     the CUDA sources
 """
 
@@ -22,12 +29,21 @@ __version__ = "0.1.0"
 
 def __getattr__(name):
     """Lazy convenience exports (importing the package builds nothing)."""
-    if name in ("VIRNet", "build_model", "ARCH_PRESETS"):
+    if name in ("VIRNet", "VIRNetSR", "build_model", "ARCH_PRESETS"):
         from . import models
         return getattr(models, name)
     if name == "Restorer":
         from .eval.engine import Restorer
         return Restorer
+    if name in ("SISRTrainer", "SISRTrainConfig"):
+        from .train import loop_sisr
+        return getattr(loop_sisr, name)
+    if name == "elbo_sisr":
+        from .losses.elbo import elbo_sisr
+        return elbo_sisr
+    if name == "blur_per_sample":
+        from .ops.degrade import blur_per_sample
+        return blur_per_sample
     if name in ("load_pth", "from_jax_params"):
         from . import convert
         return getattr(convert, name)

@@ -42,8 +42,8 @@ def _block(sd: Dict, prefix: str, tree: Dict) -> None:
 
 
 def from_jax_params(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
-    """virnet_tpu VIRNet parameter tree (numpy leaves; with or without the
-    top 'params' level) -> the port's fp32 state dict."""
+    """virnet_tpu VIRNet or VIRNetSR parameter tree (numpy leaves; with or
+    without the top 'params' level) -> the port's fp32 state dict."""
     params = params.get("params", params)
     sd: Dict[str, np.ndarray] = {}
     snet = params["snet"]
@@ -72,5 +72,16 @@ def from_jax_params(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
         for b in range(n_res):
             _block(sd, f"RNet.up_path.{k}.body.{b}", up[f"block_{b}"])
     _conv(sd, "RNet.tail", rnet["tail"])
+
+    if "knet" in params:
+        knet = params["knet"]
+        _conv(sd, "KNet.head", knet["head"])
+        _conv(sd, "KNet.tail.0", knet["tail"])
+        for ii in range(sum(1 for k in knet if k.startswith("rb_"))):
+            rb, bp = knet[f"rb_{ii}"], f"KNet.body.{ii}.body"
+            _conv(sd, f"{bp}.0", rb["conv1"])
+            _conv(sd, f"{bp}.2", rb["conv2"])
+            _conv(sd, f"{bp}.3.body.0", rb["ca"]["squeeze"])
+            _conv(sd, f"{bp}.3.body.2", rb["ca"]["excite"])
     return {k: torch.tensor(np.asarray(v, dtype=np.float32))
             for k, v in sd.items()}

@@ -40,6 +40,9 @@ class Restorer:
         if task not in ARCH_PRESETS:
             raise ValueError(f"task must be one of {sorted(ARCH_PRESETS)}, "
                              f"got {task!r}")
+        if ARCH_PRESETS[task].get("cls") == "VIRNetSR":
+            raise NotImplementedError(
+                "the SISR tasks of Restorer are not ported yet")
         self.device = resolve_device(device)
         dtype = compute_dtype(compute)
         if self.device.type == "cuda":

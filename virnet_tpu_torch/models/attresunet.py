@@ -7,14 +7,21 @@ the head input ('input'/'both') and/or every scale of the down path
 ('down'/'both') through SFT AttLayers.  The down path is n_resblocks
 AttResBlocks and a stride-2 conv per scale; the up path a 2x2-stride-2
 ConvTranspose, an additive skip and unconditioned AttResBlocks.  The tail
-conv and the residual run as one K4 launch on the card.
+conv and the residual run as one K4 launch on the card (``tail_impl=
+'fused'``, forward-only) or through ``F.conv2d`` with autograd
+(``tail_impl='torch'``, the training route).
 
 Parameter names are the reference torch keys (``head``,
 ``down_path.{i}.body.{j}.conv{1,2}``, ``down_path.{i}.downsampler``,
 ``up_path.{k}.upsampler``, ``up_path.{k}.body.{b}``, ``tail``);
 ``up_path[k]`` is the JAX package's ``up_{depth-2-k}``.  Inside, tensors
-are NCHW in shape and channels_last in memory.  The compact (N, 1, 1, C)
-conditioning of the SISR model is not ported yet.
+are NCHW in shape and channels_last in memory.
+
+An extra of spatial size 1x1 is conditioning that is constant per sample
+(the SISR model: kernel info and a per-image sigma).  The SFT AttLayers
+are 1x1 convs, so their gates are computed on the compact (N, E, 1, 1) map
+and broadcast; only the head concat needs the map at full size (its 3x3
+conv sees the zero-padded border).
 """
 
 from __future__ import annotations
@@ -108,12 +115,17 @@ class UpBlock(nn.Module):
 class AttResUNet(nn.Module):
     def __init__(self, in_chn: int = 3, extra_chn: int = 1, out_chn: int = 3,
                  n_feat: Sequence[int] = (64, 128, 196, 256),
-                 n_resblocks: int = 2, extra_mode: str = "input"):
+                 n_resblocks: int = 2, extra_mode: str = "input",
+                 tail_impl: str = "fused"):
         super().__init__()
         mode = extra_mode.lower()
         if mode not in MODES:
             raise ValueError(f"extra_mode must be one of {MODES}")
+        if tail_impl not in ("fused", "torch"):
+            raise ValueError(f"tail_impl must be fused|torch, got "
+                             f"{tail_impl!r}")
         self.extra_mode = mode
+        self.tail_impl = tail_impl
         self.n_feat = tuple(n_feat)
         depth = len(n_feat)
         head_in = in_chn + (extra_chn if mode in ("input", "both") else 0)
@@ -130,7 +142,8 @@ class AttResUNet(nn.Module):
 
     def forward(self, x_in: torch.Tensor, extra_in: Optional[torch.Tensor],
                 head_pre: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """x_in (N, H, W, C) image, extra_in (N, H, W, E) or None,
+        """x_in (N, H, W, C) image, extra_in (N, H, W, E), the compact
+        (N, 1, 1, E), or None,
         head_pre (N, H, W, n_feat[0]): the head activation computed by
         the fused prologue (K3), legal only where no pad is needed and
         the down path is unconditioned.  Returns NHWC in x_in's dtype."""
@@ -139,6 +152,8 @@ class AttResUNet(nn.Module):
         h, w = x_in.shape[1], x_in.shape[2]
         mod = 2 ** (depth - 1)
         extra = None
+        compact = (extra_in is not None and extra_in.shape[1] == 1
+                   and extra_in.shape[2] == 1)
         if head_pre is not None:
             if h % mod or w % mod:
                 raise ValueError("head_pre path requires pad-free sizes")
@@ -148,7 +163,11 @@ class AttResUNet(nn.Module):
             x = to_nchw(head_pre)
         else:
             xp = pad_to_multiple(x_in, mod)
-            if mode != "null":
+            if mode == "null":
+                pass
+            elif compact:
+                extra = to_nchw(extra_in).expand(-1, -1, *xp.shape[1:3])
+            else:
                 extra = to_nchw(pad_to_multiple(extra_in, mod))
             head_in = to_nchw(xp)
             if mode in ("input", "both"):
@@ -156,7 +175,7 @@ class AttResUNet(nn.Module):
             x = conv(self.head, head_in)
 
         cond_down = mode in ("down", "both")
-        extra_cur = extra
+        extra_cur = to_nchw(extra_in) if compact else extra
         bridges = []
         for ii, down in enumerate(self.down_path):
             for blk in down.body:
@@ -164,10 +183,13 @@ class AttResUNet(nn.Module):
             if ii + 1 < depth:
                 bridges.append(x)
                 x = conv(down.downsampler, x)
-                if cond_down:
+                if cond_down and not compact:
                     extra_cur = F.interpolate(extra, size=x.shape[-2:],
                                               mode="nearest")
         for k, up in enumerate(self.up_path):
             x = up(x, bridges[depth - 2 - k])
+        if self.tail_impl == "torch":
+            out = conv(self.tail, x)[:, :, :h, :w]
+            return to_nhwc(out) + x_in
         return conv3x3_tail_residual(to_nhwc(x), x_in.contiguous(),
                                      conv_hwio(self.tail), self.tail.bias)

@@ -69,7 +69,9 @@ def kernel_layout(module: nn.Module, build):
     cached on the module.  The cache holds on to the parameters' storage
     and version counters, so it is rebuilt when a parameter is moved, cast,
     loaded or updated in place.  While autograd records, it is built anew
-    every call so that gradients reach the parameters."""
+    every call and stays attached to the parameters, so that a
+    forward-only kernel handed it sees that they require grad and
+    raises."""
     params = list(module.parameters())
     if torch.is_grad_enabled() and any(p.requires_grad for p in params):
         return build(module)

@@ -4,7 +4,8 @@
 conv3x3 -> LeakyReLU(0.25) ``dep - 1`` times with 64 filters, then a 3x3
 conv to ``out_chn``; orthogonal init with leaky-relu gain, zero bias.
 Parameter names are the reference's: ``conv1``, ``mid_layer.{2i}``,
-``conv_last``.  ``noise_avg`` (SISR) is not ported yet.
+``conv_last``.  ``noise_avg`` (SISR) averages the logits over H and W to
+one value per image and channel.
 """
 
 from __future__ import annotations
@@ -13,24 +14,29 @@ import torch
 import torch.nn as nn
 
 from ..ops import fused_conv as fc
-from .common import (hwio, kernel_layout, leaky_relu_gain,
-                     orthogonal_gain_init_)
+from .common import (conv, hwio, kernel_layout, leaky_relu_gain, lrelu,
+                     orthogonal_gain_init_, to_nchw, to_nhwc)
 
 
 class DnCNN(nn.Module):
     """``conv_impl``: 'fused' runs the whole stack as one K2 launch
     (counterpart of pallas_conv.dncnn_pair_fused); 'ops' is its per-op
     route (``conv_impl='pair_ops'`` in the JAX package): conv1 and
-    conv_last in plain torch, the mids as L launches of K1."""
+    conv_last in plain torch, the mids as L launches of K1.  Both are
+    forward-only.  'torch' runs every conv through ``F.conv2d`` with
+    autograd: the training route, the counterpart of ``conv_impl='xla'``
+    that the JAX trainers force (models/common.py:train_conv_impl)."""
 
     def __init__(self, in_chn: int = 3, out_chn: int = 1, dep: int = 5,
                  num_filters: int = 64, slope: float = 0.25,
-                 conv_impl: str = "fused"):
+                 conv_impl: str = "fused", noise_avg: bool = False):
         super().__init__()
-        if conv_impl not in ("fused", "ops"):
-            raise ValueError(f"conv_impl must be fused|ops, got {conv_impl!r}")
+        if conv_impl not in ("fused", "ops", "torch"):
+            raise ValueError(f"conv_impl must be fused|ops|torch, got "
+                             f"{conv_impl!r}")
         self.slope = slope
         self.conv_impl = conv_impl
+        self.noise_avg = noise_avg
         nf = num_filters
         self.conv1 = nn.Conv2d(in_chn, nf, 3, padding=1)
         mids = []
@@ -61,7 +67,18 @@ class DnCNN(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """x (N, H, W, in_chn) -> logits (N, H, W, out_chn), NHWC, in the
-        parameter dtype."""
+        compute dtype; (N, 1, 1, out_chn) with ``noise_avg``."""
+        y = self._stack(x)
+        if self.noise_avg:
+            y = y.mean(dim=(1, 2), keepdim=True)
+        return y
+
+    def _stack(self, x: torch.Tensor) -> torch.Tensor:
+        if self.conv_impl == "torch":
+            y = lrelu(conv(self.conv1, to_nchw(x)), self.slope)
+            for m in self.mids():
+                y = lrelu(conv(m, y), self.slope)
+            return to_nhwc(conv(self.conv_last, y))
         p = self.kernel_params()
         x = x.to(p["w1"].dtype).contiguous()
         if self.conv_impl == "ops":

@@ -19,7 +19,7 @@ import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("conv3x3_mid", "dncnn_fused", "tail_residual")
+SOURCES = ("conv3x3_mid", "dncnn_fused", "tail_residual", "blur")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 

@@ -12,7 +12,14 @@ conv accumulates in f32 and rounds once to the activation dtype (float32
 or bfloat16); the plain versions (``*_plain``) follow the same rounding
 with ``F.conv2d`` in f32.  A wrapper given CPU tensors runs the plain
 version; given CUDA tensors it launches its kernel or raises — there is no
-fallback.  ``LAUNCHES`` counts kernel launches per wrapper.
+fallback.  ``LAUNCHES`` counts kernel launches per wrapper, those of the
+blur kernels in ``ops/blur.py`` too.
+
+The four kernels are forward-only, like the Pallas kernels they replace
+(virnet_tpu/models/common.py:train_conv_impl): with autograd recording and
+an input that requires grad, every wrapper raises, on the CPU and on the
+card alike.  Training runs the same convolutions through ``F.conv2d``
+(``conv_impl='torch'`` on the models).
 """
 
 from __future__ import annotations
@@ -25,7 +32,10 @@ import torch.nn.functional as F
 from . import _build
 
 LAUNCHES = {"conv3x3_mid": 0, "dncnn_fused": 0, "dncnn_head_fused": 0,
-            "conv3x3_tail_residual": 0}
+            "conv3x3_tail_residual": 0, "blur_valid": 0, "blur_dx": 0,
+            "blur_dw": 0}
+# copies a wrapper had to make of an input it was handed in another layout
+COPIES = {"blur_cotangent": 0}
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _P = ctypes.c_void_p
@@ -40,13 +50,18 @@ _SIGNATURES = {
     "vt_dncnn_fused": ("dncnn_fused",
                        [_P] * 12 + [_I] * 9 + [_F, _F, _F, _P]),
     "vt_tail_residual": ("tail_residual", [_P] * 5 + [_I] * 7 + [_P]),
+    "vt_blur_valid": ("blur", [_P] * 3 + [_I] * 5 + [_P]),
+    "vt_blur_dx": ("blur", [_P] * 3 + [_I] * 5 + [_P]),
+    "vt_blur_dw_scratch_elems": ("blur", [_I] * 5),
+    "vt_blur_dw": ("blur", [_P] * 4 + [_I] * 5 + [_P]),
 }
 _FNS: dict = {}
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    for counts in (LAUNCHES, COPIES):
+        for k in counts:
+            counts[k] = 0
 
 
 def _fn(symbol: str):
@@ -55,7 +70,7 @@ def _fn(symbol: str):
         lib, argtypes = _SIGNATURES[symbol]
         fn = getattr(_build.load(lib), symbol)
         fn.argtypes = argtypes
-        fn.restype = (ctypes.c_longlong if symbol == "vt_dncnn_scratch_elems"
+        fn.restype = (ctypes.c_longlong if symbol.endswith("_scratch_elems")
                       else ctypes.c_int)
         _FNS[symbol] = fn
     return fn
@@ -83,6 +98,18 @@ def _check(t: torch.Tensor, name: str, dtype, shape) -> None:
         raise ValueError(f"{name}: must be contiguous (NHWC / HWIO)")
 
 
+def _forward_only(name: str, *ts) -> None:
+    """Raise when autograd would record through a kernel that has no
+    backward: its output would carry no graph and the parameters behind
+    it would silently get no gradient."""
+    if torch.is_grad_enabled() and any(
+            isinstance(t, torch.Tensor) and t.requires_grad for t in ts):
+        raise RuntimeError(
+            f"{name} is forward-only (no backward kernel): run it under "
+            f"torch.no_grad() / inference_mode(), or build the model with "
+            f"conv_impl='torch' for training")
+
+
 def _dtype_code(x: torch.Tensor) -> int:
     if x.dtype not in _DTYPES:
         raise TypeError(f"kernels take float32 or bfloat16, got {x.dtype}")
@@ -96,6 +123,10 @@ def _ret(err: int, symbol: str) -> None:
 
 def _stream(x: torch.Tensor):
     return torch.cuda.current_stream(x.device).cuda_stream
+
+
+def _seq(ws):
+    return [ws] if isinstance(ws, torch.Tensor) else list(ws)
 
 
 def _stack(ws) -> torch.Tensor:
@@ -165,6 +196,7 @@ def conv3x3_tail_residual_plain(feats, x_in, w, b):
 def conv3x3_mid(x, w, b, slope=None) -> torch.Tensor:
     """K1: x (N, H, W, 64), w HWIO (3, 3, 64, 64), b (64,) -> (N, H, W,
     64), all in x's dtype."""
+    _forward_only("conv3x3_mid", x, w, b)
     if _on_cpu(x, w, b):
         return conv3x3_mid_plain(x, w, b, slope)
     n, h, wd, c = x.shape
@@ -246,6 +278,7 @@ def dncnn_fused(x, w1, b1, wms, bms, wl, bl, slope=0.25) -> torch.Tensor:
     """K2, the whole SNet in one launch: x (N, H, W, 3) -> logits (N, H,
     W, co), any H and W.  wms/bms: list of HWIO (3, 3, 64, 64) / (64,)
     or the stacked (L, ...) tensors."""
+    _forward_only("dncnn_fused", x, w1, b1, *_seq(wms), *_seq(bms), wl, bl)
     if _on_cpu(x, w1, b1, wl, bl):
         return dncnn_fused_plain(x, w1, b1, wms, bms, wl, bl, slope)
     out, _ = _dncnn_launch(False, x, w1, b1, wms, bms, wl, bl, None, None,
@@ -260,6 +293,8 @@ def dncnn_head_fused(x, w1, b1, wms, bms, wl, bl, wh, bh, slope=0.25,
     W, 3) -> (head (N, H, W, cf), sigma (N, H, W, co)).  sigma =
     exp(clip(logits, lmin, lmax)); head = conv3x3([x | sqrt(sigma)], wh)
     + bh with sqrt(sigma) zero outside the image."""
+    _forward_only("dncnn_head_fused", x, w1, b1, *_seq(wms), *_seq(bms), wl,
+                  bl, wh, bh)
     if _on_cpu(x, w1, b1, wl, bl, wh, bh):
         return dncnn_head_fused_plain(x, w1, b1, wms, bms, wl, bl, wh, bh,
                                       slope, lmin, lmax)
@@ -273,6 +308,7 @@ def conv3x3_tail_residual(feats, x_in, w, b) -> torch.Tensor:
     """K4: conv3x3(feats, w) + b, rounded to feats' dtype, then + x_in in
     f32.  feats (N, Hp, Wp, C) at the padded size, x_in (N, h, w, 3) f32
     with h <= Hp, w <= Wp -> (N, h, w, 3) f32."""
+    _forward_only("conv3x3_tail_residual", feats, x_in, w, b)
     if _on_cpu(feats, x_in, w, b):
         return conv3x3_tail_residual_plain(feats, x_in, w, b)
     n, hp, wp, c = feats.shape
