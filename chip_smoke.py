@@ -417,11 +417,13 @@ def phase_blur_kernels(report, peaks):
                       blur_dx=lambda: blur.blur_dx_plain(g, kern),
                       blur_dw=lambda: blur.blur_dw_plain(xp, g))
         # each input read once, each output written once; 2 FLOPs per tap
-        # and output (forward, dW: per cotangent element)
+        # and output (forward) or per tap and cotangent element (dX, dW:
+        # the products with the zero halo around the cotangent are not
+        # work the function needs)
         work = dict(
             blur_valid=(2 * n * c * h * w * k * k,
                         4 * (xp.numel() + kern.numel() + out.numel())),
-            blur_dx=(2 * n * c * hp * wp * k * k,
+            blur_dx=(2 * n * c * h * w * k * k,
                      4 * (g.numel() + kern.numel() + dxp.numel())),
             blur_dw=(2 * n * c * h * w * k * k,
                      4 * (xp.numel() + g.numel() + dw.numel())))
@@ -746,11 +748,18 @@ def phase_train_sisr(report, launches, steps=30):
     prof = report.get("train_profile")
     idle = None
     if prof:
-        # the profiler slows the host down; against the unprofiled step time
-        # the same device work leaves this share of the step idle
-        idle = max(0.0, 1 - prof["busy_ms"] / ms)
-        log(f"  device busy {prof['busy_ms']:.2f} ms of the {ms:.2f} ms "
-            f"unprofiled step: idle share {idle:.3f}")
+        # the profiler slows the host down, so the busy time of the two
+        # profiled steps is held against the median of the unprofiled
+        # steps: two different sets of steps.  A negative share says that
+        # they do not belong together.
+        idle = 1 - prof["busy_ms"] / ms
+        log(f"  device busy {prof['busy_ms']:.2f} ms (2 profiled steps) of "
+            f"the {ms:.2f} ms unprofiled step (median of other steps): "
+            f"idle share {idle:.3f}")
+        if idle < 0:
+            log("  WARNING: the profiled steps kept the device busy longer "
+                "than an unprofiled step lasts: the two do not describe the "
+                "same work, and this idle share says nothing")
     after = fixed_elbo()
     log(f"  ELBO on the fixed batch with fixed noise: {before:.6g} before, "
         f"{after:.6g} after {trainer.step} steps")

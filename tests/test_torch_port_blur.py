@@ -150,6 +150,10 @@ def test_blur_wrappers_reject_bad_shapes():
         blur._check_k(4)
     with pytest.raises(ValueError):
         blur._check_k(27)
+    with pytest.raises(ValueError):
+        blur._check_k(9)       # odd, but no kernel is built for it
+    for k in blur.SUPPORTED_K:
+        blur._check_k(k)
 
 
 @pytest.mark.parametrize("sf,shift", [(2, False), (3, True), (4, False),

@@ -95,7 +95,7 @@ def _need_card():
     (2, 13, 17, 2, 5),      # ragged: smaller than one tile
     (1, 3, 4, 3, 7),        # H and W smaller than k
     (2, 40, 150, 3, 21),    # several tiles and chunks, the training k
-    (1, 33, 20, 1, 3), (1, 20, 33, 4, 25), (3, 16, 128, 1, 1),
+    (1, 33, 20, 1, 3), (1, 20, 33, 4, 15), (3, 16, 128, 1, 3),
 ])
 def test_blur_kernels_match_plain_on_card(n, h, w, c, k):
     """K5, K6, K7 against their plain versions on the card (f32 sums in

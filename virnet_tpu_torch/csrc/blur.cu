@@ -28,7 +28,8 @@
 // rows; for each dx it loads the 8+k-1 inputs of its column once into
 // registers and slides the k taps of that tap column over them, so one
 // shared-memory read feeds ~3.4 FMAs at k = 21.  k is a template
-// parameter (odd, 1..25) so that the window lives in registers.  K6 is
+// parameter so that the window lives in registers; the sizes built are
+// 3, 5, 7, 15 and 21 (ops/blur.py SUPPORTED_K), any other is refused.  K6 is
 // the same device code with the taps flipped and the tile loaded at an
 // offset of k-1 with zeros outside the cotangent: the bounds check is in
 // the tile load, nothing is padded in device memory.
@@ -165,10 +166,8 @@ int dispatch_blur(int k, bool full, const float* in, const float* taps,
     return launch_blur<K>(full, in, taps, out, N, Hin, WCin, Hout, WCout, C, \
                           stream);
   switch (k) {
-    VT_BLUR_CASE(1) VT_BLUR_CASE(3) VT_BLUR_CASE(5) VT_BLUR_CASE(7)
-    VT_BLUR_CASE(9) VT_BLUR_CASE(11) VT_BLUR_CASE(13) VT_BLUR_CASE(15)
-    VT_BLUR_CASE(17) VT_BLUR_CASE(19) VT_BLUR_CASE(21) VT_BLUR_CASE(23)
-    VT_BLUR_CASE(25)
+    VT_BLUR_CASE(3) VT_BLUR_CASE(5) VT_BLUR_CASE(7) VT_BLUR_CASE(15)
+    VT_BLUR_CASE(21)
     default:
       return cudaErrorInvalidValue;
   }

@@ -16,8 +16,9 @@ likelihood differentiates through kernel synthesis, the per-sample blur
 (kernels K5-K7 of ops/blur.py) and the antialiased bicubic downsample
 every step (reference loss/ELBO_simple.py:55-59, 124-134).
 
-log and digamma go through float64 (see ops/fused_conv.exp_clip); in the
-SISR model their arguments are per-sample scalars.  The denoising half
+On the CPU log goes through float64 (see ops/fused_conv.exp_clip); on the
+card it stays in the tensor's dtype.  digamma of the constant shape is a
+host float64.  The denoising half
 (likelihood_denoising, elbo_denoising) comes with denoising training.
 """
 
@@ -37,7 +38,9 @@ _HALF_LOG_2PI = 0.5 * math.log(2 * math.pi)
 
 
 def _log(x: torch.Tensor) -> torch.Tensor:
-    return torch.log(x.double()).to(x.dtype)
+    if x.device.type == "cpu":
+        return torch.log(x.double()).to(x.dtype)
+    return torch.log(x)
 
 
 def _digamma(alpha: float) -> float:

@@ -5,8 +5,10 @@ PyTorch version (counterpart of virnet_tpu/ops/pallas_blur.py).
   K6 ``blur_dx``    <- pallas_blur._blur_mxu_dx (and the fallback of _dx_blur)
   K7 ``blur_dw``    <- pallas_blur._blur_mxu_dw, _blur_pallas_dw
 
-Images are NHWC float32 and kernels (N, k, k) float32, k odd up to 25;
-the CUDA sources are in ``csrc/blur.cu``.  ``valid_blur`` is the op with a
+Images are NHWC float32 and kernels (N, k, k) float32; the CUDA sources
+are in ``csrc/blur.cu``, which builds K5 and K6 for the k of
+``SUPPORTED_K`` (the configs' 21, the tests' 3, 5, 7, and 15); the plain
+versions take any k.  ``valid_blur`` is the op with a
 gradient: forward K5, backward K6 and K7.  The padding stays outside it,
 so autograd folds the halo back according to the pad mode (``pad_hw``).
 A wrapper given CPU tensors runs the plain version (the k*k shifted-slice
@@ -21,13 +23,13 @@ import torch
 
 from .fused_conv import COPIES, LAUNCHES, _check, _fn, _on_cpu, _ret, _stream
 
-MAX_K = 25
+SUPPORTED_K = (3, 5, 7, 15, 21)
 
 
 def _check_k(k: int) -> None:
-    if k % 2 == 0 or not 1 <= k <= MAX_K:
-        raise ValueError(f"the blur kernels take an odd k up to {MAX_K}, "
-                         f"got {k}")
+    if k not in SUPPORTED_K:
+        raise ValueError(f"the blur kernels are built for k in "
+                         f"{SUPPORTED_K}, got {k}")
 
 
 def _shapes(xp: torch.Tensor, kernels: torch.Tensor):

@@ -9,6 +9,8 @@
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 COMPUTE_DTYPES = {"fp32": torch.float32, "bf16": torch.bfloat16}
@@ -21,9 +23,24 @@ def compute_dtype(compute: str) -> torch.dtype:
 
 
 def set_parity_mode() -> None:
-    """Full fp32 convolutions and matmuls on the card (TF32 off)."""
+    """Full fp32 convolutions and matmuls on the card (TF32 off), for the
+    whole process from here on."""
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+
+
+@contextlib.contextmanager
+def parity_mode():
+    """TF32 off inside the block; the two process-wide flags are put back
+    as they were on the way out."""
+    saved = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    set_parity_mode()
+    try:
+        yield
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = saved
 
 
 def resolve_device(device) -> torch.device:

@@ -30,7 +30,7 @@ import torch
 from ..data.sisr_synth import SISRBatch, synthesize_sisr_batch
 from ..losses.elbo import elbo_sisr
 from ..models.virnet import VIRNetSR
-from ..precision import resolve_device, set_parity_mode
+from ..precision import parity_mode, resolve_device
 from .checkpoint import CheckpointManager
 from .optim import SubnetAdam
 
@@ -100,8 +100,6 @@ class SISRTrainer:
         self.cfg = cfg
         self.host_batches = host_batches
         self.device = resolve_device(device)
-        if self.device.type == "cuda":
-            set_parity_mode()    # blur, resize and ELBO in full f32
 
         with torch.random.fork_rng(devices=[]):
             torch.manual_seed(cfg.seed)
@@ -152,7 +150,15 @@ class SISRTrainer:
         """Forward and backward of one step; the gradients are left in the
         parameters' ``.grad``.  ``noise``: dict(synth=the draws of
         synthesize_sisr_batch, elbo=the noise of elbo_sisr), each optional,
-        in place of the per-step generator.  Returns (loss, aux scalars)."""
+        in place of the per-step generator.  Returns (loss, aux scalars).
+        TF32 is off from the synthesis to the end of the backward (the
+        blur, the resize and the ELBO are full f32; the convolutions run
+        in bf16 under autocast when ``mixed_precision``), and the
+        process-wide flags are put back afterwards."""
+        with parity_mode():
+            return self._loss_and_grads(data, epoch, noise)
+
+    def _loss_and_grads(self, data, epoch: int, noise: Optional[dict]):
         cfg = self.cfg
         self.generator.manual_seed(_step_seed(cfg.seed, epoch, self.step))
         batch = self._batch(data, noise)
