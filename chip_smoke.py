@@ -2,15 +2,18 @@
 """Smoke run of the virnet_tpu_torch port on one NVIDIA GPU (H100).
 
     python3 chip_smoke.py [--phases build,kernels,serve,profile,serve_odd,
-                           ops,real,fp32,psnr,sisr_fwd,train_fp32,
-                           train_sisr] [--report PATH]
+                           ops,real,fp32,psnr,probe,sisr_fwd,train_fp32,
+                           train_sisr,train_denoise_fp32,train_denoise]
+                          [--report PATH]
 
 Phases (all by default; any failure raises and the exit code is not 0):
   build      nvcc-builds the CUDA kernels from virnet_tpu_torch/csrc/
-  kernels    holds each kernel (K1-K4) against its plain PyTorch version on
-             the card at the main paths' shapes, with the weights of both
+  kernels    holds each kernel (K1-K4, K8) against its plain PyTorch version
+             on the card at the main paths' shapes, with the weights of both
              presets (syn: L=3, co=1; real: L=6, co=3), in fp32 (TF32 off)
-             and bf16, and times kernel, plain version and library call;
+             and bf16, and times kernel, plain version and library call; the
+             probe K8 on 16- and 32-row slabs, its rows far from slab edges
+             also against K3's output one row up, and timed at 8, 16, 32;
              then the blur kernels (K5 forward, K6 dX, K7 dW) in f32 at the
              training shape (16x192^2x3, k=21; also through the public op
              in both pad modes with autograd), one eval shape (1x512^2x3)
@@ -27,6 +30,10 @@ Phases (all by default; any failure raises and the exit code is not 0):
   fp32       card forward vs the same model on the CPU (plain versions),
              both presets, one shape through K3 and one through K2
   psnr       denoising a seeded smooth image with sigma=25/255 noise
+  probe      cli.bench_fused_head.run at the flagship shape, full width:
+             unfused, halo (K3 + K4) and slabzero (K8 + K4) on 8-, 16- and
+             32-row slabs; launches of one apply of each, ms per apply, MP/s
+             and halo - slabzero, the most a halo-free K3 could save
   sisr_fwd   VIRNetSR with the x4 demo weights on a 4x48x48 LR batch, card
              (K2 + K4) vs CPU in fp32
   train_fp32 one SISR training step at 2x96^2 (full width) in fp32 with
@@ -37,11 +44,13 @@ Phases (all by default; any failure raises and the exit code is not 0):
              peak memory, a device-time breakdown of one step, and the
              ELBO on a fixed batch with fixed noise before and after
 
-Every main-path phase (serve, serve_odd, ops, real, train_sisr) zeroes the
+Every main-path phase (serve, serve_odd, ops, real, probe, train_sisr)
+zeroes the
 launch counters, drives its path once and reads them; it fails if a kernel
 of its path did not launch.  The line before the card's line is one JSON
 object with the kernels' numbers: times and errors from the syn weights
-in bf16 (K1-K4) or at the training shape in f32 (K5-K7), and each kernel's
+in bf16 (K1-K4, K8 on 32-row slabs) or at the training shape in f32
+(K5-K7), and each kernel's
 launches in the one run of the path it serves
 (``launches_path``; every path's count is in ``launches_by_path``).  The
 last line is {"ok": true, "device": {...}}.  ``--report PATH`` also
@@ -64,7 +73,8 @@ import torch
 
 ROOT = Path(__file__).resolve().parent
 ALL_PHASES = ("build", "kernels", "serve", "profile", "serve_odd", "ops",
-              "real", "fp32", "psnr", "sisr_fwd", "train_fp32", "train_sisr")
+              "real", "fp32", "psnr", "probe", "sisr_fwd", "train_fp32",
+              "train_sisr", "train_denoise_fp32", "train_denoise")
 SYN_CKPT = ROOT / "model_zoo" / "virnet_denoising_syn_demo.pth"
 REAL_CKPT = ROOT / "model_zoo" / "virnet_denoising_real_demo.pth"
 SISR_CKPT = ROOT / "model_zoo" / "virnet_sisr_x4_demo.pth"
@@ -95,6 +105,11 @@ KERNELS = {
         path="serve", source="virnet_tpu_torch/csrc/tail_residual.cu",
         replaces="virnet_tpu/ops/pallas_conv.py:841 "
                  "(conv3x3_tail_residual)"),
+    "dncnn_head_slabzero": dict(
+        path="probe", source="virnet_tpu_torch/csrc/dncnn_fused.cu",
+        replaces="virnet_tpu/ops/pallas_conv.py:1183 "
+                 "(_dncnn_head_kernel_slabzero; dncnn_head_fused "
+                 "mode='slabzero', pallas_call :1412)"),
     "blur_valid": dict(
         path="train_sisr", source="virnet_tpu_torch/csrc/blur.cu",
         replaces="virnet_tpu/ops/pallas_blur.py:307 (_blur_pallas_valid), "
@@ -307,6 +322,46 @@ def check_kernels(sd, label, batch, mod, peaks, results):
               (snet_flops + 2 * 9 * (3 + co) * cf) * npx,
               npx * (3 + co + cf) * esz + weights_b
               + (p["wh"].numel() + cf) * esz, 3)
+
+        # K8 at the gated batch: 16- and 32-row slabs against the plain
+        # version, to K3's tolerances; the rows farther than L+3 from every
+        # slab edge also against K3's output one row up (what the probe
+        # claims to time is K3's arithmetic); K3's operations and bytes
+        args8 = (xf, *args3, p["wh"], p["bh"])
+        for rows in (16, 32):
+            h8, s8 = fc.dncnn_head_slabzero(*args8, rows=rows, **kw)
+            torch.cuda.synchronize()
+            h8_ref, s8_ref = fc.dncnn_head_slabzero_plain(*args8, rows=rows,
+                                                          **kw)
+            err = max(
+                check_close(f"dncnn_head_slabzero r{rows} head", h8, h8_ref,
+                            dtype),
+                check_close(f"dncnn_head_slabzero r{rows} sigma", s8, s8_ref,
+                            dtype, kind="sigma"))
+            del h8_ref, s8_ref
+        far = [r for r in range(256) if L + 3 <= r % 32 < 32 - (L + 3)]
+        up = [r - 1 for r in far]
+        check_close(f"dncnn_head_slabzero r32 head, {len(far)} rows far from "
+                    f"slab edges vs K3 one row up", h8[:, far], head[:, up],
+                    dtype)
+        check_close("dncnn_head_slabzero r32 sigma, the same rows vs K3",
+                    s8[:, far], sig[:, up], dtype, kind="sigma")
+        del h8, s8, head, sig, head_ref, sig_ref
+        entry("dncnn_head_slabzero", err,
+              lambda: fc.dncnn_head_slabzero(*args8, rows=32, **kw),
+              lambda: fc.dncnn_head_slabzero_plain(*args8, rows=32, **kw),
+              None, (snet_flops + 2 * 9 * (3 + co) * cf) * npx,
+              npx * (3 + co + cf) * esz + weights_b
+              + (p["wh"].numel() + cf) * esz, 3)
+        by_rows = {r: time_ms(lambda: fc.dncnn_head_slabzero(
+            *args8, rows=r, **kw), 3) for r in (8, 16, 32)}
+        k3_ms = results["dncnn_head_fused"][tag]["ms"]
+        results["dncnn_head_slabzero"][tag].update(
+            ms_by_rows=by_rows, k3_minus_k8_ms={
+                r: k3_ms - ms for r, ms in by_rows.items()})
+        log("  dncnn_head_slabzero by slab rows: " + ", ".join(
+            f"r{r} {ms:.4f} ms (K3 - K8 {k3_ms - ms:+.4f})"
+            for r, ms in by_rows.items()))
 
         # K4: the gated batch (pad-free) and the padded 321x481 case
         wt, bt = p["wt"], p["bt"]
@@ -605,6 +660,39 @@ def sisr_noise(n, hr, sf, kappa0, seed, device):
 
 def smooth_batch(rng, n, size) -> np.ndarray:
     return np.stack([smooth_image(rng, size, size) for _ in range(n)])
+
+
+def phase_probe(report, launches):
+    """The A/B entry point of the fused prologue at the flagship shape
+    (denoising-syn preset at full width, random weights, bf16, 32x256^2):
+    one apply of each fused variant with the counters zeroed just before
+    it, then interleaved timings."""
+    from virnet_tpu_torch.cli import bench_fused_head
+
+    variants = ["unfused", "halo", "slabzero:r8", "slabzero:r16",
+                "slabzero:r32"]
+    log(f"[probe] cli.bench_fused_head.run {variants}, 32x256x256 bf16")
+    res = bench_fused_head.run(variants, batch=32, size=256, reps=3, chain=4,
+                               log=lambda m: log("  " + m))
+    want = {"unfused": {},
+            "halo": {"dncnn_head_fused": 1, "conv3x3_tail_residual": 1}}
+    for v in variants[2:]:
+        want[v] = {"dncnn_head_slabzero": 1, "conv3x3_tail_residual": 1}
+    for v, counts in want.items():
+        if res[v]["launches"] != counts:
+            raise AssertionError(f"probe: one apply of {v} launched "
+                                 f"{res[v]['launches']}, expected {counts}")
+    launches["probe"] = res["slabzero:r32"]["launches"]
+    launches["probe_halo"] = res["halo"]["launches"]
+    halo = res["halo"]["best_ms"]
+    for v in variants:
+        r = res[v]
+        extra = ("" if not v.startswith("slabzero") else
+                 f", halo - {v} {halo - r['best_ms']:+.2f} ms")
+        log(f"  {v}: best {r['best_ms']:.2f} ms per apply, "
+            f"{r['mp_per_s']:.2f} MP/s, reps "
+            f"{[round(m, 2) for m in r['ms']]}{extra}")
+    report["probe"] = res
 
 
 def phase_sisr_fwd(report):
@@ -931,6 +1019,9 @@ def main(argv=None) -> int:
         report["psnr"] = dict(noisy=p_in, restored=p_out)
         if not p_out > p_in:
             raise AssertionError("restoration did not raise the PSNR")
+
+    if "probe" in phases:
+        phase_probe(report, launches)
 
     if "sisr_fwd" in phases:
         log("[sisr_fwd] VIRNetSR x4 demo weights, card vs CPU, fp32")

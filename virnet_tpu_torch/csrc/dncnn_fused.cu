@@ -1,5 +1,6 @@
-// K2 dncnn_fused and K3 dncnn_head_fused: the whole SNet (DnCNN) in one
-// launch, and with HEAD=true also the sigma epilogue and RNet's head conv.
+// K2 dncnn_fused, K3 dncnn_head_fused and K8 dncnn_head_slabzero: the whole
+// SNet (DnCNN) in one launch, and for K3 and K8 also the sigma epilogue and
+// RNet's head conv.
 //
 // Replaces:
 //   K2 -> virnet_tpu/ops/pallas_conv.py:dncnn_pair_fused (:474; Pallas
@@ -9,7 +10,15 @@
 //         :1055).  The carry mode sweeps row tiles in order and carries a
 //         boundary row per level from one grid step to the next; Hopper
 //         blocks run in no order, so both modes become this one halo
-//         kernel.
+//         kernel;
+//   K8 -> virnet_tpu/ops/pallas_conv.py:dncnn_head_fused mode 'slabzero'
+//         (_dncnn_head_kernel_slabzero :1183, pallas_call :1412), a speed
+//         probe: K3's arithmetic with every r-row slab of the image an
+//         image of its own, so that nothing is recomputed.  Slab t reads
+//         image rows [t*r - 1, t*r + r - 1) (row -1 is zeros, as the Pallas
+//         caller's padded view has it) and writes output rows [t*r,
+//         t*r + r): wrong within L+2 rows of every slab edge and shifted
+//         down one row against the true prologue, on purpose.
 //
 // Function (K2): conv1 3->64 + lrelu, L mids 64->64 + lrelu, conv_last
 // 64->co, zero 'same' padding at every level, f32 accumulation and one
@@ -38,6 +47,15 @@
 // thread per pixel with all output sums in registers on the f32 CUDA
 // cores, weight reads being warp-wide broadcasts.  wgmma/TMA,
 // shared-memory level buffers and a smaller halo are later work.
+//
+// K8 runs the same device code on another rectangle (struct Region): a
+// block owns one whole slab, r rows x W columns, at every level, with no
+// margin, so no pixel of any level is computed twice in either direction.
+// Its two level buffers are (r+2) x (W+2) x 64 with a ring of zeros that
+// the block writes once and no level touches; sqrt(sigma), which K3 keeps
+// in shared memory, is a third (r+2) x (W+2) x co plane of that scratch
+// (already rounded to T, so nothing is lost).  K3 time - K8 time at r = 32
+// is what K3's recomputed halo costs on this card.
 #include <type_traits>
 
 #include "common.cuh"
@@ -56,21 +74,46 @@ constexpr int MAX_BIAS = 256;
 constexpr int WT_STRIDE = 9 * NF + 8;
 constexpr int SW_ELEMS = NF * WT_STRIDE;  // >= 9*NF*NF, the f32 layout
 
+// which of the three kernels an instantiation is
+constexpr int K2_SNET = 0, K3_HEAD = 1, K8_SLAB = 2;
+
 struct Args {
   const void *x, *w1, *b1, *wm, *bm, *wl, *bl, *wh, *bh;
   void *out0, *out1, *scratch;
-  int N, H, W, L, CO, CF;
+  int N, H, W, L, CO, CF, rows;  // rows: K8's slab height
   float slope, lmin, lmax;
 };
 
-template <typename T, bool HEAD>
+// The rectangle one block works on, and where its levels lie in the two
+// scratch buffers.  K2/K3: a TILE x TILE tile of the image whose levels
+// shrink from margin halo(L) to 0.  K8: one slab, margin 0 at every level.
+struct Region {
+  int th, tw;    // the output rectangle: rows, columns
+  int org;       // buffer coordinates of its pixel (0, 0)
+  int S;         // buffer row stride in pixels
+  int H, W;      // bounds of the zero padding: the image, or K8's slab
+  int ty0, tx0;  // origin of the rectangle inside those bounds
+  int xrow0;     // image row that row 0 of the bounds reads (K8: t*r - 1)
+  int orow0;     // output row that row 0 of the bounds writes (K8: t*r)
+};
+
+template <typename T, int MODE>
 size_t smem_bytes() {
   return sizeof(T) * SW_ELEMS + sizeof(float) * MAX_BIAS +
-         (HEAD ? sizeof(float) * (TILE + 2) * (TILE + 2) * 3 : 0);
+         (MODE == K3_HEAD ? sizeof(float) * (TILE + 2) * (TILE + 2) * 3 : 0);
 }
 
 __host__ __device__ inline int halo(int L, bool head) {
   return head ? L + 2 : L + 1;
+}
+
+// K8's scratch per block: two (rows+2) x (W+2) x 64 level buffers and the
+// sqrt(sigma) plane, rounded up to 8 elements so that every block's
+// buffers stay 16-byte aligned
+__host__ __device__ inline long long slab_scratch_elems(int rows, int W,
+                                                        int CO) {
+  const long long px = (long long)(rows + 2) * (W + 2);
+  return (px * (2 * NF + CO) + 7) / 8 * 8;
 }
 
 __device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
@@ -92,12 +135,11 @@ __device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4],
 // warp step; N = 64 output channels (8 mma tiles of 8); K = 9 taps x 64
 // input channels.  A fragments are read straight from the block's
 // scratch buffer (two bf16 channels per 32-bit load), B from the
-// transposed weights in shared memory.  Out-of-image pixels store zeros.
+// transposed weights in shared memory.  Out-of-bounds pixels store zeros.
 __device__ void mid_level_mma(const __nv_bfloat16* src, __nv_bfloat16* dst,
                               const __nv_bfloat16* swt, const float* sb,
-                              int m, int Hh, int S, int ty0, int tx0, int H,
-                              int W, float slope) {
-  const int R = TILE + 2 * m, npix = R * R;
+                              int m, const Region& rg, float slope) {
+  const int S = rg.S, RW = rg.tw + 2 * m, npix = (rg.th + 2 * m) * RW;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, tig = lane & 3;
   for (int mt = warp; mt * 16 < npix; mt += THREADS / 32) {
@@ -108,10 +150,10 @@ __device__ void mid_level_mma(const __nv_bfloat16* src, __nv_bfloat16* dst,
       const int p = mt * 16 + g + 8 * r;
       valid[r] = p < npix;
       const int pp = valid[r] ? p : 0;
-      const int ly = pp / R - m, lx = pp % R - m;
-      const int gy = ty0 + ly, gx = tx0 + lx;
-      in[r] = gy >= 0 && gy < H && gx >= 0 && gx < W;
-      base[r] = ((size_t)(ly + Hh) * S + lx + Hh) * NF;
+      const int ly = pp / RW - m, lx = pp % RW - m;
+      const int gy = rg.ty0 + ly, gx = rg.tx0 + lx;
+      in[r] = gy >= 0 && gy < rg.H && gx >= 0 && gx < rg.W;
+      base[r] = ((size_t)(ly + rg.org) * S + lx + rg.org) * NF;
     }
     float acc[8][4];
 #pragma unroll
@@ -154,8 +196,12 @@ __device__ void mid_level_mma(const __nv_bfloat16* src, __nv_bfloat16* dst,
   }
 }
 
-template <typename T, bool HEAD>
+template <typename T, int MODE>
 __global__ void __launch_bounds__(THREADS) dncnn_kernel(Args a) {
+  constexpr bool HEAD = MODE != K2_SNET, SLAB = MODE == K8_SLAB;
+  // sqrt(sigma) for the head conv: f32 in shared memory (K3), or T in the
+  // block's scratch (K8; the values are rounded to T either way)
+  using E = std::conditional_t<SLAB, T, float>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* sw = reinterpret_cast<T*>(smem_raw);
   float* sb = reinterpret_cast<float*>(smem_raw + sizeof(T) * SW_ELEMS);
@@ -164,30 +210,69 @@ __global__ void __launch_bounds__(THREADS) dncnn_kernel(Args a) {
   const T* x = static_cast<const T*>(a.x);
   const int H = a.H, W = a.W, L = a.L, CO = a.CO;
   const int Hh = halo(L, HEAD);
-  const int S = TILE + 2 * Hh;
-  T* buf0 = static_cast<T*>(a.scratch) + (size_t)blockIdx.x * 2 * S * S * NF;
-  T* buf1 = buf0 + (size_t)S * S * NF;
-  const int ntx = (W + TILE - 1) / TILE, nty = (H + TILE - 1) / TILE;
+  Region rg;
+  rg.th = SLAB ? a.rows : TILE;
+  rg.tw = SLAB ? W : TILE;
+  rg.org = SLAB ? 1 : Hh;
+  rg.S = rg.tw + 2 * rg.org;
+  rg.H = SLAB ? a.rows : H;
+  rg.W = W;
+  rg.ty0 = rg.tx0 = rg.xrow0 = rg.orow0 = 0;
+  const int S = rg.S, org = rg.org;
+  const int ES = rg.tw + 2;  // row stride of the sqrt(sigma) plane
+  const size_t level = (size_t)(rg.th + 2 * org) * S * NF;
+  const size_t per_block =
+      SLAB ? (size_t)slab_scratch_elems(a.rows, W, CO) : 2 * level;
+  T* buf0 = static_cast<T*>(a.scratch) + (size_t)blockIdx.x * per_block;
+  T* buf1 = buf0 + level;
+  E* ext0 = SLAB ? reinterpret_cast<E*>(buf1 + level)
+                 : reinterpret_cast<E*>(sext);
+  const int ntx = SLAB ? 1 : (W + TILE - 1) / TILE;
+  const int nty = SLAB ? H / a.rows : (H + TILE - 1) / TILE;
   const int ntiles = a.N * nty * ntx;
+
+  if (SLAB) {
+    // the ring of zeros around the slab, in both level buffers and in the
+    // sqrt(sigma) plane: written once, no level stores outside the slab
+    const int PW = rg.tw + 2, PH = rg.th + 2;
+    for (int i = threadIdx.x; i < PH * PW; i += THREADS) {
+      const int y = i / PW, xx = i % PW;
+      if (y != 0 && y != PH - 1 && xx != 0 && xx != PW - 1) continue;
+      for (int o = 0; o < NF; ++o) {
+        buf0[(size_t)i * NF + o] = fromf<T>(0.f);
+        buf1[(size_t)i * NF + o] = fromf<T>(0.f);
+      }
+      for (int c = 0; c < CO; ++c) ext0[(size_t)i * CO + c] = fromf<E>(0.f);
+    }
+  }
 
   for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
     const int n = tile / (nty * ntx), rr = tile % (nty * ntx);
-    const int ty0 = (rr / ntx) * TILE, tx0 = (rr % ntx) * TILE;
+    if (SLAB) {
+      rg.xrow0 = rr * a.rows - 1;
+      rg.orow0 = rr * a.rows;
+    } else {
+      rg.ty0 = (rr / ntx) * TILE;
+      rg.tx0 = (rr % ntx) * TILE;
+    }
+    const int ty0 = rg.ty0, tx0 = rg.tx0;
     const T* xn = x + (size_t)n * H * W * CI;
+    const size_t orow = (size_t)n * H + rg.orow0;  // output row of bounds row 0
 
-    // ---- conv1 3->64 + lrelu on the margin-Hh region -> buf0
+    // ---- conv1 3->64 + lrelu on the first level's region -> buf0
     __syncthreads();
     copy_to_smem(sw, static_cast<const T*>(a.w1), 9 * CI * NF);
     for (int i = threadIdx.x; i < NF; i += THREADS)
       sb[i] = tof(static_cast<const T*>(a.b1)[i]);
     __syncthreads();
     {
-      const int R = TILE + 2 * Hh;
-      for (int p = threadIdx.x; p < R * R; p += THREADS) {
-        const int ly = p / R - Hh, lx = p % R - Hh;
+      const int m = SLAB ? 0 : Hh;
+      const int RW = rg.tw + 2 * m, RH = rg.th + 2 * m;
+      for (int p = threadIdx.x; p < RH * RW; p += THREADS) {
+        const int ly = p / RW - m, lx = p % RW - m;
         const int gy = ty0 + ly, gx = tx0 + lx;
-        T* dst = buf0 + ((size_t)(ly + Hh) * S + lx + Hh) * NF;
-        if (gy < 0 || gy >= H || gx < 0 || gx >= W) {
+        T* dst = buf0 + ((size_t)(ly + org) * S + lx + org) * NF;
+        if (gy < 0 || gy >= rg.H || gx < 0 || gx >= rg.W) {
           for (int o = 0; o < NF; ++o) dst[o] = fromf<T>(0.f);
           continue;
         }
@@ -197,8 +282,9 @@ __global__ void __launch_bounds__(THREADS) dncnn_kernel(Args a) {
 #pragma unroll 1
         for (int tap = 0; tap < 9; ++tap) {
           const int yy = gy + tap / 3 - 1, xx = gx + tap % 3 - 1;
-          if (yy < 0 || yy >= H || xx < 0 || xx >= W) continue;
-          const T* xp = xn + ((size_t)yy * W + xx) * CI;
+          if (yy < 0 || yy >= rg.H || xx < 0 || xx >= rg.W) continue;
+          if (SLAB && yy + rg.xrow0 < 0) continue;  // the zero row above row 0
+          const T* xp = xn + ((size_t)(yy + rg.xrow0) * W + xx) * CI;
 #pragma unroll
           for (int ci = 0; ci < CI; ++ci)
             fma_row<NF>(acc, tof(xp[ci]), sw + (tap * CI + ci) * NF);
@@ -224,16 +310,17 @@ __global__ void __launch_bounds__(THREADS) dncnn_kernel(Args a) {
       __syncthreads();
       const T* src = (lev - 1) % 2 ? buf1 : buf0;
       T* dstb = lev % 2 ? buf1 : buf0;
-      const int m = Hh - lev, R = TILE + 2 * m;
+      const int m = SLAB ? 0 : Hh - lev;
+      const int RW = rg.tw + 2 * m, RH = rg.th + 2 * m;
       if constexpr (std::is_same_v<T, __nv_bfloat16>) {
-        mid_level_mma(src, dstb, sw, sb, m, Hh, S, ty0, tx0, H, W, a.slope);
+        mid_level_mma(src, dstb, sw, sb, m, rg, a.slope);
         continue;
       }
-      for (int p = threadIdx.x; p < R * R; p += THREADS) {
-        const int ly = p / R - m, lx = p % R - m;
+      for (int p = threadIdx.x; p < RH * RW; p += THREADS) {
+        const int ly = p / RW - m, lx = p % RW - m;
         const int gy = ty0 + ly, gx = tx0 + lx;
-        T* dst = dstb + ((size_t)(ly + Hh) * S + lx + Hh) * NF;
-        if (gy < 0 || gy >= H || gx < 0 || gx >= W) {
+        T* dst = dstb + ((size_t)(ly + org) * S + lx + org) * NF;
+        if (gy < 0 || gy >= rg.H || gx < 0 || gx >= rg.W) {
           for (int o = 0; o < NF; ++o) dst[o] = fromf<T>(0.f);
           continue;
         }
@@ -242,8 +329,8 @@ __global__ void __launch_bounds__(THREADS) dncnn_kernel(Args a) {
         for (int o = 0; o < NF; ++o) acc[o] = 0.f;
 #pragma unroll 1
         for (int tap = 0; tap < 9; ++tap) {
-          const T* xp = src + ((size_t)(ly + tap / 3 - 1 + Hh) * S + lx +
-                               tap % 3 - 1 + Hh) * NF;
+          const T* xp = src + ((size_t)(ly + tap / 3 - 1 + org) * S + lx +
+                               tap % 3 - 1 + org) * NF;
           const T* wp = sw + tap * NF * NF;
 #pragma unroll 1
           for (int ci = 0; ci < NF; ci += 4) {
@@ -261,7 +348,8 @@ __global__ void __launch_bounds__(THREADS) dncnn_kernel(Args a) {
     }
 
     // ---- conv_last 64->co (K2: the tile; K3: the tile and a 1-pixel
-    //      ring, which the head conv reads)
+    //      ring, which the head conv reads; K8: the slab, whose ring is
+    //      zeros already)
     __syncthreads();
     copy_to_smem(sw, static_cast<const T*>(a.wl), 9 * NF * CO);
     for (int i = threadIdx.x; i < CO; i += THREADS)
@@ -269,22 +357,23 @@ __global__ void __launch_bounds__(THREADS) dncnn_kernel(Args a) {
     __syncthreads();
     {
       const T* src = L % 2 ? buf1 : buf0;
-      const int m = HEAD ? 1 : 0, R = TILE + 2 * m;
-      for (int p = threadIdx.x; p < R * R; p += THREADS) {
-        const int ly = p / R - m, lx = p % R - m;
+      const int m = MODE == K3_HEAD ? 1 : 0;
+      const int RW = rg.tw + 2 * m, RH = rg.th + 2 * m;
+      for (int p = threadIdx.x; p < RH * RW; p += THREADS) {
+        const int ly = p / RW - m, lx = p % RW - m;
         const int gy = ty0 + ly, gx = tx0 + lx;
-        const bool in = gy >= 0 && gy < H && gx >= 0 && gx < W;
-        float* ext = sext + ((ly + 1) * (TILE + 2) + lx + 1) * CO;
+        const bool in = gy >= 0 && gy < rg.H && gx >= 0 && gx < rg.W;
+        E* ext = ext0 + ((size_t)(ly + 1) * ES + lx + 1) * CO;
         if (!in) {
           if (HEAD)
-            for (int c = 0; c < CO; ++c) ext[c] = 0.f;
+            for (int c = 0; c < CO; ++c) ext[c] = fromf<E>(0.f);
           continue;
         }
         float acc[3] = {0.f, 0.f, 0.f};
 #pragma unroll 1
         for (int tap = 0; tap < 9; ++tap) {
-          const T* xp = src + ((size_t)(ly + tap / 3 - 1 + Hh) * S + lx +
-                               tap % 3 - 1 + Hh) * NF;
+          const T* xp = src + ((size_t)(ly + tap / 3 - 1 + org) * S + lx +
+                               tap % 3 - 1 + org) * NF;
           const T* wp = sw + tap * NF * CO;
 #pragma unroll 1
           for (int ci = 0; ci < NF; ci += 4) {
@@ -296,7 +385,7 @@ __global__ void __launch_bounds__(THREADS) dncnn_kernel(Args a) {
                 acc[c] = fmaf(xv[k], tof(wp[(ci + k) * CO + c]), acc[c]);
           }
         }
-        const size_t o = ((size_t)(n * H + gy) * W + gx) * CO;
+        const size_t o = ((orow + gy) * W + gx) * CO;
         for (int c = 0; c < CO; ++c) {
           const float logit = acc[c] + sb[c];
           if (!HEAD) {
@@ -304,15 +393,15 @@ __global__ void __launch_bounds__(THREADS) dncnn_kernel(Args a) {
           } else {
             const float lg = round_to<T>(logit);
             const float sig = expf(fminf(fmaxf(lg, a.lmin), a.lmax));
-            if (ly >= 0 && ly < TILE && lx >= 0 && lx < TILE)
+            if (ly >= 0 && ly < rg.th && lx >= 0 && lx < rg.tw)
               static_cast<T*>(a.out1)[o + c] = fromf<T>(sig);
-            ext[c] = round_to<T>(sqrtf(sig));
+            ext[c] = fromf<E>(round_to<T>(sqrtf(sig)));
           }
         }
       }
     }
 
-    // ---- K3: head conv on [x | sqrt(sigma)] over the tile
+    // ---- K3, K8: head conv on [x | sqrt(sigma)] over the tile / slab
     if (HEAD) {
       const int CC = CI + CO, CF = a.CF;
       __syncthreads();
@@ -320,11 +409,11 @@ __global__ void __launch_bounds__(THREADS) dncnn_kernel(Args a) {
       for (int i = threadIdx.x; i < CF; i += THREADS)
         sb[i] = tof(static_cast<const T*>(a.bh)[i]);
       __syncthreads();
-      for (int p = threadIdx.x; p < TILE * TILE; p += THREADS) {
-        const int ly = p / TILE, lx = p % TILE;
+      for (int p = threadIdx.x; p < rg.th * rg.tw; p += THREADS) {
+        const int ly = p / rg.tw, lx = p % rg.tw;
         const int gy = ty0 + ly, gx = tx0 + lx;
-        if (gy >= H || gx >= W) continue;
-        T* hp = static_cast<T*>(a.out0) + ((size_t)(n * H + gy) * W + gx) * CF;
+        if (gy >= rg.H || gx >= rg.W) continue;
+        T* hp = static_cast<T*>(a.out0) + ((orow + gy) * W + gx) * CF;
 #pragma unroll 1
         for (int c0 = 0; c0 < CF; c0 += HC) {
           float acc[HC];
@@ -335,15 +424,16 @@ __global__ void __launch_bounds__(THREADS) dncnn_kernel(Args a) {
             const int dy = tap / 3, dx = tap % 3;
             const int yy = gy + dy - 1, xx = gx + dx - 1;
             const T* wp = sw + tap * CC * CF + c0;
-            if (yy >= 0 && yy < H && xx >= 0 && xx < W) {
-              const T* xp = xn + ((size_t)yy * W + xx) * CI;
+            if (yy >= 0 && yy < rg.H && xx >= 0 && xx < rg.W &&
+                !(SLAB && yy + rg.xrow0 < 0)) {
+              const T* xp = xn + ((size_t)(yy + rg.xrow0) * W + xx) * CI;
 #pragma unroll
               for (int ci = 0; ci < CI; ++ci)
                 fma_row<HC>(acc, tof(xp[ci]), wp + ci * CF);
             }
-            const float* ep = sext + ((ly + dy) * (TILE + 2) + lx + dx) * CO;
+            const E* ep = ext0 + ((size_t)(ly + dy) * ES + lx + dx) * CO;
             for (int c = 0; c < CO; ++c)
-              fma_row<HC>(acc, ep[c], wp + (CI + c) * CF);
+              fma_row<HC>(acc, tof(ep[c]), wp + (CI + c) * CF);
           }
 #pragma unroll
           for (int o = 0; o < HC; ++o) hp[c0 + o] = fromf<T>(acc[o] + sb[c0 + o]);
@@ -353,23 +443,23 @@ __global__ void __launch_bounds__(THREADS) dncnn_kernel(Args a) {
   }
 }
 
-template <typename T, bool HEAD>
+template <typename T, int MODE>
 cudaError_t prepare() {
-  return cudaFuncSetAttribute(dncnn_kernel<T, HEAD>,
+  return cudaFuncSetAttribute(dncnn_kernel<T, MODE>,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              smem_bytes<T, HEAD>());
+                              smem_bytes<T, MODE>());
 }
 
-template <typename T, bool HEAD>
+template <typename T, int MODE>
 int grid_size(int ntiles, int* grid) {
-  cudaError_t err = prepare<T, HEAD>();
+  cudaError_t err = prepare<T, MODE>();
   if (err != cudaSuccess) return err;
   int dev = 0, sms = 0, per_sm = 0;
   if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return err;
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, dncnn_kernel<T, HEAD>, THREADS, smem_bytes<T, HEAD>());
+      &per_sm, dncnn_kernel<T, MODE>, THREADS, smem_bytes<T, MODE>());
   if (err != cudaSuccess) return err;
   if (per_sm < 1) return cudaErrorInvalidConfiguration;
   const int full = sms * per_sm;
@@ -377,16 +467,22 @@ int grid_size(int ntiles, int* grid) {
   return cudaSuccess;
 }
 
-template <typename T, bool HEAD>
+template <typename T, int MODE>
 int launch(const Args& a, int grid, cudaStream_t stream) {
-  cudaError_t err = prepare<T, HEAD>();
+  cudaError_t err = prepare<T, MODE>();
   if (err != cudaSuccess) return err;
-  dncnn_kernel<T, HEAD><<<grid, THREADS, smem_bytes<T, HEAD>(), stream>>>(a);
+  dncnn_kernel<T, MODE><<<grid, THREADS, smem_bytes<T, MODE>(), stream>>>(a);
   return cudaGetLastError();
 }
 
 int n_tiles(int N, int H, int W) {
   return N * ((H + TILE - 1) / TILE) * ((W + TILE - 1) / TILE);
+}
+
+bool widths_ok(int CO, int CF, bool head) {
+  return CO >= 1 && CO <= 3 &&
+         (!head || (CF % HC == 0 && CF <= MAX_BIAS &&
+                    9 * (CI + CO) * CF <= 9 * NF * NF));
 }
 
 }  // namespace
@@ -397,11 +493,11 @@ extern "C" int vt_dncnn_grid(int dtype, int head, int N, int H, int W,
                              int* grid) {
   const int nt = n_tiles(N, H, W);
   if (dtype == VT_F32)
-    return head ? grid_size<float, true>(nt, grid)
-                : grid_size<float, false>(nt, grid);
+    return head ? grid_size<float, K3_HEAD>(nt, grid)
+                : grid_size<float, K2_SNET>(nt, grid);
   if (dtype == VT_BF16)
-    return head ? grid_size<__nv_bfloat16, true>(nt, grid)
-                : grid_size<__nv_bfloat16, false>(nt, grid);
+    return head ? grid_size<__nv_bfloat16, K3_HEAD>(nt, grid)
+                : grid_size<__nv_bfloat16, K2_SNET>(nt, grid);
   return cudaErrorInvalidValue;
 }
 
@@ -422,17 +518,49 @@ extern "C" int vt_dncnn_fused(const void* x, const void* w1, const void* b1,
                               int grid, int N, int H, int W, int L, int CO,
                               int CF, int dtype, int head, float slope,
                               float lmin, float lmax, void* stream) {
-  if (CO < 1 || CO > 3 || (head && (CF % HC != 0 || CF > MAX_BIAS ||
-                                    9 * (CI + CO) * CF > 9 * NF * NF)))
-    return cudaErrorInvalidValue;
+  if (!widths_ok(CO, CF, head != 0)) return cudaErrorInvalidValue;
   Args a{x, w1, b1, wm, bm, wl, bl, wh, bh, out0, out1, scratch,
-         N, H, W, L, CO, CF, slope, lmin, lmax};
+         N, H, W, L, CO, CF, 0, slope, lmin, lmax};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == VT_F32)
-    return head ? launch<float, true>(a, grid, s)
-                : launch<float, false>(a, grid, s);
+    return head ? launch<float, K3_HEAD>(a, grid, s)
+                : launch<float, K2_SNET>(a, grid, s);
   if (dtype == VT_BF16)
-    return head ? launch<__nv_bfloat16, true>(a, grid, s)
-                : launch<__nv_bfloat16, false>(a, grid, s);
+    return head ? launch<__nv_bfloat16, K3_HEAD>(a, grid, s)
+                : launch<__nv_bfloat16, K2_SNET>(a, grid, s);
+  return cudaErrorInvalidValue;
+}
+
+// K8's persistent grid: one block per slab up to what the SMs hold.
+extern "C" int vt_dncnn_slab_grid(int dtype, int N, int H, int rows,
+                                  int* grid) {
+  if (rows < 1 || H % rows != 0) return cudaErrorInvalidValue;
+  const int nt = N * (H / rows);
+  if (dtype == VT_F32) return grid_size<float, K8_SLAB>(nt, grid);
+  if (dtype == VT_BF16) return grid_size<__nv_bfloat16, K8_SLAB>(nt, grid);
+  return cudaErrorInvalidValue;
+}
+
+// Scratch elements one K8 block needs (see slab_scratch_elems).
+extern "C" long long vt_dncnn_slab_scratch_elems(int rows, int W, int CO) {
+  return slab_scratch_elems(rows, W, CO);
+}
+
+// K8: the arguments of K3 and the slab height `rows`, which divides H.
+// out0 = head (N,H,W,CF), out1 = sigma (N,H,W,CO), each r-row slab computed
+// as an image of its own from x rows [t*rows - 1, t*rows + rows - 1).
+extern "C" int vt_dncnn_head_slabzero(
+    const void* x, const void* w1, const void* b1, const void* wm,
+    const void* bm, const void* wl, const void* bl, const void* wh,
+    const void* bh, void* out0, void* out1, void* scratch, int grid, int N,
+    int H, int W, int L, int CO, int CF, int rows, int dtype, float slope,
+    float lmin, float lmax, void* stream) {
+  if (!widths_ok(CO, CF, true) || rows < 1 || H % rows != 0)
+    return cudaErrorInvalidValue;
+  Args a{x, w1, b1, wm, bm, wl, bl, wh, bh, out0, out1, scratch,
+         N, H, W, L, CO, CF, rows, slope, lmin, lmax};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == VT_F32) return launch<float, K8_SLAB>(a, grid, s);
+  if (dtype == VT_BF16) return launch<__nv_bfloat16, K8_SLAB>(a, grid, s);
   return cudaErrorInvalidValue;
 }

@@ -1,11 +1,13 @@
-"""The four CUDA kernels of the denoising forward, each beside its plain
-PyTorch version (counterpart of virnet_tpu/ops/pallas_conv.py).
+"""The CUDA kernels of the denoising forward, each beside its plain PyTorch
+version (counterpart of virnet_tpu/ops/pallas_conv.py).
 
   K1 ``conv3x3_mid``           <- pallas_conv.conv3x3_mid_pair,
                                   conv3x3_mid_stack_pair (as L launches)
   K2 ``dncnn_fused``           <- pallas_conv.dncnn_pair_fused
   K3 ``dncnn_head_fused``      <- pallas_conv.dncnn_head_fused (halo, carry)
   K4 ``conv3x3_tail_residual`` <- pallas_conv.conv3x3_tail_residual
+  K8 ``dncnn_head_slabzero``   <- pallas_conv.dncnn_head_fused (slabzero),
+                                  a speed probe that no product path routes
 
 All tensors are NHWC and conv weights HWIO, as in the JAX package.  Every
 conv accumulates in f32 and rounds once to the activation dtype (float32
@@ -15,7 +17,7 @@ version; given CUDA tensors it launches its kernel or raises — there is no
 fallback.  ``LAUNCHES`` counts kernel launches per wrapper, those of the
 blur kernels in ``ops/blur.py`` too.
 
-The four kernels are forward-only, like the Pallas kernels they replace
+These kernels are forward-only, like the Pallas kernels they replace
 (virnet_tpu/models/common.py:train_conv_impl): with autograd recording and
 an input that requires grad, every wrapper raises, on the CPU and on the
 card alike.  Training runs the same convolutions through ``F.conv2d``
@@ -32,8 +34,8 @@ import torch.nn.functional as F
 from . import _build
 
 LAUNCHES = {"conv3x3_mid": 0, "dncnn_fused": 0, "dncnn_head_fused": 0,
-            "conv3x3_tail_residual": 0, "blur_valid": 0, "blur_dx": 0,
-            "blur_dw": 0}
+            "conv3x3_tail_residual": 0, "dncnn_head_slabzero": 0,
+            "blur_valid": 0, "blur_dx": 0, "blur_dw": 0}
 # copies a wrapper had to make of an input it was handed in another layout
 COPIES = {"blur_cotangent": 0}
 
@@ -49,6 +51,11 @@ _SIGNATURES = {
     "vt_dncnn_scratch_elems": ("dncnn_fused", [_I, _I]),
     "vt_dncnn_fused": ("dncnn_fused",
                        [_P] * 12 + [_I] * 9 + [_F, _F, _F, _P]),
+    "vt_dncnn_slab_grid": ("dncnn_fused", [_I, _I, _I, _I,
+                                           ctypes.POINTER(_I)]),
+    "vt_dncnn_slab_scratch_elems": ("dncnn_fused", [_I, _I, _I]),
+    "vt_dncnn_head_slabzero": ("dncnn_fused",
+                               [_P] * 12 + [_I] * 9 + [_F, _F, _F, _P]),
     "vt_tail_residual": ("tail_residual", [_P] * 5 + [_I] * 7 + [_P]),
     "vt_blur_valid": ("blur", [_P] * 3 + [_I] * 5 + [_P]),
     "vt_blur_dx": ("blur", [_P] * 3 + [_I] * 5 + [_P]),
@@ -183,6 +190,25 @@ def dncnn_head_fused_plain(x, w1, b1, wms, bms, wl, bl, wh, bh, slope=0.25,
     return head, sig.to(x.dtype)
 
 
+def _check_rows(h: int, rows: int) -> None:
+    if rows < 1 or h % rows:
+        raise ValueError(f"rows={rows} must divide the image height {h}")
+
+
+def dncnn_head_slabzero_plain(x, w1, b1, wms, bms, wl, bl, wh, bh, rows=32,
+                              slope=0.25, lmin=-23.025850929940457,
+                              lmax=4.605170185988092):
+    """K8's function: x shifted down one row under a row of zeros (the last
+    row dropped), cut into (N*H/rows) slabs of ``rows`` rows, each through
+    ``dncnn_head_fused_plain`` as an image of its own."""
+    n, h, w, c = x.shape
+    _check_rows(h, rows)
+    xs = F.pad(x, (0, 0, 0, 0, 1, 0))[:, :h].reshape(n * h // rows, rows, w, c)
+    head, sig = dncnn_head_fused_plain(xs, w1, b1, wms, bms, wl, bl, wh, bh,
+                                       slope, lmin, lmax)
+    return head.reshape(n, h, w, -1), sig.reshape(n, h, w, -1)
+
+
 def conv3x3_tail_residual_plain(feats, x_in, w, b):
     h, w_img = x_in.shape[1], x_in.shape[2]
     y = conv3x3_plain(feats, w, b)[:, :h, :w_img]
@@ -224,7 +250,9 @@ def conv3x3_mid_stack(x, wms, bms, slope=None) -> torch.Tensor:
 
 
 def _dncnn_launch(head: bool, x, w1, b1, wms, bms, wl, bl, wh, bh, slope,
-                  lmin, lmax):
+                  lmin, lmax, rows=None):
+    """Check, size the block-private scratch from the persistent grid and
+    launch K2 (``head`` False), K3, or with ``rows`` K8."""
     n, h, wd, ci = x.shape
     dt = x.dtype
     code = _dtype_code(x)
@@ -252,9 +280,14 @@ def _dncnn_launch(head: bool, x, w1, b1, wms, bms, wl, bl, wh, bh, slope,
         _check(wh, "wh", dt, (3, 3, 3 + co, cf))
         _check(bh, "bh", dt, (cf,))
     grid = ctypes.c_int(0)
-    _ret(_fn("vt_dncnn_grid")(code, int(head), n, h, wd, ctypes.byref(grid)),
-         "vt_dncnn_grid")
-    per_block = _fn("vt_dncnn_scratch_elems")(L, int(head))
+    if rows is None:
+        _ret(_fn("vt_dncnn_grid")(code, int(head), n, h, wd,
+                                  ctypes.byref(grid)), "vt_dncnn_grid")
+        per_block = _fn("vt_dncnn_scratch_elems")(L, int(head))
+    else:
+        _ret(_fn("vt_dncnn_slab_grid")(code, n, h, rows, ctypes.byref(grid)),
+             "vt_dncnn_slab_grid")
+        per_block = _fn("vt_dncnn_slab_scratch_elems")(rows, wd, co)
     scratch = torch.empty(grid.value * per_block, dtype=dt, device=x.device)
     if head:
         out0 = torch.empty((n, h, wd, cf), dtype=dt, device=x.device)
@@ -264,13 +297,14 @@ def _dncnn_launch(head: bool, x, w1, b1, wms, bms, wl, bl, wh, bh, slope,
         out0 = torch.empty((n, h, wd, co), dtype=dt, device=x.device)
         out1 = None
         whp = bhp = None
-    _ret(_fn("vt_dncnn_fused")(
+    symbol = "vt_dncnn_fused" if rows is None else "vt_dncnn_head_slabzero"
+    _ret(_fn(symbol)(
         x.data_ptr(), w1.data_ptr(), b1.data_ptr(), wm.data_ptr(),
         bm.data_ptr(), wl.data_ptr(), bl.data_ptr(), whp, bhp,
         out0.data_ptr(), None if out1 is None else out1.data_ptr(),
-        scratch.data_ptr(), grid.value, n, h, wd, L, co, cf, code, int(head),
-        float(slope), float(lmin), float(lmax), _stream(x)),
-        "vt_dncnn_fused")
+        scratch.data_ptr(), grid.value, n, h, wd, L, co, cf,
+        *((code, int(head)) if rows is None else (rows, code)),
+        float(slope), float(lmin), float(lmax), _stream(x)), symbol)
     return out0, out1
 
 
@@ -301,6 +335,34 @@ def dncnn_head_fused(x, w1, b1, wms, bms, wl, bl, wh, bh, slope=0.25,
     head, sigma = _dncnn_launch(True, x, w1, b1, wms, bms, wl, bl, wh, bh,
                                 slope, lmin, lmax)
     LAUNCHES["dncnn_head_fused"] += 1
+    return head, sigma
+
+
+def dncnn_head_slabzero(x, w1, b1, wms, bms, wl, bl, wh, bh, rows=32,
+                        slope=0.25, lmin=-23.025850929940457,
+                        lmax=4.605170185988092):
+    """K8, a speed probe only: K3's arithmetic with every ``rows``-row slab
+    of the image treated as an image of its own, so that no pixel of any
+    level is computed twice.  Slab t reads image rows [t*rows - 1, t*rows +
+    rows - 1) (row -1 is zeros) and writes output rows [t*rows, (t+1)*rows).
+    The result is therefore WRONG within L+2 rows of every slab edge and
+    shifted down one row against the true prologue (as the JAX package's
+    mode='slabzero' is); farther inside a slab it equals K3's output one
+    row up.  K3's time less this kernel's, at rows=32 (K3's tile height),
+    is what K3 spends on its recomputed halo.  Never routed by ``VIRNet``,
+    ``Restorer`` or any command line but the probe's
+    (cli/bench_fused_head).  ``rows`` must divide H; there is no automatic
+    slab size.  One block owns a whole slab, all W columns, so nothing is
+    recomputed in the column direction either."""
+    _forward_only("dncnn_head_slabzero", x, w1, b1, *_seq(wms), *_seq(bms),
+                  wl, bl, wh, bh)
+    _check_rows(x.shape[1], rows)
+    if _on_cpu(x, w1, b1, wl, bl, wh, bh):
+        return dncnn_head_slabzero_plain(x, w1, b1, wms, bms, wl, bl, wh, bh,
+                                         rows, slope, lmin, lmax)
+    head, sigma = _dncnn_launch(True, x, w1, b1, wms, bms, wl, bl, wh, bh,
+                                slope, lmin, lmax, rows=int(rows))
+    LAUNCHES["dncnn_head_slabzero"] += 1
     return head, sigma
 
 
