@@ -43,6 +43,19 @@ Phases (all by default; any failure raises and the exit code is not 0):
              HR batches: launches of one step (K5 x2, K6, K7), ms per step,
              peak memory, a device-time breakdown of one step, and the
              ELBO on a fixed batch with fixed noise before and after
+  train_denoise_fp32  one denoising training step at 2x64^2 (full width)
+             in fp32 with injected draws, card vs CPU: the synthetic
+             trainer of configs/denoising_syn.json and the real-noise one
+             of configs/denoising_real.json (pairs, MixUp, the residual
+             prior): loss, ELBO terms, gradient norms
+  train_denoise  the trainer built from configs/denoising_syn.json as it
+             stands (full width, batch 16, 128^2, bf16 autocast) for 30
+             steps on seeded smooth images: ms per step, peak memory, a
+             device-time breakdown of one step, the idle share, and the
+             ELBO on a fixed batch with fixed draws before and after; then
+             10 steps of configs/denoising_real.json, ms per step.  The
+             model is built with conv_impl='torch', as the JAX trainer
+             forces plain convolutions: no kernel of the package launches
 
 Every main-path phase (serve, serve_odd, ops, real, probe, train_sisr)
 zeroes the
@@ -79,6 +92,8 @@ SYN_CKPT = ROOT / "model_zoo" / "virnet_denoising_syn_demo.pth"
 REAL_CKPT = ROOT / "model_zoo" / "virnet_denoising_real_demo.pth"
 SISR_CKPT = ROOT / "model_zoo" / "virnet_sisr_x4_demo.pth"
 SISR_CONFIG = ROOT / "configs" / "sisr_x4.json"
+DENOISE_CONFIGS = {"syn": ROOT / "configs" / "denoising_syn.json",
+                   "real": ROOT / "configs" / "denoising_real.json"}
 
 # card peaks (NVIDIA data sheets, dense): bf16 tensor-core FLOP/s, fp32
 # CUDA-core FLOP/s (the kernels run f32 on CUDA cores with TF32 off), and
@@ -762,6 +777,199 @@ def phase_train_fp32(report):
                                 rel=worst)
 
 
+def profile_step(step_fn, report, key, ms):
+    """Device-time breakdown of two profiled training steps by
+    TRAIN_GROUPS, and the idle share against ``ms``, the median of the
+    unprofiled steps (None when the profiler saw no kernel)."""
+    phase_profile(step_fn, report, key, "step", groups=TRAIN_GROUPS, iters=2,
+                  top_ops=12, rest="elementwise, copies, reductions (PyTorch)")
+    prof = report.get(key)
+    if not prof:
+        return None
+    # the profiler slows the host down, so the busy time of the two
+    # profiled steps is held against the median of the unprofiled
+    # steps: two different sets of steps.  A negative share says that
+    # they do not belong together.
+    idle = 1 - prof["busy_ms"] / ms
+    log(f"  device busy {prof['busy_ms']:.2f} ms (2 profiled steps) of "
+        f"the {ms:.2f} ms unprofiled step (median of other steps): "
+        f"idle share {idle:.3f}")
+    if idle < 0:
+        log("  WARNING: the profiled steps kept the device busy longer "
+            "than an unprofiled step lasts: the two do not describe the "
+            "same work, and this idle share says nothing")
+    return idle
+
+
+def timed_steps(run_step, batch, steps, what):
+    """``steps`` training steps on fresh batches, each timed on the host
+    clock around a synchronise; fails on a non-finite scalar.  Returns
+    (times in ms, the last step's scalars)."""
+    times, last = [], {}
+    for _ in range(steps):
+        x = batch()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = run_step(x)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        last = {k: float(v) for k, v in out.items()}
+        bad = [k for k, v in last.items() if not math.isfinite(v)]
+        if bad:
+            raise AssertionError(f"{what}: non-finite {bad}")
+    return times, last
+
+
+def denoise_trainer(kind, device="cuda", **overrides):
+    """The trainer of configs/denoising_{syn,real}.json through its CLI's
+    build_trainer."""
+    import importlib
+
+    from virnet_tpu_torch.config import load_config
+
+    cli = importlib.import_module(
+        f"virnet_tpu_torch.cli.train_denoising_{kind}")
+    cfg = load_config(DENOISE_CONFIGS[kind])
+    cfg["save_dir"] = str(ROOT / "build" / f"chip_smoke_denoise_{kind}")
+    cfg.update(overrides)
+    return cli.build_trainer(cfg, device=device)
+
+
+def denoise_draws(kind, n, size, seed, device):
+    """Injected draws for one denoising step, made on the CPU from a seed
+    so that two devices get the same numbers: the synthesis draws
+    (synthetic) or the MixUp permutation and coefficients (real)."""
+    g = torch.Generator().manual_seed(seed)
+    if kind == "real":
+        gam = torch._standard_gamma(torch.full((2, n), 0.6), generator=g)
+        return dict(mixup=(torch.randperm(n, generator=g).to(device),
+                           (gam[0] / gam.sum(0)).to(device)))
+
+    def u(lo, hi, *shape):
+        return lo + (hi - lo) * torch.rand(*shape, generator=g)
+
+    synth = dict(center=u(0, size, n, 2),
+                 scale=u(size / 4, size / 4 * 3, n, 1, 1),
+                 updown=u(0, 75 / 255, n, 2),
+                 eps=torch.randn(n, size, size, 3, generator=g))
+    return dict(synth={k: t.to(device) for k, t in synth.items()})
+
+
+def denoise_batch(kind, rng, n, size):
+    """Seeded smooth clean images; for 'real' the (noisy, gt) pair with
+    Gaussian noise of a per-image level in [5, 30]/255, clipped."""
+    gt = smooth_batch(rng, n, size)
+    if kind == "syn":
+        return gt
+    level = rng.uniform(5 / 255, 30 / 255, (n, 1, 1, 1))
+    noisy = np.clip(gt + level * rng.standard_normal(gt.shape), 0, 1)
+    return noisy.astype(np.float32), gt
+
+
+def phase_train_denoise_fp32(report):
+    """One run_step at 2x64^2, full width, fp32, injected draws, on the
+    card and on the CPU, for both trainers: loss and every ELBO term rtol
+    1e-4, per-subnet gradient norms rtol 1e-3 (cuDNN's and oneDNN's sums
+    differ in order through ~60 conv layers)."""
+    report["train_denoise_fp32"] = {}
+    for kind in ("syn", "real"):
+        batch = denoise_batch(kind, np.random.default_rng(8), 2, 64)
+        outs = {}
+        for dev in ("cpu", "cuda"):
+            trainer = denoise_trainer(kind, dev, batch_size=2, patch_size=64,
+                                      mixed_precision=False)
+            out = trainer.run_step(batch, 0, denoise_draws(kind, 2, 64, 9,
+                                                           dev))
+            outs[dev] = {k: float(v) for k, v in out.items()}
+            del trainer
+        worst = {}
+        for k, want in outs["cpu"].items():
+            tol = 1e-3 if k.startswith("gnorm") else 1e-4
+            worst[k] = rel_err(outs["cuda"][k], want)
+            log(f"  {kind} {k}: card {outs['cuda'][k]:.7g}, CPU {want:.7g}, "
+                f"rel diff {worst[k]:.3g} (rtol {tol:g})")
+            if not (math.isfinite(outs["cuda"][k]) and worst[k] <= tol):
+                raise AssertionError(
+                    f"train_denoise_fp32: {kind} {k} disagrees with the CPU")
+        report["train_denoise_fp32"][kind] = dict(
+            card=outs["cuda"], cpu=outs["cpu"], rel=worst)
+
+
+def phase_train_denoise(report, launches, steps=30, real_steps=10):
+    """The denoising trainers at full width (batch 16, 128^2, bf16
+    autocast) through their CLIs' build_trainer and
+    DenoiseTrainer.run_step."""
+    from virnet_tpu_torch.ops import fused_conv as fc
+
+    out_report = {}
+    for kind, n_steps in (("syn", steps), ("real", real_steps)):
+        trainer = denoise_trainer(kind)
+        tc = trainer.cfg
+        log(f"[train_denoise {kind}] n_feat {tc.n_feat}, dep_S {tc.dep_S}, "
+            f"sigma_chn {tc.sigma_chn}, batch {tc.batch_size}, patch "
+            f"{tc.patch_size}^2, real {trainer.real}, bf16 autocast "
+            f"{tc.mixed_precision}, device {trainer.device}")
+        width = dict(syn=((96, 192, 288), 5), real=((96, 160, 224, 288), 8))
+        if ((tuple(tc.n_feat), tc.dep_S) != width[kind]
+                or (tc.batch_size, tc.patch_size) != (16, 128)
+                or not tc.mixed_precision or trainer.device.type != "cuda"):
+            raise AssertionError(f"train_denoise: {kind} is not the "
+                                 f"full-width configuration")
+        rng = np.random.default_rng(10)
+        pool = denoise_batch(kind, rng, 64, tc.patch_size)
+        pool = [torch.from_numpy(t).cuda() for t in
+                (pool if kind == "real" else (pool,))]
+
+        def batch():
+            idx = torch.from_numpy(rng.choice(64, tc.batch_size,
+                                              replace=False)).cuda()
+            picked = tuple(t[idx] for t in pool)
+            return picked if kind == "real" else picked[0]
+
+        fixed = batch()
+        draws = denoise_draws(kind, tc.batch_size, tc.patch_size, 11, "cuda")
+        before = float(trainer.loss_and_grads(fixed, 0, draws)[0])
+        torch.cuda.reset_peak_memory_stats()
+        fc.reset_launches()
+        trainer.run_step(batch(), 0)
+        torch.cuda.synchronize()
+        counts = dict(fc.LAUNCHES)
+        launches[f"train_denoise_{kind}"] = counts
+        log(f"  launches in one step {counts}")
+        if any(counts.values()):
+            raise AssertionError("train_denoise: the step is built on plain "
+                                 "convolutions and launches no kernel of the "
+                                 "package")
+        times, last = timed_steps(lambda x: trainer.run_step(x, 0), batch,
+                                  n_steps - 1, f"train_denoise {kind}")
+        ms = float(np.median(times[-20:] if kind == "syn" else times[2:]))
+        peak = torch.cuda.max_memory_allocated()
+        log(f"  {ms:.2f} ms per step (median of the last "
+            f"{min(20, len(times)) if kind == 'syn' else len(times) - 2}), "
+            f"{1e3 / ms:.2f} steps/s, peak memory {peak / 2 ** 30:.2f} GiB")
+        log(f"  step {trainer.step}: loss {last['loss']:.4g}, lh "
+            f"{last['lh']:.4g}, KLG {last['kl_gauss']:.4g}, KLIG "
+            f"{last['kl_ig']:.4g}, gnorm R/S {last['gnorm_r']:.4g}/"
+            f"{last['gnorm_s']:.4g}")
+        res = dict(ms_per_step=ms, steps_per_s=1e3 / ms, peak_bytes=peak,
+                   step_ms=times, last=last, launches=counts)
+        if kind == "syn":
+            x = batch()
+            res["idle_share"] = profile_step(
+                lambda: trainer.run_step(x, 0), report,
+                "train_denoise_profile", ms)
+        after = float(trainer.loss_and_grads(fixed, 0, draws)[0])
+        log(f"  ELBO on the fixed batch with fixed draws: {before:.6g} "
+            f"before, {after:.6g} after {trainer.step} steps")
+        res.update(elbo_before=before, elbo_after=after)
+        out_report[kind] = res
+        if not (math.isfinite(after) and after < before):
+            raise AssertionError(f"train_denoise: the {kind} ELBO on the "
+                                 f"fixed batch did not go down")
+        del trainer, pool
+    report["train_denoise"] = out_report
+
+
 def phase_train_sisr(report, launches, steps=30):
     """The SISR trainer of configs/sisr_x4.json at full width (batch 16,
     192^2, bf16 autocast) through cli.train_sisr.build_trainer and
@@ -808,21 +1016,10 @@ def phase_train_sisr(report, launches, steps=30):
         raise AssertionError("train_sisr: one step must launch blur_valid "
                              "twice and blur_dx, blur_dw once each")
 
-    times, scalars = [], []
-    for _ in range(steps - 1):
-        x = batch()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = trainer.run_step(x, 0)
-        torch.cuda.synchronize()
-        times.append((time.perf_counter() - t0) * 1e3)
-        scalars.append({k: float(v) for k, v in out.items()})
-    bad = [k for sc in scalars for k, v in sc.items() if not math.isfinite(v)]
-    if bad:
-        raise AssertionError(f"train_sisr: non-finite {sorted(set(bad))}")
+    times, last = timed_steps(lambda x: trainer.run_step(x, 0), batch,
+                              steps - 1, "train_sisr")
     ms = float(np.median(times[-20:]))
     peak = torch.cuda.max_memory_allocated()
-    last = scalars[-1]
     log(f"  {ms:.2f} ms per step (median of the last 20), "
         f"{1e3 / ms:.2f} steps/s, peak memory {peak / 2 ** 30:.2f} GiB")
     log(f"  step {trainer.step}: loss {last['loss']:.4g}, lh {last['lh']:.4g}"
@@ -830,24 +1027,8 @@ def phase_train_sisr(report, launches, steps=30):
         f"{last['kl_knet']:.4g}, gnorm R/S/K {last['gnorm_r']:.4g}/"
         f"{last['gnorm_s']:.4g}/{last['gnorm_k']:.4g}")
     x = batch()
-    phase_profile(lambda: trainer.run_step(x, 0), report, "train_profile",
-                  "step", groups=TRAIN_GROUPS, iters=2, top_ops=12,
-                  rest="elementwise, copies, reductions (PyTorch)")
-    prof = report.get("train_profile")
-    idle = None
-    if prof:
-        # the profiler slows the host down, so the busy time of the two
-        # profiled steps is held against the median of the unprofiled
-        # steps: two different sets of steps.  A negative share says that
-        # they do not belong together.
-        idle = 1 - prof["busy_ms"] / ms
-        log(f"  device busy {prof['busy_ms']:.2f} ms (2 profiled steps) of "
-            f"the {ms:.2f} ms unprofiled step (median of other steps): "
-            f"idle share {idle:.3f}")
-        if idle < 0:
-            log("  WARNING: the profiled steps kept the device busy longer "
-                "than an unprofiled step lasts: the two do not describe the "
-                "same work, and this idle share says nothing")
+    idle = profile_step(lambda: trainer.run_step(x, 0), report,
+                        "train_profile", ms)
     after = fixed_elbo()
     log(f"  ELBO on the fixed batch with fixed noise: {before:.6g} before, "
         f"{after:.6g} after {trainer.step} steps")
@@ -1033,6 +1214,14 @@ def main(argv=None) -> int:
 
     if "train_sisr" in phases:
         phase_train_sisr(report, launches)
+
+    if "train_denoise_fp32" in phases:
+        log("[train_denoise_fp32] one denoising training step at 2x64^2, "
+            "syn and real, card vs CPU")
+        phase_train_denoise_fp32(report)
+
+    if "train_denoise" in phases:
+        phase_train_denoise(report, launches)
 
     report["launches"] = launches
     report["total_s"] = time.perf_counter() - t_all

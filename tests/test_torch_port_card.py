@@ -55,7 +55,8 @@ def _close(got, want, dtype, sigma=False):
                          ids=["fp32", "bf16"])
 @pytest.mark.parametrize("L,co", [(3, 1), (6, 3)], ids=["syn", "real"])
 def test_kernels_match_plain_on_card(L, co, dtype):
-    """K1-K4 against their plain versions on the card."""
+    """K1-K4 against their plain versions on the card (K8 has its own
+    test below)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels run only on the card")
     from virnet_tpu_torch.precision import set_parity_mode
@@ -89,6 +90,61 @@ def test_kernels_match_plain_on_card(L, co, dtype):
 def _need_card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels run only on the card")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("L,co,shape,rows", [
+    (3, 1, (2, 32, 40, 3), 16),     # syn, two slabs per image
+    (3, 1, (1, 24, 37, 3), 8),      # odd width, H no multiple of 32
+    (6, 3, (2, 32, 24, 3), 32),     # real, one slab per image
+    (6, 3, (1, 12, 20, 3), 4),      # slabs shorter than L + 2
+], ids=["syn-r16", "syn-odd-r8", "real-r32", "real-r4"])
+def test_slabzero_kernel_matches_plain_on_card(L, co, shape, rows, dtype):
+    """K8 against its plain version on the card, to K3's tolerances; one
+    launch per call; rows far from slab edges equal K3 one row up."""
+    _need_card()
+    from virnet_tpu_torch.precision import set_parity_mode
+
+    set_parity_mode()
+    rng = np.random.default_rng(11)
+    p = _snet(rng, L, co, cf=96)
+    g = {k: (torch.stack([_t(w) for w in v]) if isinstance(v, list)
+             else _t(v)).to("cuda", dtype) for k, v in p.items()}
+    args = [g[k] for k in ("w1", "b1", "wms", "bms", "wl", "bl", "wh", "bh")]
+    x = _t(rng.random(shape, dtype=np.float32)).to("cuda", dtype)
+    fc.reset_launches()
+    head, sig = fc.dncnn_head_slabzero(x, *args, rows=rows)
+    torch.cuda.synchronize()
+    assert fc.LAUNCHES["dncnn_head_slabzero"] == 1
+    assert fc.LAUNCHES["dncnn_head_fused"] == 0
+    head_ref, sig_ref = fc.dncnn_head_slabzero_plain(x, *args, rows=rows)
+    _close(head, head_ref, dtype)
+    _close(sig, sig_ref, dtype, sigma=True)
+    far = [r for r in range(shape[1]) if L + 3 <= r % rows < rows - (L + 3)]
+    if far:
+        h3, s3 = fc.dncnn_head_fused(x, *args)
+        up = [r - 1 for r in far]
+        _close(head[:, far], h3[:, up], dtype)
+        _close(sig[:, far], s3[:, up], dtype, sigma=True)
+
+
+def test_slabzero_kernel_raises_on_what_it_does_not_take():
+    _need_card()
+    rng = np.random.default_rng(12)
+    p = _snet(rng, 3, 1, cf=96)
+    g = {k: (torch.stack([_t(w) for w in v]) if isinstance(v, list)
+             else _t(v)).cuda() for k, v in p.items()}
+    args = [g[k] for k in ("w1", "b1", "wms", "bms", "wl", "bl", "wh", "bh")]
+    x = torch.rand(1, 32, 32, 3, device="cuda")
+    with pytest.raises(ValueError, match="must divide"):
+        fc.dncnn_head_slabzero(x, *args, rows=12)
+    with pytest.raises(TypeError):
+        fc.dncnn_head_slabzero(x.double(), *args, rows=16)
+    with pytest.raises(ValueError):
+        fc.dncnn_head_slabzero(x.cpu(), *args, rows=16)
+    with pytest.raises(RuntimeError, match="forward-only"):
+        fc.dncnn_head_slabzero(x.requires_grad_(), *args, rows=16)
 
 
 @pytest.mark.parametrize("n,h,w,c,k", [

@@ -1,14 +1,17 @@
 """virnet_tpu_torch — the PyTorch/CUDA port of virnet_tpu for NVIDIA Hopper.
 
-Two paths so far: the denoising VIRNet forward (SNet -> sigma epilogue ->
-RNet) served by ``Restorer`` and the demo CLI, and the blind-SISR training
+Three paths so far: the denoising VIRNet forward (SNet -> sigma epilogue
+-> RNet) served by ``Restorer`` and the demo CLI; the blind-SISR training
 step (``SISRTrainer``: on-device degradation synthesis, VIRNetSR, the SISR
-ELBO through the per-sample blur, clipped Adam).  Every Pallas kernel on
-those paths is a CUDA C++ kernel for ``sm_90a`` under ``csrc/``, built with
-nvcc at first use and bound with ctypes (``ops/_build.py``); each sits
-beside its plain PyTorch version in ``ops/fused_conv.py`` (the conv
-kernels K1-K4, forward-only) or ``ops/blur.py`` (the blur kernels K5-K7,
-forward and backward).  Public tensors are NHWC, like the JAX package.
+ELBO through the per-sample blur, clipped Adam); and the denoising training
+step (``DenoiseTrainer``: on-device noise synthesis, or real pairs with
+MixUp and the residual-filter prior, the denoising ELBO).  Every Pallas
+kernel of the JAX package is a CUDA C++ kernel for ``sm_90a`` under
+``csrc/``, built with nvcc at first use and bound with ctypes
+(``ops/_build.py``); each sits beside its plain PyTorch version in
+``ops/fused_conv.py`` (the conv kernels K1-K4 and the halo-free probe K8,
+forward-only) or ``ops/blur.py`` (the blur kernels K5-K7, forward and
+backward).  Public tensors are NHWC, like the JAX package.
 Entry points run on the card unless the caller passes ``device="cpu"``.
 
 Layout
@@ -16,11 +19,14 @@ Layout
 ops/      the kernel wrappers, padding, blur/downsample degradation, blur
           kernel synthesis, ResizeRight matrices, image I/O, TTA
 models/   torch.nn modules under the reference torch state-dict keys
-losses/   the SISR ELBO
-data/     on-device SISR batch synthesis, host patch sampling
-train/    optimizer stack, checkpoints, the SISR trainer
+losses/   the denoising and SISR ELBOs
+data/     on-device noise and SISR batch synthesis, MixUp, host patch
+          sampling
+train/    optimizer stack, checkpoints, logging, the denoising and SISR
+          trainers
 eval/     Restorer (pad buckets, TTA, folder batches) and tiled inference
-cli/      the demo and train_sisr command lines
+cli/      the demo, the three trainers and the fused-prologue A/B
+          (bench_fused_head)
 csrc/     the CUDA sources
 """
 
@@ -38,9 +44,12 @@ def __getattr__(name):
     if name in ("SISRTrainer", "SISRTrainConfig"):
         from .train import loop_sisr
         return getattr(loop_sisr, name)
-    if name == "elbo_sisr":
-        from .losses.elbo import elbo_sisr
-        return elbo_sisr
+    if name in ("DenoiseTrainer", "DenoiseTrainConfig"):
+        from .train import loop_denoise
+        return getattr(loop_denoise, name)
+    if name in ("elbo_sisr", "elbo_denoising"):
+        from .losses import elbo
+        return getattr(elbo, name)
     if name == "blur_per_sample":
         from .ops.degrade import blur_per_sample
         return blur_per_sample

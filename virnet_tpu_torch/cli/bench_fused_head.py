@@ -64,39 +64,40 @@ def parse_variant(spec: str) -> Tuple[str, str, Optional[int], bool]:
     return name + ("+tail" if tail else ""), mode, rows, tail
 
 
-def _applies(variants, task, dtype, device, seed, overrides):
-    """{name: (apply(x) -> mu, is_fused)} with one set of weights."""
+def _applies(variants, task, dtype, device, seed, shape, overrides):
+    """{name: apply(x) -> mu} for the parsed variants, all with one set of
+    weights; raises when ``shape`` does not take the fused prologue."""
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(seed)
-        unfused = build_model(task, conv_impl="torch", **overrides)
-    state = unfused.state_dict()
-    unfused = unfused.to(device, dtype).eval()
+        first = build_model(task, conv_impl="torch", **overrides)
+    state = first.state_dict()
     models = {}
 
     def model_for(kind):
+        # 'unfused': cuDNN throughout; 'tail': cuDNN with the tail kernel;
+        # 'fused': the kernels' route
         if kind not in models:
-            if kind == "unfused":
-                models[kind] = unfused
-            else:
-                m = build_model(task, conv_impl="torch" if kind == "tail"
-                                else "fused", **overrides)
-                m.load_state_dict(state, strict=True)
-                if kind == "tail":
-                    m.RNet.tail_impl = "fused"
-                models[kind] = m.to(device, dtype).eval()
+            m = build_model(task, conv_impl="fused" if kind == "fused"
+                            else "torch", **overrides)
+            m.load_state_dict(state, strict=True)
+            if kind == "tail":
+                m.RNet.tail_impl = "fused"
+            models[kind] = m.to(device, dtype).eval()
         return models[kind]
 
     out = {}
     for name, mode, rows, tail in variants:
         if mode == "unfused":
             model = model_for("tail" if tail else "unfused")
-            out[name] = (lambda x, m=model: m(x)[0], False)
-        else:
-            model = model_for("fused")
-            out[name] = (lambda x, m=model, mo=mode, r=rows:
-                         denoise_forward_fused(m, x, mode=mo, rows=r)[0],
-                         True)
-    return out, model_for
+            out[name] = lambda x, m=model: m(x)[0]
+            continue
+        model = model_for("fused")
+        if not fused_head_supported(model, shape):
+            raise ValueError(f"{tuple(shape)} does not take the fused "
+                             f"prologue (models/fused.fused_head_supported)")
+        out[name] = (lambda x, m=model, mo=mode, r=rows:
+                     denoise_forward_fused(m, x, mode=mo, rows=r)[0])
+    return out
 
 
 def run(variants: Sequence[str] = DEFAULT_VARIANTS, batch: int = 32,
@@ -114,20 +115,16 @@ def run(variants: Sequence[str] = DEFAULT_VARIANTS, batch: int = 32,
     parsed = [parse_variant(v) for v in variants]
     if len({p[0] for p in parsed}) != len(parsed):
         raise ValueError(f"variants repeat: {[p[0] for p in parsed]}")
-    applies, model_for = _applies(parsed, task, dtype, dev, seed,
-                                  model_overrides)
     gen = torch.Generator().manual_seed(seed)
     x = torch.rand(batch, size, size, 3, generator=gen).to(dev)
-    if any(fused for _, fused in applies.values()) and not \
-            fused_head_supported(model_for("fused"), x.shape):
-        raise ValueError(f"{tuple(x.shape)} does not take the fused prologue "
-                         f"(models/fused.fused_head_supported)")
+    applies = _applies(parsed, task, dtype, dev, seed, x.shape,
+                       model_overrides)
     say = log or (lambda msg: None)
     sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
 
     res = {}
     with torch.inference_mode():
-        for name, (apply, _) in applies.items():        # build, warm up, count
+        for name, apply in applies.items():        # build, warm up, count
             apply(x)
             sync()
             fc.reset_launches()
@@ -160,7 +157,7 @@ def run(variants: Sequence[str] = DEFAULT_VARIANTS, batch: int = 32,
 
         mp = batch * size * size / 1e6
         for rep in range(reps):
-            for name, (apply, _) in applies.items():
+            for name, apply in applies.items():
                 ms = timed(apply)
                 res[name]["ms"].append(ms)
                 say(f"rep{rep} {name}: {ms:.2f} ms/apply = "

@@ -10,20 +10,22 @@ inside the train step.  The trainer runs on the card unless ``--device
 cpu`` is given.  ``--resume latest`` (or a saved epoch number) continues
 from a checkpoint under ``<save_dir>/ckpts``.
 
-Not ported yet: per-epoch validation on Set14, TensorBoard summaries, the
-host-side JPEG degradation (data/sisr_host.py), device-resident data,
-``auto_resume``, the RSS watchdog and multi-host runs.
+Not ported yet: per-epoch validation on Set14, TensorBoard summaries and
+the host-side JPEG degradation (data/sisr_host.py); device-resident data,
+``auto_resume``, the RSS watchdog and multi-host runs are refused when the
+config asks for them.
 """
 
 from __future__ import annotations
 
-import argparse
-import logging
 from pathlib import Path
 
-from ..config import as_bool, load_config, update_args
+from ..config import as_bool
 from ..data.sources import ImageCache, PatchSampler
+from ..train.logging import make_log
 from ..train.loop_sisr import SISRTrainConfig, SISRTrainer
+from .common import (load_trainer_config, refuse_unported, resume_epoch,
+                     trainer_argparser)
 
 
 def build_trainer(cfg: dict, device="cuda") -> SISRTrainer:
@@ -62,36 +64,11 @@ def build_trainer(cfg: dict, device="cuda") -> SISRTrainer:
     return SISRTrainer(tcfg, device=device, host_batches=host_batches)
 
 
-def trainer_argparser(default_config: str) -> argparse.ArgumentParser:
-    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    p.add_argument("--save_dir", default=None, type=str,
-                   help="path to save models and logs")
-    p.add_argument("--config", default=default_config, type=str)
-    p.add_argument("--resume", default=None, type=str,
-                   help="'latest' or a saved epoch number")
-    p.add_argument("--epochs", default=None, type=int)
-    p.add_argument("--steps_per_epoch", default=None, type=int)
-    p.add_argument("--batch_size", default=None, type=int)
-    p.add_argument("--device", default="cuda", type=str,
-                   help="cuda (default) or cpu")
-    return p
-
-
-def make_log(path: Path) -> logging.Logger:
-    logger = logging.getLogger(f"virnet_tpu_torch.train.{path}")
-    logger.setLevel(logging.INFO)
-    logger.propagate = False
-    for handler in (logging.FileHandler(path), logging.StreamHandler()):
-        handler.setFormatter(logging.Formatter("%(asctime)s %(message)s"))
-        logger.addHandler(handler)
-    return logger
-
-
 def main(argv=None) -> None:
-    args = trainer_argparser("configs/sisr_x4.json").parse_args(argv)
-    cfg = update_args(load_config(args.config),
-                      {k: v for k, v in vars(args).items()
-                       if k not in ("config", "device")})
+    args = trainer_argparser("configs/sisr_x4.json",
+                             __doc__.splitlines()[0]).parse_args(argv)
+    cfg = load_trainer_config(args)
+    refuse_unported(cfg)
     save_dir = Path(cfg["save_dir"])
     save_dir.mkdir(parents=True, exist_ok=True)
     logger = make_log(save_dir / "train.log")
@@ -111,13 +88,8 @@ def main(argv=None) -> None:
     sampler = PatchSampler(ImageCache(hr_paths), cfg["hr_size"])
     steps = cfg.get("steps_per_epoch", 10000)
 
-    resume = cfg.get("resume")
-    epoch_start = 0
-    if resume:
-        epoch_start = trainer.restore(None if resume == "latest"
-                                      else int(resume))
-        logger.info(f"resumed at epoch {epoch_start}, step {trainer.step}")
-    for epoch in range(epoch_start, cfg["epochs"]):
+    for epoch in range(resume_epoch(trainer, cfg.get("resume"), logger.info),
+                       cfg["epochs"]):
         sampler.reset_seed(epoch * 1000)
         batches = (sampler.sample(cfg["batch_size"], raw=True)
                    for _ in range(steps))

@@ -18,8 +18,7 @@ every step (reference loss/ELBO_simple.py:55-59, 124-134).
 
 On the CPU log goes through float64 (see ops/fused_conv.exp_clip); on the
 card it stays in the tensor's dtype.  digamma of the constant shape is a
-host float64.  The denoising half
-(likelihood_denoising, elbo_denoising) comes with denoising training.
+host float64.
 """
 
 from __future__ import annotations
@@ -63,6 +62,32 @@ def kl_gauss(mu_q: torch.Tensor, mu_p: torch.Tensor, var_p) -> torch.Tensor:
 
 def _as_list(mu: MuLike) -> List[torch.Tensor]:
     return list(mu) if isinstance(mu, (list, tuple)) else [mu]
+
+
+def likelihood_denoising(x: torch.Tensor, mu_q: torch.Tensor, var_q: float,
+                         alpha_q: float, beta_q: torch.Tensor) -> torch.Tensor:
+    """Gaussian likelihood under the Inv-Gamma noise posterior (reference
+    loss/ELBO_simple.py:18-21)."""
+    temp = 0.5 * (_log(beta_q) - _digamma(alpha_q)
+                  + alpha_q / beta_q * ((x - mu_q) ** 2 + var_q))
+    return temp.mean() + _HALF_LOG_2PI
+
+
+def elbo_denoising(mu: MuLike, sigma_est: torch.Tensor,
+                   im_noisy: torch.Tensor, im_gt: torch.Tensor, eps2: float,
+                   alpha0: float, beta0: torch.Tensor):
+    """Denoising ELBO (reference loss/ELBO_simple.py:23-53).  ``mu`` may be
+    a list of estimates, whose terms are averaged.  Returns (loss,
+    likelihood, kl_gauss, kl_inv_gamma)."""
+    mus = _as_list(mu)
+    klg = sum(kl_gauss(m, im_gt, eps2) for m in mus) / len(mus)
+
+    beta = sigma_est * alpha0
+    klig = kl_inverse_gamma(beta, alpha0 - 1, beta0)
+
+    lh = sum(likelihood_denoising(im_noisy, m, eps2, alpha0 - 1, beta)
+             for m in mus) / len(mus)
+    return lh + klg + klig, lh, klg, klig
 
 
 def reparam_inv_gamma(alpha: torch.Tensor, beta: torch.Tensor,

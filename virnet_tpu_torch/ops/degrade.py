@@ -13,15 +13,20 @@ Padding semantics, both reproduced deliberately:
     reference data pipeline uses scipy.ndimage.convolve(mode='reflect'),
     which is numpy 'symmetric'.
 
-``blur_shared`` / ``noise_estimate`` (denoising training) and the numpy
-twins ``imconv_np`` / ``degrade_np`` (the eval harness) are not ported yet.
+``blur_shared`` / ``noise_estimate`` (the sigma^2 prior of real-noise
+denoising training) blur with one shared filter through a depthwise
+library convolution, as the JAX package leaves them to XLA: they are no
+kernel of either package.  The numpy twins ``imconv_np`` / ``degrade_np``
+(the eval harness) are not ported yet.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from .blur import pad_hw, valid_blur
+from .kernels import gaussian_filter_kernel
 from .resize import resize_nhwc
 
 
@@ -61,3 +66,24 @@ def degrade_batch(x_hr: torch.Tensor, kernels: torch.Tensor, sf: int,
     degradation (utils/util_sisr.py:127-144)."""
     return downsample(blur_per_sample(x_hr, kernels, correlate=correlate),
                       sf, downsampler)
+
+
+def blur_shared(x: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
+    """Blur all batch elements and channels of NHWC ``x`` with one shared
+    (k, k) kernel (reflect-padded, 'same', correlation: the kernel is
+    symmetric in every use here)."""
+    c = x.shape[-1]
+    k = kernel.shape[-1]
+    xp = pad_hw(x, k // 2, "reflect").permute(0, 3, 1, 2)
+    w = kernel.to(x.dtype).expand(c, 1, k, k)
+    return F.conv2d(xp, w, groups=c).permute(0, 2, 3, 1)
+
+
+def noise_estimate(im_noisy: torch.Tensor, im_gt: torch.Tensor,
+                   k_size: int) -> torch.Tensor:
+    """sigma^2 prior for real data: Gaussian filter of the squared residual
+    with the OpenCV default sigma rule, clamped >= 1e-10 (reference
+    utils/util_denoising.py:24-63)."""
+    kernel = torch.as_tensor(gaussian_filter_kernel(k_size),
+                             dtype=im_noisy.dtype, device=im_noisy.device)
+    return blur_shared((im_noisy - im_gt) ** 2, kernel).clamp_min(1e-10)

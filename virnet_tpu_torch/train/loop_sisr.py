@@ -83,7 +83,7 @@ class SISRTrainConfig:
     print_freq: int = 100
 
 
-def _step_seed(seed: int, epoch: int, step: int) -> int:
+def step_seed(seed: int, epoch: int, step: int) -> int:
     """One seed per (seed, epoch, step): a resumed run draws what the
     uninterrupted run would have drawn."""
     return ((seed * 1_000_003 + epoch) * 1_000_003 + step) % (2 ** 63 - 1)
@@ -160,7 +160,7 @@ class SISRTrainer:
 
     def _loss_and_grads(self, data, epoch: int, noise: Optional[dict]):
         cfg = self.cfg
-        self.generator.manual_seed(_step_seed(cfg.seed, epoch, self.step))
+        self.generator.manual_seed(step_seed(cfg.seed, epoch, self.step))
         batch = self._batch(data, noise)
         sigma_prior = (batch.nlevel ** 2).reshape(-1, 1, 1, 1)
         self.optim.zero_grad()
