@@ -25,7 +25,8 @@ Phases (all by default; any failure raises and the exit code is not 0):
              group, and the device's idle share
   serve_odd  restore_image at 321x481, a shape that fails the fused-head
              gate (K2 + K4)
-  ops        the same image on SNet's per-op route, conv_impl='ops' (K1)
+  ops        the same image on SNet's per-op route, conv_impl='ops' (K1),
+             ms per image
   real       the denoising-real demo weights on a 4x256^2 batch (co=3, L=6)
   fp32       card forward vs the same model on the CPU (plain versions),
              both presets, one shape through K3 and one through K2
@@ -65,7 +66,10 @@ object with the kernels' numbers: times and errors from the syn weights
 in bf16 (K1-K4, K8 on 32-row slabs) or at the training shape in f32
 (K5-K7), and each kernel's
 launches in the one run of the path it serves
-(``launches_path``; every path's count is in ``launches_by_path``).  The
+(``launches_path``; every path's count is in ``launches_by_path``).  K1
+and K4, their plain versions and library calls are timed with L2 flushed
+before each launch (``ms``; the back-to-back time is ``warm_ms``), the
+others back to back; a kernel that reads under its bound fails.  The
 last line is {"ok": true, "device": {...}}.  ``--report PATH`` also
 writes a fuller JSON report.  Needs the repo checkout beside this script,
 a CUDA device and nvcc; imports nothing of JAX.
@@ -176,6 +180,40 @@ def time_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
+_FLUSH: list = []
+
+
+def time_cold_ms(fn, iters: int, warmup: int = 2) -> float:
+    """Median ms of ``iters`` launches of ``fn``, each timed by its own
+    pair of events right after 256 MB were written to the card, so that
+    it finds its inputs in device memory and not in the 50 MB L2."""
+    if not _FLUSH:
+        _FLUSH.append(torch.empty(64 * 2 ** 20, dtype=torch.float32,
+                                  device="cuda"))
+    for _ in range(warmup):
+        fn()
+    pairs = []
+    for _ in range(iters):
+        _FLUSH[0].zero_()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        pairs.append((start, end))
+    torch.cuda.synchronize()
+    return float(np.median([s.elapsed_time(e) for s, e in pairs]))
+
+
+def check_bound(name, what, ms, b_ms):
+    """A reading under the least time the card could take says that the
+    count of bytes or operations, or the timer, is wrong."""
+    if ms < b_ms:
+        raise AssertionError(f"{name}: {what} read {ms:.4f} ms, under its "
+                             f"bound of {b_ms:.4f} ms: the bound's count or "
+                             f"the timer is wrong")
+
+
 def max_err(a, b) -> float:
     return float((a.float() - b.float()).abs().max())
 
@@ -275,17 +313,33 @@ def check_kernels(sd, label, batch, mod, peaks, results):
         def bound(flops, nbytes):
             return bound_ms(flops, nbytes, peak, peaks)
 
-        def entry(name, err, k_fn, p_fn, l_fn, flops, nbytes, iters):
-            ms = time_ms(k_fn, iters)
-            plain_ms = time_ms(p_fn, iters)
-            lib_ms = None if l_fn is None else time_ms(l_fn, iters)
+        def entry(name, err, k_fn, p_fn, l_fn, flops, nbytes, iters,
+                  cold=False):
+            """Times of kernel, plain version and library call; with
+            ``cold`` each launch finds L2 flushed (``ms``), and the
+            back-to-back times are kept as ``warm_ms``."""
+            timer = time_cold_ms if cold else time_ms
+            ms = timer(k_fn, iters)
+            plain_ms = timer(p_fn, iters)
+            lib_ms = None if l_fn is None else timer(l_fn, iters)
             b_ms, b_by = bound(flops, nbytes)
+            row = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                       library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
+                       flops=flops, bytes=nbytes, timing="cold L2" if cold
+                       else "back to back")
+            if cold:
+                row.update(warm_ms=time_ms(k_fn, iters),
+                           library_warm_ms=None if l_fn is None
+                           else time_ms(l_fn, iters))
             log(f"  {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
                 f"library {lib_ms if lib_ms is None else round(lib_ms, 4)}"
-                f" ms, bound {b_ms:.4f} ms ({b_by})")
-            results.setdefault(name, {})[tag] = dict(
-                max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                bound_ms=b_ms, bound_by=b_by, flops=flops, bytes=nbytes)
+                f" ms, bound {b_ms:.4f} ms ({b_by}), {row['timing']}"
+                + (f"; warm: kernel {row['warm_ms']:.4f} ms, library "
+                   f"{row['library_warm_ms']} ms" if cold else ""))
+            check_bound(name, "the kernel", ms, b_ms)
+            if cold and lib_ms is not None:
+                check_bound(name, "the library call", lib_ms, b_ms)
+            results.setdefault(name, {})[tag] = row
 
         # K1 at the ops route's shape (one mid conv of SNet at 321x481)
         xm = mid_in.to(dtype)
@@ -300,8 +354,9 @@ def check_kernels(sd, label, batch, mod, peaks, results):
         entry("conv3x3_mid", err, lambda: fc.conv3x3_mid(xm, w, b, 0.25),
               lambda: fc.conv3x3_mid_plain(xm, w, b, 0.25),
               lambda: F.conv2d(xm_nchw, w_oihw, b, padding=1),
-              2 * 9 * 64 * 64 * npx, 2 * npx * 64 * esz + w.numel() * esz,
-              20)
+              2 * 9 * 64 * 64 * npx,
+              2 * npx * 64 * esz + (w.numel() + b.numel()) * esz, 20,
+              cold=True)
 
         snet_flops = 2 * 9 * (3 * 64 + L * 64 * 64 + 64 * co)
         weights_b = sum(p[k].numel() for k in
@@ -398,7 +453,9 @@ def check_kernels(sd, label, batch, mod, peaks, results):
               lambda: fc.conv3x3_tail_residual(ff, x_flag, wt, bt),
               lambda: fc.conv3x3_tail_residual_plain(ff, x_flag, wt, bt),
               lambda: F.conv2d(ff_nchw, wt_oihw, bt, padding=1) + x_nchw,
-              2 * 9 * 96 * 3 * npx, npx * (96 * esz + 3 * 4 + 3 * 4), 10)
+              2 * 9 * 96 * 3 * npx,
+              npx * (96 * esz + 3 * 4 + 3 * 4) + (wt.numel() + 3) * esz, 10,
+              cold=True)
 
 
 
@@ -505,6 +562,7 @@ def phase_blur_kernels(report, peaks):
             b_ms, b_by = bound_ms(*work[name], peaks["fp32"], peaks)
             log(f"  {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
                 f"library {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+            check_bound(f"{name} {tag}", "the kernel", ms, b_ms)
             results.setdefault(name, {})[tag] = dict(
                 max_abs_err=errs[name], ms=ms, plain_ms=plain_ms,
                 library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
@@ -538,7 +596,7 @@ def phase_blur_kernels(report, peaks):
 # kernel-name keys of each group, the first match wins
 GROUPS = (("K3/K2 dncnn_fused.cu", ("dncnn_kernel",)),
           ("K4 tail_residual.cu", ("tail_kernel",)),
-          ("K1 conv3x3_mid.cu", ("conv3x3_mid_kernel",)),
+          ("K1 conv3x3_mid.cu", ("conv3x3_mid_",)),
           ("library convolutions", ("conv", "cudnn", "xmma", "gemm",
                                     "cutlass", "implicit")))
 TRAIN_GROUPS = (
@@ -1139,6 +1197,14 @@ def main(argv=None) -> int:
             "ops", lambda: syn_ops.restore_image(odd),
             ("conv3x3_mid", "conv3x3_tail_residual"))
         check_image("ops", out_ops, (321, 481, 3))
+        t0 = time.perf_counter()
+        for _ in range(5):
+            syn_ops.restore_image(odd)
+        torch.cuda.synchronize()
+        report["ops"] = dict(ms_per_image=(time.perf_counter() - t0) / 5
+                             * 1e3)
+        log(f"  {report['ops']['ms_per_image']:.2f} ms per image (host "
+            f"clock, copies to and from the card included)")
         d = float(np.abs(out_ops - syn.restore_image(odd)).max())
         log(f"  max diff vs the fused route {d:.3g} (bound 4/255)")
         if d > 4 / 255:
@@ -1244,7 +1310,8 @@ def main(argv=None) -> int:
                               for p, c in launches.items()},
             max_abs_err=m.get("max_abs_err"), ms=m.get("ms"),
             plain_ms=m.get("plain_ms"), bound_ms=m.get("bound_ms"),
-            bound_by=m.get("bound_by"), library_ms=m.get("library_ms")))
+            bound_by=m.get("bound_by"), library_ms=m.get("library_ms"),
+            timing=m.get("timing"), warm_ms=m.get("warm_ms")))
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

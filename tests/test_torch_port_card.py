@@ -224,3 +224,120 @@ def test_blur_kernels_raise_on_what_they_do_not_take():
                         torch.rand(1, 27, 27, device="cuda"))
     with pytest.raises(ValueError):
         blur.blur_valid(xp.cpu(), kern)
+
+
+_DTYPES = pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                                  ids=["fp32", "bf16"])
+
+
+@_DTYPES
+@pytest.mark.parametrize("shape,slope", [
+    ((2, 17, 15), 0.25),    # bf16 tile (16x16) + 1 / - 1
+    ((2, 15, 17), None),
+    ((3, 9, 7), 0.25),      # f32 tile (8x8) + 1 / - 1
+    ((2, 7, 9), 0.25),
+    ((2, 33, 47), 0.25),    # several tiles, ragged both ways
+    ((1, 1, 3), None),      # smaller than any tile
+], ids=["17x15", "15x17", "9x7", "7x9", "33x47", "1x3"])
+def test_mid_conv_tiling_matches_plain_on_card(shape, slope, dtype):
+    """K1 against its plain version on the card around the tile sizes of
+    both dtypes, N > 1, with and without LeakyReLU; one launch per call."""
+    _need_card()
+    from virnet_tpu_torch.precision import set_parity_mode
+
+    set_parity_mode()
+    rng = np.random.default_rng(13)
+    x = _t(_rand(rng, (*shape, 64))).to("cuda", dtype)
+    w = _t(_rand(rng, (3, 3, 64, 64), 0.04)).to("cuda", dtype)
+    b = _t(_rand(rng, (64,), 0.05)).to("cuda", dtype)
+    fc.reset_launches()
+    got = fc.conv3x3_mid(x, w, b, slope)
+    torch.cuda.synchronize()
+    assert fc.LAUNCHES["conv3x3_mid"] == 1
+    _close(got, fc.conv3x3_mid_plain(x, w, b, slope), dtype)
+
+
+@_DTYPES
+@pytest.mark.parametrize("n,hp,wp,h,w,c", [
+    (2, 17, 17, 17, 17, 96),    # tile (16x16) + 1, no padding
+    (2, 15, 15, 15, 15, 96),    # tile - 1
+    (2, 12, 20, 9, 15, 96),     # padded: h < Hp, w < Wp
+    (3, 17, 33, 17, 31, 20),    # C no multiple of 16, padded width
+    (1, 5, 40, 5, 37, 44),      # C * 2 B no multiple of 16 (8-byte copies)
+    (1, 16, 16, 16, 16, 4),     # one whole tile, the narrowest C
+    (2, 18, 18, 17, 17, 256),   # the widest C
+    (1, 33, 9, 31, 9, 8),       # several tiles down, one across
+], ids=["17x17", "15x15", "padded", "c20", "c44", "c4", "c256", "33x9"])
+def test_tail_tiling_matches_plain_on_card(n, hp, wp, h, w, c, dtype):
+    """K4 against its plain version on the card: tile sizes +- 1, the
+    padded case, widths C that do not fill a 16-channel block; one launch
+    per call."""
+    _need_card()
+    from virnet_tpu_torch.precision import set_parity_mode
+
+    set_parity_mode()
+    rng = np.random.default_rng(14)
+    feats = _t(_rand(rng, (n, hp, wp, c))).to("cuda", dtype)
+    x_in = _t(rng.random((n, h, w, 3), dtype=np.float32)).cuda()
+    wt = _t(_rand(rng, (3, 3, c, 3), 0.05)).to("cuda", dtype)
+    bt = _t(_rand(rng, (3,), 0.1)).to("cuda", dtype)
+    fc.reset_launches()
+    got = fc.conv3x3_tail_residual(feats, x_in, wt, bt)
+    torch.cuda.synchronize()
+    assert fc.LAUNCHES["conv3x3_tail_residual"] == 1
+    _close(got, fc.conv3x3_tail_residual_plain(feats, x_in, wt, bt), dtype)
+
+
+def _offset(t):
+    """A contiguous copy of ``t`` whose data starts one element past a
+    16-byte boundary."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+def test_mid_and_tail_raise_on_what_they_do_not_take():
+    _need_card()
+    x = torch.rand(1, 8, 8, 64, device="cuda")
+    w = torch.rand(3, 3, 64, 64, device="cuda")
+    b = torch.rand(64, device="cuda")
+    with pytest.raises(ValueError, match="64 channels"):
+        fc.conv3x3_mid(x[..., :32].contiguous(), w, b)
+    with pytest.raises(TypeError):
+        fc.conv3x3_mid(x.double(), w.double(), b.double())
+    with pytest.raises(TypeError):
+        fc.conv3x3_mid(x, w.bfloat16(), b)
+    with pytest.raises(ValueError, match="contiguous"):
+        fc.conv3x3_mid(x.permute(0, 2, 1, 3), w, b)
+    with pytest.raises(ValueError, match="aligned"):
+        fc.conv3x3_mid(_offset(x), w, b)
+    with pytest.raises(ValueError, match="aligned"):
+        fc.conv3x3_mid(x, _offset(w), b)
+    with pytest.raises(ValueError):
+        fc.conv3x3_mid(x, w.cpu(), b)
+    with pytest.raises(RuntimeError, match="forward-only"):
+        fc.conv3x3_mid(x, w.requires_grad_(), b)
+
+    feats = torch.rand(1, 8, 16, 96, device="cuda")
+    x_in = torch.rand(1, 8, 16, 3, device="cuda")
+    wt = torch.rand(3, 3, 96, 3, device="cuda")
+    bt = torch.rand(3, device="cuda")
+    for c in (6, 260):
+        with pytest.raises(ValueError, match="do not fit"):
+            fc.conv3x3_tail_residual(
+                torch.rand(1, 8, 16, c, device="cuda"), x_in,
+                torch.rand(3, 3, c, 3, device="cuda"), bt)
+    with pytest.raises(ValueError, match="do not fit"):
+        fc.conv3x3_tail_residual(feats, torch.rand(1, 9, 16, 3,
+                                                   device="cuda"), wt, bt)
+    with pytest.raises(TypeError):
+        fc.conv3x3_tail_residual(feats, x_in.bfloat16(), wt, bt)
+    with pytest.raises(ValueError, match="aligned"):
+        fc.conv3x3_tail_residual(_offset(feats), x_in, wt, bt)
+    # x_in is read 4 bytes at a time: an offset one is taken
+    torch.testing.assert_close(
+        fc.conv3x3_tail_residual(feats, _offset(x_in), wt, bt),
+        fc.conv3x3_tail_residual(feats, x_in, wt, bt), atol=0, rtol=0)
+    with pytest.raises(RuntimeError, match="forward-only"):
+        fc.conv3x3_tail_residual(feats.requires_grad_(), x_in, wt, bt)

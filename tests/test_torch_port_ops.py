@@ -173,3 +173,20 @@ def test_wrappers_refuse_other_devices():
         fc.conv3x3_mid(x, w, b)
     with pytest.raises(ValueError):
         fc.conv3x3_mid(x, torch.zeros((3, 3, 64, 64)), torch.zeros(64))
+
+
+@pytest.mark.parametrize("dtype,offset,ok", [
+    (torch.float32, 0, True), (torch.float32, 1, False),
+    (torch.bfloat16, 8, True), (torch.bfloat16, 4, False),
+], ids=["f32-aligned", "f32-offset", "bf16-aligned", "bf16-offset"])
+def test_alignment_check_of_the_16_byte_kernels(dtype, offset, ok):
+    """K1 and K4 copy and store 16 bytes at a time; their wrappers hold
+    every such pointer to a 16-byte boundary before a launch (the check
+    itself looks only at the address, so it runs here on CPU tensors)."""
+    buf = torch.zeros(64 + offset, dtype=dtype)
+    view = buf[offset:offset + 64]
+    if ok:
+        fc._aligned(x=view)
+    else:
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            fc._aligned(x=view)

@@ -128,6 +128,17 @@ def _ret(err: int, symbol: str) -> None:
         raise RuntimeError(f"{symbol} failed: cudaError {err}")
 
 
+def _aligned(**ts) -> None:
+    """Raise unless every tensor's data starts on a 16-byte boundary: the
+    kernel copies it to shared memory by 16-byte asynchronous copies or
+    writes it by 16-byte stores, which fault on a misaligned address."""
+    for name, t in ts.items():
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: data must start 16-byte aligned (the "
+                             f"kernel moves 16 bytes at a time); pass a "
+                             f"fresh contiguous tensor, not an offset view")
+
+
 def _stream(x: torch.Tensor):
     return torch.cuda.current_stream(x.device).cuda_stream
 
@@ -221,7 +232,8 @@ def conv3x3_tail_residual_plain(feats, x_in, w, b):
 
 def conv3x3_mid(x, w, b, slope=None) -> torch.Tensor:
     """K1: x (N, H, W, 64), w HWIO (3, 3, 64, 64), b (64,) -> (N, H, W,
-    64), all in x's dtype."""
+    64), all in x's dtype.  On the card x and w must be contiguous and
+    start 16-byte aligned; any N, H, W >= 1."""
     _forward_only("conv3x3_mid", x, w, b)
     if _on_cpu(x, w, b):
         return conv3x3_mid_plain(x, w, b, slope)
@@ -233,6 +245,7 @@ def conv3x3_mid(x, w, b, slope=None) -> torch.Tensor:
     _check(w, "w", x.dtype, (3, 3, 64, 64))
     _check(b, "b", x.dtype, (64,))
     y = torch.empty_like(x)
+    _aligned(x=x, w=w, y=y)
     _ret(_fn("vt_conv3x3_mid")(
         x.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(), n, h, wd,
         code, float(slope or 0.0), int(slope is not None), _stream(x)),
@@ -369,14 +382,16 @@ def dncnn_head_slabzero(x, w1, b1, wms, bms, wl, bl, wh, bh, rows=32,
 def conv3x3_tail_residual(feats, x_in, w, b) -> torch.Tensor:
     """K4: conv3x3(feats, w) + b, rounded to feats' dtype, then + x_in in
     f32.  feats (N, Hp, Wp, C) at the padded size, x_in (N, h, w, 3) f32
-    with h <= Hp, w <= Wp -> (N, h, w, 3) f32."""
+    with h <= Hp, w <= Wp -> (N, h, w, 3) f32.  On the card C is a
+    multiple of 4 up to 256 (any odd width), and feats must start 16-byte
+    aligned."""
     _forward_only("conv3x3_tail_residual", feats, x_in, w, b)
     if _on_cpu(feats, x_in, w, b):
         return conv3x3_tail_residual_plain(feats, x_in, w, b)
     n, hp, wp, c = feats.shape
     h, w_img = x_in.shape[1], x_in.shape[2]
     code = _dtype_code(feats)
-    if c % 4 or c > 256 or h > hp or w_img > wp:
+    if c < 4 or c % 4 or c > 256 or h > hp or w_img > wp:
         raise ValueError(f"tail: features {tuple(feats.shape)} and x_in "
                          f"{tuple(x_in.shape)} do not fit the kernel")
     _check(feats, "feats", feats.dtype, (n, hp, wp, c))
@@ -384,6 +399,7 @@ def conv3x3_tail_residual(feats, x_in, w, b) -> torch.Tensor:
     _check(w, "w", feats.dtype, (3, 3, c, 3))
     _check(b, "b", feats.dtype, (3,))
     out = torch.empty_like(x_in)
+    _aligned(feats=feats, out=out)
     _ret(_fn("vt_tail_residual")(
         feats.data_ptr(), x_in.data_ptr(), w.data_ptr(), b.data_ptr(),
         out.data_ptr(), n, hp, wp, h, w_img, c, code, _stream(feats)),
