@@ -66,10 +66,12 @@ object with the kernels' numbers: times and errors from the syn weights
 in bf16 (K1-K4, K8 on 32-row slabs) or at the training shape in f32
 (K5-K7), and each kernel's
 launches in the one run of the path it serves
-(``launches_path``; every path's count is in ``launches_by_path``).  K1
-and K4, their plain versions and library calls are timed with L2 flushed
-before each launch (``ms``; the back-to-back time is ``warm_ms``), the
-others back to back; a kernel that reads under its bound fails.  The
+(``launches_path``; every path's count is in ``launches_by_path``).  K1-K4
+and K8, their plain versions and library calls are timed with L2 flushed
+before each launch (``ms``; the back-to-back time is ``warm_ms``), K5-K7
+back to back; a kernel that reads under its bound fails.  K2's and K3's
+``library_ms`` is a library route of several calls (cuDNN and PyTorch,
+``library`` names how many), as no one call computes their function.  The
 last line is {"ok": true, "device": {...}}.  ``--report PATH`` also
 writes a fuller JSON report.  Needs the repo checkout beside this script,
 a CUDA device and nvcc; imports nothing of JAX.
@@ -117,7 +119,7 @@ KERNELS = {
         path="serve_odd", source="virnet_tpu_torch/csrc/dncnn_fused.cu",
         replaces="virnet_tpu/ops/pallas_conv.py:474 (dncnn_pair_fused)"),
     "dncnn_head_fused": dict(
-        path="serve", source="virnet_tpu_torch/csrc/dncnn_fused.cu",
+        path="serve", source="virnet_tpu_torch/csrc/dncnn_head.cu",
         replaces="virnet_tpu/ops/pallas_conv.py:1289 (dncnn_head_fused "
                  "halo :1512, carry :1459)"),
     "conv3x3_tail_residual": dict(
@@ -309,15 +311,18 @@ def check_kernels(sd, label, batch, mod, peaks, results):
         peak = peaks["bf16"] if dtype == torch.bfloat16 else peaks["fp32"]
         L, co, cf = p["wms"].shape[0], p["wl"].shape[3], p["wh"].shape[3]
         log(f"[kernels {tag}] L={L} co={co} cf={cf}, batch {batch}x256^2")
+        kw = dict(lmin=math.log(1e-10), lmax=math.log(1e2))
 
         def bound(flops, nbytes):
             return bound_ms(flops, nbytes, peak, peaks)
 
         def entry(name, err, k_fn, p_fn, l_fn, flops, nbytes, iters,
-                  cold=False):
-            """Times of kernel, plain version and library call; with
-            ``cold`` each launch finds L2 flushed (``ms``), and the
-            back-to-back times are kept as ``warm_ms``."""
+                  cold=False, library="one call"):
+            """Times of kernel, plain version and library call (or, where
+            no one call computes the function, the library route named by
+            ``library``); with ``cold`` each launch finds L2 flushed
+            (``ms``), and the back-to-back times are kept as
+            ``warm_ms``."""
             timer = time_cold_ms if cold else time_ms
             ms = timer(k_fn, iters)
             plain_ms = timer(p_fn, iters)
@@ -326,7 +331,8 @@ def check_kernels(sd, label, batch, mod, peaks, results):
             row = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                        library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
                        flops=flops, bytes=nbytes, timing="cold L2" if cold
-                       else "back to back")
+                       else "back to back",
+                       library=None if l_fn is None else library)
             if cold:
                 row.update(warm_ms=time_ms(k_fn, iters),
                            library_warm_ms=None if l_fn is None
@@ -369,14 +375,15 @@ def check_kernels(sd, label, batch, mod, peaks, results):
         err = check_close("dncnn_fused logits", got,
                           fc.dncnn_fused_plain(*args2), dtype)
         npx = 321 * 481
+        lib_snet, lib_head, lib_calls = library_route(p, L, kw)
         entry("dncnn_fused", err, lambda: fc.dncnn_fused(*args2),
-              lambda: fc.dncnn_fused_plain(*args2), None,
-              snet_flops * npx, npx * (3 + co) * esz + weights_b, 5)
+              lambda: fc.dncnn_fused_plain(*args2), lambda: lib_snet(xo),
+              snet_flops * npx, npx * (3 + co) * esz + weights_b, 5,
+              cold=True, library=f"library route, {lib_calls[0]} calls")
 
         # K3 at the gated batch
         xf = x_flag.to(dtype)
         args3 = args2[1:]
-        kw = dict(lmin=math.log(1e-10), lmax=math.log(1e2))
         head, sig = fc.dncnn_head_fused(xf, *args3, p["wh"], p["bh"], **kw)
         torch.cuda.synchronize()
         head_ref, sig_ref = fc.dncnn_head_fused_plain(xf, *args3, p["wh"],
@@ -388,15 +395,18 @@ def check_kernels(sd, label, batch, mod, peaks, results):
         entry("dncnn_head_fused", err,
               lambda: fc.dncnn_head_fused(xf, *args3, p["wh"], p["bh"], **kw),
               lambda: fc.dncnn_head_fused_plain(xf, *args3, p["wh"], p["bh"],
-                                                **kw), None,
+                                                **kw), lambda: lib_head(xf),
               (snet_flops + 2 * 9 * (3 + co) * cf) * npx,
               npx * (3 + co + cf) * esz + weights_b
-              + (p["wh"].numel() + cf) * esz, 3)
+              + (p["wh"].numel() + cf) * esz, 5, cold=True,
+              library=f"library route, {lib_calls[1]} calls")
 
         # K8 at the gated batch: 16- and 32-row slabs against the plain
         # version, to K3's tolerances; the rows farther than L+3 from every
-        # slab edge also against K3's output one row up (what the probe
-        # claims to time is K3's arithmetic); K3's operations and bytes
+        # slab edge also against K3's output one row up, at the same bound
+        # (K8 computes K3's function; in bf16 the two kernels are other
+        # device code and sum in other orders, so the gap is printed);
+        # K3's operations and bytes
         args8 = (xf, *args3, p["wh"], p["bh"])
         for rows in (16, 32):
             h8, s8 = fc.dncnn_head_slabzero(*args8, rows=rows, **kw)
@@ -422,15 +432,21 @@ def check_kernels(sd, label, batch, mod, peaks, results):
               lambda: fc.dncnn_head_slabzero_plain(*args8, rows=32, **kw),
               None, (snet_flops + 2 * 9 * (3 + co) * cf) * npx,
               npx * (3 + co + cf) * esz + weights_b
-              + (p["wh"].numel() + cf) * esz, 3)
-        by_rows = {r: time_ms(lambda: fc.dncnn_head_slabzero(
+              + (p["wh"].numel() + cf) * esz, 3, cold=True)
+        # K3 - K8 was K3's halo cost while the two ran one device code; K3
+        # in bf16 now runs dncnn_head.cu and K8 still dncnn_fused.cu, so in
+        # bf16 the difference is no longer the halo's cost
+        by_rows = {r: time_cold_ms(lambda: fc.dncnn_head_slabzero(
             *args8, rows=r, **kw), 3) for r in (8, 16, 32)}
         k3_ms = results["dncnn_head_fused"][tag]["ms"]
+        what = ("K3 - K8, other device code"
+                if dtype == torch.bfloat16 else "K3 - K8, the halo's cost")
         results["dncnn_head_slabzero"][tag].update(
             ms_by_rows=by_rows, k3_minus_k8_ms={
-                r: k3_ms - ms for r, ms in by_rows.items()})
-        log("  dncnn_head_slabzero by slab rows: " + ", ".join(
-            f"r{r} {ms:.4f} ms (K3 - K8 {k3_ms - ms:+.4f})"
+                r: k3_ms - ms for r, ms in by_rows.items()},
+            k3_minus_k8_means=what)
+        log("  dncnn_head_slabzero by slab rows, cold: " + ", ".join(
+            f"r{r} {ms:.4f} ms ({what} {k3_ms - ms:+.4f})"
             for r, ms in by_rows.items()))
 
         # K4: the gated batch (pad-free) and the padded 321x481 case
@@ -457,6 +473,39 @@ def check_kernels(sd, label, batch, mod, peaks, results):
               npx * (96 * esz + 3 * 4 + 3 * 4) + (wt.numel() + 3) * esz, 10,
               cold=True)
 
+
+
+def library_route(p, L, kw, slope=0.25):
+    """The SNet (K2's function) and the SNet + sigma epilogue + head (K3's)
+    through cuDNN and PyTorch in the activation dtype, NCHW-shaped and
+    channels_last in memory as the conv_impl='torch' route runs them:
+    yardsticks timed here and used nowhere in the port.  Returns the two
+    functions of NHWC x and how many PyTorch calls each makes."""
+    import torch.nn.functional as F
+
+    def oihw(w):
+        return w.permute(3, 2, 0, 1).contiguous(
+            memory_format=torch.channels_last)
+
+    w1, wl, wh = oihw(p["w1"]), oihw(p["wl"]), oihw(p["wh"])
+    wms = [oihw(w) for w in p["wms"]]
+
+    def snet(x):
+        y = F.leaky_relu(F.conv2d(x.permute(0, 3, 1, 2), w1, p["b1"],
+                                  padding=1), slope)
+        for w, b in zip(wms, p["bms"]):
+            y = F.leaky_relu(F.conv2d(y, w, b, padding=1), slope)
+        return F.conv2d(y, wl, p["bl"], padding=1)
+
+    def head(x):
+        logits = snet(x)
+        sig = torch.exp(torch.clamp(logits.float(), kw["lmin"],
+                                    kw["lmax"])).to(x.dtype)
+        ext = torch.cat([x.permute(0, 3, 1, 2), torch.sqrt(sig)], 1)
+        return F.conv2d(ext, wh, p["bh"], padding=1), sig
+
+    snet_calls = 2 * (L + 1) + 1
+    return snet, head, (snet_calls, snet_calls + 7)
 
 
 def bound_ms(flops, nbytes, peak_flops, peaks):
@@ -594,7 +643,8 @@ def phase_blur_kernels(report, peaks):
 
 
 # kernel-name keys of each group, the first match wins
-GROUPS = (("K3/K2 dncnn_fused.cu", ("dncnn_kernel",)),
+GROUPS = (("K3 dncnn_head.cu", ("dncnn_head_",)),
+          ("K2/K8/K3-fp32 dncnn_fused.cu", ("dncnn_kernel",)),
           ("K4 tail_residual.cu", ("tail_kernel",)),
           ("K1 conv3x3_mid.cu", ("conv3x3_mid_",)),
           ("library convolutions", ("conv", "cudnn", "xmma", "gemm",
@@ -1311,7 +1361,8 @@ def main(argv=None) -> int:
             max_abs_err=m.get("max_abs_err"), ms=m.get("ms"),
             plain_ms=m.get("plain_ms"), bound_ms=m.get("bound_ms"),
             bound_by=m.get("bound_by"), library_ms=m.get("library_ms"),
-            timing=m.get("timing"), warm_ms=m.get("warm_ms")))
+            timing=m.get("timing"), warm_ms=m.get("warm_ms"),
+            library=m.get("library")))
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

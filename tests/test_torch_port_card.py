@@ -341,3 +341,55 @@ def test_mid_and_tail_raise_on_what_they_do_not_take():
         fc.conv3x3_tail_residual(feats, x_in, wt, bt), atol=0, rtol=0)
     with pytest.raises(RuntimeError, match="forward-only"):
         fc.conv3x3_tail_residual(feats.requires_grad_(), x_in, wt, bt)
+
+
+# the output tile of csrc/dncnn_head.cu (K3 in bf16); its mid levels run
+# in rectangles of at most 32 columns and 256 pixels
+K3_TILE = 24
+
+
+def _head_args(rng, L, co, cf, dtype=torch.bfloat16):
+    p = _snet(rng, L, co, cf)
+    g = {k: (torch.stack([_t(w) for w in v]) if isinstance(v, list)
+             else _t(v)).to("cuda", dtype) for k, v in p.items()}
+    return [g[k] for k in ("w1", "b1", "wms", "bms", "wl", "bl", "wh", "bh")]
+
+
+@pytest.mark.parametrize("cf", [16, 96, 256])
+@pytest.mark.parametrize("L,co", [(1, 1), (3, 1), (6, 3)],
+                         ids=["L1", "syn", "real"])
+def test_head_kernel_bf16_matches_plain_on_card(L, co, cf):
+    """K3 in bf16 (csrc/dncnn_head.cu) against its plain version on the
+    card: one pixel, the tile size -1 / +1, two whole tiles across, and an
+    odd size; exactly one launch per call."""
+    _need_card()
+    rng = np.random.default_rng(16)
+    args = _head_args(rng, L, co, cf)
+    t = K3_TILE
+    for shape in ((1, 1, 1, 3), (1, t - 1, t + 1, 3), (2, t, 2 * t, 3),
+                  (1, 37, 45, 3)):
+        x = _t(rng.random(shape, dtype=np.float32)).to("cuda", torch.bfloat16)
+        fc.reset_launches()
+        head, sig = fc.dncnn_head_fused(x, *args)
+        torch.cuda.synchronize()
+        assert fc.LAUNCHES["dncnn_head_fused"] == 1, shape
+        assert sum(fc.LAUNCHES.values()) == 1, shape
+        assert head.shape == (*shape[:3], cf) and sig.shape == (*shape[:3], co)
+        h_ref, s_ref = fc.dncnn_head_fused_plain(x, *args)
+        _close(head, h_ref, torch.bfloat16)
+        _close(sig, s_ref, torch.bfloat16, sigma=True)
+
+
+def test_head_kernel_bf16_raises_on_what_it_does_not_take():
+    _need_card()
+    rng = np.random.default_rng(17)
+    args = _head_args(rng, 3, 1, 96)
+    x = torch.rand(1, 30, 30, 3, device="cuda").bfloat16()
+    with pytest.raises(ValueError, match="aligned"):
+        fc.dncnn_head_fused(_offset(x), *args)
+    wh24 = torch.rand(3, 3, 4, 24, device="cuda").bfloat16()
+    with pytest.raises(ValueError, match="multiple of 16"):
+        fc.dncnn_head_fused(x, *args[:6], wh24, args[7][:24].contiguous())
+    a4 = _head_args(rng, 3, 4, 96)
+    with pytest.raises(ValueError, match="1-3 outputs"):
+        fc.dncnn_head_fused(x, *a4)

@@ -547,3 +547,18 @@ def test_logging_grid_writer_and_lazy_exports(tmp_path):
                  "SISRTrainer"):
         assert getattr(pkg, name) is not None
     assert not _build._LIBS
+
+
+def test_cli_messages_name_roadmap_items_by_title():
+    """ROADMAP.md's queues are renumbered when they are re-anchored, so a
+    message that cites an item by number goes stale: the trainers' refusals
+    name the module and the queue item's title instead."""
+    import re
+
+    from virnet_tpu_torch.cli import common
+
+    for msg in [*common.UNPORTED.values(), common.VALIDATION]:
+        assert not re.search(r"\bitems?\s+\d", msg), msg
+        assert "ROADMAP.md" in msg and ".py" in msg, msg
+    with pytest.raises(NotImplementedError, match="multi-device and runtime"):
+        common.refuse_unported({"auto_resume": True})

@@ -190,3 +190,57 @@ def test_alignment_check_of_the_16_byte_kernels(dtype, offset, ok):
     else:
         with pytest.raises(ValueError, match="16-byte aligned"):
             fc._aligned(x=view)
+
+
+def _bf16_close(got, want, log=False):
+    """Both sides round every conv once to bf16 with f32 sums taken in
+    other orders, so a 1-ulp flip at one level can carry through the later
+    ones: 4 bf16 ulps (2^-6) of the tensor's scale (of log sigma for
+    sigma), the card's bar, where a wrong tap moves outputs by a large part
+    of their scale."""
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    if log:
+        got, want = np.log(got), np.log(want)
+    tol = 2 ** -6 * max(1.0, float(np.abs(want).max()))
+    np.testing.assert_allclose(got, want, atol=tol, rtol=0)
+
+
+@pytest.mark.parametrize("shape,L,co", [((2, 16, 16, 3), 3, 1),
+                                        ((1, 16, 24, 3), 6, 3)],
+                         ids=["syn", "real"])
+def test_dncnn_head_fused_bf16_matches_pallas(shape, L, co):
+    """The bf16 plain version, the yardstick the bf16 kernel is held to on
+    the card, against the Pallas kernel in bf16 (interpret mode)."""
+    rng = np.random.default_rng(15)
+    x = rng.random(shape, dtype=np.float32)
+    p = _snet(rng, L, co, cf=16)
+    keys = ("w1", "b1", "wms", "bms", "wl", "bl", "wh", "bh")
+
+    def jb(a):
+        return jnp.asarray(a, jnp.bfloat16)
+
+    h_want, s_want = pc.dncnn_head_fused(
+        jb(x), *_args(p, keys, jb), slope=0.25, lmin=LMIN, lmax=LMAX,
+        interpret=True)
+    assert h_want.dtype == jnp.bfloat16
+
+    def tb(a):
+        return _t(a).bfloat16()
+
+    h_got, s_got = fc.dncnn_head_fused(tb(x), *_args(p, keys, tb),
+                                       lmin=LMIN, lmax=LMAX)
+    assert h_got.dtype == s_got.dtype == torch.bfloat16
+    _bf16_close(s_got.float().numpy(), np.asarray(s_want, np.float32),
+                log=True)
+    _bf16_close(h_got.float().numpy(), np.asarray(h_want, np.float32))
+
+
+def test_every_kernel_library_is_built():
+    """Each library a C entry is looked up in is one that the build
+    compiles, from its own source under csrc/."""
+    from virnet_tpu_torch.ops import _build
+
+    libs = {lib for lib, _ in fc._SIGNATURES.values()}
+    assert libs <= set(_build.SOURCES)
+    for name in _build.SOURCES:
+        assert (_build.CSRC / f"{name}.cu").is_file(), name

@@ -9,9 +9,11 @@ from typing import Dict
 from ..config import as_bool, load_config, update_args
 
 # config keys of the JAX trainers whose modules are not ported yet, with
-# where ROADMAP.md queues them
-_INPUT = "ROADMAP Queue 1 item 5, the input pipeline"
-_RUNTIME = "ROADMAP Queue 1 item 8, multi-device and runtime"
+# where ROADMAP.md queues them: by the item's title, never its number,
+# which changes when the queue is renumbered
+_QUEUE = "in ROADMAP.md's Queue 1, modules still to port"
+_INPUT = f"the input pipeline, {_QUEUE}"
+_RUNTIME = f"multi-device and runtime, {_QUEUE}"
 UNPORTED = {
     "device_data": f"data/device_data.py ({_INPUT})",
     "train_pack_file": f"data/packdb.py ({_INPUT})",
@@ -23,7 +25,8 @@ UNPORTED = {
     "process_id": f"train/mesh.py ({_RUNTIME})",
 }
 VALIDATION = ("per-epoch validation needs data/eval_sets.py and "
-              "eval/metrics.py (ROADMAP Queue 1 items 3 and 7)")
+              "eval/metrics.py (metrics, eval sets and trainer validation, "
+              f"{_QUEUE})")
 
 
 def trainer_argparser(default_config: str,

@@ -488,16 +488,16 @@ bool widths_ok(int CO, int CF, bool head) {
 }  // namespace
 
 // Persistent grid for (dtype, head) at this image size: the wrapper sizes
-// the block-private scratch from it, grid * scratch_elems(L, head).
+// the block-private scratch from it, grid * scratch_elems(L, head).  K3 in
+// bf16 is dncnn_head.cu's, so (bf16, head) is refused.
 extern "C" int vt_dncnn_grid(int dtype, int head, int N, int H, int W,
                              int* grid) {
   const int nt = n_tiles(N, H, W);
   if (dtype == VT_F32)
     return head ? grid_size<float, K3_HEAD>(nt, grid)
                 : grid_size<float, K2_SNET>(nt, grid);
-  if (dtype == VT_BF16)
-    return head ? grid_size<__nv_bfloat16, K3_HEAD>(nt, grid)
-                : grid_size<__nv_bfloat16, K2_SNET>(nt, grid);
+  if (dtype == VT_BF16 && !head)
+    return grid_size<__nv_bfloat16, K2_SNET>(nt, grid);
   return cudaErrorInvalidValue;
 }
 
@@ -525,9 +525,8 @@ extern "C" int vt_dncnn_fused(const void* x, const void* w1, const void* b1,
   if (dtype == VT_F32)
     return head ? launch<float, K3_HEAD>(a, grid, s)
                 : launch<float, K2_SNET>(a, grid, s);
-  if (dtype == VT_BF16)
-    return head ? launch<__nv_bfloat16, K3_HEAD>(a, grid, s)
-                : launch<__nv_bfloat16, K2_SNET>(a, grid, s);
+  if (dtype == VT_BF16 && !head)  // K3 bf16: dncnn_head.cu
+    return launch<__nv_bfloat16, K2_SNET>(a, grid, s);
   return cudaErrorInvalidValue;
 }
 

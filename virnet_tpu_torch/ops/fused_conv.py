@@ -4,7 +4,9 @@ version (counterpart of virnet_tpu/ops/pallas_conv.py).
   K1 ``conv3x3_mid``           <- pallas_conv.conv3x3_mid_pair,
                                   conv3x3_mid_stack_pair (as L launches)
   K2 ``dncnn_fused``           <- pallas_conv.dncnn_pair_fused
-  K3 ``dncnn_head_fused``      <- pallas_conv.dncnn_head_fused (halo, carry)
+  K3 ``dncnn_head_fused``      <- pallas_conv.dncnn_head_fused (halo, carry);
+                                  bf16 in csrc/dncnn_head.cu, fp32 in
+                                  csrc/dncnn_fused.cu
   K4 ``conv3x3_tail_residual`` <- pallas_conv.conv3x3_tail_residual
   K8 ``dncnn_head_slabzero``   <- pallas_conv.dncnn_head_fused (slabzero),
                                   a speed probe that no product path routes
@@ -56,6 +58,11 @@ _SIGNATURES = {
     "vt_dncnn_slab_scratch_elems": ("dncnn_fused", [_I, _I, _I]),
     "vt_dncnn_head_slabzero": ("dncnn_fused",
                                [_P] * 12 + [_I] * 9 + [_F, _F, _F, _P]),
+    "vt_dncnn_head_grid": ("dncnn_head", [_I, _I, _I, _I,
+                                          ctypes.POINTER(_I)]),
+    "vt_dncnn_head_scratch_elems": ("dncnn_head", [_I]),
+    "vt_dncnn_head": ("dncnn_head",
+                      [_P] * 12 + [_I] * 8 + [_F, _F, _F, _P]),
     "vt_tail_residual": ("tail_residual", [_P] * 5 + [_I] * 7 + [_P]),
     "vt_blur_valid": ("blur", [_P] * 3 + [_I] * 5 + [_P]),
     "vt_blur_dx": ("blur", [_P] * 3 + [_I] * 5 + [_P]),
@@ -265,7 +272,8 @@ def conv3x3_mid_stack(x, wms, bms, slope=None) -> torch.Tensor:
 def _dncnn_launch(head: bool, x, w1, b1, wms, bms, wl, bl, wh, bh, slope,
                   lmin, lmax, rows=None):
     """Check, size the block-private scratch from the persistent grid and
-    launch K2 (``head`` False), K3, or with ``rows`` K8."""
+    launch K2 (``head`` False), K3, or with ``rows`` K8.  K3 in bf16 is
+    csrc/dncnn_head.cu's kernel; everything else is csrc/dncnn_fused.cu's."""
     n, h, wd, ci = x.shape
     dt = x.dtype
     code = _dtype_code(x)
@@ -293,7 +301,13 @@ def _dncnn_launch(head: bool, x, w1, b1, wms, bms, wl, bl, wh, bh, slope,
         _check(wh, "wh", dt, (3, 3, 3 + co, cf))
         _check(bh, "bh", dt, (cf,))
     grid = ctypes.c_int(0)
-    if rows is None:
+    new_k3 = head and rows is None and dt == torch.bfloat16
+    if new_k3:
+        _aligned(x=x, wms=wm)
+        _ret(_fn("vt_dncnn_head_grid")(code, n, h, wd, ctypes.byref(grid)),
+             "vt_dncnn_head_grid")
+        per_block = _fn("vt_dncnn_head_scratch_elems")(L)
+    elif rows is None:
         _ret(_fn("vt_dncnn_grid")(code, int(head), n, h, wd,
                                   ctypes.byref(grid)), "vt_dncnn_grid")
         per_block = _fn("vt_dncnn_scratch_elems")(L, int(head))
@@ -310,13 +324,17 @@ def _dncnn_launch(head: bool, x, w1, b1, wms, bms, wl, bl, wh, bh, slope,
         out0 = torch.empty((n, h, wd, co), dtype=dt, device=x.device)
         out1 = None
         whp = bhp = None
-    symbol = "vt_dncnn_fused" if rows is None else "vt_dncnn_head_slabzero"
+    if new_k3:
+        symbol, tail = "vt_dncnn_head", (code,)
+    elif rows is None:
+        symbol, tail = "vt_dncnn_fused", (code, int(head))
+    else:
+        symbol, tail = "vt_dncnn_head_slabzero", (rows, code)
     _ret(_fn(symbol)(
         x.data_ptr(), w1.data_ptr(), b1.data_ptr(), wm.data_ptr(),
         bm.data_ptr(), wl.data_ptr(), bl.data_ptr(), whp, bhp,
         out0.data_ptr(), None if out1 is None else out1.data_ptr(),
-        scratch.data_ptr(), grid.value, n, h, wd, L, co, cf,
-        *((code, int(head)) if rows is None else (rows, code)),
+        scratch.data_ptr(), grid.value, n, h, wd, L, co, cf, *tail,
         float(slope), float(lmin), float(lmax), _stream(x)), symbol)
     return out0, out1
 
@@ -339,7 +357,9 @@ def dncnn_head_fused(x, w1, b1, wms, bms, wl, bl, wh, bh, slope=0.25,
     """K3, SNet + sigma epilogue + RNet head conv in one launch: x (N, H,
     W, 3) -> (head (N, H, W, cf), sigma (N, H, W, co)).  sigma =
     exp(clip(logits, lmin, lmax)); head = conv3x3([x | sqrt(sigma)], wh)
-    + bh with sqrt(sigma) zero outside the image."""
+    + bh with sqrt(sigma) zero outside the image.  On the card, bf16 runs
+    csrc/dncnn_head.cu (x and the stacked mid weights must start 16-byte
+    aligned) and fp32 csrc/dncnn_fused.cu."""
     _forward_only("dncnn_head_fused", x, w1, b1, *_seq(wms), *_seq(bms), wl,
                   bl, wh, bh)
     if _on_cpu(x, w1, b1, wl, bl, wh, bh):
