@@ -29,20 +29,28 @@
 //    recomputes a halo of L + 2 pixels, as before.  TILE = 24 keeps the two
 //    level buffers per block at 2 * 34^2 * 128 B = 296 KB at L = 3, so 132
 //    blocks hold 39 MB, inside L2 (1.57x recompute against 1.41x at 32);
-//  - each mid level is an implicit GEMM on the tensor cores (K1's pattern,
-//    conv3x3_mid.cu): the level's output region is cut into rectangles of
-//    at most 256 pixels and 32 columns; each rectangle's input, (rh+2) x
-//    (cw+2) pixels, is staged in shared memory by 16-byte cp.async, double
-//    buffered (the next rectangle's copy under this one's math), pixel rows
-//    padded to 9 16-byte units (odd: ldmatrix conflict-free).  A by
-//    ldmatrix from the staged pixels (any 16 pixels of the rectangle: every
-//    lane gives its own row address), B by ldmatrix.trans straight from the
-//    HWIO weights, which arrive by cp.async once per level and tile;
-//    mma.sync m16n8k16 with f32 sums; bias, lrelu, zero outside the image,
-//    one rounding, staged per warp and written back as 16-byte stores;
-//  - conv1, conv_last with the sigma epilogue, and the head conv run on
-//    the f32 CUDA cores, one thread per pixel, taken over from
-//    dncnn_fused.cu; the head's outputs leave as 16-byte stores.
+//  - every conv is an implicit GEMM on the tensor cores, mma.sync m16n8k16
+//    with f32 sums, M = 16 pixels; a warp takes two m-tiles at a time and
+//    both share each B fragment;
+//  - the mids (K1's pattern, conv3x3_mid.cu; N = 64, K = 9 x 64): a
+//    level's output region is cut into rectangles of at most 256 pixels and
+//    32 columns; each rectangle's input, (rh+2) x (cw+2) pixels, is staged
+//    in shared memory by 16-byte cp.async, double buffered (the next
+//    rectangle's copy under this one's math), pixel rows padded to 9
+//    16-byte units (odd: ldmatrix conflict-free).  A by ldmatrix from the
+//    staged pixels (any 16 pixels of the rectangle: every lane gives its
+//    own row address), B by ldmatrix.trans straight from the HWIO weights,
+//    which arrive by cp.async once per level and tile.  Bias, lrelu, zero
+//    outside the image, one rounding, staged per warp and written back as
+//    16-byte stores;
+//  - conv1 (N = 64, K = 27 taps x channels padded to 32): A gathered from
+//    the rectangle's x pixels in shared memory, 4 channels apart;
+//  - conv_last (N = 8 of which co are used, K = 9 x 64): the mids' staging
+//    and A; the sigma epilogue in f32 as before; sqrt(sigma) goes to a
+//    shared (TILE+2)^2 plane beside x;
+//  - head (N = CF in passes of 64, K = 9 (3 + co) padded to 16s): A
+//    gathered from that plane, B by ldmatrix.trans from [k][CF] weights;
+//    bias in f32, one rounding, staged and written as 16-byte stores.
 #include "common.cuh"
 #include "tile_async.cuh"
 
@@ -61,15 +69,16 @@ constexpr int RECT_W = 32;    // and columns
 // the most over the widths a region of TILE + 2 or more columns is cut
 // into (cw in [17, 32]) is 340, at cw = 32
 constexpr int IN_PX = 340;
-constexpr int HC = 16;        // head outputs per register block
+constexpr int XC = 4;         // channel stride of conv1's staged x pixels
+constexpr int EC = 8;         // channel stride of the head's [x | sqrt(sigma)]
 constexpr int MAX_CF = 256;
-constexpr int ES = TILE + 2;  // side of the sqrt(sigma) plane
+constexpr int ES = TILE + 2;  // side of the head's input plane
 
 constexpr size_t W_BYTES = (size_t)9 * NF * ROW * 2;
 constexpr size_t IN_BYTES = (size_t)IN_PX * ROW * 2;
 constexpr size_t STAGE_BYTES = (size_t)WARPS * 32 * ROW * 2;
 constexpr size_t SMEM = W_BYTES + 2 * IN_BYTES + STAGE_BYTES +
-                        4 * MAX_CF + 4 * ES * ES * 3;
+                        4 * MAX_CF + (size_t)ES * ES * EC * 2;
 
 struct Args {
   const bf16 *x, *w1, *b1, *wm, *bm, *wl, *bl, *wh, *bh;
@@ -100,12 +109,63 @@ struct Cut {
     nr = (side + rmax - 1) / rmax;
     rh = (side + nr - 1) / nr;
   }
+  // rows [ry0, ry0 + rh) and columns [rx0, rx0 + cw) of rectangle r
+  __device__ void at(int r, int side, int& ry0, int& rx0, int& h,
+                     int& w) const {
+    ry0 = (r / nc) * rh;
+    rx0 = (r % nc) * cw;
+    h = min(rh, side - ry0);
+    w = min(cw, side - rx0);
+  }
 };
+
+// what a warp's two m-tiles cover: m-tiles mt0 and mt0 + WARPS of a
+// rectangle of npx pixels, cw columns, at (ry0, rx0) of the margin-m region
+struct MTiles {
+  int mt0, npx, cw, ry0, rx0, m;
+  // pixel q (0..31: m-tile q / 16, row q % 16) as an index into the
+  // rectangle, npx when past its end
+  __device__ int pixel(int q) const {
+    const int p = (mt0 + (q >> 4) * WARPS) * 16 + (q & 15);
+    return p < npx ? p : npx;
+  }
+};
+
+__device__ __forceinline__ uint32_t pack_raw(uint16_t lo, uint16_t hi) {
+  return lo | (uint32_t)hi << 16;
+}
+
+// the A fragment rows of a lane: rows g and g + 8 of each m-tile, as
+// offsets into a staged rectangle of width cw + 2 whose pixels are
+// `stride` elements apart (a row past the rectangle reads pixel 0)
+__device__ __forceinline__ void lane_rows(const MTiles& mt, int stride,
+                                          int off[2][2]) {
+  const int g = (threadIdx.x & 31) >> 2, iw = mt.cw + 2;
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      int p = mt.pixel(mi * 16 + g + 8 * r);
+      if (p >= mt.npx) p = 0;
+      off[mi][r] = ((p / mt.cw) * iw + p % mt.cw) * stride;
+    }
+}
+
+// zero the sums of a warp's two m-tiles x NT n-tiles
+template <int NT>
+__device__ __forceinline__ void zero(float (&acc)[2][NT][4]) {
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[mi][nt][i] = 0.f;
+}
 
 // issue the copies of one rectangle's input: rows [ry0 - 1, ry0 + rh + 1)
 // and columns [rx0 - 1, rx0 + cw + 1) of the margin-m region, which lie in
-// the margin-(m+1) region the previous level wrote (zeros outside the
-// image included), so no copy needs a zero fill
+// the margin-(m+1) region the level before wrote (zeros outside the image
+// included), so no copy needs a zero fill
 __device__ __forceinline__ void load_rect(bf16* dst, const bf16* src,
                                           const Tile& tl, int m, int ry0,
                                           int rx0, int rh, int cw) {
@@ -118,35 +178,75 @@ __device__ __forceinline__ void load_rect(bf16* dst, const bf16* src,
   }
 }
 
-// one rectangle of a mid level: 3x3 64->64 + bias + lrelu on the tensor
-// cores.  Warp w takes the m-tiles (16 pixels of the rectangle, in row
-// order) w and w + WARPS, then w + 2 WARPS and w + 3 WARPS, ...; both
-// share each B fragment.
+// ldmatrix row addresses of a lane for the A fragments of a warp's two
+// m-tiles over a rectangle staged by load_rect: pixel lane % 16 of each
+// m-tile (pixel 0 past the rectangle's end), 16-byte unit lane / 16
+__device__ __forceinline__ void a_rows(const MTiles& mt, int a[2]) {
+  const int lane = threadIdx.x & 31, iw = mt.cw + 2;
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi) {
+    int p = mt.pixel(mi * 16 + (lane & 15));
+    if (p >= mt.npx) p = 0;
+    a[mi] = ((p / mt.cw) * iw + p % mt.cw) * ROW + (lane >> 4) * 8;
+  }
+}
+
+// 64-channel outputs of a warp's two m-tiles (conv1, the mids): bias,
+// lrelu in f32, zero outside the image, one rounding; staged, then 16-byte
+// stores into the level buffer, a whole pixel per 8 lanes
+__device__ void emit64(const float (&acc)[2][8][4], const MTiles& mt,
+                       const Tile& tl, const float* sb, float slope,
+                       bf16* stage, bf16* dst) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, tig = lane & 3;
+  const int org = tl.Hh - mt.m;  // buffer coordinates of region (0, 0)
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int q = mi * 16 + g + 8 * r, p = mt.pixel(q);
+      const bool in = p < mt.npx &&
+                      tl.in_image(mt.ry0 + p / mt.cw - mt.m,
+                                  mt.rx0 + p % mt.cw - mt.m);
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt) {
+        const int co = nt * 8 + 2 * tig;
+        float v0 = 0.f, v1 = 0.f;
+        if (in) {
+          v0 = lrelu(acc[mi][nt][2 * r] + sb[co], slope);
+          v1 = lrelu(acc[mi][nt][2 * r + 1] + sb[co + 1], slope);
+        }
+        *reinterpret_cast<uint32_t*>(stage + q * ROW + co) =
+            pack_bf16(v0, v1);
+      }
+    }
+  __syncwarp();
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    const int i = k * 32 + lane, q = i >> 3, u = i & 7, p = mt.pixel(q);
+    if (p < mt.npx) {
+      const int by = org + mt.ry0 + p / mt.cw, bx = org + mt.rx0 + p % mt.cw;
+      *reinterpret_cast<uint4*>(dst + ((size_t)by * tl.S + bx) * NF +
+                                u * 8) =
+          *reinterpret_cast<const uint4*>(stage + q * ROW + u * 8);
+    }
+  }
+  __syncwarp();
+}
+
+// one rectangle of a mid level: 3x3 64->64 + bias + lrelu, N = 64, K = 9
+// taps x 64 channels; A by ldmatrix from the staged rectangle, B by
+// ldmatrix.trans from the HWIO weights ([tap * 64 + ci][co], rows of ROW)
 __device__ void mid_rect(const bf16* sx, bf16* dst, const bf16* sw,
                          const float* sb, bf16* stage, const Tile& tl, int m,
                          int ry0, int rx0, int rh, int cw, float slope) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, tig = lane & 3;
   const int npx = rh * cw, nmt = (npx + 15) / 16, iw = cw + 2;
-  const int org = tl.Hh - m;  // buffer coordinates of region pixel (0, 0)
   for (int mt0 = warp; mt0 < nmt; mt0 += 2 * WARPS) {
-    // the lane's A row: pixel lane % 16 of each of the two m-tiles (a
-    // pixel past the rectangle reads pixel 0; its sums are dropped)
+    const MTiles mt{mt0, npx, cw, ry0, rx0, m};
     int abase[2];
-#pragma unroll
-    for (int mi = 0; mi < 2; ++mi) {
-      int p = (mt0 + mi * WARPS) * 16 + (lane & 15);
-      if (p >= npx) p = 0;
-      abase[mi] = ((p / cw) * iw + p % cw) * ROW + (lane >> 4) * 8;
-    }
+    a_rows(mt, abase);
     float acc[2][8][4];
-#pragma unroll
-    for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-      for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-        for (int i = 0; i < 4; ++i) acc[mi][nt][i] = 0.f;
-
+    zero(acc);
 #pragma unroll 1
     for (int tap = 0; tap < 9; ++tap) {
       const int shift = ((tap / 3) * iw + tap % 3) * ROW;
@@ -172,203 +272,310 @@ __device__ void mid_rect(const bf16* sx, bf16* dst, const bf16* sw,
         }
       }
     }
-
-    // epilogue: bias, lrelu in f32, zero outside the image, one rounding,
-    // staged; then 16-byte stores, a whole pixel per 8 lanes
-#pragma unroll
-    for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        const int q = mi * 16 + g + 8 * r;
-        const int p = (mt0 + mi * WARPS) * 16 + g + 8 * r;
-        const bool in = p < npx && tl.in_image(ry0 + p / cw - m,
-                                               rx0 + p % cw - m);
-#pragma unroll
-        for (int nt = 0; nt < 8; ++nt) {
-          const int co = nt * 8 + 2 * tig;
-          float v0 = 0.f, v1 = 0.f;
-          if (in) {
-            v0 = lrelu(acc[mi][nt][2 * r] + sb[co], slope);
-            v1 = lrelu(acc[mi][nt][2 * r + 1] + sb[co + 1], slope);
-          }
-          *reinterpret_cast<uint32_t*>(stage + q * ROW + co) =
-              pack_bf16(v0, v1);
-        }
-      }
-    __syncwarp();
-#pragma unroll
-    for (int k = 0; k < 8; ++k) {
-      const int i = k * 32 + lane, q = i >> 3, u = i & 7;
-      const int p = (mt0 + (q >> 4) * WARPS) * 16 + (q & 15);
-      if (p < npx) {
-        const int by = org + ry0 + p / cw, bx = org + rx0 + p % cw;
-        *reinterpret_cast<uint4*>(dst + ((size_t)by * tl.S + bx) * NF +
-                                  u * 8) =
-            *reinterpret_cast<const uint4*>(stage + q * ROW + u * 8);
-      }
-    }
-    __syncwarp();
+    emit64(acc, mt, tl, sb, slope, stage, dst);
   }
 }
 
-// one mid level, src (margin m + 1) -> dst (margin m), rectangle by
-// rectangle with the next rectangle's input in flight.  Starts and ends
-// with the block in step: src complete, dst complete.
-__device__ void mid_level(const bf16* src, bf16* dst, const bf16* wm,
-                          const bf16* bm, bf16* sw, bf16* sx, float* sb,
-                          bf16* stage, const Tile& tl, int m, float slope) {
-  const Cut cut(TILE + 2 * m);
+// compute(staged input, ry0, rx0, rh, cw) over the rectangles of the
+// margin-m region, each rectangle's input (from src) in flight while the
+// one before is computed; copies the caller issued before are waited for
+// with the first rectangle's.  Ends with the block in step.
+template <typename F>
+__device__ void level_rects(const bf16* src, bf16* sx, const Tile& tl, int m,
+                            F&& compute) {
+  const int side = TILE + 2 * m;
+  const Cut cut(side);
   const int nrect = cut.nr * cut.nc;
-  auto rect = [&](int r, int& ry0, int& rx0, int& rh, int& cw) {
-    ry0 = (r / cut.nc) * cut.rh;
-    rx0 = (r % cut.nc) * cut.cw;
-    rh = min(cut.rh, TILE + 2 * m - ry0);
-    cw = min(cut.cw, TILE + 2 * m - rx0);
-  };
-  __syncthreads();  // sw, sx and sb are free; src is complete
-  for (int i = threadIdx.x; i < 9 * NF * 8; i += THREADS)
-    cp_async16(sw + (i >> 3) * ROW + (i & 7) * 8, wm + i * 8, 16);
-  if (threadIdx.x < NF) sb[threadIdx.x] = tof(bm[threadIdx.x]);
   int ry0, rx0, rh, cw;
-  rect(0, ry0, rx0, rh, cw);
+  cut.at(0, side, ry0, rx0, rh, cw);
   load_rect(sx, src, tl, m, ry0, rx0, rh, cw);
   cp_async_commit();
   for (int r = 0; r < nrect; ++r) {
     if (r + 1 < nrect) {
-      rect(r + 1, ry0, rx0, rh, cw);
+      cut.at(r + 1, side, ry0, rx0, rh, cw);
       load_rect(sx + ((r + 1) & 1) * IN_PX * ROW, src, tl, m, ry0, rx0, rh,
                 cw);
     }
     cp_async_commit();
     cp_async_wait<1>();
     __syncthreads();
-    rect(r, ry0, rx0, rh, cw);
-    mid_rect(sx + (r & 1) * IN_PX * ROW, dst, sw, sb, stage, tl, m, ry0,
-             rx0, rh, cw, slope);
+    cut.at(r, side, ry0, rx0, rh, cw);
+    compute(sx + (r & 1) * IN_PX * ROW, ry0, rx0, rh, cw);
     __syncthreads();  // this input buffer is the target of the next copy
   }
 }
 
-// conv1 3->64 + lrelu over the whole margin-Hh region -> dst, on the CUDA
-// cores (weights [tap * 3 + ci][64] in sw); zeros outside the image
-__device__ void conv1(const Args& a, const Tile& tl, bf16* dst,
-                      const bf16* sw, const float* sb) {
+// one mid level, src (margin m + 1) -> dst (margin m)
+__device__ void mid_level(const bf16* src, bf16* dst, const bf16* wm,
+                          const bf16* bm, bf16* sw, bf16* sx, float* sb,
+                          bf16* stage, const Tile& tl, int m, float slope) {
+  __syncthreads();  // sw, sx and sb are free; src is complete
+  for (int i = threadIdx.x; i < 9 * NF * 8; i += THREADS)
+    cp_async16(sw + (i >> 3) * ROW + (i & 7) * 8, wm + i * 8, 16);
+  if (threadIdx.x < NF) sb[threadIdx.x] = tof(bm[threadIdx.x]);
+  level_rects(src, sx, tl, m,
+              [&](const bf16* sxr, int ry0, int rx0, int rh, int cw) {
+                mid_rect(sxr, dst, sw, sb, stage, tl, m, ry0, rx0, rh, cw,
+                         slope);
+              });
+}
+
+// conv1 3->64 + lrelu over the margin-Hh region -> dst: N = 64, K = 27
+// (tap, channel) padded to 32.  Each rectangle's x pixels are staged with
+// zeros outside the image, XC channels apart, and A is gathered from them;
+// B by ldmatrix.trans from [k][64] weights whose rows 27..31 are zero.
+__device__ void conv1_level(const Args& a, const Tile& tl, bf16* dst,
+                            bf16* sw, bf16* sx, float* sb, bf16* stage) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int tig = lane & 3, m = tl.Hh, side = TILE + 2 * m;
+  __syncthreads();  // sw, sx and sb are free
+  for (int i = threadIdx.x; i < 32 * NF; i += THREADS)
+    sw[(i / NF) * ROW + i % NF] =
+        i < 9 * CI * NF ? a.w1[i] : __float2bfloat16(0.f);
+  if (threadIdx.x < NF) sb[threadIdx.x] = tof(a.b1[threadIdx.x]);
   const bf16* xn = a.x + (size_t)tl.n * a.H * a.W * CI;
-  for (int p = threadIdx.x; p < tl.S * tl.S; p += THREADS) {
-    const int ly = p / tl.S - tl.Hh, lx = p % tl.S - tl.Hh;
-    const bool in = tl.in_image(ly, lx);
-    float acc[NF];
-#pragma unroll
-    for (int o = 0; o < NF; ++o) acc[o] = 0.f;
-    if (in) {
-      const int gy = tl.ty0 + ly, gx = tl.tx0 + lx;
-#pragma unroll 1
-      for (int tap = 0; tap < 9; ++tap) {
-        const int yy = gy + tap / 3 - 1, xx = gx + tap % 3 - 1;
-        if (yy < 0 || yy >= a.H || xx < 0 || xx >= a.W) continue;
-        const bf16* xp = xn + ((size_t)yy * a.W + xx) * CI;
-#pragma unroll
-        for (int ci = 0; ci < CI; ++ci)
-          fma_row<NF>(acc, tof(xp[ci]), sw + (tap * CI + ci) * NF);
-      }
+  uint16_t* xs = reinterpret_cast<uint16_t*>(sx);
+  const Cut cut(side);
+  for (int r = 0; r < cut.nr * cut.nc; ++r) {
+    int ry0, rx0, rh, cw;
+    cut.at(r, side, ry0, rx0, rh, cw);
+    const int iw = cw + 2, npx = rh * cw, nmt = (npx + 15) / 16;
+    __syncthreads();  // the rectangle before is done with xs
+    for (int i = threadIdx.x; i < (rh + 2) * iw * XC; i += THREADS) {
+      const int p = i / XC, c = i % XC;
+      const int ly = ry0 - 1 + p / iw - m, lx = rx0 - 1 + p % iw - m;
+      xs[i] = c < CI && tl.in_image(ly, lx)
+                  ? __bfloat16_as_ushort(
+                        xn[((size_t)(tl.ty0 + ly) * a.W + tl.tx0 + lx) * CI +
+                           c])
+                  : (uint16_t)0;
     }
-    uint4* d = reinterpret_cast<uint4*>(dst + (size_t)p * NF);
+    __syncthreads();
+    // the lane's k columns: kb * 16 + 8j + 2 tig + e, as offsets into a
+    // staged pixel's neighbourhood (-1: a zero column past K = 27)
+    int koff[2][2][2];
 #pragma unroll
-    for (int u = 0; u < 8; ++u) {
-      uint32_t v[4];
+    for (int kb = 0; kb < 2; ++kb)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int o = u * 8 + 2 * j;
-        v[j] = in ? pack_bf16(lrelu(acc[o] + sb[o], a.slope),
-                              lrelu(acc[o + 1] + sb[o + 1], a.slope))
-                  : 0u;
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int k = kb * 16 + 8 * j + 2 * tig + e, tap = k / CI;
+          koff[kb][j][e] =
+              k < 9 * CI ? ((tap / 3) * iw + tap % 3) * XC + k % CI : -1;
+        }
+    for (int mt0 = warp; mt0 < nmt; mt0 += 2 * WARPS) {
+      const MTiles mt{mt0, npx, cw, ry0, rx0, m};
+      int off[2][2];
+      lane_rows(mt, XC, off);
+      float acc[2][8][4];
+      zero(acc);
+#pragma unroll
+      for (int kb = 0; kb < 2; ++kb) {
+        uint32_t af[2][4];
+#pragma unroll
+        for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {  // a0..a3: (row g | g + 8, k | k + 8)
+            const int rr = i & 1, j = i >> 1;
+            const int k0 = koff[kb][j][0], k1 = koff[kb][j][1];
+            af[mi][i] = pack_raw(k0 < 0 ? 0 : xs[off[mi][rr] + k0],
+                                 k1 < 0 ? 0 : xs[off[mi][rr] + k1]);
+          }
+        const bf16* b0 = sw + (kb * 16 + ((lane >> 3) & 1) * 8 + (lane & 7)) *
+                                  ROW + (lane >> 4) * 8;
+#pragma unroll
+        for (int np = 0; np < 4; ++np) {
+          uint32_t bfr[4];
+          ldsm_x4_t(bfr, b0 + np * 16);
+#pragma unroll
+          for (int mi = 0; mi < 2; ++mi) {
+            mma_16816(acc[mi][2 * np], af[mi], bfr);
+            mma_16816(acc[mi][2 * np + 1], af[mi], bfr + 2);
+          }
+        }
       }
-      d[u] = make_uint4(v[0], v[1], v[2], v[3]);
+      emit64(acc, mt, tl, sb, a.slope, stage, dst);
     }
   }
 }
 
 // conv_last 64->co over the tile and a 1-pixel ring (the head reads the
-// ring), on the CUDA cores (weights [tap * 64 + ci][co] in sw); sigma for
-// the tile's pixels, rounded sqrt(sigma) into sext, zero outside the image
-__device__ void conv_last(const Args& a, const Tile& tl, const bf16* src,
-                          const bf16* sw, const float* sb, float* sext) {
+// ring): N = 8 of which co are used, K = 9 x 64; the mids' staging and A,
+// B by ldmatrix.trans from [tap * 64 + ci][8] weights.  Epilogue in f32:
+// logits rounded, sigma = exp(clip) out for the tile's pixels, rounded
+// sqrt(sigma) into the head's plane xe, zero outside the image.
+__device__ void last_level(const Args& a, const Tile& tl, const bf16* src,
+                           bf16* sw, bf16* sx, float* sb, uint16_t* xe) {
   const int CO = a.CO;
-  for (int p = threadIdx.x; p < ES * ES; p += THREADS) {
-    const int ly = p / ES - 1, lx = p % ES - 1;
-    float* ext = sext + p * CO;
-    if (!tl.in_image(ly, lx)) {
-      for (int c = 0; c < CO; ++c) ext[c] = 0.f;
-      continue;
-    }
-    float acc[3] = {0.f, 0.f, 0.f};
-#pragma unroll 1
-    for (int tap = 0; tap < 9; ++tap) {
-      const bf16* xp = src + ((size_t)(ly + tap / 3 - 1 + tl.Hh) * tl.S + lx +
-                              tap % 3 - 1 + tl.Hh) * NF;
-      const bf16* wp = sw + tap * NF * CO;
-#pragma unroll 1
-      for (int ci = 0; ci < NF; ci += 4) {
-        float xv[4];
-        load4(xp + ci, xv);
-#pragma unroll
-        for (int k = 0; k < 4; ++k)
-          for (int c = 0; c < CO; ++c)
-            acc[c] = fmaf(xv[k], tof(wp[(ci + k) * CO + c]), acc[c]);
-      }
-    }
-    const size_t o =
-        (((size_t)tl.n * a.H + tl.ty0 + ly) * a.W + tl.tx0 + lx) * CO;
-    const bool own = ly >= 0 && ly < TILE && lx >= 0 && lx < TILE;
-    for (int c = 0; c < CO; ++c) {
-      const float lg = round_to<bf16>(acc[c] + sb[c]);
-      const float sig = expf(fminf(fmaxf(lg, a.lmin), a.lmax));
-      if (own) a.sigma[o + c] = __float2bfloat16(sig);
-      ext[c] = round_to<bf16>(sqrtf(sig));
-    }
-  }
-}
-
-// head conv on [x | sqrt(sigma)] over the tile, on the CUDA cores
-// (weights HWIO [tap][3 + co][CF] in sw), 16 outputs per register block
-// leaving as two 16-byte stores
-__device__ void head_conv(const Args& a, const Tile& tl, const bf16* sw,
-                          const float* sb, const float* sext) {
-  const int CO = a.CO, CC = CI + CO, CF = a.CF;
+  __syncthreads();  // sw, sx, sb and xe are free
+  for (int i = threadIdx.x; i < 9 * NF * 8; i += THREADS)
+    sw[i] = (i & 7) < CO ? a.wl[(i >> 3) * CO + (i & 7)]
+                         : __float2bfloat16(0.f);
+  if (threadIdx.x < CO) sb[threadIdx.x] = tof(a.bl[threadIdx.x]);
+  // the head's plane: x in channels 0..2, zero outside the image
   const bf16* xn = a.x + (size_t)tl.n * a.H * a.W * CI;
-  for (int p = threadIdx.x; p < TILE * TILE; p += THREADS) {
-    const int ly = p / TILE, lx = p % TILE;
-    const int gy = tl.ty0 + ly, gx = tl.tx0 + lx;
-    if (gy >= a.H || gx >= a.W) continue;
-    bf16* hp = a.head + (((size_t)tl.n * a.H + gy) * a.W + gx) * CF;
-#pragma unroll 1
-    for (int c0 = 0; c0 < CF; c0 += HC) {
-      float acc[HC];
-#pragma unroll
-      for (int o = 0; o < HC; ++o) acc[o] = 0.f;
+  for (int i = threadIdx.x; i < ES * ES * CI; i += THREADS) {
+    const int p = i / CI, c = i % CI;
+    const int ly = p / ES - 1, lx = p % ES - 1;
+    xe[p * EC + c] =
+        tl.in_image(ly, lx)
+            ? __bfloat16_as_ushort(
+                  xn[((size_t)(tl.ty0 + ly) * a.W + tl.tx0 + lx) * CI + c])
+            : (uint16_t)0;
+  }
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, tig = lane & 3;
+  level_rects(src, sx, tl, 1, [&](const bf16* sxr, int ry0, int rx0, int rh,
+                                  int cw) {
+    const int npx = rh * cw, nmt = (npx + 15) / 16, iw = cw + 2;
+    for (int mt0 = warp; mt0 < nmt; mt0 += 2 * WARPS) {
+      const MTiles mt{mt0, npx, cw, ry0, rx0, 1};
+      int abase[2];
+      a_rows(mt, abase);
+      float acc[2][1][4];
+      zero(acc);
 #pragma unroll 1
       for (int tap = 0; tap < 9; ++tap) {
-        const int dy = tap / 3, dx = tap % 3;
-        const int yy = gy + dy - 1, xx = gx + dx - 1;
-        const bf16* wp = sw + tap * CC * CF + c0;
-        if (yy >= 0 && yy < a.H && xx >= 0 && xx < a.W) {
-          const bf16* xp = xn + ((size_t)yy * a.W + xx) * CI;
+        const int shift = ((tap / 3) * iw + tap % 3) * ROW;
+        // B: lane l addresses k row 8 (l / 8) + l % 8 of a 32-row block
+        const bf16* b0 = sw + (tap * NF + lane) * 8;
 #pragma unroll
-          for (int ci = 0; ci < CI; ++ci)
-            fma_row<HC>(acc, tof(xp[ci]), wp + ci * CF);
+        for (int kp = 0; kp < 2; ++kp) {
+          uint32_t bfr[4];
+          ldsm_x4_t(bfr, b0 + kp * 32 * 8);
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int kb = 2 * kp + h;
+#pragma unroll
+            for (int mi = 0; mi < 2; ++mi) {
+              uint32_t af[4];
+              ldsm_x4(af, sxr + abase[mi] + shift + kb * 16);
+              mma_16816(acc[mi][0], af, bfr + 2 * h);
+            }
+          }
         }
-        const float* ep = sext + ((ly + dy) * ES + lx + dx) * CO;
-        for (int c = 0; c < CO; ++c)
-          fma_row<HC>(acc, ep[c], wp + (CI + c) * CF);
       }
-      uint32_t v[HC / 2];
+      if (2 * tig < CO) {  // lanes holding outputs 0..co-1
 #pragma unroll
-      for (int j = 0; j < HC / 2; ++j)
-        v[j] = pack_bf16(acc[2 * j] + sb[c0 + 2 * j],
-                         acc[2 * j + 1] + sb[c0 + 2 * j + 1]);
-      uint4* d = reinterpret_cast<uint4*>(hp + c0);
-      d[0] = make_uint4(v[0], v[1], v[2], v[3]);
-      d[1] = make_uint4(v[4], v[5], v[6], v[7]);
+      for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int p = mt.pixel(mi * 16 + g + 8 * r);
+          if (p >= npx) continue;
+          const int ly = ry0 + p / cw - 1, lx = rx0 + p % cw - 1;
+          const bool in = tl.in_image(ly, lx);
+          const bool own = ly >= 0 && ly < TILE && lx >= 0 && lx < TILE;
+          uint16_t* ep = xe + ((ly + 1) * ES + lx + 1) * EC + CI;
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int c = 2 * tig + e;
+            if (c >= CO) continue;
+            if (!in) {
+              ep[c] = 0;
+              continue;
+            }
+            const float lg = round_to<bf16>(acc[mi][0][2 * r + e] + sb[c]);
+            const float sig = expf(fminf(fmaxf(lg, a.lmin), a.lmax));
+            if (own)
+              a.sigma[(((size_t)tl.n * a.H + tl.ty0 + ly) * a.W + tl.tx0 +
+                       lx) * CO + c] = __float2bfloat16(sig);
+            ep[c] = __bfloat16_as_ushort(__float2bfloat16(sqrtf(sig)));
+          }
+        }
+      }
+      __syncwarp();  // in step again before the next m-tiles' mma
+    }
+  });
+}
+
+// head conv on [x | sqrt(sigma)] over the tile: N = CF in passes of 64,
+// K = 9 (3 + co) (tap, channel) padded to a multiple of 16.  A is gathered
+// from the plane xe, B by ldmatrix.trans from [k][CF] weights (rows padded
+// to an odd number of 16-byte units, zero past K); bias in f32, one
+// rounding, staged, out as 16-byte stores.  One m-tile per warp at a time.
+__device__ void head_level(const Args& a, const Tile& tl, bf16* sw,
+                           float* sb, const uint16_t* xe, bf16* stage) {
+  const int CC = CI + a.CO, K = 9 * CC, nkb = (K + 15) / 16, CF = a.CF;
+  const int CFP = odd_units(CF * 2) * 8;
+  __syncthreads();  // xe is complete; sw and sb are free
+  for (int i = threadIdx.x; i < nkb * 16 * CF; i += THREADS)
+    sw[(i / CF) * CFP + i % CF] = i < K * CF ? a.wh[i] : __float2bfloat16(0.f);
+  for (int i = threadIdx.x; i < CF; i += THREADS) sb[i] = tof(a.bh[i]);
+  __syncthreads();
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, tig = lane & 3;
+  int koff[4][2][2];  // as in conv1_level, into xe
+#pragma unroll
+  for (int kb = 0; kb < 4; ++kb)
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int k = kb * 16 + 8 * j + 2 * tig + e, tap = k / CC;
+        koff[kb][j][e] =
+            k < K ? ((tap / 3) * ES + tap % 3) * EC + k % CC : -1;
+      }
+  for (int mt = warp; mt < TILE * TILE / 16; mt += WARPS) {
+    int off[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int p = mt * 16 + g + 8 * r;
+      off[r] = ((p / TILE) * ES + p % TILE) * EC;
+    }
+    uint32_t af[4][4];
+#pragma unroll
+    for (int kb = 0; kb < 4; ++kb)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int rr = i & 1, j = i >> 1;
+        const int k0 = koff[kb][j][0], k1 = koff[kb][j][1];
+        af[kb][i] = pack_raw(k0 < 0 ? 0 : xe[off[rr] + k0],
+                             k1 < 0 ? 0 : xe[off[rr] + k1]);
+      }
+#pragma unroll 1
+    for (int c0 = 0; c0 < CF; c0 += 64) {
+      const int nnt = min(8, (CF - c0) / 8);  // even: CF % 16 == 0
+      float acc[8][4];
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc[nt][i] = 0.f;
+#pragma unroll
+      for (int kb = 0; kb < 4; ++kb) {
+        if (kb >= nkb) break;
+        const bf16* b0 = sw + (kb * 16 + ((lane >> 3) & 1) * 8 + (lane & 7)) *
+                                  CFP + c0 + (lane >> 4) * 8;
+#pragma unroll
+        for (int np = 0; np < 4; ++np) {
+          if (2 * np >= nnt) break;
+          uint32_t bfr[4];
+          ldsm_x4_t(bfr, b0 + np * 16);
+          mma_16816(acc[2 * np], af[kb], bfr);
+          mma_16816(acc[2 * np + 1], af[kb], bfr + 2);
+        }
+      }
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt) {
+        if (nt >= nnt) break;
+        const int co = nt * 8 + 2 * tig;
+#pragma unroll
+        for (int r = 0; r < 2; ++r)
+          *reinterpret_cast<uint32_t*>(stage + (g + 8 * r) * ROW + co) =
+              pack_bf16(acc[nt][2 * r] + sb[c0 + co],
+                        acc[nt][2 * r + 1] + sb[c0 + co + 1]);
+      }
+      __syncwarp();
+      for (int i = lane; i < 16 * nnt; i += 32) {
+        const int q = i / nnt, u = i % nnt, p = mt * 16 + q;
+        const int gy = tl.ty0 + p / TILE, gx = tl.tx0 + p % TILE;
+        if (gy < a.H && gx < a.W)
+          *reinterpret_cast<uint4*>(
+              a.head + (((size_t)tl.n * a.H + gy) * a.W + gx) * CF + c0 +
+              u * 8) = *reinterpret_cast<const uint4*>(stage + q * ROW +
+                                                       u * 8);
+      }
+      __syncwarp();
     }
   }
 }
@@ -381,7 +588,7 @@ __global__ void __launch_bounds__(THREADS) dncnn_head_bf16_kernel(Args a) {
                 (threadIdx.x >> 5) * 32 * ROW;
   float* sb = reinterpret_cast<float*>(smem_raw + W_BYTES + 2 * IN_BYTES +
                                        STAGE_BYTES);
-  float* sext = sb + MAX_CF;
+  uint16_t* xe = reinterpret_cast<uint16_t*>(sb + MAX_CF);
 
   Tile tl;
   tl.H = a.H;
@@ -395,30 +602,14 @@ __global__ void __launch_bounds__(THREADS) dncnn_head_bf16_kernel(Args a) {
 
   for (int t = blockIdx.x; t < tg.count; t += gridDim.x) {
     tg.at(t, tl.n, tl.ty0, tl.tx0);
-
-    __syncthreads();
-    copy_to_smem(sw, a.w1, 9 * CI * NF);
-    if (threadIdx.x < NF) sb[threadIdx.x] = tof(a.b1[threadIdx.x]);
-    __syncthreads();
-    conv1(a, tl, buf0, sw, sb);
-
+    conv1_level(a, tl, buf0, sw, sx, sb, stage);
     for (int lev = 1; lev <= a.L; ++lev)
       mid_level(lev % 2 ? buf0 : buf1, lev % 2 ? buf1 : buf0,
                 a.wm + (size_t)(lev - 1) * 9 * NF * NF,
                 a.bm + (size_t)(lev - 1) * NF, sw, sx, sb, stage, tl,
                 tl.Hh - lev, a.slope);
-
-    __syncthreads();
-    copy_to_smem(sw, a.wl, 9 * NF * a.CO);
-    if (threadIdx.x < a.CO) sb[threadIdx.x] = tof(a.bl[threadIdx.x]);
-    __syncthreads();
-    conv_last(a, tl, a.L % 2 ? buf1 : buf0, sw, sb, sext);
-
-    __syncthreads();
-    copy_to_smem(sw, a.wh, 9 * (CI + a.CO) * a.CF);
-    for (int i = threadIdx.x; i < a.CF; i += THREADS) sb[i] = tof(a.bh[i]);
-    __syncthreads();
-    head_conv(a, tl, sw, sb, sext);
+    last_level(a, tl, a.L % 2 ? buf1 : buf0, sw, sx, sb, xe);
+    head_level(a, tl, sw, sb, xe, stage);
   }
 }
 
@@ -467,7 +658,7 @@ extern "C" int vt_dncnn_head(const void* x, const void* w1, const void* b1,
                              int dtype, float slope, float lmin, float lmax,
                              void* stream) {
   if (dtype != VT_BF16 || grid < 1 || N < 1 || H < 1 || W < 1 || L < 1 ||
-      CO < 1 || CO > 3 || CF < 0 || CF % HC != 0 || CF > MAX_CF)
+      CO < 1 || CO > 3 || CF < 0 || CF % 16 != 0 || CF > MAX_CF)
     return cudaErrorInvalidValue;
   cudaError_t err = prepare();
   if (err != cudaSuccess) return err;
