@@ -119,10 +119,25 @@ struct Cut {
   }
 };
 
+// n / d and n % d by a multiply: with m = ceil(2^32 / d), __umulhi(n, m)
+// is floor(n / d) for 0 <= n < 2^21 and 1 <= d < 2^11 (the error n (m d -
+// 2^32) / 2^32 stays under 1).  A division by a value known only at run
+// time costs some 20 instructions, and the index math of the staging
+// copies and epilogues runs one per pixel.
+struct FastDiv {
+  int d;
+  unsigned m;
+  __device__ explicit FastDiv(int d_) : d(d_), m(0xFFFFFFFFu / d_ + 1) {}
+  __device__ int div(int n) const { return __umulhi((unsigned)n, m); }
+  __device__ int mod(int n) const { return n - div(n) * d; }
+};
+
 // what a warp's two m-tiles cover: m-tiles mt0 and mt0 + WARPS of a
 // rectangle of npx pixels, cw columns, at (ry0, rx0) of the margin-m region
 struct MTiles {
-  int mt0, npx, cw, ry0, rx0, m;
+  int mt0, npx;
+  FastDiv cw;
+  int ry0, rx0, m;
   // pixel q (0..31: m-tile q / 16, row q % 16) as an index into the
   // rectangle, npx when past its end
   __device__ int pixel(int q) const {
@@ -136,18 +151,21 @@ __device__ __forceinline__ uint32_t pack_raw(uint16_t lo, uint16_t hi) {
 }
 
 // the A fragment rows of a lane: rows g and g + 8 of each m-tile, as
-// offsets into a staged rectangle of width cw + 2 whose pixels are
-// `stride` elements apart (a row past the rectangle reads pixel 0)
-__device__ __forceinline__ void lane_rows(const MTiles& mt, int stride,
+// offsets into staged pixels `stride` elements apart, iw to a row, where
+// the rectangle's input pixel (0, 0) is staged pixel (row0, col0) (a row
+// past the rectangle reads its pixel 0)
+__device__ __forceinline__ void lane_rows(const MTiles& mt, int iw, int row0,
+                                          int col0, int stride,
                                           int off[2][2]) {
-  const int g = (threadIdx.x & 31) >> 2, iw = mt.cw + 2;
+  const int g = (threadIdx.x & 31) >> 2;
 #pragma unroll
   for (int mi = 0; mi < 2; ++mi)
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       int p = mt.pixel(mi * 16 + g + 8 * r);
       if (p >= mt.npx) p = 0;
-      off[mi][r] = ((p / mt.cw) * iw + p % mt.cw) * stride;
+      off[mi][r] =
+          ((row0 + mt.cw.div(p)) * iw + col0 + mt.cw.mod(p)) * stride;
     }
 }
 
@@ -170,9 +188,10 @@ __device__ __forceinline__ void load_rect(bf16* dst, const bf16* src,
                                           const Tile& tl, int m, int ry0,
                                           int rx0, int rh, int cw) {
   const int iw = cw + 2, npx = (rh + 2) * iw, org = tl.Hh - m - 1;
+  const FastDiv fiw(iw);
   for (int i = threadIdx.x; i < npx * 8; i += THREADS) {
-    const int p = i >> 3, u = i & 7;
-    const int by = org + ry0 + p / iw, bx = org + rx0 + p % iw;
+    const int p = i >> 3, u = i & 7, py = fiw.div(p);
+    const int by = org + ry0 + py, bx = org + rx0 + p - py * iw;
     cp_async16(dst + p * ROW + u * 8,
                src + ((size_t)by * tl.S + bx) * NF + u * 8, 16);
   }
@@ -182,21 +201,37 @@ __device__ __forceinline__ void load_rect(bf16* dst, const bf16* src,
 // m-tiles over a rectangle staged by load_rect: pixel lane % 16 of each
 // m-tile (pixel 0 past the rectangle's end), 16-byte unit lane / 16
 __device__ __forceinline__ void a_rows(const MTiles& mt, int a[2]) {
-  const int lane = threadIdx.x & 31, iw = mt.cw + 2;
+  const int lane = threadIdx.x & 31, iw = mt.cw.d + 2;
 #pragma unroll
   for (int mi = 0; mi < 2; ++mi) {
     int p = mt.pixel(mi * 16 + (lane & 15));
     if (p >= mt.npx) p = 0;
-    a[mi] = ((p / mt.cw) * iw + p % mt.cw) * ROW + (lane >> 4) * 8;
+    a[mi] = (mt.cw.div(p) * iw + mt.cw.mod(p)) * ROW + (lane >> 4) * 8;
   }
 }
 
-// 64-channel outputs of a warp's two m-tiles (conv1, the mids): bias,
-// lrelu in f32, zero outside the image, one rounding; staged, then 16-byte
-// stores into the level buffer, a whole pixel per 8 lanes
+// start a warp's 64-channel sums (conv1, the mids) at the bias: the lane's
+// channels are nt * 8 + 2 tig and that + 1
+__device__ __forceinline__ void bias_init(float (&acc)[2][8][4],
+                                          const float* sb) {
+  const int tig = threadIdx.x & 3;
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt) {
+    const float2 b = *reinterpret_cast<const float2*>(sb + nt * 8 + 2 * tig);
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi) {
+      acc[mi][nt][0] = acc[mi][nt][2] = b.x;
+      acc[mi][nt][1] = acc[mi][nt][3] = b.y;
+    }
+  }
+}
+
+// 64-channel outputs of a warp's two m-tiles (conv1, the mids), their sums
+// started at the bias: lrelu in f32, zero outside the image, one rounding;
+// staged, then 16-byte stores into the level buffer, a whole pixel per 8
+// lanes
 __device__ void emit64(const float (&acc)[2][8][4], const MTiles& mt,
-                       const Tile& tl, const float* sb, float slope,
-                       bf16* stage, bf16* dst) {
+                       const Tile& tl, float slope, bf16* stage, bf16* dst) {
   const int lane = threadIdx.x & 31, g = lane >> 2, tig = lane & 3;
   const int org = tl.Hh - mt.m;  // buffer coordinates of region (0, 0)
 #pragma unroll
@@ -205,15 +240,15 @@ __device__ void emit64(const float (&acc)[2][8][4], const MTiles& mt,
     for (int r = 0; r < 2; ++r) {
       const int q = mi * 16 + g + 8 * r, p = mt.pixel(q);
       const bool in = p < mt.npx &&
-                      tl.in_image(mt.ry0 + p / mt.cw - mt.m,
-                                  mt.rx0 + p % mt.cw - mt.m);
+                      tl.in_image(mt.ry0 + mt.cw.div(p) - mt.m,
+                                  mt.rx0 + mt.cw.mod(p) - mt.m);
 #pragma unroll
       for (int nt = 0; nt < 8; ++nt) {
         const int co = nt * 8 + 2 * tig;
         float v0 = 0.f, v1 = 0.f;
         if (in) {
-          v0 = lrelu(acc[mi][nt][2 * r] + sb[co], slope);
-          v1 = lrelu(acc[mi][nt][2 * r + 1] + sb[co + 1], slope);
+          v0 = lrelu(acc[mi][nt][2 * r], slope);
+          v1 = lrelu(acc[mi][nt][2 * r + 1], slope);
         }
         *reinterpret_cast<uint32_t*>(stage + q * ROW + co) =
             pack_bf16(v0, v1);
@@ -224,7 +259,9 @@ __device__ void emit64(const float (&acc)[2][8][4], const MTiles& mt,
   for (int k = 0; k < 8; ++k) {
     const int i = k * 32 + lane, q = i >> 3, u = i & 7, p = mt.pixel(q);
     if (p < mt.npx) {
-      const int by = org + mt.ry0 + p / mt.cw, bx = org + mt.rx0 + p % mt.cw;
+      const int py = mt.cw.div(p);
+      const int by = org + mt.ry0 + py;
+      const int bx = org + mt.rx0 + p - py * mt.cw.d;
       *reinterpret_cast<uint4*>(dst + ((size_t)by * tl.S + bx) * NF +
                                 u * 8) =
           *reinterpret_cast<const uint4*>(stage + q * ROW + u * 8);
@@ -242,11 +279,11 @@ __device__ void mid_rect(const bf16* sx, bf16* dst, const bf16* sw,
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int npx = rh * cw, nmt = (npx + 15) / 16, iw = cw + 2;
   for (int mt0 = warp; mt0 < nmt; mt0 += 2 * WARPS) {
-    const MTiles mt{mt0, npx, cw, ry0, rx0, m};
+    const MTiles mt{mt0, npx, FastDiv(cw), ry0, rx0, m};
     int abase[2];
     a_rows(mt, abase);
     float acc[2][8][4];
-    zero(acc);
+    bias_init(acc, sb);
 #pragma unroll 1
     for (int tap = 0; tap < 9; ++tap) {
       const int shift = ((tap / 3) * iw + tap % 3) * ROW;
@@ -272,7 +309,7 @@ __device__ void mid_rect(const bf16* sx, bf16* dst, const bf16* sw,
         }
       }
     }
-    emit64(acc, mt, tl, sb, slope, stage, dst);
+    emit64(acc, mt, tl, slope, stage, dst);
   }
 }
 
@@ -321,9 +358,11 @@ __device__ void mid_level(const bf16* src, bf16* dst, const bf16* wm,
 }
 
 // conv1 3->64 + lrelu over the margin-Hh region -> dst: N = 64, K = 27
-// (tap, channel) padded to 32.  Each rectangle's x pixels are staged with
-// zeros outside the image, XC channels apart, and A is gathered from them;
-// B by ldmatrix.trans from [k][64] weights whose rows 27..31 are zero.
+// (tap, channel) padded to 32, rectangle by rectangle.  The x pixels the
+// rectangles read are staged once, XC channels apart with zeros outside
+// the image (the whole region's at any usual depth; in chunks of
+// rectangles when it does not fit), and A is gathered from them; B by
+// ldmatrix.trans from [k][64] weights whose rows 27..31 are zero.
 __device__ void conv1_level(const Args& a, const Tile& tl, bf16* dst,
                             bf16* sw, bf16* sx, float* sb, bf16* stage) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -336,68 +375,85 @@ __device__ void conv1_level(const Args& a, const Tile& tl, bf16* dst,
   const bf16* xn = a.x + (size_t)tl.n * a.H * a.W * CI;
   uint16_t* xs = reinterpret_cast<uint16_t*>(sx);
   const Cut cut(side);
-  for (int r = 0; r < cut.nr * cut.nc; ++r) {
-    int ry0, rx0, rh, cw;
-    cut.at(r, side, ry0, rx0, rh, cw);
-    const int iw = cw + 2, npx = rh * cw, nmt = (npx + 15) / 16;
-    __syncthreads();  // the rectangle before is done with xs
-    for (int i = threadIdx.x; i < (rh + 2) * iw * XC; i += THREADS) {
-      const int p = i / XC, c = i % XC;
-      const int ly = ry0 - 1 + p / iw - m, lx = rx0 - 1 + p % iw - m;
-      xs[i] = c < CI && tl.in_image(ly, lx)
-                  ? __bfloat16_as_ushort(
-                        xn[((size_t)(tl.ty0 + ly) * a.W + tl.tx0 + lx) * CI +
-                           c])
-                  : (uint16_t)0;
-    }
-    __syncthreads();
-    // the lane's k columns: kb * 16 + 8j + 2 tig + e, as offsets into a
-    // staged pixel's neighbourhood (-1: a zero column past K = 27)
-    int koff[2][2][2];
-#pragma unroll
-    for (int kb = 0; kb < 2; ++kb)
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int k = kb * 16 + 8 * j + 2 * tig + e, tap = k / CI;
-          koff[kb][j][e] =
-              k < 9 * CI ? ((tap / 3) * iw + tap % 3) * XC + k % CI : -1;
-        }
-    for (int mt0 = warp; mt0 < nmt; mt0 += 2 * WARPS) {
-      const MTiles mt{mt0, npx, cw, ry0, rx0, m};
-      int off[2][2];
-      lane_rows(mt, XC, off);
-      float acc[2][8][4];
-      zero(acc);
-#pragma unroll
-      for (int kb = 0; kb < 2; ++kb) {
-        uint32_t af[2][4];
-#pragma unroll
-        for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {  // a0..a3: (row g | g + 8, k | k + 8)
-            const int rr = i & 1, j = i >> 1;
-            const int k0 = koff[kb][j][0], k1 = koff[kb][j][1];
-            af[mi][i] = pack_raw(k0 < 0 ? 0 : xs[off[mi][rr] + k0],
-                                 k1 < 0 ? 0 : xs[off[mi][rr] + k1]);
-          }
-        const bf16* b0 = sw + (kb * 16 + ((lane >> 3) & 1) * 8 + (lane & 7)) *
-                                  ROW + (lane >> 4) * 8;
-#pragma unroll
-        for (int np = 0; np < 4; ++np) {
-          uint32_t bfr[4];
-          ldsm_x4_t(bfr, b0 + np * 16);
-#pragma unroll
-          for (int mi = 0; mi < 2; ++mi) {
-            mma_16816(acc[mi][2 * np], af[mi], bfr);
-            mma_16816(acc[mi][2 * np + 1], af[mi], bfr + 2);
-          }
-        }
-      }
-      emit64(acc, mt, tl, sb, a.slope, stage, dst);
-    }
+  // a chunk: nb rows of rectangles x gc columns of them
+  constexpr int CAP = (int)(2 * IN_BYTES / (XC * 2));  // staged pixels
+  int nb = (CAP / (side + 2) - 2) / cut.rh, gc = cut.nc;
+  if (nb < 1) {
+    nb = 1;
+    gc = (CAP / (cut.rh + 2) - 2) / cut.cw;
   }
+  for (int bi0 = 0; bi0 < cut.nr; bi0 += nb)
+    for (int cj0 = 0; cj0 < cut.nc; cj0 += gc) {
+      const int bi1 = min(cut.nr, bi0 + nb), cj1 = min(cut.nc, cj0 + gc);
+      const int by0 = bi0 * cut.rh, bx0 = cj0 * cut.cw;
+      const int ih = min(side, bi1 * cut.rh) - by0 + 2;
+      const int iw = min(side, cj1 * cut.cw) - bx0 + 2;
+      __syncthreads();  // the chunk before is done with xs
+      const FastDiv fiw(iw);
+      for (int i = threadIdx.x; i < ih * iw * XC; i += THREADS) {
+        const int p = i / XC, c = i % XC, py = fiw.div(p);
+        const int ly = by0 - 1 + py - m, lx = bx0 - 1 + p - py * iw - m;
+        xs[i] = c < CI && tl.in_image(ly, lx)
+                    ? __bfloat16_as_ushort(
+                          xn[((size_t)(tl.ty0 + ly) * a.W + tl.tx0 + lx) *
+                                 CI + c])
+                    : (uint16_t)0;
+      }
+      __syncthreads();
+      // the lane's k columns: kb * 16 + 8j + 2 tig + e, as offsets into a
+      // staged pixel's neighbourhood (-1: a zero column past K = 27)
+      int koff[2][2][2];
+#pragma unroll
+      for (int kb = 0; kb < 2; ++kb)
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int k = kb * 16 + 8 * j + 2 * tig + e, tap = k / CI;
+            koff[kb][j][e] =
+                k < 9 * CI ? ((tap / 3) * iw + tap % 3) * XC + k % CI : -1;
+          }
+      for (int bi = bi0; bi < bi1; ++bi)
+        for (int cj = cj0; cj < cj1; ++cj) {
+          int ry0, rx0, rh, cw;
+          cut.at(bi * cut.nc + cj, side, ry0, rx0, rh, cw);
+          const int npx = rh * cw, nmt = (npx + 15) / 16;
+          for (int mt0 = warp; mt0 < nmt; mt0 += 2 * WARPS) {
+            const MTiles mt{mt0, npx, FastDiv(cw), ry0, rx0, m};
+            int off[2][2];
+            lane_rows(mt, iw, ry0 - by0, rx0 - bx0, XC, off);
+            float acc[2][8][4];
+            bias_init(acc, sb);
+#pragma unroll
+            for (int kb = 0; kb < 2; ++kb) {
+              uint32_t af[2][4];
+#pragma unroll
+              for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+                for (int i = 0; i < 4; ++i) {  // (row g | g + 8, k | k + 8)
+                  const int rr = i & 1, j = i >> 1;
+                  const int k0 = koff[kb][j][0], k1 = koff[kb][j][1];
+                  af[mi][i] = pack_raw(k0 < 0 ? 0 : xs[off[mi][rr] + k0],
+                                       k1 < 0 ? 0 : xs[off[mi][rr] + k1]);
+                }
+              const bf16* b0 =
+                  sw + (kb * 16 + ((lane >> 3) & 1) * 8 + (lane & 7)) * ROW +
+                  (lane >> 4) * 8;
+#pragma unroll
+              for (int np = 0; np < 4; ++np) {
+                uint32_t bfr[4];
+                ldsm_x4_t(bfr, b0 + np * 16);
+#pragma unroll
+                for (int mi = 0; mi < 2; ++mi) {
+                  mma_16816(acc[mi][2 * np], af[mi], bfr);
+                  mma_16816(acc[mi][2 * np + 1], af[mi], bfr + 2);
+                }
+              }
+            }
+            emit64(acc, mt, tl, a.slope, stage, dst);
+          }
+        }
+    }
 }
 
 // conv_last 64->co over the tile and a 1-pixel ring (the head reads the
@@ -430,7 +486,7 @@ __device__ void last_level(const Args& a, const Tile& tl, const bf16* src,
                                   int cw) {
     const int npx = rh * cw, nmt = (npx + 15) / 16, iw = cw + 2;
     for (int mt0 = warp; mt0 < nmt; mt0 += 2 * WARPS) {
-      const MTiles mt{mt0, npx, cw, ry0, rx0, 1};
+      const MTiles mt{mt0, npx, FastDiv(cw), ry0, rx0, 1};
       int abase[2];
       a_rows(mt, abase);
       float acc[2][1][4];
@@ -463,7 +519,8 @@ __device__ void last_level(const Args& a, const Tile& tl, const bf16* src,
         for (int r = 0; r < 2; ++r) {
           const int p = mt.pixel(mi * 16 + g + 8 * r);
           if (p >= npx) continue;
-          const int ly = ry0 + p / cw - 1, lx = rx0 + p % cw - 1;
+          const int ly = ry0 + mt.cw.div(p) - 1;
+          const int lx = rx0 + mt.cw.mod(p) - 1;
           const bool in = tl.in_image(ly, lx);
           const bool own = ly >= 0 && ly < TILE && lx >= 0 && lx < TILE;
           uint16_t* ep = xe + ((ly + 1) * ES + lx + 1) * EC + CI;
