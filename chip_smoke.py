@@ -34,7 +34,8 @@ Phases (all by default; any failure raises and the exit code is not 0):
   probe      cli.bench_fused_head.run at the flagship shape, full width:
              unfused, halo (K3 + K4) and slabzero (K8 + K4) on 8-, 16- and
              32-row slabs; launches of one apply of each, ms per apply, MP/s
-             and halo - slabzero, the most a halo-free K3 could save
+             and halo - slabzero (in bf16 K3 and K8 run other device code
+             since K3's redesign, so this is no longer the halo's cost)
   sisr_fwd   VIRNetSR with the x4 demo weights on a 4x48x48 LR batch, card
              (K2 + K4) vs CPU in fp32
   train_fp32 one SISR training step at 2x96^2 (full width) in fp32 with
@@ -811,7 +812,8 @@ def phase_probe(report, launches):
     for v in variants:
         r = res[v]
         extra = ("" if not v.startswith("slabzero") else
-                 f", halo - {v} {halo - r['best_ms']:+.2f} ms")
+                 f", halo - {v} {halo - r['best_ms']:+.2f} ms (other "
+                 f"device code)")
         log(f"  {v}: best {r['best_ms']:.2f} ms per apply, "
             f"{r['mp_per_s']:.2f} MP/s, reps "
             f"{[round(m, 2) for m in r['ms']]}{extra}")

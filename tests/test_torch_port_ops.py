@@ -244,3 +244,16 @@ def test_every_kernel_library_is_built():
     assert libs <= set(_build.SOURCES)
     for name in _build.SOURCES:
         assert (_build.CSRC / f"{name}.cu").is_file(), name
+
+
+def test_k3_phase_variants_apply_to_the_kernel_source():
+    """cli/bench_k3_phases compiles parts of csrc/dncnn_head.cu out by
+    editing its text; every edit must still find its pattern, or the tool
+    would time something else."""
+    from virnet_tpu_torch.cli import bench_k3_phases as b
+    from virnet_tpu_torch.ops import _build
+
+    src = (_build.CSRC / "dncnn_head.cu").read_text()
+    for name in b._EDITS:
+        out = b.variant_source(name, src)
+        assert (out == src) == (name == "all"), name

@@ -44,7 +44,11 @@
 //    outside the image, one rounding, staged per warp and written back as
 //    16-byte stores;
 //  - conv1 (N = 64, K = 27 taps x channels padded to 32): A gathered from
-//    the rectangle's x pixels in shared memory, 4 channels apart;
+//    the x pixels of the whole region, staged once per tile in shared
+//    memory 4 channels apart;
+//  - conv1 and the mids start their sums at the bias; their epilogue
+//    (LeakyReLU, staging, stores) cost about as much as the mids' mma loop
+//    until the index math lost its run-time divisions (FastDiv);
 //  - conv_last (N = 8 of which co are used, K = 9 x 64): the mids' staging
 //    and A; the sigma epilogue in f32 as before; sqrt(sigma) goes to a
 //    shared (TILE+2)^2 plane beside x;
@@ -148,6 +152,31 @@ struct MTiles {
 
 __device__ __forceinline__ uint32_t pack_raw(uint16_t lo, uint16_t hi) {
   return lo | (uint32_t)hi << 16;
+}
+
+__device__ __forceinline__ uint16_t bits(bf16 v) {
+  return __bfloat16_as_ushort(v);
+}
+
+// st(i, ld(i)) for i < n over the block, ld(i) the 16 bits of one bf16
+// read from device memory.  Each thread issues eight loads before any
+// store, so that their latencies overlap: a loop that stores to shared
+// memory after each load waits out every load in turn.
+template <typename Ld, typename St>
+__device__ __forceinline__ void fill(int n, Ld&& ld, St&& st) {
+  for (int i0 = threadIdx.x; i0 < n; i0 += 8 * THREADS) {
+    uint16_t v[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int i = i0 + j * THREADS;
+      v[j] = i < n ? ld(i) : (uint16_t)0;
+    }
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int i = i0 + j * THREADS;
+      if (i < n) st(i, v[j]);
+    }
+  }
 }
 
 // the A fragment rows of a lane: rows g and g + 8 of each m-tile, as
@@ -368,9 +397,12 @@ __device__ void conv1_level(const Args& a, const Tile& tl, bf16* dst,
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int tig = lane & 3, m = tl.Hh, side = TILE + 2 * m;
   __syncthreads();  // sw, sx and sb are free
-  for (int i = threadIdx.x; i < 32 * NF; i += THREADS)
-    sw[(i / NF) * ROW + i % NF] =
-        i < 9 * CI * NF ? a.w1[i] : __float2bfloat16(0.f);
+  fill(
+      32 * NF,
+      [&](int i) -> uint16_t { return i < 9 * CI * NF ? bits(a.w1[i]) : 0; },
+      [&](int i, uint16_t v) {
+        sw[(i / NF) * ROW + i % NF] = __ushort_as_bfloat16(v);
+      });
   if (threadIdx.x < NF) sb[threadIdx.x] = tof(a.b1[threadIdx.x]);
   const bf16* xn = a.x + (size_t)tl.n * a.H * a.W * CI;
   uint16_t* xs = reinterpret_cast<uint16_t*>(sx);
@@ -390,15 +422,17 @@ __device__ void conv1_level(const Args& a, const Tile& tl, bf16* dst,
       const int iw = min(side, cj1 * cut.cw) - bx0 + 2;
       __syncthreads();  // the chunk before is done with xs
       const FastDiv fiw(iw);
-      for (int i = threadIdx.x; i < ih * iw * XC; i += THREADS) {
-        const int p = i / XC, c = i % XC, py = fiw.div(p);
-        const int ly = by0 - 1 + py - m, lx = bx0 - 1 + p - py * iw - m;
-        xs[i] = c < CI && tl.in_image(ly, lx)
-                    ? __bfloat16_as_ushort(
-                          xn[((size_t)(tl.ty0 + ly) * a.W + tl.tx0 + lx) *
-                                 CI + c])
-                    : (uint16_t)0;
-      }
+      fill(
+          ih * iw * XC,
+          [&](int i) -> uint16_t {
+            const int p = i / XC, c = i % XC, py = fiw.div(p);
+            const int ly = by0 - 1 + py - m, lx = bx0 - 1 + p - py * iw - m;
+            return c < CI && tl.in_image(ly, lx)
+                       ? bits(xn[((size_t)(tl.ty0 + ly) * a.W + tl.tx0 + lx) *
+                                     CI + c])
+                       : 0;
+          },
+          [&](int i, uint16_t v) { xs[i] = v; });
       __syncthreads();
       // the lane's k columns: kb * 16 + 8j + 2 tig + e, as offsets into a
       // staged pixel's neighbourhood (-1: a zero column past K = 27)
@@ -465,21 +499,25 @@ __device__ void last_level(const Args& a, const Tile& tl, const bf16* src,
                            bf16* sw, bf16* sx, float* sb, uint16_t* xe) {
   const int CO = a.CO;
   __syncthreads();  // sw, sx, sb and xe are free
-  for (int i = threadIdx.x; i < 9 * NF * 8; i += THREADS)
-    sw[i] = (i & 7) < CO ? a.wl[(i >> 3) * CO + (i & 7)]
-                         : __float2bfloat16(0.f);
+  fill(
+      9 * NF * 8,
+      [&](int i) -> uint16_t {
+        return (i & 7) < CO ? bits(a.wl[(i >> 3) * CO + (i & 7)]) : 0;
+      },
+      [&](int i, uint16_t v) { sw[i] = __ushort_as_bfloat16(v); });
   if (threadIdx.x < CO) sb[threadIdx.x] = tof(a.bl[threadIdx.x]);
   // the head's plane: x in channels 0..2, zero outside the image
   const bf16* xn = a.x + (size_t)tl.n * a.H * a.W * CI;
-  for (int i = threadIdx.x; i < ES * ES * CI; i += THREADS) {
-    const int p = i / CI, c = i % CI;
-    const int ly = p / ES - 1, lx = p % ES - 1;
-    xe[p * EC + c] =
-        tl.in_image(ly, lx)
-            ? __bfloat16_as_ushort(
-                  xn[((size_t)(tl.ty0 + ly) * a.W + tl.tx0 + lx) * CI + c])
-            : (uint16_t)0;
-  }
+  fill(
+      ES * ES * CI,
+      [&](int i) -> uint16_t {
+        const int p = i / CI, ly = p / ES - 1, lx = p % ES - 1;
+        return tl.in_image(ly, lx)
+                   ? bits(xn[((size_t)(tl.ty0 + ly) * a.W + tl.tx0 + lx) *
+                                 CI + i % CI])
+                   : 0;
+      },
+      [&](int i, uint16_t v) { xe[(i / CI) * EC + i % CI] = v; });
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, tig = lane & 3;
   level_rects(src, sx, tl, 1, [&](const bf16* sxr, int ry0, int rx0, int rh,
@@ -556,8 +594,14 @@ __device__ void head_level(const Args& a, const Tile& tl, bf16* sw,
   const int CC = CI + a.CO, K = 9 * CC, nkb = (K + 15) / 16, CF = a.CF;
   const int CFP = odd_units(CF * 2) * 8;
   __syncthreads();  // xe is complete; sw and sb are free
-  for (int i = threadIdx.x; i < nkb * 16 * CF; i += THREADS)
-    sw[(i / CF) * CFP + i % CF] = i < K * CF ? a.wh[i] : __float2bfloat16(0.f);
+  const FastDiv fcf(CF);
+  fill(
+      nkb * 16 * CF,
+      [&](int i) -> uint16_t { return i < K * CF ? bits(a.wh[i]) : 0; },
+      [&](int i, uint16_t v) {
+        const int k = fcf.div(i);
+        sw[k * CFP + i - k * CF] = __ushort_as_bfloat16(v);
+      });
   for (int i = threadIdx.x; i < CF; i += THREADS) sb[i] = tof(a.bh[i]);
   __syncthreads();
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
