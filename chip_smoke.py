@@ -11,7 +11,13 @@ Phases (all by default; any failure raises and the exit code is not 0):
   kernels    holds each kernel (K1-K4, K8) against its plain PyTorch version
              on the card at the main paths' shapes, with the weights of both
              presets (syn: L=3, co=1; real: L=6, co=3), in fp32 (TF32 off)
-             and bf16, and times kernel, plain version and library call; the
+             and bf16, and times kernel, plain version and library call; K2
+             also at 8x321x481 (the batch of Restorer.restore_images), K2
+             and fp32 K3 (the level chain of csrc/snet_levels.cu) with each
+             level timed alone, the level chain in bf16 with the head mode
+             at the flagship batch beside K3 bf16 (a measurement, routed
+             nowhere), and at the real weights the logits error of K2 and
+             the spread of the plain version, card against CPU; the
              probe K8 on 16- and 32-row slabs, its rows far from slab edges
              also against K3's output one row up, and timed at 8, 16, 32;
              then the blur kernels (K5 forward, K6 dX, K7 dW) in f32 at the
@@ -24,12 +30,13 @@ Phases (all by default; any failure raises and the exit code is not 0):
   profile    torch.profiler device-time breakdown of that forward by kernel
              group, and the device's idle share
   serve_odd  restore_image at 321x481, a shape that fails the fused-head
-             gate (K2 + K4)
+             gate (K2: snet_conv1, K1 x3, snet_last; then K4), ms per image
   ops        the same image on SNet's per-op route, conv_impl='ops' (K1),
              ms per image
   real       the denoising-real demo weights on a 4x256^2 batch (co=3, L=6)
   fp32       card forward vs the same model on the CPU (plain versions),
-             both presets, one shape through K3 and one through K2
+             both presets, one shape through K3 and one through K2 (the
+             level chain in fp32); launches of the syn forwards
   psnr       denoising a seeded smooth image with sigma=25/255 noise
   probe      cli.bench_fused_head.run at the flagship shape, full width:
              unfused, halo (K3 + K4) and slabzero (K8 + K4) on 8-, 16- and
@@ -59,8 +66,8 @@ Phases (all by default; any failure raises and the exit code is not 0):
              model is built with conv_impl='torch', as the JAX trainer
              forces plain convolutions: no kernel of the package launches
 
-Every main-path phase (serve, serve_odd, ops, real, probe, train_sisr)
-zeroes the
+Every main-path phase (serve, serve_odd, ops, real, fp32, probe,
+train_sisr) zeroes the
 launch counters, drives its path once and reads them; it fails if a kernel
 of its path did not launch.  The line before the card's line is one JSON
 object with the kernels' numbers: times and errors from the syn weights
@@ -117,7 +124,8 @@ KERNELS = {
         replaces="virnet_tpu/ops/pallas_conv.py:627 (conv3x3_mid_pair), "
                  ":297 (conv3x3_mid_stack_pair)"),
     "dncnn_fused": dict(
-        path="serve_odd", source="virnet_tpu_torch/csrc/dncnn_fused.cu",
+        path="serve_odd", source="virnet_tpu_torch/csrc/snet_levels.cu",
+        uses="virnet_tpu_torch/csrc/conv3x3_mid.cu (K1, the mid levels)",
         replaces="virnet_tpu/ops/pallas_conv.py:474 (dncnn_pair_fused)"),
     "dncnn_head_fused": dict(
         path="serve", source="virnet_tpu_torch/csrc/dncnn_head.cu",
@@ -127,6 +135,12 @@ KERNELS = {
         path="serve", source="virnet_tpu_torch/csrc/tail_residual.cu",
         replaces="virnet_tpu/ops/pallas_conv.py:841 "
                  "(conv3x3_tail_residual)"),
+    "dncnn_head_fused_fp32": dict(
+        path="fp32", counter="dncnn_head_fused",
+        source="virnet_tpu_torch/csrc/snet_levels.cu",
+        uses="virnet_tpu_torch/csrc/conv3x3_mid.cu (K1, the mid levels)",
+        replaces="virnet_tpu/ops/pallas_conv.py:1289 (dncnn_head_fused "
+                 "halo :1512, carry :1459), in fp32"),
     "dncnn_head_slabzero": dict(
         path="probe", source="virnet_tpu_torch/csrc/dncnn_fused.cu",
         replaces="virnet_tpu/ops/pallas_conv.py:1183 "
@@ -145,9 +159,11 @@ KERNELS = {
         replaces="virnet_tpu/ops/pallas_blur.py:180 (_blur_mxu_dw), "
                  ":374 (_blur_pallas_dw)"),
 }
-# the measurement a kernel's row of the last-but-two line is taken from
-ROW_TAG = {name: "train f32" if name.startswith("blur") else "syn bf16"
-           for name in KERNELS}
+# the measurement a kernel's row of the last-but-two line is taken from:
+# (results key, tag)
+ROW_TAG = {name: (name, "train f32" if name.startswith("blur")
+                  else "syn bf16") for name in KERNELS}
+ROW_TAG["dncnn_head_fused_fp32"] = ("dncnn_head_fused", "syn fp32")
 
 
 def log(msg: str) -> None:
@@ -302,6 +318,7 @@ def check_kernels(sd, label, batch, mod, peaks, results):
     hp, wp = (-(-321 // mod) * mod, -(-481 // mod) * mod)
     x_flag = rand(batch, 256, 256, 3)            # the gated batch
     x_odd = rand(1, 321, 481, 3)                 # fails the gate
+    x_odd8 = rand(8, 321, 481, 3)                # restore_images' batch
     mid_in = rand(1, 321, 481, 64, scale=2.0)    # a mid conv's input there
     feats_flag = rand(batch, 256, 256, 96) - 0.5  # RNet tail input
     feats_pad = rand(1, hp, wp, 96) - 0.5        # padded for 321x481
@@ -381,6 +398,31 @@ def check_kernels(sd, label, batch, mod, peaks, results):
               lambda: fc.dncnn_fused_plain(*args2), lambda: lib_snet(xo),
               snet_flops * npx, npx * (3 + co) * esz + weights_b, 5,
               cold=True, library=f"library route, {lib_calls[0]} calls")
+        results["dncnn_fused"][tag]["levels_ms"] = chain_levels(
+            args2, p, False, kw)
+        if label == "real" and dtype == torch.float32:
+            results["dncnn_fused"][tag]["sigma_margin"] = sigma_margin(
+                args2, got)
+        del got
+        # K2 at the batch Restorer.restore_images groups images into
+        x8 = x_odd8.to(dtype)
+        args8b = (x8, *args2[1:])
+        got = fc.dncnn_fused(*args8b)
+        torch.cuda.synchronize()
+        err8 = check_close("dncnn_fused logits, 8x321x481", got,
+                           fc.dncnn_fused_plain(*args8b), dtype)
+        del got
+        ms8 = time_cold_ms(lambda: fc.dncnn_fused(*args8b), 5)
+        lib8 = time_cold_ms(lambda: lib_snet(x8), 5)
+        b8_ms, b8_by = bound(snet_flops * 8 * npx,
+                             8 * npx * (3 + co) * esz + weights_b)
+        log(f"  dncnn_fused 8x321x481: kernel {ms8:.4f} ms, library route "
+            f"{lib8:.4f} ms, bound {b8_ms:.4f} ms ({b8_by}), cold L2")
+        check_bound("dncnn_fused 8x321x481", "the kernel", ms8, b8_ms)
+        results["dncnn_fused"][tag]["batch8"] = dict(
+            max_abs_err=err8, ms=ms8, library_ms=lib8, bound_ms=b8_ms,
+            bound_by=b8_by)
+        del x8, args8b
 
         # K3 at the gated batch
         xf = x_flag.to(dtype)
@@ -401,6 +443,30 @@ def check_kernels(sd, label, batch, mod, peaks, results):
               npx * (3 + co + cf) * esz + weights_b
               + (p["wh"].numel() + cf) * esz, 5, cold=True,
               library=f"library route, {lib_calls[1]} calls")
+        if dtype == torch.float32:
+            results["dncnn_head_fused"][tag]["levels_ms"] = chain_levels(
+                (xf, *args3), p, True, kw)
+        elif label == "syn":
+            # the level chain in bf16 with snet_last's sigma + head mode: a
+            # measurement beside K3 bf16's one launch, routed nowhere
+            def chain():
+                return fc._snet_chain(True, xf, *args3, p["wh"], p["bh"],
+                                      0.25, kw["lmin"], kw["lmax"])
+            hc, sc = chain()
+            torch.cuda.synchronize()
+            check_close("level chain bf16 (measurement only) head", hc,
+                        head_ref, dtype)
+            check_close("level chain bf16 (measurement only) sigma", sc,
+                        sig_ref, dtype, kind="sigma")
+            del hc, sc
+            c_ms = time_cold_ms(chain, 5)
+            k3_ms = results["dncnn_head_fused"][tag]["ms"]
+            log(f"  level chain bf16, sigma + head mode, cold: {c_ms:.4f} ms "
+                f"against K3 bf16's one launch {k3_ms:.4f} ms "
+                f"({c_ms / k3_ms:.3f}x)")
+            results["dncnn_head_fused"][tag]["chain_bf16"] = dict(
+                ms=c_ms, k3_ms=k3_ms,
+                levels_ms=chain_levels((xf, *args3), p, True, kw))
 
         # K8 at the gated batch: 16- and 32-row slabs against the plain
         # version, to K3's tolerances; the rows farther than L+3 from every
@@ -435,13 +501,13 @@ def check_kernels(sd, label, batch, mod, peaks, results):
               npx * (3 + co + cf) * esz + weights_b
               + (p["wh"].numel() + cf) * esz, 3, cold=True)
         # K3 - K8 was K3's halo cost while the two ran one device code; K3
-        # in bf16 now runs dncnn_head.cu and K8 still dncnn_fused.cu, so in
-        # bf16 the difference is no longer the halo's cost
+        # now runs dncnn_head.cu (bf16) or the level chain (fp32) and K8
+        # still dncnn_fused.cu, so the difference is no longer the halo's
+        # cost in either dtype
         by_rows = {r: time_cold_ms(lambda: fc.dncnn_head_slabzero(
             *args8, rows=r, **kw), 3) for r in (8, 16, 32)}
         k3_ms = results["dncnn_head_fused"][tag]["ms"]
-        what = ("K3 - K8, other device code"
-                if dtype == torch.bfloat16 else "K3 - K8, the halo's cost")
+        what = "K3 - K8, other device code"
         results["dncnn_head_slabzero"][tag].update(
             ms_by_rows=by_rows, k3_minus_k8_ms={
                 r: k3_ms - ms for r, ms in by_rows.items()},
@@ -507,6 +573,72 @@ def library_route(p, L, kw, slope=0.25):
 
     snet_calls = 2 * (L + 1) + 1
     return snet, head, (snet_calls, snet_calls + 7)
+
+
+def chain_levels(args, p, head, kw, iters=5):
+    """Cold ms of each launch of the level chain (K2, or K3 with ``head``)
+    alone, on the inputs of ``args`` (x, w1, b1, wms, bms, wl, bl): the
+    breakdown that says which level holds the chain back."""
+    from virnet_tpu_torch.ops import fused_conv as fc
+
+    x = args[0]
+    n, h, w, _ = x.shape
+    code, st = fc._dtype_code(x), fc._stream(x)
+    co = p["wl"].shape[3]
+    cf = p["wh"].shape[3] if head else 0
+    L = p["wms"].shape[0]
+    y = torch.empty((n, h, w, 64), dtype=x.dtype, device=x.device)
+    out0 = torch.empty((n, h, w, cf if head else co), dtype=x.dtype,
+                       device=x.device)
+    out1 = torch.empty((n, h, w, co), dtype=x.dtype, device=x.device)
+
+    def conv1():
+        fc._ret(fc._fn("vt_snet_conv1")(
+            x.data_ptr(), p["w1"].data_ptr(), p["b1"].data_ptr(),
+            y.data_ptr(), n, h, w, code, 0.25, st), "vt_snet_conv1")
+
+    def mid():
+        fc.conv3x3_mid(y, p["wms"][0], p["bms"][0], 0.25)
+
+    def last():
+        fc._ret(fc._fn("vt_snet_last")(
+            y.data_ptr(), x.data_ptr(), p["wl"].data_ptr(),
+            p["bl"].data_ptr(), p["wh"].data_ptr() if head else None,
+            p["bh"].data_ptr() if head else None, out0.data_ptr(),
+            out1.data_ptr() if head else None, n, h, w, co, cf, int(head),
+            code, kw["lmin"], kw["lmax"], st), "vt_snet_last")
+
+    conv1()
+    out = dict(snet_conv1=time_cold_ms(conv1, iters),
+               k1_each=time_cold_ms(mid, iters),
+               snet_last=time_cold_ms(last, iters))
+    out["k1_all"] = L * out["k1_each"]
+    log(f"  level chain ({'K3 sigma + head' if head else 'K2 logits'}), each "
+        f"launch alone, cold: snet_conv1 {out['snet_conv1']:.4f} ms, K1 "
+        f"{out['k1_each']:.4f} ms x {L}, snet_last {out['snet_last']:.4f} ms")
+    return out
+
+
+def sigma_margin(args2, got):
+    """Where fp32 sigma's margin goes, at the real weights and 321x481: the
+    new K2's absolute logits error against its plain version on the card
+    (cuDNN), and the spread between two correct f32 orders, the plain
+    version on the card against the plain version on the CPU.  sigma =
+    exp(logits), so a relative sigma error is an absolute logits error."""
+    from virnet_tpu_torch.ops import fused_conv as fc
+
+    card = fc.dncnn_fused_plain(*args2)
+    cpu = fc.dncnn_fused_plain(*[a.cpu() for a in args2])
+    out = dict(k2_vs_plain=max_err(got, card),
+               plain_card_vs_cpu=max_err(card.cpu(), cpu),
+               k2_vs_plain_cpu=max_err(got.cpu(), cpu),
+               logits_absmax=float(cpu.abs().max()))
+    log(f"  sigma margin (real fp32, 321x481, logits): K2 vs plain on the "
+        f"card {out['k2_vs_plain']:.3g}, plain card vs plain CPU "
+        f"{out['plain_card_vs_cpu']:.3g}, K2 vs plain CPU "
+        f"{out['k2_vs_plain_cpu']:.3g} (|logits| <= "
+        f"{out['logits_absmax']:.3g}; sigma rtol 1e-5)")
+    return out
 
 
 def bound_ms(flops, nbytes, peak_flops, peaks):
@@ -644,8 +776,10 @@ def phase_blur_kernels(report, peaks):
 
 
 # kernel-name keys of each group, the first match wins
-GROUPS = (("K3 dncnn_head.cu", ("dncnn_head_",)),
-          ("K2/K8/K3-fp32 dncnn_fused.cu", ("dncnn_kernel",)),
+GROUPS = (("K3 bf16 dncnn_head.cu", ("dncnn_head_",)),
+          ("K2/K3-fp32 level kernels snet_levels.cu",
+           ("snet_conv1", "snet_last")),
+          ("K8 dncnn_fused.cu", ("slabzero_kernel",)),
           ("K4 tail_residual.cu", ("tail_kernel",)),
           ("K1 conv3x3_mid.cu", ("conv3x3_mid_",)),
           ("library convolutions", ("conv", "cudnn", "xmma", "gemm",
@@ -1235,11 +1369,23 @@ def main(argv=None) -> int:
                       "forward")
 
     if "serve_odd" in phases:
-        log("[serve_odd] restore_image 321x481 (K2 + K4)")
+        log("[serve_odd] restore_image 321x481 (K2: snet_conv1, K1 x3, "
+            "snet_last; K4)")
         out_odd, launches["serve_odd"] = run_path(
             "serve_odd", lambda: syn.restore_image(odd),
-            ("dncnn_fused", "conv3x3_tail_residual"))
+            ("dncnn_fused", "conv3x3_mid", "conv3x3_tail_residual"))
         check_image("serve_odd", out_odd, (321, 481, 3))
+        if launches["serve_odd"]["conv3x3_mid"] != 3:
+            raise AssertionError("serve_odd: K2's chain must launch K1 once "
+                                 "per mid level (3)")
+        t0 = time.perf_counter()
+        for _ in range(5):
+            syn.restore_image(odd)
+        torch.cuda.synchronize()
+        report["serve_odd"] = dict(ms_per_image=(time.perf_counter() - t0)
+                                   / 5 * 1e3)
+        log(f"  {report['serve_odd']['ms_per_image']:.2f} ms per image (host "
+            f"clock, copies to and from the card included)")
 
     if "ops" in phases:
         log("[ops] restore_image 321x481 on the per-op SNet route (K1)")
@@ -1290,12 +1436,26 @@ def main(argv=None) -> int:
             gpu.load_state_dict(sd, strict=True)
             gpu = gpu.cuda().eval()
             cpu.eval()
-            # (64, 64) passes the fused-head gate (K3), (29, 35) fails it (K2)
-            for hw in ((64, 64), (29, 35)):
-                x = rng.random((1, *hw, 3), dtype=np.float32)
+            # (64, 64) passes the fused-head gate (K3), (29, 35) fails it
+            # (K2); the syn forwards are the fp32 path's one run
+            xs = {hw: rng.random((1, *hw, 3), dtype=np.float32)
+                  for hw in ((64, 64), (29, 35))}
+
+            def card_forwards():
+                with torch.inference_mode():
+                    return {hw: gpu(torch.from_numpy(x).cuda())
+                            for hw, x in xs.items()}
+            if task == "denoising-syn":
+                outs, launches["fp32"] = run_path(
+                    "fp32", card_forwards,
+                    ("dncnn_head_fused", "dncnn_fused", "conv3x3_mid",
+                     "conv3x3_tail_residual"))
+            else:
+                outs = card_forwards()
+            for hw, x in xs.items():
                 with torch.inference_mode():
                     mu_c, s_c = cpu(torch.from_numpy(x))
-                    mu_g, s_g = gpu(torch.from_numpy(x).cuda())
+                mu_g, s_g = outs[hw]
                 e_mu = max_err(mu_g.cpu(), mu_c)
                 e_s = float(((s_g.cpu() - s_c).abs() / s_c.abs()).max())
                 log(f"  {hw}: mu max diff {e_mu:.3g} (atol 1e-4), sigma max "
@@ -1348,17 +1508,20 @@ def main(argv=None) -> int:
         args.report.write_text(json.dumps(report, indent=1))
 
     # one row per kernel: its times and error (K1-K4 at the flagship
-    # checkpoint in bf16, K5-K7 at the training shape in f32), and its
+    # checkpoint in bf16, fp32 K3 in fp32, K5-K7 at the training shape in
+    # f32), and its
     # launches in the one run of the path it serves
     rows = []
     for name, meta in KERNELS.items():
-        m = report.get("kernels", {}).get(name, {}).get(ROW_TAG[name], {})
+        key, tag = ROW_TAG[name]
+        m = report.get("kernels", {}).get(key, {}).get(tag, {})
+        counter = meta.get("counter", name)
         rows.append(dict(
             name=name, route="cuda", source=meta["source"],
-            replaces=meta["replaces"],
-            launches=launches.get(meta["path"], {}).get(name, 0),
+            uses=meta.get("uses"), replaces=meta["replaces"],
+            launches=launches.get(meta["path"], {}).get(counter, 0),
             launches_path=meta["path"],
-            launches_by_path={p: c.get(name, 0)
+            launches_by_path={p: c.get(counter, 0)
                               for p, c in launches.items()},
             max_abs_err=m.get("max_abs_err"), ms=m.get("ms"),
             plain_ms=m.get("plain_ms"), bound_ms=m.get("bound_ms"),

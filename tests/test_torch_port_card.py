@@ -393,3 +393,117 @@ def test_head_kernel_bf16_raises_on_what_it_does_not_take():
     a4 = _head_args(rng, 3, 4, 96)
     with pytest.raises(ValueError, match="1-3 outputs"):
         fc.dncnn_head_fused(x, *a4)
+
+
+# the output tile of csrc/snet_levels.cu's kernels (K2 both dtypes, K3
+# fp32): one pixel per thread of a 16x16 block
+CHAIN_TILE = 16
+_CHAIN_SHAPES = ((1, 1, 1, 3), (1, 7, 9, 3), (1, 15, 17, 3), (2, 17, 33, 3),
+                 (1, 321, 481, 3))
+
+
+@_DTYPES
+@pytest.mark.parametrize("L,co", [(1, 1), (3, 1), (6, 3)],
+                         ids=["L1", "syn", "real"])
+def test_dncnn_level_chain_matches_plain_on_card(L, co, dtype):
+    """K2 (csrc/snet_levels.cu: snet_conv1, L launches of K1, snet_last in
+    its logits mode) against its plain version on the card: one pixel,
+    odd sizes around the 16x16 tile, batch 2 and a CBSD68 image's size;
+    one dncnn_fused call and L K1 launches per call, nothing else."""
+    _need_card()
+    from virnet_tpu_torch.precision import set_parity_mode
+
+    set_parity_mode()
+    rng = np.random.default_rng(18)
+    args = _head_args(rng, L, co, 16, dtype)[:6]
+    for shape in _CHAIN_SHAPES:
+        x = _t(rng.random(shape, dtype=np.float32)).to("cuda", dtype)
+        fc.reset_launches()
+        got = fc.dncnn_fused(x, *args)
+        torch.cuda.synchronize()
+        assert fc.LAUNCHES["dncnn_fused"] == 1, shape
+        assert fc.LAUNCHES["conv3x3_mid"] == L, shape
+        assert sum(fc.LAUNCHES.values()) == 1 + L, shape
+        assert got.shape == (*shape[:3], co) and got.dtype == dtype
+        _close(got, fc.dncnn_fused_plain(x, *args), dtype)
+
+
+@pytest.mark.parametrize("cf", [16, 96, 256])
+@pytest.mark.parametrize("L,co", [(1, 1), (3, 1), (6, 3)],
+                         ids=["L1", "syn", "real"])
+def test_head_level_chain_fp32_matches_plain_on_card(L, co, cf):
+    """K3 in fp32 (the level chain with snet_last's sigma + head mode)
+    against its plain version on the card: head atol 1e-4, sigma rtol
+    1e-5; one dncnn_head_fused call and L K1 launches per call."""
+    _need_card()
+    from virnet_tpu_torch.precision import set_parity_mode
+
+    set_parity_mode()
+    rng = np.random.default_rng(19)
+    args = _head_args(rng, L, co, cf, torch.float32)
+    for shape in _CHAIN_SHAPES:
+        x = _t(rng.random(shape, dtype=np.float32)).cuda()
+        fc.reset_launches()
+        head, sig = fc.dncnn_head_fused(x, *args)
+        torch.cuda.synchronize()
+        assert fc.LAUNCHES["dncnn_head_fused"] == 1, shape
+        assert fc.LAUNCHES["conv3x3_mid"] == L, shape
+        assert sum(fc.LAUNCHES.values()) == 1 + L, shape
+        assert head.shape == (*shape[:3], cf) and sig.shape == (*shape[:3], co)
+        h_ref, s_ref = fc.dncnn_head_fused_plain(x, *args)
+        _close(head, h_ref, torch.float32)
+        _close(sig, s_ref, torch.float32, sigma=True)
+
+
+@pytest.mark.parametrize("L,co,cf", [(3, 1, 96), (6, 3, 16)],
+                         ids=["syn", "real"])
+def test_head_level_chain_bf16_matches_plain_on_card(L, co, cf):
+    """The level chain's sigma + head mode in bf16, which only the
+    measurement beside K3 bf16 runs (K3 bf16 itself is dncnn_head.cu),
+    against the plain version at the bf16 bars."""
+    _need_card()
+    rng = np.random.default_rng(20)
+    args = _head_args(rng, L, co, cf)
+    for shape in ((1, 1, 1, 3), (2, 17, 33, 3), (1, 64, 48, 3)):
+        x = _t(rng.random(shape, dtype=np.float32)).to("cuda", torch.bfloat16)
+        head, sig = fc._snet_chain(True, x, *args, 0.25, -23.025850929940457,
+                                   4.605170185988092)
+        torch.cuda.synchronize()
+        h_ref, s_ref = fc.dncnn_head_fused_plain(x, *args)
+        _close(head, h_ref, torch.bfloat16)
+        _close(sig, s_ref, torch.bfloat16, sigma=True)
+
+
+@_DTYPES
+def test_level_chain_raises_on_what_it_does_not_take(dtype):
+    """K2 and fp32 K3 refuse before any launch: unaligned stacked mid
+    weights, a head width that is no multiple of 16, co = 4, mixed
+    dtypes, a CPU weight, and inputs that require grad."""
+    _need_card()
+    rng = np.random.default_rng(21)
+    args = _head_args(rng, 3, 1, 96, dtype)
+    x = torch.rand(1, 20, 20, 3, device="cuda").to(dtype)
+    fc.reset_launches()
+    bad_wm = args[:2] + [_offset(args[2])] + args[3:6]
+    with pytest.raises(ValueError, match="aligned"):
+        fc.dncnn_fused(x, *bad_wm)
+    with pytest.raises(TypeError):
+        fc.dncnn_fused(x.double(), *args[:6])
+    with pytest.raises(ValueError):
+        fc.dncnn_fused(x, *args[:5], args[5].cpu())
+    a4 = _head_args(rng, 3, 4, 96, dtype)
+    with pytest.raises(ValueError, match="1-3 outputs"):
+        fc.dncnn_fused(x, *a4[:6])
+    with pytest.raises(RuntimeError, match="forward-only"):
+        fc.dncnn_fused(x, args[0].clone().requires_grad_(), *args[1:6])
+    assert sum(fc.LAUNCHES.values()) == 0
+    if dtype == torch.bfloat16:
+        return
+    with pytest.raises(ValueError, match="aligned"):
+        fc.dncnn_head_fused(x, *bad_wm, *args[6:])
+    wh24 = torch.rand(3, 3, 4, 24, device="cuda")
+    with pytest.raises(ValueError, match="multiple of 16"):
+        fc.dncnn_head_fused(x, *args[:6], wh24, args[7][:24].contiguous())
+    with pytest.raises(ValueError, match="1-3 outputs"):
+        fc.dncnn_head_fused(x, *a4)
+    assert sum(fc.LAUNCHES.values()) == 0

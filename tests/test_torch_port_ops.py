@@ -246,6 +246,41 @@ def test_every_kernel_library_is_built():
         assert (_build.CSRC / f"{name}.cu").is_file(), name
 
 
+def _c_entries(name):
+    """The names of the extern "C" functions that csrc/<name>.cu defines."""
+    import re
+
+    from virnet_tpu_torch.ops import _build
+
+    src = (_build.CSRC / f"{name}.cu").read_text()
+    return set(re.findall(r'extern "C"\s+[\w ]+?\b(vt_\w+)\s*\(', src))
+
+
+@pytest.mark.parametrize("symbol", sorted(fc._SIGNATURES))
+def test_every_signature_is_an_entry_of_its_source(symbol):
+    """Each C entry the wrappers bind is an extern "C" function of the
+    source its library is built from, so that no binding outlives the
+    code it names."""
+    lib, _ = fc._SIGNATURES[symbol]
+    assert symbol in _c_entries(lib)
+
+
+def test_dncnn_fused_source_holds_the_probe_only():
+    """K2 and fp32 K3 left csrc/dncnn_fused.cu for the level chain of
+    csrc/snet_levels.cu: the old source exports K8's entries alone, and
+    the build compiles the new one."""
+    from virnet_tpu_torch.ops import _build
+
+    assert _c_entries("dncnn_fused") == {
+        "vt_dncnn_slab_grid", "vt_dncnn_slab_scratch_elems",
+        "vt_dncnn_head_slabzero"}
+    assert "snet_levels" in _build.SOURCES
+    assert _c_entries("snet_levels") == {"vt_snet_conv1", "vt_snet_last"}
+    assert {fc._SIGNATURES[s][0] for s in ("vt_snet_conv1",
+                                           "vt_snet_last")} == {
+        "snet_levels"}
+
+
 def test_k3_phase_variants_apply_to_the_kernel_source():
     """cli/bench_k3_phases compiles parts of csrc/dncnn_head.cu out by
     editing its text; every edit must still find its pattern, or the tool

@@ -398,9 +398,14 @@ def test_forward_only_kernels_raise_under_grad():
 def test_torch_route_equals_fused_route_and_has_gradients(hw):
     """conv_impl='torch' (F.conv2d with autograd) equals the fused route's
     plain versions in value (fp32, atol 1e-5), with and without RNet's
-    internal pad, and gives every parameter a gradient."""
+    internal pad, and gives every parameter a gradient.  The weights come
+    from a seed of their own, so that they do not depend on which tests
+    ran before in the same process."""
     kw = dict(sigma_chn=1, n_feat=(16, 24, 32), dep_S=4, n_resblocks=1)
-    fused, train = VIRNet(**kw), VIRNet(conv_impl="torch", **kw)
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(8)
+        fused = VIRNet(**kw)
+    train = VIRNet(conv_impl="torch", **kw)
     train.load_state_dict(fused.state_dict(), strict=True)
     x = _t(np.random.default_rng(8).random((2, *hw, 3), dtype=np.float32))
     with torch.no_grad():

@@ -1,61 +1,43 @@
-// K2 dncnn_fused, K3 dncnn_head_fused and K8 dncnn_head_slabzero: the whole
-// SNet (DnCNN) in one launch, and for K3 and K8 also the sigma epilogue and
-// RNet's head conv.
+// K8 dncnn_head_slabzero, the speed probe: the whole SNet (DnCNN), the
+// sigma epilogue and RNet's head conv in one launch, with every r-row slab
+// of the image computed as an image of its own.  This file holds the probe
+// only: K2 and K3 in fp32 are the level chain of snet_levels.cu, K3 in
+// bf16 is dncnn_head.cu.
 //
-// Replaces:
-//   K2 -> virnet_tpu/ops/pallas_conv.py:dncnn_pair_fused (:474; Pallas
-//         body _dncnn_kernel :369);
-//   K3 -> virnet_tpu/ops/pallas_conv.py:dncnn_head_fused modes 'halo'
-//         (_dncnn_head_kernel :925) and 'carry' (_dncnn_head_kernel_carry
-//         :1055).  The carry mode sweeps row tiles in order and carries a
-//         boundary row per level from one grid step to the next; Hopper
-//         blocks run in no order, so both modes become this one halo
-//         kernel;
-//   K8 -> virnet_tpu/ops/pallas_conv.py:dncnn_head_fused mode 'slabzero'
-//         (_dncnn_head_kernel_slabzero :1183, pallas_call :1412), a speed
-//         probe: K3's arithmetic with every r-row slab of the image an
-//         image of its own, so that nothing is recomputed.  Slab t reads
-//         image rows [t*r - 1, t*r + r - 1) (row -1 is zeros, as the Pallas
-//         caller's padded view has it) and writes output rows [t*r,
-//         t*r + r): wrong within L+2 rows of every slab edge and shifted
-//         down one row against the true prologue, on purpose.
+// Replaces: virnet_tpu/ops/pallas_conv.py:dncnn_head_fused mode 'slabzero'
+// (_dncnn_head_kernel_slabzero :1183, pallas_call :1412).  Slab t reads
+// image rows [t*r - 1, t*r + r - 1) (row -1 is zeros, as the Pallas
+// caller's padded view has it) and writes output rows [t*r, t*r + r):
+// wrong within L+2 rows of every slab edge and shifted down one row
+// against the true prologue, on purpose.  It computes K3's function far
+// from slab edges, with nothing recomputed, so it measures what K3's
+// function costs without a halo.
 //
-// Function (K2): conv1 3->64 + lrelu, L mids 64->64 + lrelu, conv_last
-// 64->co, zero 'same' padding at every level, f32 accumulation and one
-// rounding to the activation dtype per conv.  Any H and W, odd included:
-// no pixel pairs, so nothing to pad and re-mask.
-// K3 adds: logits rounded to the activation dtype, sigma =
-// exp(clip(logits, lmin, lmax)) and sqrt(sigma) in f32, sigma emitted in
-// the activation dtype, sqrt(sigma) rounded and ZERO outside the image,
-// then head = conv(x, wh[:, :, :3]) + conv(sqrt(sigma), wh[:, :, 3:]) + bh
-// (the concat never exists).
+// Function: conv1 3->64 + lrelu, L mids 64->64 + lrelu, conv_last 64->co,
+// zero 'same' padding at every level (at slab borders too), f32
+// accumulation and one rounding to the activation dtype per conv; logits
+// rounded to the activation dtype, sigma = exp(clip(logits, lmin, lmax))
+// and sqrt(sigma) in f32, sigma emitted in the activation dtype,
+// sqrt(sigma) rounded and ZERO outside the slab, then head = conv(x,
+// wh[:, :, :3]) + conv(sqrt(sigma), wh[:, :, 3:]) + bh (the concat never
+// exists).
 //
 // Bound on an H100: ~233 kFLOP per pixel (denoising-syn, bf16) against
 // ~200 B per pixel of input and output, far above the ridge: compute
-// bound.  Design: a block owns a 32x32 output tile and recomputes its
-// halo (L+1 rows for K2, L+2 for K3, one more for the head's logits), so
-// no full-size 64-channel map ever reaches device memory.  The working
-// set, two (32+2*halo)^2 x 64 buffers (903 KB in f32 at L=3), does not
-// fit in 227 KB of shared memory at a useful tile, so the two buffers
-// are a block-private scratch in device memory, still in one launch;
-// shared memory holds one level's weights (147 KB for 64x64 in f32).
-// The grid is persistent (as many blocks as fit on
-// the SMs, each walking tiles), which bounds the scratch.  In bf16 the
-// 64->64 mids, ~95% of the operations, run on the tensor cores
-// (mma.sync m16n8k16, f32 accumulation; mid_level_mma); everything else,
-// and everything in f32 (which must stay exact f32, no TF32), runs one
-// thread per pixel with all output sums in registers on the f32 CUDA
-// cores, weight reads being warp-wide broadcasts.  wgmma/TMA,
-// shared-memory level buffers and a smaller halo are later work.
-//
-// K8 runs the same device code on another rectangle (struct Region): a
-// block owns one whole slab, r rows x W columns, at every level, with no
-// margin, so no pixel of any level is computed twice in either direction.
-// Its two level buffers are (r+2) x (W+2) x 64 with a ring of zeros that
-// the block writes once and no level touches; sqrt(sigma), which K3 keeps
-// in shared memory, is a third (r+2) x (W+2) x co plane of that scratch
-// (already rounded to T, so nothing is lost).  K3 time - K8 time at r = 32
-// is what K3's recomputed halo costs on this card.
+// bound.  Design (PR 1's fused SNet): a block owns one whole slab, r rows
+// x W columns, at every level, with no margin (struct Region).  Its two
+// level buffers are (r+2) x (W+2) x 64 with a ring of zeros that the
+// block writes once and no level touches, in a block-private scratch in
+// device memory; sqrt(sigma) is a third (r+2) x (W+2) x co plane of that
+// scratch (already rounded to T, so nothing is lost).  Shared memory
+// holds one level's weights (147 KB for 64x64 in f32).  The grid is
+// persistent (as many blocks as fit on the SMs, each walking slabs),
+// which bounds the scratch.  In bf16 the 64->64 mids, ~95% of the
+// operations, run on the tensor cores (mma.sync m16n8k16, f32
+// accumulation; mid_level_mma) with A fragments read straight from the
+// scratch; everything else, and everything in f32, runs one thread per
+// pixel with all output sums in registers on the f32 CUDA cores, weight
+// reads being warp-wide broadcasts.
 #include <type_traits>
 
 #include "common.cuh"
@@ -64,7 +46,6 @@ namespace {
 
 constexpr int NF = 64;     // DnCNN filters
 constexpr int CI = 3;      // image channels
-constexpr int TILE = 32;
 constexpr int THREADS = 256;
 constexpr int HC = 16;     // head output channels per register block
 constexpr int MAX_BIAS = 256;
@@ -74,40 +55,31 @@ constexpr int MAX_BIAS = 256;
 constexpr int WT_STRIDE = 9 * NF + 8;
 constexpr int SW_ELEMS = NF * WT_STRIDE;  // >= 9*NF*NF, the f32 layout
 
-// which of the three kernels an instantiation is
-constexpr int K2_SNET = 0, K3_HEAD = 1, K8_SLAB = 2;
-
 struct Args {
   const void *x, *w1, *b1, *wm, *bm, *wl, *bl, *wh, *bh;
   void *out0, *out1, *scratch;
-  int N, H, W, L, CO, CF, rows;  // rows: K8's slab height
+  int N, H, W, L, CO, CF, rows;  // rows: the slab height
   float slope, lmin, lmax;
 };
 
 // The rectangle one block works on, and where its levels lie in the two
-// scratch buffers.  K2/K3: a TILE x TILE tile of the image whose levels
-// shrink from margin halo(L) to 0.  K8: one slab, margin 0 at every level.
+// scratch buffers: one slab, margin 0 at every level.
 struct Region {
   int th, tw;    // the output rectangle: rows, columns
   int org;       // buffer coordinates of its pixel (0, 0)
   int S;         // buffer row stride in pixels
-  int H, W;      // bounds of the zero padding: the image, or K8's slab
+  int H, W;      // bounds of the zero padding: the slab
   int ty0, tx0;  // origin of the rectangle inside those bounds
-  int xrow0;     // image row that row 0 of the bounds reads (K8: t*r - 1)
-  int orow0;     // output row that row 0 of the bounds writes (K8: t*r)
+  int xrow0;     // image row that row 0 of the bounds reads (t*r - 1)
+  int orow0;     // output row that row 0 of the bounds writes (t*r)
 };
 
-template <typename T, int MODE>
+template <typename T>
 size_t smem_bytes() {
-  return sizeof(T) * SW_ELEMS + sizeof(float) * MAX_BIAS +
-         (MODE == K3_HEAD ? sizeof(float) * (TILE + 2) * (TILE + 2) * 3 : 0);
+  return sizeof(T) * SW_ELEMS + sizeof(float) * MAX_BIAS;
 }
 
-__host__ __device__ inline int halo(int L, bool head) {
-  return head ? L + 2 : L + 1;
-}
-
-// K8's scratch per block: two (rows+2) x (W+2) x 64 level buffers and the
+// the scratch per block: two (rows+2) x (W+2) x 64 level buffers and the
 // sqrt(sigma) plane, rounded up to 8 elements so that every block's
 // buffers stay 16-byte aligned
 __host__ __device__ inline long long slab_scratch_elems(int rows, int W,
@@ -196,42 +168,33 @@ __device__ void mid_level_mma(const __nv_bfloat16* src, __nv_bfloat16* dst,
   }
 }
 
-template <typename T, int MODE>
-__global__ void __launch_bounds__(THREADS) dncnn_kernel(Args a) {
-  constexpr bool HEAD = MODE != K2_SNET, SLAB = MODE == K8_SLAB;
-  // sqrt(sigma) for the head conv: f32 in shared memory (K3), or T in the
-  // block's scratch (K8; the values are rounded to T either way)
-  using E = std::conditional_t<SLAB, T, float>;
+template <typename T>
+__global__ void __launch_bounds__(THREADS) slabzero_kernel(Args a) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* sw = reinterpret_cast<T*>(smem_raw);
   float* sb = reinterpret_cast<float*>(smem_raw + sizeof(T) * SW_ELEMS);
-  float* sext = sb + MAX_BIAS;  // [(TILE+2)^2][CO], K3 only
 
   const T* x = static_cast<const T*>(a.x);
   const int H = a.H, W = a.W, L = a.L, CO = a.CO;
-  const int Hh = halo(L, HEAD);
   Region rg;
-  rg.th = SLAB ? a.rows : TILE;
-  rg.tw = SLAB ? W : TILE;
-  rg.org = SLAB ? 1 : Hh;
+  rg.th = a.rows;
+  rg.tw = W;
+  rg.org = 1;
   rg.S = rg.tw + 2 * rg.org;
-  rg.H = SLAB ? a.rows : H;
+  rg.H = a.rows;
   rg.W = W;
   rg.ty0 = rg.tx0 = rg.xrow0 = rg.orow0 = 0;
   const int S = rg.S, org = rg.org;
   const int ES = rg.tw + 2;  // row stride of the sqrt(sigma) plane
   const size_t level = (size_t)(rg.th + 2 * org) * S * NF;
-  const size_t per_block =
-      SLAB ? (size_t)slab_scratch_elems(a.rows, W, CO) : 2 * level;
+  const size_t per_block = (size_t)slab_scratch_elems(a.rows, W, CO);
   T* buf0 = static_cast<T*>(a.scratch) + (size_t)blockIdx.x * per_block;
   T* buf1 = buf0 + level;
-  E* ext0 = SLAB ? reinterpret_cast<E*>(buf1 + level)
-                 : reinterpret_cast<E*>(sext);
-  const int ntx = SLAB ? 1 : (W + TILE - 1) / TILE;
-  const int nty = SLAB ? H / a.rows : (H + TILE - 1) / TILE;
-  const int ntiles = a.N * nty * ntx;
+  T* ext0 = buf1 + level;
+  const int nty = H / a.rows;
+  const int ntiles = a.N * nty;
 
-  if (SLAB) {
+  {
     // the ring of zeros around the slab, in both level buffers and in the
     // sqrt(sigma) plane: written once, no level stores outside the slab
     const int PW = rg.tw + 2, PH = rg.th + 2;
@@ -242,34 +205,28 @@ __global__ void __launch_bounds__(THREADS) dncnn_kernel(Args a) {
         buf0[(size_t)i * NF + o] = fromf<T>(0.f);
         buf1[(size_t)i * NF + o] = fromf<T>(0.f);
       }
-      for (int c = 0; c < CO; ++c) ext0[(size_t)i * CO + c] = fromf<E>(0.f);
+      for (int c = 0; c < CO; ++c) ext0[(size_t)i * CO + c] = fromf<T>(0.f);
     }
   }
 
   for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
-    const int n = tile / (nty * ntx), rr = tile % (nty * ntx);
-    if (SLAB) {
-      rg.xrow0 = rr * a.rows - 1;
-      rg.orow0 = rr * a.rows;
-    } else {
-      rg.ty0 = (rr / ntx) * TILE;
-      rg.tx0 = (rr % ntx) * TILE;
-    }
+    const int n = tile / nty, rr = tile % nty;
+    rg.xrow0 = rr * a.rows - 1;
+    rg.orow0 = rr * a.rows;
     const int ty0 = rg.ty0, tx0 = rg.tx0;
     const T* xn = x + (size_t)n * H * W * CI;
     const size_t orow = (size_t)n * H + rg.orow0;  // output row of bounds row 0
 
-    // ---- conv1 3->64 + lrelu on the first level's region -> buf0
+    // ---- conv1 3->64 + lrelu on the slab -> buf0
     __syncthreads();
     copy_to_smem(sw, static_cast<const T*>(a.w1), 9 * CI * NF);
     for (int i = threadIdx.x; i < NF; i += THREADS)
       sb[i] = tof(static_cast<const T*>(a.b1)[i]);
     __syncthreads();
     {
-      const int m = SLAB ? 0 : Hh;
-      const int RW = rg.tw + 2 * m, RH = rg.th + 2 * m;
+      const int RW = rg.tw, RH = rg.th;
       for (int p = threadIdx.x; p < RH * RW; p += THREADS) {
-        const int ly = p / RW - m, lx = p % RW - m;
+        const int ly = p / RW, lx = p % RW;
         const int gy = ty0 + ly, gx = tx0 + lx;
         T* dst = buf0 + ((size_t)(ly + org) * S + lx + org) * NF;
         if (gy < 0 || gy >= rg.H || gx < 0 || gx >= rg.W) {
@@ -283,7 +240,7 @@ __global__ void __launch_bounds__(THREADS) dncnn_kernel(Args a) {
         for (int tap = 0; tap < 9; ++tap) {
           const int yy = gy + tap / 3 - 1, xx = gx + tap % 3 - 1;
           if (yy < 0 || yy >= rg.H || xx < 0 || xx >= rg.W) continue;
-          if (SLAB && yy + rg.xrow0 < 0) continue;  // the zero row above row 0
+          if (yy + rg.xrow0 < 0) continue;  // the zero row above row 0
           const T* xp = xn + ((size_t)(yy + rg.xrow0) * W + xx) * CI;
 #pragma unroll
           for (int ci = 0; ci < CI; ++ci)
@@ -310,14 +267,13 @@ __global__ void __launch_bounds__(THREADS) dncnn_kernel(Args a) {
       __syncthreads();
       const T* src = (lev - 1) % 2 ? buf1 : buf0;
       T* dstb = lev % 2 ? buf1 : buf0;
-      const int m = SLAB ? 0 : Hh - lev;
-      const int RW = rg.tw + 2 * m, RH = rg.th + 2 * m;
+      const int RW = rg.tw, RH = rg.th;
       if constexpr (std::is_same_v<T, __nv_bfloat16>) {
-        mid_level_mma(src, dstb, sw, sb, m, rg, a.slope);
+        mid_level_mma(src, dstb, sw, sb, 0, rg, a.slope);
         continue;
       }
       for (int p = threadIdx.x; p < RH * RW; p += THREADS) {
-        const int ly = p / RW - m, lx = p % RW - m;
+        const int ly = p / RW, lx = p % RW;
         const int gy = ty0 + ly, gx = tx0 + lx;
         T* dst = dstb + ((size_t)(ly + org) * S + lx + org) * NF;
         if (gy < 0 || gy >= rg.H || gx < 0 || gx >= rg.W) {
@@ -347,9 +303,8 @@ __global__ void __launch_bounds__(THREADS) dncnn_kernel(Args a) {
       }
     }
 
-    // ---- conv_last 64->co (K2: the tile; K3: the tile and a 1-pixel
-    //      ring, which the head conv reads; K8: the slab, whose ring is
-    //      zeros already)
+    // ---- conv_last 64->co on the slab (its ring is zeros already), the
+    //      sigma epilogue and sqrt(sigma) into the plane
     __syncthreads();
     copy_to_smem(sw, static_cast<const T*>(a.wl), 9 * NF * CO);
     for (int i = threadIdx.x; i < CO; i += THREADS)
@@ -357,16 +312,14 @@ __global__ void __launch_bounds__(THREADS) dncnn_kernel(Args a) {
     __syncthreads();
     {
       const T* src = L % 2 ? buf1 : buf0;
-      const int m = MODE == K3_HEAD ? 1 : 0;
-      const int RW = rg.tw + 2 * m, RH = rg.th + 2 * m;
+      const int RW = rg.tw, RH = rg.th;
       for (int p = threadIdx.x; p < RH * RW; p += THREADS) {
-        const int ly = p / RW - m, lx = p % RW - m;
+        const int ly = p / RW, lx = p % RW;
         const int gy = ty0 + ly, gx = tx0 + lx;
         const bool in = gy >= 0 && gy < rg.H && gx >= 0 && gx < rg.W;
-        E* ext = ext0 + ((size_t)(ly + 1) * ES + lx + 1) * CO;
+        T* ext = ext0 + ((size_t)(ly + 1) * ES + lx + 1) * CO;
         if (!in) {
-          if (HEAD)
-            for (int c = 0; c < CO; ++c) ext[c] = fromf<E>(0.f);
+          for (int c = 0; c < CO; ++c) ext[c] = fromf<T>(0.f);
           continue;
         }
         float acc[3] = {0.f, 0.f, 0.f};
@@ -387,22 +340,17 @@ __global__ void __launch_bounds__(THREADS) dncnn_kernel(Args a) {
         }
         const size_t o = ((orow + gy) * W + gx) * CO;
         for (int c = 0; c < CO; ++c) {
-          const float logit = acc[c] + sb[c];
-          if (!HEAD) {
-            static_cast<T*>(a.out0)[o + c] = fromf<T>(logit);
-          } else {
-            const float lg = round_to<T>(logit);
-            const float sig = expf(fminf(fmaxf(lg, a.lmin), a.lmax));
-            if (ly >= 0 && ly < rg.th && lx >= 0 && lx < rg.tw)
-              static_cast<T*>(a.out1)[o + c] = fromf<T>(sig);
-            ext[c] = fromf<E>(round_to<T>(sqrtf(sig)));
-          }
+          const float lg = round_to<T>(acc[c] + sb[c]);
+          const float sig = expf(fminf(fmaxf(lg, a.lmin), a.lmax));
+          if (ly >= 0 && ly < rg.th && lx >= 0 && lx < rg.tw)
+            static_cast<T*>(a.out1)[o + c] = fromf<T>(sig);
+          ext[c] = fromf<T>(round_to<T>(sqrtf(sig)));
         }
       }
     }
 
-    // ---- K3, K8: head conv on [x | sqrt(sigma)] over the tile / slab
-    if (HEAD) {
+    // ---- head conv on [x | sqrt(sigma)] over the slab
+    {
       const int CC = CI + CO, CF = a.CF;
       __syncthreads();
       copy_to_smem(sw, static_cast<const T*>(a.wh), 9 * CC * CF);
@@ -425,13 +373,13 @@ __global__ void __launch_bounds__(THREADS) dncnn_kernel(Args a) {
             const int yy = gy + dy - 1, xx = gx + dx - 1;
             const T* wp = sw + tap * CC * CF + c0;
             if (yy >= 0 && yy < rg.H && xx >= 0 && xx < rg.W &&
-                !(SLAB && yy + rg.xrow0 < 0)) {
+                !(yy + rg.xrow0 < 0)) {
               const T* xp = xn + ((size_t)(yy + rg.xrow0) * W + xx) * CI;
 #pragma unroll
               for (int ci = 0; ci < CI; ++ci)
                 fma_row<HC>(acc, tof(xp[ci]), wp + ci * CF);
             }
-            const E* ep = ext0 + ((size_t)(ly + dy) * ES + lx + dx) * CO;
+            const T* ep = ext0 + ((size_t)(ly + dy) * ES + lx + dx) * CO;
             for (int c = 0; c < CO; ++c)
               fma_row<HC>(acc, tof(ep[c]), wp + (CI + c) * CF);
           }
@@ -443,23 +391,23 @@ __global__ void __launch_bounds__(THREADS) dncnn_kernel(Args a) {
   }
 }
 
-template <typename T, int MODE>
+template <typename T>
 cudaError_t prepare() {
-  return cudaFuncSetAttribute(dncnn_kernel<T, MODE>,
+  return cudaFuncSetAttribute(slabzero_kernel<T>,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              smem_bytes<T, MODE>());
+                              smem_bytes<T>());
 }
 
-template <typename T, int MODE>
+template <typename T>
 int grid_size(int ntiles, int* grid) {
-  cudaError_t err = prepare<T, MODE>();
+  cudaError_t err = prepare<T>();
   if (err != cudaSuccess) return err;
   int dev = 0, sms = 0, per_sm = 0;
   if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return err;
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, dncnn_kernel<T, MODE>, THREADS, smem_bytes<T, MODE>());
+      &per_sm, slabzero_kernel<T>, THREADS, smem_bytes<T>());
   if (err != cudaSuccess) return err;
   if (per_sm < 1) return cudaErrorInvalidConfiguration;
   const int full = sms * per_sm;
@@ -467,99 +415,53 @@ int grid_size(int ntiles, int* grid) {
   return cudaSuccess;
 }
 
-template <typename T, int MODE>
+template <typename T>
 int launch(const Args& a, int grid, cudaStream_t stream) {
-  cudaError_t err = prepare<T, MODE>();
+  cudaError_t err = prepare<T>();
   if (err != cudaSuccess) return err;
-  dncnn_kernel<T, MODE><<<grid, THREADS, smem_bytes<T, MODE>(), stream>>>(a);
+  slabzero_kernel<T><<<grid, THREADS, smem_bytes<T>(), stream>>>(a);
   return cudaGetLastError();
 }
 
-int n_tiles(int N, int H, int W) {
-  return N * ((H + TILE - 1) / TILE) * ((W + TILE - 1) / TILE);
-}
-
-bool widths_ok(int CO, int CF, bool head) {
-  return CO >= 1 && CO <= 3 &&
-         (!head || (CF % HC == 0 && CF <= MAX_BIAS &&
-                    9 * (CI + CO) * CF <= 9 * NF * NF));
+bool widths_ok(int CO, int CF) {
+  return CO >= 1 && CO <= 3 && CF % HC == 0 && CF <= MAX_BIAS &&
+         9 * (CI + CO) * CF <= 9 * NF * NF;
 }
 
 }  // namespace
 
-// Persistent grid for (dtype, head) at this image size: the wrapper sizes
-// the block-private scratch from it, grid * scratch_elems(L, head).  K3 in
-// bf16 is dncnn_head.cu's, so (bf16, head) is refused.
-extern "C" int vt_dncnn_grid(int dtype, int head, int N, int H, int W,
-                             int* grid) {
-  const int nt = n_tiles(N, H, W);
-  if (dtype == VT_F32)
-    return head ? grid_size<float, K3_HEAD>(nt, grid)
-                : grid_size<float, K2_SNET>(nt, grid);
-  if (dtype == VT_BF16 && !head)
-    return grid_size<__nv_bfloat16, K2_SNET>(nt, grid);
-  return cudaErrorInvalidValue;
-}
-
-// Scratch elements one block needs: two (TILE + 2*halo)^2 x 64 buffers.
-extern "C" long long vt_dncnn_scratch_elems(int L, int head) {
-  const long long s = TILE + 2 * halo(L, head != 0);
-  return 2 * s * s * NF;
-}
-
-// x (N,H,W,3); w1 HWIO (3,3,3,64), b1 (64); wm (L,3,3,64,64), bm (L,64);
-// wl (3,3,64,CO), bl (CO); K3 only: wh (3,3,3+CO,CF), bh (CF).
-// K2 (head=0): out0 = logits (N,H,W,CO).  K3 (head=1): out0 = head
-// (N,H,W,CF), out1 = sigma (N,H,W,CO).  All tensors of dtype.
-extern "C" int vt_dncnn_fused(const void* x, const void* w1, const void* b1,
-                              const void* wm, const void* bm, const void* wl,
-                              const void* bl, const void* wh, const void* bh,
-                              void* out0, void* out1, void* scratch,
-                              int grid, int N, int H, int W, int L, int CO,
-                              int CF, int dtype, int head, float slope,
-                              float lmin, float lmax, void* stream) {
-  if (!widths_ok(CO, CF, head != 0)) return cudaErrorInvalidValue;
-  Args a{x, w1, b1, wm, bm, wl, bl, wh, bh, out0, out1, scratch,
-         N, H, W, L, CO, CF, 0, slope, lmin, lmax};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == VT_F32)
-    return head ? launch<float, K3_HEAD>(a, grid, s)
-                : launch<float, K2_SNET>(a, grid, s);
-  if (dtype == VT_BF16 && !head)  // K3 bf16: dncnn_head.cu
-    return launch<__nv_bfloat16, K2_SNET>(a, grid, s);
-  return cudaErrorInvalidValue;
-}
-
-// K8's persistent grid: one block per slab up to what the SMs hold.
+// The persistent grid: one block per slab up to what the SMs hold.
 extern "C" int vt_dncnn_slab_grid(int dtype, int N, int H, int rows,
                                   int* grid) {
   if (rows < 1 || H % rows != 0) return cudaErrorInvalidValue;
   const int nt = N * (H / rows);
-  if (dtype == VT_F32) return grid_size<float, K8_SLAB>(nt, grid);
-  if (dtype == VT_BF16) return grid_size<__nv_bfloat16, K8_SLAB>(nt, grid);
+  if (dtype == VT_F32) return grid_size<float>(nt, grid);
+  if (dtype == VT_BF16) return grid_size<__nv_bfloat16>(nt, grid);
   return cudaErrorInvalidValue;
 }
 
-// Scratch elements one K8 block needs (see slab_scratch_elems).
+// Scratch elements one block needs (see slab_scratch_elems).
 extern "C" long long vt_dncnn_slab_scratch_elems(int rows, int W, int CO) {
   return slab_scratch_elems(rows, W, CO);
 }
 
-// K8: the arguments of K3 and the slab height `rows`, which divides H.
-// out0 = head (N,H,W,CF), out1 = sigma (N,H,W,CO), each r-row slab computed
-// as an image of its own from x rows [t*rows - 1, t*rows + rows - 1).
+// x (N,H,W,3); w1 HWIO (3,3,3,64), b1 (64); wm (L,3,3,64,64), bm (L,64);
+// wl (3,3,64,CO), bl (CO); wh (3,3,3+CO,CF), bh (CF); the slab height
+// `rows` divides H.  out0 = head (N,H,W,CF), out1 = sigma (N,H,W,CO), each
+// r-row slab computed as an image of its own from x rows [t*rows - 1,
+// t*rows + rows - 1).  All tensors of dtype.
 extern "C" int vt_dncnn_head_slabzero(
     const void* x, const void* w1, const void* b1, const void* wm,
     const void* bm, const void* wl, const void* bl, const void* wh,
     const void* bh, void* out0, void* out1, void* scratch, int grid, int N,
     int H, int W, int L, int CO, int CF, int rows, int dtype, float slope,
     float lmin, float lmax, void* stream) {
-  if (!widths_ok(CO, CF, true) || rows < 1 || H % rows != 0)
+  if (!widths_ok(CO, CF) || rows < 1 || H % rows != 0)
     return cudaErrorInvalidValue;
   Args a{x, w1, b1, wm, bm, wl, bl, wh, bh, out0, out1, scratch,
          N, H, W, L, CO, CF, rows, slope, lmin, lmax};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == VT_F32) return launch<float, K8_SLAB>(a, grid, s);
-  if (dtype == VT_BF16) return launch<__nv_bfloat16, K8_SLAB>(a, grid, s);
+  if (dtype == VT_F32) return launch<float>(a, grid, s);
+  if (dtype == VT_BF16) return launch<__nv_bfloat16>(a, grid, s);
   return cudaErrorInvalidValue;
 }

@@ -3,10 +3,13 @@ version (counterpart of virnet_tpu/ops/pallas_conv.py).
 
   K1 ``conv3x3_mid``           <- pallas_conv.conv3x3_mid_pair,
                                   conv3x3_mid_stack_pair (as L launches)
-  K2 ``dncnn_fused``           <- pallas_conv.dncnn_pair_fused
+  K2 ``dncnn_fused``           <- pallas_conv.dncnn_pair_fused, a chain of
+                                  level kernels: snet_conv1, L x K1,
+                                  snet_last (csrc/snet_levels.cu)
   K3 ``dncnn_head_fused``      <- pallas_conv.dncnn_head_fused (halo, carry);
-                                  bf16 in csrc/dncnn_head.cu, fp32 in
-                                  csrc/dncnn_fused.cu
+                                  bf16 one launch of csrc/dncnn_head.cu,
+                                  fp32 the chain of K2 with snet_last's
+                                  sigma + head mode
   K4 ``conv3x3_tail_residual`` <- pallas_conv.conv3x3_tail_residual
   K8 ``dncnn_head_slabzero``   <- pallas_conv.dncnn_head_fused (slabzero),
                                   a speed probe that no product path routes
@@ -48,11 +51,8 @@ _F = ctypes.c_float
 _SIGNATURES = {
     "vt_conv3x3_mid": ("conv3x3_mid",
                        [_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P]),
-    "vt_dncnn_grid": ("dncnn_fused", [_I, _I, _I, _I, _I,
-                                      ctypes.POINTER(_I)]),
-    "vt_dncnn_scratch_elems": ("dncnn_fused", [_I, _I]),
-    "vt_dncnn_fused": ("dncnn_fused",
-                       [_P] * 12 + [_I] * 9 + [_F, _F, _F, _P]),
+    "vt_snet_conv1": ("snet_levels", [_P] * 4 + [_I] * 4 + [_F, _P]),
+    "vt_snet_last": ("snet_levels", [_P] * 8 + [_I] * 7 + [_F, _F, _P]),
     "vt_dncnn_slab_grid": ("dncnn_fused", [_I, _I, _I, _I,
                                            ctypes.POINTER(_I)]),
     "vt_dncnn_slab_scratch_elems": ("dncnn_fused", [_I, _I, _I]),
@@ -271,9 +271,10 @@ def conv3x3_mid_stack(x, wms, bms, slope=None) -> torch.Tensor:
 
 def _dncnn_launch(head: bool, x, w1, b1, wms, bms, wl, bl, wh, bh, slope,
                   lmin, lmax, rows=None):
-    """Check, size the block-private scratch from the persistent grid and
-    launch K2 (``head`` False), K3, or with ``rows`` K8.  K3 in bf16 is
-    csrc/dncnn_head.cu's kernel; everything else is csrc/dncnn_fused.cu's."""
+    """Check and launch K2 (``head`` False), K3, or with ``rows`` K8.  K2
+    and K3 in fp32 are the level chain (``_snet_chain``); K3 in bf16 is
+    csrc/dncnn_head.cu's kernel and K8 csrc/dncnn_fused.cu's, each sizing
+    its block-private scratch from its persistent grid."""
     n, h, wd, ci = x.shape
     dt = x.dtype
     code = _dtype_code(x)
@@ -300,49 +301,71 @@ def _dncnn_launch(head: bool, x, w1, b1, wms, bms, wl, bl, wh, bh, slope,
                              f"256, got {cf}")
         _check(wh, "wh", dt, (3, 3, 3 + co, cf))
         _check(bh, "bh", dt, (cf,))
+    if rows is None and not (head and dt == torch.bfloat16):
+        return _snet_chain(head, x, w1, b1, wm, bm, wl, bl, wh, bh, slope,
+                           lmin, lmax)
     grid = ctypes.c_int(0)
-    new_k3 = head and rows is None and dt == torch.bfloat16
-    if new_k3:
+    if rows is None:
         _aligned(x=x, wms=wm)
         _ret(_fn("vt_dncnn_head_grid")(code, n, h, wd, ctypes.byref(grid)),
              "vt_dncnn_head_grid")
         per_block = _fn("vt_dncnn_head_scratch_elems")(L)
-    elif rows is None:
-        _ret(_fn("vt_dncnn_grid")(code, int(head), n, h, wd,
-                                  ctypes.byref(grid)), "vt_dncnn_grid")
-        per_block = _fn("vt_dncnn_scratch_elems")(L, int(head))
+        symbol, tail = "vt_dncnn_head", (code,)
     else:
         _ret(_fn("vt_dncnn_slab_grid")(code, n, h, rows, ctypes.byref(grid)),
              "vt_dncnn_slab_grid")
         per_block = _fn("vt_dncnn_slab_scratch_elems")(rows, wd, co)
-    scratch = torch.empty(grid.value * per_block, dtype=dt, device=x.device)
-    if head:
-        out0 = torch.empty((n, h, wd, cf), dtype=dt, device=x.device)
-        out1 = torch.empty((n, h, wd, co), dtype=dt, device=x.device)
-        whp, bhp = wh.data_ptr(), bh.data_ptr()
-    else:
-        out0 = torch.empty((n, h, wd, co), dtype=dt, device=x.device)
-        out1 = None
-        whp = bhp = None
-    if new_k3:
-        symbol, tail = "vt_dncnn_head", (code,)
-    elif rows is None:
-        symbol, tail = "vt_dncnn_fused", (code, int(head))
-    else:
         symbol, tail = "vt_dncnn_head_slabzero", (rows, code)
+    scratch = torch.empty(grid.value * per_block, dtype=dt, device=x.device)
+    out0 = torch.empty((n, h, wd, cf), dtype=dt, device=x.device)
+    out1 = torch.empty((n, h, wd, co), dtype=dt, device=x.device)
     _ret(_fn(symbol)(
         x.data_ptr(), w1.data_ptr(), b1.data_ptr(), wm.data_ptr(),
-        bm.data_ptr(), wl.data_ptr(), bl.data_ptr(), whp, bhp,
-        out0.data_ptr(), None if out1 is None else out1.data_ptr(),
-        scratch.data_ptr(), grid.value, n, h, wd, L, co, cf, *tail,
-        float(slope), float(lmin), float(lmax), _stream(x)), symbol)
+        bm.data_ptr(), wl.data_ptr(), bl.data_ptr(), wh.data_ptr(),
+        bh.data_ptr(), out0.data_ptr(), out1.data_ptr(), scratch.data_ptr(),
+        grid.value, n, h, wd, L, co, cf, *tail, float(slope), float(lmin),
+        float(lmax), _stream(x)), symbol)
+    return out0, out1
+
+
+def _snet_chain(head: bool, x, w1, b1, wm, bm, wl, bl, wh, bh, slope, lmin,
+                lmax):
+    """The SNet level by level (csrc/snet_levels.cu): snet_conv1 into a
+    64-channel level map, one K1 launch per mid level (counted under
+    ``conv3x3_mid``), then snet_last: the logits (``head`` False), or sigma
+    and the head conv on [x | sqrt(sigma)].  Level maps are ``torch.empty``
+    on x's device; every launch goes on its current stream.  Arguments
+    checked by ``_dncnn_launch``; wm and bm stacked."""
+    n, h, wd, _ = x.shape
+    code = _dtype_code(x)
+    co = wl.shape[3]
+    cf = wh.shape[3] if head else 0
+    _aligned(wms=wm)
+    y = torch.empty((n, h, wd, 64), dtype=x.dtype, device=x.device)
+    _ret(_fn("vt_snet_conv1")(
+        x.data_ptr(), w1.data_ptr(), b1.data_ptr(), y.data_ptr(), n, h, wd,
+        code, float(slope), _stream(x)), "vt_snet_conv1")
+    for w, b in zip(wm, bm):
+        y = conv3x3_mid(y, w, b, slope)
+    out0 = torch.empty((n, h, wd, cf if head else co), dtype=x.dtype,
+                       device=x.device)
+    out1 = (torch.empty((n, h, wd, co), dtype=x.dtype, device=x.device)
+            if head else None)
+    _ret(_fn("vt_snet_last")(
+        y.data_ptr(), x.data_ptr(), wl.data_ptr(), bl.data_ptr(),
+        wh.data_ptr() if head else None, bh.data_ptr() if head else None,
+        out0.data_ptr(), out1.data_ptr() if head else None, n, h, wd, co,
+        cf, int(head), code, float(lmin), float(lmax), _stream(x)),
+        "vt_snet_last")
     return out0, out1
 
 
 def dncnn_fused(x, w1, b1, wms, bms, wl, bl, slope=0.25) -> torch.Tensor:
-    """K2, the whole SNet in one launch: x (N, H, W, 3) -> logits (N, H,
-    W, co), any H and W.  wms/bms: list of HWIO (3, 3, 64, 64) / (64,)
-    or the stacked (L, ...) tensors."""
+    """K2, the whole SNet: x (N, H, W, 3) -> logits (N, H, W, co), any H
+    and W.  wms/bms: list of HWIO (3, 3, 64, 64) / (64,) or the stacked
+    (L, ...) tensors.  On the card the level chain of csrc/snet_levels.cu
+    with K1 for the mids (the stacked mid weights must start 16-byte
+    aligned)."""
     _forward_only("dncnn_fused", x, w1, b1, *_seq(wms), *_seq(bms), wl, bl)
     if _on_cpu(x, w1, b1, wl, bl):
         return dncnn_fused_plain(x, w1, b1, wms, bms, wl, bl, slope)
@@ -354,12 +377,14 @@ def dncnn_fused(x, w1, b1, wms, bms, wl, bl, slope=0.25) -> torch.Tensor:
 
 def dncnn_head_fused(x, w1, b1, wms, bms, wl, bl, wh, bh, slope=0.25,
                      lmin=-23.025850929940457, lmax=4.605170185988092):
-    """K3, SNet + sigma epilogue + RNet head conv in one launch: x (N, H,
-    W, 3) -> (head (N, H, W, cf), sigma (N, H, W, co)).  sigma =
-    exp(clip(logits, lmin, lmax)); head = conv3x3([x | sqrt(sigma)], wh)
-    + bh with sqrt(sigma) zero outside the image.  On the card, bf16 runs
-    csrc/dncnn_head.cu (x and the stacked mid weights must start 16-byte
-    aligned) and fp32 csrc/dncnn_fused.cu."""
+    """K3, SNet + sigma epilogue + RNet head conv: x (N, H, W, 3) ->
+    (head (N, H, W, cf), sigma (N, H, W, co)).  sigma = exp(clip(logits,
+    lmin, lmax)); head = conv3x3([x | sqrt(sigma)], wh) + bh with
+    sqrt(sigma) zero outside the image.  On the card, bf16 is one launch
+    of csrc/dncnn_head.cu (x and the stacked mid weights must start
+    16-byte aligned) and fp32 the level chain of csrc/snet_levels.cu with
+    K1 for the mids (the stacked mid weights must start 16-byte
+    aligned)."""
     _forward_only("dncnn_head_fused", x, w1, b1, *_seq(wms), *_seq(bms), wl,
                   bl, wh, bh)
     if _on_cpu(x, w1, b1, wl, bl, wh, bh):
