@@ -1378,14 +1378,14 @@ def main(argv=None) -> int:
         if launches["serve_odd"]["conv3x3_mid"] != 3:
             raise AssertionError("serve_odd: K2's chain must launch K1 once "
                                  "per mid level (3)")
-        t0 = time.perf_counter()
-        for _ in range(5):
-            syn.restore_image(odd)
-        torch.cuda.synchronize()
-        report["serve_odd"] = dict(ms_per_image=(time.perf_counter() - t0)
-                                   / 5 * 1e3)
-        log(f"  {report['serve_odd']['ms_per_image']:.2f} ms per image (host "
-            f"clock, copies to and from the card included)")
+        from virnet_tpu_torch.cli.bench_restore import time_image
+
+        res = time_image(syn, odd, reps=20)
+        report["serve_odd"] = dict(ms_per_image=res["median_ms"],
+                                   min_ms=res["min_ms"])
+        log(f"  {res['median_ms']:.2f} ms per image, median of 20 (least "
+            f"{res['min_ms']:.2f}; host clock, copies to and from the card "
+            f"included; cli/bench_restore)")
 
     if "ops" in phases:
         log("[ops] restore_image 321x481 on the per-op SNet route (K1)")

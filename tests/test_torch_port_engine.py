@@ -118,6 +118,21 @@ def test_entry_points_need_cuda_unless_cpu_is_asked():
         Restorer("denoising-syn", ckpt_path=SYN)
 
 
+def test_bench_restore_times_restore_image_and_needs_the_card():
+    """cli/bench_restore: its timer drives ``restore_image`` (here on the
+    CPU, at a small odd size); its command line measures the card only."""
+    from virnet_tpu_torch.cli import bench_restore
+
+    cpu = Restorer("denoising-syn", ckpt_path=SYN, device="cpu")
+    res = bench_restore.time_image(cpu, np.random.default_rng(0).random(
+        (13, 15, 3), dtype=np.float32), reps=2, warmup=1)
+    assert len(res["ms"]) == 2 and 0 < res["min_ms"] <= res["median_ms"]
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(SystemExit):
+        bench_restore.main(["--size", "13x15"])
+
+
 FORBIDDEN = ("jax", "flax", "virnet_tpu")
 
 

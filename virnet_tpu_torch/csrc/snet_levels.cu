@@ -34,9 +34,15 @@
 // Bounds on an H100 SXM (67 TFLOP/s f32 CUDA cores, 3.35 TB/s):
 //  - snet_conv1: 3456 FLOP per pixel against 6 + 128 B (bf16) or 12 + 256 B
 //    (f32) read and written: memory bound.  A block stages an 18x18 x tile
-//    and the 1,728 weights in shared memory as f32; one thread per pixel
-//    keeps its 64 sums in registers, the weight reads are warp-wide
-//    broadcasts, and the 64 channels leave as 16-byte stores.
+//    (the next tile's x is loaded into registers under this tile's sums)
+//    and the 1,728 weights in shared memory as f32.  Shared memory
+//    delivers 128 bytes a clock to the registers, broadcasts included, so
+//    one pixel per thread reading every weight for every pixel held the
+//    FMA units to a quarter of their rate; instead a thread keeps a
+//    register block of 8 pixels x 8 channels (Block8): each weight read
+//    serves 8 pixels, and one row of 10 inputs the three horizontal taps.
+//    The 64 channels of a pixel leave as 16-byte stores of 8 lanes side by
+//    side (128 contiguous bytes per instruction in f32).
 //  - snet_last, logits: 1152 co FLOP per pixel against 128 or 256 B read:
 //    memory bound.  The 64-channel level of a 16x16 tile and its 1-pixel
 //    ring arrives by 16-byte cp.async in chunks of 64 bytes per pixel,
@@ -46,11 +52,11 @@
 //  - snet_last, sigma + head: the tile's level with a 2-pixel ring; conv_last
 //    at margin 1 (18x18, two pixels for some threads, which share each
 //    weight read), the sigma epilogue, then [x | sqrt(sigma)] as an f32
-//    (3+co) x 18x18 plane in shared memory, and the head conv at one
-//    output pixel per thread: its 9 (3+co) inputs in registers, the head
-//    weights (all CF columns, loaded once per block) read as broadcasts,
-//    16 output channels at a time, bias in f32, one rounding, 16-byte
-//    stores.  In f32 everything stays exact on the CUDA cores (no TF32).
+//    (3+co) x 18x18 plane in shared memory, and the head conv in passes of
+//    32 channels, a register block of 8 pixels x 4 channels per thread,
+//    the head weights (all CF columns, loaded once per block) in shared
+//    memory; bias in f32, one rounding.  In f32 everything stays exact on
+//    the CUDA cores (no TF32).
 // Both kernels are persistent: as many blocks as fit walk the tiles, and
 // each loads its weights once.
 #include "common.cuh"
@@ -61,31 +67,84 @@ namespace {
 constexpr int NF = 64;       // DnCNN filters
 constexpr int CI = 3;        // image channels
 constexpr int THREADS = 256;
-constexpr int TS = 16;       // output tile side: one pixel per thread
+constexpr int TS = 16;       // output tile side
 constexpr int MAX_CF = 256;
 
-static_assert(TS * TS == THREADS, "one output pixel per thread");
+static_assert(TS * TS == THREADS, "a pixel or a Block8 slot per thread");
+
+// ---- shared pieces --------------------------------------------------------
+
+// dst[i] = src[i] as f32 for i < n over the block.  Each thread issues
+// eight loads before any store, so that their latencies overlap.
+template <typename T>
+__device__ __forceinline__ void fill_f32(float* dst, const T* src, int n) {
+  for (int i0 = threadIdx.x; i0 < n; i0 += 8 * THREADS) {
+    float v[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int i = i0 + j * THREADS;
+      v[j] = i < n ? tof(src[i]) : 0.f;
+    }
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int i = i0 + j * THREADS;
+      if (i < n) dst[i] = v[j];
+    }
+  }
+}
+
+// A thread's register block in a 16x16 tile: 8 pixels of one row (columns
+// c0 .. c0 + 7 of row r) x 4 or 8 output channels, channel group cg = the
+// lane's low three bits.  Shared memory delivers 128 bytes a clock to the
+// registers, a warp-wide broadcast of 16 bytes included, so one pixel per
+// thread with the weights read for every pixel left the FMA units waiting
+// 4x; a block of 8 pixels reuses each weight read 8 times, and a row of
+// 10 inputs serves the three horizontal taps.
+struct Block8 {
+  int cg, r, c0;
+  __device__ Block8()
+      : cg(threadIdx.x & 7), r(threadIdx.x >> 4),
+        c0(((threadIdx.x >> 3) & 1) * 8) {}
+};
+
+__device__ __forceinline__ void fma4(float* acc, float xv, float4 w) {
+  acc[0] = fmaf(xv, w.x, acc[0]);
+  acc[1] = fmaf(xv, w.y, acc[1]);
+  acc[2] = fmaf(xv, w.z, acc[2]);
+  acc[3] = fmaf(xv, w.w, acc[3]);
+}
+
+// four f32 values rounded to T, stored at p (16 bytes for f32, 8 for bf16)
+__device__ __forceinline__ void store4(float* p, const float* v) {
+  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+}
+__device__ __forceinline__ void store4(__nv_bfloat16* p, const float* v) {
+  *reinterpret_cast<uint2*>(p) =
+      make_uint2(pack_bf16(v[0], v[1]), pack_bf16(v[2], v[3]));
+}
 
 // ---- snet_conv1 ----------------------------------------------------------
 
-constexpr int XS = TS + 2;   // side of the staged x tile
+constexpr int XS = TS + 2;                   // side of the staged x tile
+constexpr int XN = (CI * XS * XS + THREADS - 1) / THREADS;  // per thread
 
-// 64 f32 values rounded to T, out as 16-byte stores to y
-__device__ __forceinline__ void store64(float* y, const float (&v)[NF]) {
+// The x tile of tile t (with its ring, zeros outside the image), as
+// thread-owned values: element k of this thread is x tile entry
+// threadIdx.x + k THREADS, pixel-major (p, c), so that the loads read x
+// in order.
+template <typename T>
+__device__ __forceinline__ void fetch_x(float (&xr)[XN], const T* x,
+                                        const TileGrid& tg, int t) {
+  int n, y0, x0;
+  tg.at(t, n, y0, x0);
 #pragma unroll
-  for (int q = 0; q < NF / 4; ++q)
-    reinterpret_cast<float4*>(y)[q] =
-        make_float4(v[4 * q], v[4 * q + 1], v[4 * q + 2], v[4 * q + 3]);
-}
-__device__ __forceinline__ void store64(__nv_bfloat16* y,
-                                        const float (&v)[NF]) {
-#pragma unroll
-  for (int q = 0; q < NF / 8; ++q)
-    reinterpret_cast<uint4*>(y)[q] = make_uint4(
-        pack_bf16(v[8 * q], v[8 * q + 1]), pack_bf16(v[8 * q + 2],
-                                                     v[8 * q + 3]),
-        pack_bf16(v[8 * q + 4], v[8 * q + 5]),
-        pack_bf16(v[8 * q + 6], v[8 * q + 7]));
+  for (int k = 0; k < XN; ++k) {
+    const int i = threadIdx.x + k * THREADS, p = i / CI, c = i - p * CI;
+    const int gy = y0 - 1 + p / XS, gx = x0 - 1 + p % XS;
+    const bool in = i < CI * XS * XS && gy >= 0 && gy < tg.H && gx >= 0 &&
+                    gx < tg.W;
+    xr[k] = in ? tof(x[((size_t)(n * tg.H + gy) * tg.W + gx) * CI + c]) : 0.f;
+  }
 }
 
 template <typename T>
@@ -95,40 +154,67 @@ snet_conv1_kernel(const T* __restrict__ x, const T* __restrict__ w,
                   float slope) {
   __shared__ __align__(16) float sw[9 * CI * NF];  // HWIO: [tap][ci][co]
   __shared__ __align__(16) float sb[NF];
-  __shared__ float sx[CI][XS * XS];
-  for (int i = threadIdx.x; i < 9 * CI * NF; i += THREADS) sw[i] = tof(w[i]);
+  __shared__ float sx[2][CI][XS * XS];             // two x tiles, planar
+  fill_f32(sw, w, 9 * CI * NF);
   if (threadIdx.x < NF) sb[threadIdx.x] = tof(b[threadIdx.x]);
-  const int ty = threadIdx.x / TS, tx = threadIdx.x % TS;
+  const Block8 bk;
+  float xr[XN];
+  if (blockIdx.x < tg.count) fetch_x(xr, x, tg, blockIdx.x);
 
-  for (int t = blockIdx.x; t < tg.count; t += gridDim.x) {
+  int it = 0;
+  for (int t = blockIdx.x; t < tg.count; t += gridDim.x, ++it) {
+    float(*s)[XS * XS] = sx[it & 1];
+#pragma unroll
+    for (int k = 0; k < XN; ++k) {
+      const int i = threadIdx.x + k * THREADS, p = i / CI;
+      if (i < CI * XS * XS) s[i - p * CI][p] = xr[k];
+    }
+    __syncthreads();  // the tile is staged (and, the first time, sw, sb)
+    if (t + gridDim.x < tg.count) fetch_x(xr, x, tg, t + gridDim.x);
+
+    // channels cg*4 .. +3 (lo) and 32 + cg*4 .. +3 (hi), started at the bias
+    float acc[8][8];
+    const float4 blo = *reinterpret_cast<const float4*>(sb + bk.cg * 4);
+    const float4 bhi = *reinterpret_cast<const float4*>(sb + 32 + bk.cg * 4);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      acc[j][0] = blo.x; acc[j][1] = blo.y; acc[j][2] = blo.z;
+      acc[j][3] = blo.w; acc[j][4] = bhi.x; acc[j][5] = bhi.y;
+      acc[j][6] = bhi.z; acc[j][7] = bhi.w;
+    }
+#pragma unroll
+    for (int dy = 0; dy < 3; ++dy)
+#pragma unroll
+      for (int c = 0; c < CI; ++c) {
+        float xrow[10];
+#pragma unroll
+        for (int j = 0; j < 10; ++j)
+          xrow[j] = s[c][(bk.r + dy) * XS + bk.c0 + j];
+#pragma unroll
+        for (int dx = 0; dx < 3; ++dx) {
+          const float* wr = sw + ((dy * 3 + dx) * CI + c) * NF + bk.cg * 4;
+          const float4 lo = *reinterpret_cast<const float4*>(wr);
+          const float4 hi = *reinterpret_cast<const float4*>(wr + 32);
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            fma4(acc[j], xrow[j + dx], lo);
+            fma4(acc[j] + 4, xrow[j + dx], hi);
+          }
+        }
+      }
+
     int n, y0, x0;
     tg.at(t, n, y0, x0);
-    __syncthreads();  // the last tile's reads of sx are done
-    for (int i = threadIdx.x; i < CI * XS * XS; i += THREADS) {
-      const int p = i / CI, c = i - p * CI;
-      const int gy = y0 - 1 + p / XS, gx = x0 - 1 + p % XS;
-      const bool in = gy >= 0 && gy < tg.H && gx >= 0 && gx < tg.W;
-      sx[c][p] =
-          in ? tof(x[((size_t)(n * tg.H + gy) * tg.W + gx) * CI + c]) : 0.f;
-    }
-    __syncthreads();
-    float acc[NF];
+    const int oy = y0 + bk.r;
 #pragma unroll
-    for (int o = 0; o < NF; o += 4) {
-      const float4 bv = *reinterpret_cast<const float4*>(sb + o);
-      acc[o] = bv.x; acc[o + 1] = bv.y; acc[o + 2] = bv.z; acc[o + 3] = bv.w;
-    }
+    for (int j = 0; j < 8; ++j) {
+      const int ox = x0 + bk.c0 + j;
+      if (oy >= tg.H || ox >= tg.W) continue;
 #pragma unroll
-    for (int tap = 0; tap < 9; ++tap)
-#pragma unroll
-      for (int c = 0; c < CI; ++c)
-        fma_row<NF>(acc, sx[c][(ty + tap / 3) * XS + tx + tap % 3],
-                    sw + (tap * CI + c) * NF);
-    const int oy = y0 + ty, ox = x0 + tx;
-    if (oy < tg.H && ox < tg.W) {
-#pragma unroll
-      for (int o = 0; o < NF; ++o) acc[o] = lrelu(acc[o], slope);
-      store64(y + ((size_t)(n * tg.H + oy) * tg.W + ox) * NF, acc);
+      for (int o = 0; o < 8; ++o) acc[j][o] = lrelu(acc[j][o], slope);
+      T* yp = y + ((size_t)(n * tg.H + oy) * tg.W + ox) * NF + bk.cg * 4;
+      store4(yp, acc[j]);
+      store4(yp + 32, acc[j] + 4);
     }
   }
 }
@@ -202,15 +288,12 @@ snet_last_kernel(LastArgs a, TileGrid tg) {
   float* sbh = swh + K * CF;
   float* plane = sbh + CF;             // HEAD: [c][RPX]
 
-  for (int i = threadIdx.x; i < 9 * NF * CO; i += THREADS)
-    swl[i] = tof(static_cast<const T*>(a.wl)[i]);
+  fill_f32(swl, static_cast<const T*>(a.wl), 9 * NF * CO);
   if (threadIdx.x < CO)
     sbl[threadIdx.x] = tof(static_cast<const T*>(a.bl)[threadIdx.x]);
   if (HEAD) {
-    for (int i = threadIdx.x; i < K * CF; i += THREADS)
-      swh[i] = tof(static_cast<const T*>(a.wh)[i]);
-    for (int i = threadIdx.x; i < CF; i += THREADS)
-      sbh[i] = tof(static_cast<const T*>(a.bh)[i]);
+    fill_f32(swh, static_cast<const T*>(a.wh), K * CF);
+    fill_f32(sbh, static_cast<const T*>(a.bh), CF);
   }
 
   // chunk s of this block: tile blockIdx.x + (s / NCH) gridDim.x, channels
@@ -327,45 +410,42 @@ snet_last_kernel(LastArgs a, TileGrid tg) {
           }
         }
         __syncthreads();
-        // the head conv at one output pixel per thread
-        const int ty = threadIdx.x / TS, tx = threadIdx.x % TS;
-        float hin[K];
-#pragma unroll
-        for (int tap = 0; tap < 9; ++tap)
-#pragma unroll
-          for (int c = 0; c < CC; ++c)
-            hin[tap * CC + c] =
-                plane[c * RPX + (ty + tap / 3) * RS + tx + tap % 3];
-        const int oy = y0 + ty, ox = x0 + tx;
-        const bool out = oy < tg.H && ox < tg.W;
-        T* hp = static_cast<T*>(a.out0) +
-                ((size_t)(n * tg.H + oy) * tg.W + ox) * CF;
+        // the head conv in passes of 32 channels: per thread 8 pixels x
+        // 4 channels (Block8), a row of 10 plane values serving the three
+        // horizontal taps; lanes past CF in the last pass idle
+        const Block8 bk;
+        const int oy = y0 + bk.r;
 #pragma unroll 1
-        for (int f0 = 0; f0 < CF; f0 += 16) {
-          float h[16];
+        for (int f0 = 0; f0 < CF; f0 += 32) {
+          const int f = f0 + bk.cg * 4;
+          if (f >= CF) continue;
+          float h[8][4];
+          const float4 bv = *reinterpret_cast<const float4*>(sbh + f);
 #pragma unroll
-          for (int o = 0; o < 16; o += 4) {
-            const float4 bv = *reinterpret_cast<const float4*>(sbh + f0 + o);
-            h[o] = bv.x; h[o + 1] = bv.y; h[o + 2] = bv.z; h[o + 3] = bv.w;
+          for (int j = 0; j < 8; ++j) {
+            h[j][0] = bv.x; h[j][1] = bv.y; h[j][2] = bv.z; h[j][3] = bv.w;
           }
 #pragma unroll
-          for (int k = 0; k < K; ++k) fma_row<16>(h, hin[k], swh + k * CF + f0);
-          if (out) {
-            if constexpr (sizeof(T) == 4) {
+          for (int dy = 0; dy < 3; ++dy)
 #pragma unroll
-              for (int q = 0; q < 4; ++q)
-                reinterpret_cast<float4*>(hp + f0)[q] = make_float4(
-                    h[4 * q], h[4 * q + 1], h[4 * q + 2], h[4 * q + 3]);
-            } else {
+            for (int c = 0; c < CC; ++c) {
+              float xrow[10];
 #pragma unroll
-              for (int q = 0; q < 2; ++q)
-                reinterpret_cast<uint4*>(hp + f0)[q] = make_uint4(
-                    pack_bf16(h[8 * q], h[8 * q + 1]),
-                    pack_bf16(h[8 * q + 2], h[8 * q + 3]),
-                    pack_bf16(h[8 * q + 4], h[8 * q + 5]),
-                    pack_bf16(h[8 * q + 6], h[8 * q + 7]));
+              for (int j = 0; j < 10; ++j)
+                xrow[j] = plane[c * RPX + (bk.r + dy) * RS + bk.c0 + j];
+#pragma unroll
+              for (int dx = 0; dx < 3; ++dx) {
+                const float4 wv = *reinterpret_cast<const float4*>(
+                    swh + ((dy * 3 + dx) * CC + c) * CF + f);
+#pragma unroll
+                for (int j = 0; j < 8; ++j) fma4(h[j], xrow[j + dx], wv);
+              }
             }
-          }
+          T* hrow = static_cast<T*>(a.out0) +
+                    ((size_t)(n * tg.H + oy) * tg.W + x0 + bk.c0) * CF + f;
+#pragma unroll
+          for (int j = 0; j < 8; ++j)
+            if (oy < tg.H && x0 + bk.c0 + j < tg.W) store4(hrow + j * CF, h[j]);
         }
       }
 #pragma unroll

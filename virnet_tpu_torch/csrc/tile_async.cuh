@@ -1,8 +1,8 @@
 // Device helpers for tiled 3x3 convolutions on Hopper: asynchronous
 // global->shared copies with zero fill (cp.async), ldmatrix, bf16
 // mma.sync, and a persistent walk over output tiles.  Shared by K1
-// (conv3x3_mid.cu) and K4 (tail_residual.cu); written so that K2/K3
-// (dncnn_fused.cu) can take them up.
+// (conv3x3_mid.cu), K3 in bf16 (dncnn_head.cu), K4 (tail_residual.cu) and
+// the SNet level kernels of K2 and fp32 K3 (snet_levels.cu).
 //
 // Layout convention: a halo tile in shared memory is (TH+2) x (TW+2)
 // pixels, each pixel a row of `stride` 16-byte units whose count is ODD.

@@ -14,8 +14,9 @@ runs them through ``F.conv2d`` with autograd and is what the trainers
 build.
 
 In the denoising model, on shapes that pass ``models/fused.fused_head_supported`` the forward runs
-SNet, the sigma epilogue and RNet's head conv as one K3 launch and
-continues RNet from the head activation; other shapes run SNet (K2, or K1
+SNet, the sigma epilogue and RNet's head conv through K3 (one launch in
+bf16, the SNet level chain in fp32) and continues RNet from the head
+activation; other shapes run SNet (K2, or K1
 on the 'ops' route), the epilogue and RNet's pad and head in torch.  The
 RNet tail is K4 on every shape.
 """
