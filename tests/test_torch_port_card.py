@@ -99,10 +99,15 @@ def _need_card():
     (3, 1, (1, 24, 37, 3), 8),      # odd width, H no multiple of 32
     (6, 3, (2, 32, 24, 3), 32),     # real, one slab per image
     (6, 3, (1, 12, 20, 3), 4),      # slabs shorter than L + 2
-], ids=["syn-r16", "syn-odd-r8", "real-r32", "real-r4"])
+    (3, 1, (2, 128, 48, 3), 64),    # tiles of 32 rows: an inner tile edge
+    (6, 3, (1, 96, 50, 3), 48),     # rows > 32 and W no multiple of 24
+], ids=["syn-r16", "syn-odd-r8", "real-r32", "real-r4", "syn-r64",
+        "real-r48-w50"])
 def test_slabzero_kernel_matches_plain_on_card(L, co, shape, rows, dtype):
-    """K8 against its plain version on the card, to K3's tolerances; one
-    launch per call; rows far from slab edges equal K3 one row up."""
+    """K8 against its plain version on the card, to K3's tolerances (bf16:
+    csrc/dncnn_head.cu on the slab view, tiles of min(rows, 32) x 24; fp32:
+    the level chain); one K8 count per call, and in fp32 one K1 launch per
+    mid level; rows far from slab edges equal K3 one row up."""
     _need_card()
     from virnet_tpu_torch.precision import set_parity_mode
 
@@ -118,6 +123,8 @@ def test_slabzero_kernel_matches_plain_on_card(L, co, shape, rows, dtype):
     torch.cuda.synchronize()
     assert fc.LAUNCHES["dncnn_head_slabzero"] == 1
     assert fc.LAUNCHES["dncnn_head_fused"] == 0
+    assert fc.LAUNCHES["conv3x3_mid"] == (L if dtype == torch.float32 else 0)
+    assert sum(fc.LAUNCHES.values()) == 1 + fc.LAUNCHES["conv3x3_mid"]
     head_ref, sig_ref = fc.dncnn_head_slabzero_plain(x, *args, rows=rows)
     _close(head, head_ref, dtype)
     _close(sig, sig_ref, dtype, sigma=True)
@@ -152,6 +159,10 @@ def test_slabzero_kernel_raises_on_what_it_does_not_take():
     (1, 3, 4, 3, 7),        # H and W smaller than k
     (2, 40, 150, 3, 21),    # several tiles and chunks, the training k
     (1, 33, 20, 1, 3), (1, 20, 33, 4, 15), (3, 16, 128, 1, 3),
+    # the tile of 8 rows x 192 flat columns: W*C one short of, at and one
+    # past a tile, H under one tile, C that does not divide 96
+    (2, 5, 63, 3, 21), (1, 7, 64, 3, 3), (2, 9, 65, 3, 21),
+    (1, 17, 40, 5, 3), (1, 6, 11, 7, 21),
 ])
 def test_blur_kernels_match_plain_on_card(n, h, w, c, k):
     """K5, K6, K7 against their plain versions on the card (f32 sums in
@@ -224,6 +235,10 @@ def test_blur_kernels_raise_on_what_they_do_not_take():
                         torch.rand(1, 27, 27, device="cuda"))
     with pytest.raises(ValueError):
         blur.blur_valid(xp.cpu(), kern)
+    with pytest.raises(ValueError, match="channels"):   # one warp each
+        blur.blur_valid(torch.rand(1, 12, 12, 9, device="cuda"), kern)
+    with pytest.raises(ValueError, match="channels"):
+        blur.blur_dx(torch.rand(1, 8, 8, 9, device="cuda"), kern)
 
 
 _DTYPES = pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],

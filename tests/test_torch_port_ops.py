@@ -266,16 +266,24 @@ def test_every_signature_is_an_entry_of_its_source(symbol):
 
 
 def test_dncnn_fused_source_holds_the_probe_only():
-    """K2 and fp32 K3 left csrc/dncnn_fused.cu for the level chain of
-    csrc/snet_levels.cu: the old source exports K8's entries alone, and
-    the build compiles the new one."""
+    """The probe K8 left PR 1's csrc/dncnn_fused.cu for K3's own device
+    code: no source exports the old probe's entries, K8's entries are K3's
+    (csrc/dncnn_head.cu in bf16, the level chain of csrc/snet_levels.cu in
+    fp32), and the build lists no source that exports no entry."""
     from virnet_tpu_torch.ops import _build
 
-    assert _c_entries("dncnn_fused") == {
-        "vt_dncnn_slab_grid", "vt_dncnn_slab_scratch_elems",
-        "vt_dncnn_head_slabzero"}
-    assert "snet_levels" in _build.SOURCES
-    assert _c_entries("snet_levels") == {"vt_snet_conv1", "vt_snet_last"}
+    assert "dncnn_fused" not in _build.SOURCES
+    assert not (_build.CSRC / "dncnn_fused.cu").exists()
+    entries = {name: _c_entries(name) for name in _build.SOURCES}
+    old = {"vt_dncnn_slab_grid", "vt_dncnn_slab_scratch_elems",
+           "vt_dncnn_head_slabzero"}
+    assert not old & set().union(*entries.values())
+    assert not old & set(fc._SIGNATURES)
+    assert entries["dncnn_head"] == {"vt_dncnn_head_grid",
+                                     "vt_dncnn_head_scratch_elems",
+                                     "vt_dncnn_head"}
+    assert entries["snet_levels"] == {"vt_snet_conv1", "vt_snet_last"}
+    assert all(entries.values()), entries
     assert {fc._SIGNATURES[s][0] for s in ("vt_snet_conv1",
                                            "vt_snet_last")} == {
         "snet_levels"}

@@ -17,22 +17,52 @@
 //
 // A row of an NHWC image is W*C contiguous floats, and the tap (dy, dx)
 // reads the same row layout shifted by dy rows and dx*C floats, so the
-// kernels work on "flat columns" X = x*C + c and never look at C again:
-// any C >= 1 is the same code.
+// kernels work on "flat columns" X = x*C + c: K7 takes any C >= 1, K5 and
+// K6 any C up to 8.
 //
 // Bound on an H100: k*k FMAs per output float against 8 bytes moved per
 // output float; at k = 21 that is 110 FLOP/B, operations bound on the f32
-// CUDA cores.  Design of K5/K6: a block owns a 16-row x 128-flat-column
-// output tile and keeps the sample's taps and the (16+k-1) x (128+(k-1)C)
-// input halo tile in shared memory.  A thread owns one flat column and 8
-// rows; for each dx it loads the 8+k-1 inputs of its column once into
-// registers and slides the k taps of that tap column over them, so one
-// shared-memory read feeds ~3.4 FMAs at k = 21.  k is a template
-// parameter so that the window lives in registers; the sizes built are
-// 3, 5, 7, 15 and 21 (ops/blur.py SUPPORTED_K), any other is refused.  K6 is
-// the same device code with the taps flipped and the tile loaded at an
-// offset of k-1 with zeros outside the cotangent: the bounds check is in
-// the tile load, nothing is padded in device memory.
+// CUDA cores (67 TFLOP/s).  Exact f32: FMA on the CUDA cores, no TF32.
+// (On the tensor cores each sample's taps would have to become a banded
+// matrix, as the TPU's _blur_mxu_valid builds, and three TF32 passes would
+// be needed to keep f32 accuracy: nothing over the f32 cores at k = 21.)
+//
+// Design of K5/K6 (one device function, blur_tiles):
+//  - a tile is R rows x 96 pixels x C channels (R = 6 for K5, 8 for K6);
+//    its block has one warp per channel, and lane l owns pixels 3l .. 3l+2
+//    of its channel in the R rows: 3R outputs, 3 flat columns C apart,
+//    whose windows overlap.  For each tap column dx a thread loads one new
+//    window column of R + k - 1 inputs (the other two it kept) and the k
+//    taps of that column (float4 broadcasts of a transposed copy), then
+//    does 3 R k FMAs: at R = 8, k = 21, 504 FMAs per 34 shared-memory
+//    loads, against 3.4 FMAs per load in the first design, whose one
+//    column per thread read every input once per dx and every tap once
+//    per dx and row.  A new column is loaded as soon as the column it
+//    replaces has had its last sum, under the other two columns' sums;
+//  - the lanes of a warp read columns 3C floats apart: for odd C (images,
+//    C = 3: 9 floats) a load hits 32 different banks.  A first version
+//    with lanes 2C floats apart took two bank cycles per column load and
+//    with the taps saturated the shared-memory pipe;
+//  - the tile and the sample's taps arrive by cp.async (16-byte copies
+//    where source and destination are aligned, 4-byte ones with zero fill
+//    elsewhere, index math by multiplies: FastDiv), in 41-47 KB of shared
+//    memory: four or five blocks share an SM, and while one fills its
+//    strip the others compute; in a strip of two tiles the second tile's
+//    rows arrive under the first one's FMAs.  The blocks are persistent
+//    (as many as fit, walking the strips).  A double-buffered tile halves
+//    the blocks per SM; so did prefetching the next tap column into more
+//    registers, and both read slower;
+//  - C = 3 (images) is built with C fixed: the tile's row is a constant
+//    and each column load one instruction with an immediate offset.
+//    K5/K6 take C up to 8 (one warp each); the bounds checks are in the
+//    tile load: nothing is padded in device memory.
+//  What bounds it now: the FFMA stream itself, 90% of the loop's
+//  instructions, issues below the card's FFMA rate, and K6 pads its
+//  212-pixel rows to three 96-pixel tiles.
+// k is a template parameter so that the windows live in registers; the
+// sizes built are 3, 5, 7, 15 and 21 (ops/blur.py SUPPORTED_K), any other
+// is refused.  K6 is the same device code with the taps flipped and the
+// tile loaded at an offset of k-1 with zeros outside the cotangent.
 //
 // K7 reduces H*W*C products into each of k*k taps per sample.  A block
 // owns a 32-row x 64-flat-column chunk of the cotangent (and its halo
@@ -47,6 +77,8 @@
 // atomics anywhere.
 #include <cuda_runtime.h>
 
+#include "tile_async.cuh"
+
 namespace {
 
 constexpr int MAX_SMEM = 227 * 1024;
@@ -55,106 +87,275 @@ constexpr int MAX_SMEM = 227 * 1024;
 // K5 / K6
 // ---------------------------------------------------------------------------
 
-constexpr int R = 8;            // output rows per thread
-constexpr int TXF = 128;        // flat columns per block (one per thread.x)
-constexpr int TYT = 2;          // thread rows per block
-constexpr int TH = R * TYT;     // output rows per block
-constexpr int THREADS = TXF * TYT;
+// output rows per thread (and per tile), and tiles of R rows one block
+// takes one above the other (a strip), sharing their k - 1 rows of halo:
+// K5's and K6's, each the pair that read fastest at the SISR training
+// shape (16 x 192^2 x 3, k = 21; K6's outputs are 212^2; R 4..8, S 1..2).
+// K5's strips of 2 x 6 rows are 512, one round of the 528 blocks that fit
+// the card, and the second tile's rows arrive under the first one's FMAs
+constexpr int R_VALID = 6;
+constexpr int S_VALID = 2;
+constexpr int R_DX = 8;
+constexpr int S_DX = 1;
+static_assert(S_VALID <= 2 && S_DX <= 2, "the waits for a strip's tiles");
+constexpr int P = 3;        // pixels per thread, side by side in a row
+constexpr int PX = 32 * P;  // pixels of a tile row: a warp's 32 lanes
+constexpr int MAX_C = 8;    // channels: one warp each
 
-// out[n, y, X] = sum_{dy,dx} tap[dy, dx] * in'[n, y + dy, X + dx*C], where
-// in' is `in` shifted by `off` rows and off*C flat columns and zero outside
-// [0, Hin) x [0, WCin), and tap = taps[n] (flipped in both axes if `flip`).
-// off = 0: VALID correlation (K5).  off = K-1 with flip: the full
-// correlation of the cotangent with the flipped kernel (K6).
+// taps of one sample in shared memory, transposed: column dx at
+// tap_stride(K) * dx, padded to whole float4s
+__host__ __device__ constexpr int tap_stride(int K) { return (K + 3) / 4 * 4; }
+
+// The shapes of a launch.  out[n, y, X] = sum_{dy,dx} tap[dy, dx] *
+// in'[n, y + dy, X + dx*C], where in' is `in` shifted by `off` rows and
+// off*C flat columns and zero outside [0, Hin) x [0, WCin), and tap =
+// taps[n], flipped in both axes for K6.  off = 0: VALID correlation (K5).
+// off = K-1 with the flip: the full correlation of the cotangent with the
+// flipped kernel (K6).  A tile is R rows x PX pixels x C channels, and a
+// block's unit of work a strip of S tiles one above the other.
+struct BlurShape {
+  int R, S;
+  int N, Hin, WCin, Hout, WCout, C, off;
+  int sw;  // floats of a shared row of the input tile: (PX + K - 1) C,
+           // rounded up to 4
+  int tiles_x, per_image, count;
+};
+
+__host__ __device__ constexpr int tile_row(int K, int C) {
+  return ((PX + K - 1) * C + 3) / 4 * 4;
+}
+
 template <int K>
-__device__ __forceinline__ void
-blur_tile(const float* __restrict__ in, const float* __restrict__ taps,
-          float* __restrict__ out, int Hin, int WCin, int Hout, int WCout,
-          int C, int off, int flip) {
-  extern __shared__ float sm[];
-  const int SW = TXF + (K - 1) * C;          // shared tile row width
-  float* st = sm;                            // K*K taps
-  float* s = sm + K * K;                     // (TH+K-1) x SW tile
+__host__ __device__ constexpr int tile_floats(int R, int S, int C) {
+  return K * tap_stride(K) + (S * R + K - 1) * tile_row(K, C);
+}
 
-  const int n = blockIdx.z;
-  const int y0 = blockIdx.y * TH, X0 = blockIdx.x * TXF;
-  const int tid = threadIdx.y * TXF + threadIdx.x;
+template <int K>
+BlurShape blur_shape(int N, int Hin, int WCin, int Hout, int WCout, int C,
+                     bool full) {
+  const int R = full ? R_DX : R_VALID, S = full ? S_DX : S_VALID;
+  BlurShape s{R, S, N, Hin, WCin, Hout, WCout, C, full ? K - 1 : 0};
+  s.sw = tile_row(K, C);
+  s.tiles_x = (WCout / C + PX - 1) / PX;
+  s.per_image = s.tiles_x * ((Hout + S * R - 1) / (S * R));
+  s.count = N * s.per_image;
+  return s;
+}
 
-  for (int i = tid; i < K * K; i += THREADS)
-    st[i] = taps[(size_t)n * K * K + (flip ? K * K - 1 - i : i)];
-  const float* inn = in + (size_t)n * Hin * WCin;
-  for (int idx = tid; idx < (TH + K - 1) * SW; idx += THREADS) {
-    const int r = idx / SW, j = idx - r * SW;
-    const int gy = y0 + r - off, gx = X0 + j - off * C;
-    s[idx] = (gy >= 0 && gy < Hin && gx >= 0 && gx < WCin)
-                 ? inn[(size_t)gy * WCin + gx] : 0.f;
+// issue the copies of strip t's taps into `buf`, transposed (and flipped
+// for K6)
+template <int K, bool FLIP>
+__device__ __forceinline__ void copy_taps(float* buf, const float* taps,
+                                          const BlurShape& s, int t) {
+  constexpr int TS = tap_stride(K);
+  const float* tn = taps + (size_t)(t / s.per_image) * K * K;
+  for (int i = threadIdx.x; i < K * K; i += blockDim.x) {
+    const int dy = i / K, dx = i - dy * K;  // K is a constant
+    cp_async4(buf + dx * TS + dy, tn + (FLIP ? K * K - 1 - i : i), 4);
   }
-  __syncthreads();
+}
 
-  const int X = X0 + threadIdx.x;
-  if (X >= WCout) return;
-  float acc[R];
+// issue the copies of rows [r0, r1) of strip t's input (S R + K - 1 rows
+// of sw floats at `tile`), 16 bytes at a time where source and
+// destination are aligned, else by 4-byte copies with zero fill outside
+// the input
+__device__ __forceinline__ void copy_rows(float* tile, const float* in,
+                                          const BlurShape& s, int t, int r0,
+                                          int r1) {
+  const int n = t / s.per_image, rt = t - n * s.per_image;
+  const int ty = rt / s.tiles_x, tx = rt - ty * s.tiles_x;
+  const int gy0 = ty * s.S * s.R - s.off, gx0 = (tx * PX - s.off) * s.C;
+  const float* inn = in + (size_t)n * s.Hin * s.WCin;
+  const int nq = s.sw / 4;
+  const FastDiv fq(nq);
+  for (int i = threadIdx.x + r0 * nq; i < r1 * nq; i += blockDim.x) {
+    const int r = fq.div(i), q = i - r * nq;
+    const int gy = gy0 + r, gx = gx0 + 4 * q;
+    float* dst = tile + r * s.sw + 4 * q;
+    const bool row_in = gy >= 0 && gy < s.Hin;
+    const float* src = inn + (size_t)(row_in ? gy : 0) * s.WCin;
+    if (row_in && gx >= 0 && gx + 4 <= s.WCin &&
+        ((reinterpret_cast<uintptr_t>(src + gx) & 15) == 0)) {
+      cp_async16(dst, src + gx, 16);
+    } else {
 #pragma unroll
-  for (int j = 0; j < R; ++j) acc[j] = 0.f;
-  const float* sp = s + (threadIdx.y * R) * SW + threadIdx.x;
-#pragma unroll 1
-  for (int dx = 0; dx < K; ++dx) {
-    float v[R + K - 1];
-#pragma unroll
-    for (int r = 0; r < R + K - 1; ++r) v[r] = sp[r * SW + dx * C];
-#pragma unroll
-    for (int dy = 0; dy < K; ++dy) {
-      const float t = st[dy * K + dx];
-#pragma unroll
-      for (int j = 0; j < R; ++j) acc[j] = fmaf(t, v[j + dy], acc[j]);
+      for (int e = 0; e < 4; ++e) {
+        const bool in_e = row_in && gx + e >= 0 && gx + e < s.WCin;
+        cp_async4(dst + e, in_e ? src + gx + e : inn, in_e ? 4 : 0);
+      }
     }
   }
-  float* on = out + (size_t)n * Hout * WCout;
+}
+
+// acc[r][j] += t[dy] * v[r + dy]: one tap column over one window column
+template <int K, int R>
+__device__ __forceinline__ void tap_column(float (&acc)[R][P], int j,
+                                           const float (&t)[tap_stride(K)],
+                                           const float (&v)[R + K - 1]) {
 #pragma unroll
-  for (int j = 0; j < R; ++j) {
-    const int y = y0 + threadIdx.y * R + j;
-    if (y < Hout) on[(size_t)y * WCout + X] = acc[j];
+  for (int dy = 0; dy < K; ++dy)
+#pragma unroll
+    for (int r = 0; r < R; ++r) acc[r][j] = fmaf(t[dy], v[r + dy], acc[r][j]);
+}
+
+template <int K, int R>
+__device__ __forceinline__ void load_column(float (&v)[R + K - 1],
+                                            const float* col, int sw) {
+#pragma unroll
+  for (int i = 0; i < R + K - 1; ++i) v[i] = col[i * sw];
+}
+
+template <int K>
+__device__ __forceinline__ void load_taps(float (&t)[tap_stride(K)],
+                                          const float* col) {
+#pragma unroll
+  for (int i = 0; i < tap_stride(K); i += 4) {
+    const float4 q = *reinterpret_cast<const float4*>(col + i);
+    t[i] = q.x;
+    t[i + 1] = q.y;
+    t[i + 2] = q.z;
+    t[i + 3] = q.w;
   }
 }
 
-// one entry per function, so that a profile tells K5 from K6
-template <int K>
-__global__ void __launch_bounds__(THREADS)
-blur_valid_kernel(const float* __restrict__ xp,
-                  const float* __restrict__ taps, float* __restrict__ out,
-                  int Hp, int WCp, int H, int WC, int C) {
-  blur_tile<K>(xp, taps, out, Hp, WCp, H, WC, C, 0, 0);
+// The tiles of this block, one after the other.  Warp c takes channel c;
+// lane l owns pixels P l .. P l + P - 1 of its channel in the tile's R
+// rows: flat columns (P l + j) C + c, C apart, whose windows overlap, so
+// that one window column of R + K - 1 inputs serves P outputs at three
+// tap columns.  The lanes' columns are P C floats apart: for odd C (images:
+// C = 3, lanes 9 floats apart) the 32 lanes of a load hit 32 different
+// banks.  CC is C when the build knows it (a constant shared row: each
+// column load is one instruction with an immediate offset), else 0.
+template <int K, int R, int CC, bool FLIP>
+__device__ __forceinline__ void blur_tiles(const float* __restrict__ in,
+                                           const float* __restrict__ taps,
+                                           float* __restrict__ out,
+                                           const BlurShape& s) {
+  extern __shared__ float sm[];  // 16-byte aligned: the dynamic base
+  constexpr int W = R + K - 1, TS = tap_stride(K);
+  const int C = CC > 0 ? CC : s.C;
+  const int sw = CC > 0 ? tile_row(K, CC) : s.sw;
+  const int c = threadIdx.x >> 5, l = threadIdx.x & 31;
+  const int col0 = P * l * C + c;
+  const int S = s.S;
+
+  for (int t = blockIdx.x; t < s.count; t += gridDim.x) {
+    __syncthreads();  // the strip before is done with shared memory
+    // the taps and the first tile's rows, then each further tile's R rows,
+    // each a group of copies of its own
+    copy_taps<K, FLIP>(sm, taps, s, t);
+    copy_rows(sm + K * TS, in, s, t, 0, W);
+    cp_async_commit();
+    for (int st = 1; st < S; ++st) {
+      copy_rows(sm + K * TS, in, s, t, W + (st - 1) * R, W + st * R);
+      cp_async_commit();
+    }
+    const int n = t / s.per_image, rt = t - n * s.per_image;
+    const int ty = rt / s.tiles_x, tx = rt - ty * s.tiles_x;
+    const int X = tx * PX * C + col0;
+#pragma unroll 1
+    for (int st = 0; st < S; ++st) {
+      if (st + 1 < S)
+        cp_async_wait<1>();  // S <= 2: this tile's rows, not the next one's
+      else
+        cp_async_wait<0>();
+      __syncthreads();
+      const float* tile = sm + K * TS + st * R * sw + col0;
+      const int y0 = (ty * S + st) * R;
+      if (X >= s.WCout || y0 >= s.Hout) continue;
+      float acc[R][P];
+#pragma unroll
+      for (int r = 0; r < R; ++r)
+#pragma unroll
+        for (int j = 0; j < P; ++j) acc[r][j] = 0.f;
+      // window columns dx, dx + 1, dx + 2 (in units of C) in a ring of
+      // three; step dx sums tap column dx over them (output j over column
+      // dx + j), and loads column dx + 3 into the ring's slot of column dx
+      // as soon as its last sum is issued, under the other two columns' sums
+      float c0[W], c1[W], c2[W], tp[TS];
+      load_column<K, R>(c0, tile, sw);
+      load_column<K, R>(c1, tile + C, sw);
+      load_column<K, R>(c2, tile + 2 * C, sw);
+      auto step = [&](int dx, float(&a)[W], const float(&b)[W],
+                      const float(&d)[W]) {
+        load_taps<K>(tp, sm + dx * TS);
+        tap_column<K, R>(acc, 0, tp, a);
+        if (dx + 3 < K + P - 1) load_column<K, R>(a, tile + (dx + 3) * C, sw);
+        tap_column<K, R>(acc, 1, tp, b);
+        tap_column<K, R>(acc, 2, tp, d);
+      };
+#pragma unroll 1
+      for (int dx = 0; dx < K; dx += 3) {
+        step(dx, c0, c1, c2);
+        if (dx + 1 < K) step(dx + 1, c1, c2, c0);
+        if (dx + 2 < K) step(dx + 2, c2, c0, c1);
+      }
+      float* on = out + (size_t)n * s.Hout * s.WCout;
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const int y = y0 + r;
+        if (y >= s.Hout) break;
+#pragma unroll
+        for (int j = 0; j < P; ++j)
+          if (X + j * C < s.WCout)
+            on[(size_t)y * s.WCout + X + j * C] = acc[r][j];
+      }
+    }
+  }
 }
 
-template <int K>
-__global__ void __launch_bounds__(THREADS)
+// one entry per function, so that a profile tells K5 from K6; blocks of 32
+// C threads (96 for images)
+template <int K, int CC>
+__global__ void __launch_bounds__(32 * (CC > 0 ? CC : MAX_C))
+blur_valid_kernel(const float* __restrict__ xp,
+                  const float* __restrict__ taps, float* __restrict__ out,
+                  BlurShape s) {
+  blur_tiles<K, R_VALID, CC, false>(xp, taps, out, s);
+}
+
+template <int K, int CC>
+__global__ void __launch_bounds__(32 * (CC > 0 ? CC : MAX_C))
 blur_dx_kernel(const float* __restrict__ g, const float* __restrict__ taps,
-               float* __restrict__ dxp, int H, int WC, int Hp, int WCp,
-               int C) {
-  blur_tile<K>(g, taps, dxp, H, WC, Hp, WCp, C, K - 1, 1);
+               float* __restrict__ dxp, BlurShape s) {
+  blur_tiles<K, R_DX, CC, true>(g, taps, dxp, s);
 }
 
 // full = false: K5, `in` is the padded input; full = true: K6, `in` is the
-// cotangent and `out` the padded-size gradient
+// cotangent and `out` the padded-size gradient.  Images (C = 3) get the
+// build with C fixed.
 template <int K>
 int launch_blur(bool full, const float* in, const float* taps, float* out,
                 int N, int Hin, int WCin, int Hout, int WCout, int C,
                 cudaStream_t stream) {
-  const size_t smem =
-      sizeof(float) * (K * K + (size_t)(TH + K - 1) * (TXF + (K - 1) * C));
+  if (C < 1 || C > MAX_C) return cudaErrorInvalidValue;
+  const BlurShape s = blur_shape<K>(N, Hin, WCin, Hout, WCout, C, full);
+  const size_t smem = sizeof(float) * (size_t)tile_floats<K>(s.R, s.S, C);
   if (smem > MAX_SMEM) return cudaErrorInvalidValue;
-  void (*kernel)(const float*, const float*, float*, int, int, int, int,
-                 int) = blur_valid_kernel<K>;
-  if (full) kernel = blur_dx_kernel<K>;
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  using Kern = void (*)(const float*, const float*, float*, BlurShape);
+  const int v = (full ? 2 : 0) + (C == 3 ? 1 : 0);
+  const Kern kernels[4] = {blur_valid_kernel<K, 0>, blur_valid_kernel<K, 3>,
+                           blur_dx_kernel<K, 0>, blur_dx_kernel<K, 3>};
+  const Kern kernel = kernels[v];
+  // the cap on dynamic shared memory, raised once per kernel and device
+  // (a host call that costs microseconds)
+  static int raised[4] = {-1, -1, -1, -1};
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (raised[v] != dev) {
+    e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, MAX_SMEM);
     if (e != cudaSuccess) return e;
+    raised[v] = dev;
   }
-  dim3 grid((WCout + TXF - 1) / TXF, (Hout + TH - 1) / TH, N);
-  dim3 block(TXF, TYT);
-  kernel<<<grid, block, smem, stream>>>(in, taps, out, Hin, WCin, Hout, WCout,
-                                        C);
+  const int threads = 32 * C;
+  const int blocks = persistent_blocks(kernel, threads, smem, s.count);
+  if (blocks <= 0) {
+    e = cudaGetLastError();
+    return e != cudaSuccess ? e : cudaErrorInvalidConfiguration;
+  }
+  kernel<<<blocks, threads, smem, stream>>>(in, taps, out, s);
   return cudaGetLastError();
 }
 

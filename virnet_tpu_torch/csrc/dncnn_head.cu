@@ -1,11 +1,18 @@
-// K3 dncnn_head_fused in bf16: SNet (DnCNN) + sigma epilogue + RNet's head
-// conv in one launch, redesigned for Hopper.  (K3 in fp32, K2 and the
-// probe K8 stay in dncnn_fused.cu.)
+// K3 dncnn_head_fused in bf16 and the probe K8 dncnn_head_slabzero in
+// bf16: SNet (DnCNN) + sigma epilogue + RNet's head conv in one launch,
+// redesigned for Hopper.  (K2 in both dtypes and K3 and K8 in fp32 are the
+// level chain of snet_levels.cu with K1 for the mids.)
 //
 // Replaces: virnet_tpu/ops/pallas_conv.py:dncnn_head_fused (:1289) modes
 // 'halo' (_dncnn_head_kernel :925, pallas_call :1512) and 'carry'
 // (_dncnn_head_kernel_carry :1055, pallas_call :1459).  Hopper blocks run
-// in no order, so both modes become one halo kernel.
+// in no order, so both modes become one halo kernel.  Also mode
+// 'slabzero' (_dncnn_head_kernel_slabzero :1183, pallas_call :1412): the
+// same kernel on a view of the input cut into slabs of r rows (N * H / r
+// images of r rows), x read one row up, row -1 of each input image zero
+// (XS below).  Slab t then reads image rows [t*r - 1, t*r + r - 1) and
+// writes rows [t*r, t*r + r): the JAX probe's output, wrong near slab
+// edges and shifted down one row on purpose.
 //
 // Function: conv1 3->64 + lrelu, L mids 64->64 + lrelu, conv_last 64->co,
 // zero 'same' padding at every level with exact image borders, f32
@@ -19,16 +26,23 @@
 // Bound on an H100 SXM: ~233 kFLOP per pixel (denoising-syn) against ~200
 // B of input and output per pixel: compute bound (0.49 ms at 32x256^2).
 //
-// What held the first K3 (dncnn_fused.cu) back: its mid levels read every
-// A fragment by 32-bit loads straight from the block's level buffers in
-// device memory, each pixel nine times, from a scratch (>= 59.6 MB over a
-// persistent grid) larger than the 50 MB L2; conv1, conv_last and the head
-// ran on the f32 CUDA cores; the weights were transposed element by
-// element for every tile and level.  This design:
-//  - a persistent block walks TILE x TILE output tiles (TileGrid) and
-//    recomputes a halo of L + 2 pixels, as before.  TILE = 24 keeps the two
-//    level buffers per block at 2 * 34^2 * 128 B = 296 KB at L = 3, so 132
-//    blocks hold 39 MB, inside L2 (1.57x recompute against 1.41x at 32);
+// What held PR 1's fused kernel back: its mid levels read every A
+// fragment by 32-bit loads straight from the block's level buffers in
+// device memory, each pixel nine times, from a scratch larger than the
+// 50 MB L2; conv1, conv_last and the head ran on the f32 CUDA cores; the
+// weights were transposed element by element for every tile and level.
+// This design:
+//  - a persistent block walks TH x TILE output tiles (TileGrid), TILE = 24
+//    columns and TH rows (K3: 24; K8: min(r, 32), so that a tile spans
+//    its slab's rows up to r = 32), and recomputes a halo of up to L + 2
+//    pixels.  Each level's region is the tile with its margin, clipped to
+//    the image (for K8 the slab): nothing outside is computed, and the
+//    copies of the next level read zeros there (cp.async zero fill).  So
+//    K8 at r <= 32 recomputes only the column halo (1.25x at r = 32, L =
+//    3, against K3's 1.57x at 24 x 24).  The two level buffers per block
+//    hold (TH + 2(L+2)) x (TILE + 2(L+2)) pixels; the parts touched at 24
+//    x 24 (K3) or 32 x 24 clipped to a 32-row slab (K8) are 296 KB at L =
+//    3, so 132 blocks keep 39 MB in L2;
 //  - every conv is an implicit GEMM on the tensor cores, mma.sync m16n8k16
 //    with f32 sums, M = 16 pixels; a warp takes two m-tiles at a time and
 //    both share each B fragment;
@@ -40,9 +54,8 @@
 //    16-byte units (odd: ldmatrix conflict-free).  A by ldmatrix from the
 //    staged pixels (any 16 pixels of the rectangle: every lane gives its
 //    own row address), B by ldmatrix.trans straight from the HWIO weights,
-//    which arrive by cp.async once per level and tile.  Bias, lrelu, zero
-//    outside the image, one rounding, staged per warp and written back as
-//    16-byte stores;
+//    which arrive by cp.async once per level and tile.  Bias, lrelu, one
+//    rounding, staged per warp and written back as 16-byte stores;
 //  - conv1 (N = 64, K = 27 taps x channels padded to 32): A gathered from
 //    the x pixels of the whole region, staged once per tile in shared
 //    memory 4 channels apart;
@@ -51,7 +64,7 @@
 //    until the index math lost its run-time divisions (FastDiv);
 //  - conv_last (N = 8 of which co are used, K = 9 x 64): the mids' staging
 //    and A; the sigma epilogue in f32 as before; sqrt(sigma) goes to a
-//    shared (TILE+2)^2 plane beside x;
+//    shared (TH+2) x (TILE+2) plane beside x;
 //  - head (N = CF in passes of 64, K = 9 (3 + co) padded to 16s): A
 //    gathered from that plane, B by ldmatrix.trans from [k][CF] weights;
 //    bias in f32, one rounding, staged and written as 16-byte stores.
@@ -64,84 +77,91 @@ using bf16 = __nv_bfloat16;
 
 constexpr int NF = 64;     // DnCNN filters
 constexpr int CI = 3;      // image channels
-constexpr int TILE = 24;
+constexpr int TILE = 24;   // tile columns
+constexpr int MAX_TH = 32; // tile rows, at most
 constexpr int THREADS = 256, WARPS = THREADS / 32;
 constexpr int ROW = odd_units(NF * 2) * 8;  // elements per staged pixel: 72
 constexpr int RECT_PX = 256;  // output pixels of one rectangle, at most
 constexpr int RECT_W = 32;    // and columns
-// input pixels of one rectangle, (rh + 2) * (cw + 2) with rh <= 256 / cw:
-// the most over the widths a region of TILE + 2 or more columns is cut
-// into (cw in [17, 32]) is 340, at cw = 32
+// input pixels of one rectangle, (rh + 2) * (cw + 2): Cut keeps every
+// rectangle within it; a full region of TILE + 2 or more columns (cw in
+// [17, 32]) reaches it at cw = 32, rh = 8
 constexpr int IN_PX = 340;
 constexpr int XC = 4;         // channel stride of conv1's staged x pixels
-constexpr int EC = 8;         // channel stride of the head's [x | sqrt(sigma)]
+constexpr int EC = 6;         // channel stride of the head's [x | sqrt(sigma)]
 constexpr int MAX_CF = 256;
-constexpr int ES = TILE + 2;  // side of the head's input plane
+constexpr int ES = TILE + 2;  // row of the head's input plane, in pixels
 
 constexpr size_t W_BYTES = (size_t)9 * NF * ROW * 2;
 constexpr size_t IN_BYTES = (size_t)IN_PX * ROW * 2;
 constexpr size_t STAGE_BYTES = (size_t)WARPS * 32 * ROW * 2;
 constexpr size_t SMEM = W_BYTES + 2 * IN_BYTES + STAGE_BYTES +
-                        4 * MAX_CF + (size_t)ES * ES * EC * 2;
+                        4 * MAX_CF + (size_t)(MAX_TH + 2) * ES * EC * 2;
+static_assert(SMEM <= 232448, "one block's shared memory on an H100");
 
 struct Args {
   const bf16 *x, *w1, *b1, *wm, *bm, *wl, *bl, *wh, *bh;
   bf16 *head, *sigma, *scratch;
   int N, H, W, L, CO, CF;
+  int TH;  // tile rows
+  int XS;  // 0, or (K8) slabs per input image: x is read one row up
   float slope, lmin, lmax;
 };
 
 // the tile a block works on, and its level buffers' geometry: pixel (ly,
-// lx) of the tile (ly, lx in [-Hh, TILE + Hh)) is buffer pixel (ly + Hh) *
-// S + lx + Hh
+// lx) of the tile (ly in [-Hh, TH + Hh), lx in [-Hh, TILE + Hh)) is
+// buffer pixel (ly + Hh) * S + lx + Hh.  x of tile row `zr` reads zero
+// (K8: row 0 of the first slab of an input image, whose row above is
+// outside that image).
 struct Tile {
-  int n, ty0, tx0, H, W, Hh, S;
+  int n, ty0, tx0, H, W, Hh, S, TH, zr;
   __device__ bool in_image(int ly, int lx) const {
     const int gy = ty0 + ly, gx = tx0 + lx;
     return gy >= 0 && gy < H && gx >= 0 && gx < W;
   }
 };
 
-// a level's output region (margin m, (TILE + 2m)^2 pixels) cut into
-// rectangles of at most RECT_PX pixels and RECT_W columns, near-equal
-struct Cut {
-  int cw, rh, nc, nr;
-  __device__ Cut(int side) {
-    nc = (side + RECT_W - 1) / RECT_W;
-    cw = (side + nc - 1) / nc;
-    const int rmax = RECT_PX / cw;
-    nr = (side + rmax - 1) / rmax;
-    rh = (side + nr - 1) / nr;
-  }
-  // rows [ry0, ry0 + rh) and columns [rx0, rx0 + cw) of rectangle r
-  __device__ void at(int r, int side, int& ry0, int& rx0, int& h,
-                     int& w) const {
-    ry0 = (r / nc) * rh;
-    rx0 = (r % nc) * cw;
-    h = min(rh, side - ry0);
-    w = min(cw, side - rx0);
-  }
+// a level's output region, the tile with margin m clipped to the image:
+// tile rows [y0, y0 + h) and columns [x0, x0 + w)
+struct Region {
+  int y0, x0, h, w;
+  __device__ Region(const Tile& tl, int m)
+      : y0(max(-m, -tl.ty0)), x0(max(-m, -tl.tx0)),
+        h(min(tl.TH + m, tl.H - tl.ty0) - max(-m, -tl.ty0)),
+        w(min(TILE + m, tl.W - tl.tx0) - max(-m, -tl.tx0)) {}
 };
 
-// n / d and n % d by a multiply: with m = ceil(2^32 / d), __umulhi(n, m)
-// is floor(n / d) for 0 <= n < 2^21 and 1 <= d < 2^11 (the error n (m d -
-// 2^32) / 2^32 stays under 1).  A division by a value known only at run
-// time costs some 20 instructions, and the index math of the staging
-// copies and epilogues runs one per pixel.
-struct FastDiv {
-  int d;
-  unsigned m;
-  __device__ explicit FastDiv(int d_) : d(d_), m(0xFFFFFFFFu / d_ + 1) {}
-  __device__ int div(int n) const { return __umulhi((unsigned)n, m); }
-  __device__ int mod(int n) const { return n - div(n) * d; }
+// a region cut into rectangles of at most RECT_PX pixels and RECT_W
+// columns, near-equal, each with an input of at most IN_PX pixels
+struct Cut {
+  int cw, rh, nc, nr;
+  __device__ Cut(int rows, int cols) {
+    nc = (cols + RECT_W - 1) / RECT_W;
+    cw = (cols + nc - 1) / nc;
+    const int rmax = min(RECT_PX / cw, IN_PX / (cw + 2) - 2);
+    nr = (rows + rmax - 1) / rmax;
+    rh = (rows + nr - 1) / nr;
+  }
+  // tile rows [ry0, ry0 + h) and columns [rx0, rx0 + w) of rectangle r of
+  // region rg
+  __device__ void at(int r, const Region& rg, int& ry0, int& rx0, int& h,
+                     int& w) const {
+    const int i = r / nc, j = r - i * nc;
+    ry0 = i * rh;
+    rx0 = j * cw;
+    h = min(rh, rg.h - ry0);
+    w = min(cw, rg.w - rx0);
+    ry0 += rg.y0;
+    rx0 += rg.x0;
+  }
 };
 
 // what a warp's two m-tiles cover: m-tiles mt0 and mt0 + WARPS of a
-// rectangle of npx pixels, cw columns, at (ry0, rx0) of the margin-m region
+// rectangle of npx pixels, cw columns, at tile pixel (ry0, rx0)
 struct MTiles {
   int mt0, npx;
   FastDiv cw;
-  int ry0, rx0, m;
+  int ry0, rx0;
   // pixel q (0..31: m-tile q / 16, row q % 16) as an index into the
   // rectangle, npx when past its end
   __device__ int pixel(int q) const {
@@ -156,6 +176,15 @@ __device__ __forceinline__ uint32_t pack_raw(uint16_t lo, uint16_t hi) {
 
 __device__ __forceinline__ uint16_t bits(bf16 v) {
   return __bfloat16_as_ushort(v);
+}
+
+// channel c of x at tile pixel (ly, lx), zero outside the image; with XS
+// (K8) the image is a slab of the input and x is read one row up
+__device__ __forceinline__ uint16_t x_at(const Args& a, const Tile& tl,
+                                         int ly, int lx, int c) {
+  if (!tl.in_image(ly, lx) || ly == tl.zr) return 0;
+  const size_t row = (size_t)tl.n * a.H + tl.ty0 + ly - (a.XS > 0);
+  return bits(a.x[(row * a.W + tl.tx0 + lx) * CI + c]);
 }
 
 // st(i, ld(i)) for i < n over the block, ld(i) the 16 bits of one bf16
@@ -209,20 +238,24 @@ __device__ __forceinline__ void zero(float (&acc)[2][NT][4]) {
       for (int i = 0; i < 4; ++i) acc[mi][nt][i] = 0.f;
 }
 
-// issue the copies of one rectangle's input: rows [ry0 - 1, ry0 + rh + 1)
-// and columns [rx0 - 1, rx0 + cw + 1) of the margin-m region, which lie in
-// the margin-(m+1) region the level before wrote (zeros outside the image
-// included), so no copy needs a zero fill
+// issue the copies of one rectangle's input: tile rows [ry0 - 1, ry0 + rh
+// + 1) and columns [rx0 - 1, rx0 + cw + 1), which the level before wrote
+// where they lie in the image (its region is one pixel wider, clipped to
+// the image); pixels outside the image arrive as zeros (zero fill)
 __device__ __forceinline__ void load_rect(bf16* dst, const bf16* src,
-                                          const Tile& tl, int m, int ry0,
-                                          int rx0, int rh, int cw) {
-  const int iw = cw + 2, npx = (rh + 2) * iw, org = tl.Hh - m - 1;
+                                          const Tile& tl, int ry0, int rx0,
+                                          int rh, int cw) {
+  const int iw = cw + 2, npx = (rh + 2) * iw;
   const FastDiv fiw(iw);
   for (int i = threadIdx.x; i < npx * 8; i += THREADS) {
     const int p = i >> 3, u = i & 7, py = fiw.div(p);
-    const int by = org + ry0 + py, bx = org + rx0 + p - py * iw;
+    const int ly = ry0 - 1 + py, lx = rx0 - 1 + p - py * iw;
+    const bool in = tl.in_image(ly, lx);
     cp_async16(dst + p * ROW + u * 8,
-               src + ((size_t)by * tl.S + bx) * NF + u * 8, 16);
+               in ? src + ((size_t)(ly + tl.Hh) * tl.S + lx + tl.Hh) * NF +
+                        u * 8
+                  : src,
+               in ? 16 : 0);
   }
 }
 
@@ -256,31 +289,23 @@ __device__ __forceinline__ void bias_init(float (&acc)[2][8][4],
 }
 
 // 64-channel outputs of a warp's two m-tiles (conv1, the mids), their sums
-// started at the bias: lrelu in f32, zero outside the image, one rounding;
-// staged, then 16-byte stores into the level buffer, a whole pixel per 8
-// lanes
+// started at the bias: lrelu in f32, one rounding (regions are clipped to
+// the image, so every pixel lies in it); staged, then 16-byte stores into
+// the level buffer, a whole pixel per 8 lanes
 __device__ void emit64(const float (&acc)[2][8][4], const MTiles& mt,
                        const Tile& tl, float slope, bf16* stage, bf16* dst) {
   const int lane = threadIdx.x & 31, g = lane >> 2, tig = lane & 3;
-  const int org = tl.Hh - mt.m;  // buffer coordinates of region (0, 0)
 #pragma unroll
   for (int mi = 0; mi < 2; ++mi)
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
-      const int q = mi * 16 + g + 8 * r, p = mt.pixel(q);
-      const bool in = p < mt.npx &&
-                      tl.in_image(mt.ry0 + mt.cw.div(p) - mt.m,
-                                  mt.rx0 + mt.cw.mod(p) - mt.m);
+      const int q = mi * 16 + g + 8 * r;
 #pragma unroll
       for (int nt = 0; nt < 8; ++nt) {
         const int co = nt * 8 + 2 * tig;
-        float v0 = 0.f, v1 = 0.f;
-        if (in) {
-          v0 = lrelu(acc[mi][nt][2 * r], slope);
-          v1 = lrelu(acc[mi][nt][2 * r + 1], slope);
-        }
         *reinterpret_cast<uint32_t*>(stage + q * ROW + co) =
-            pack_bf16(v0, v1);
+            pack_bf16(lrelu(acc[mi][nt][2 * r], slope),
+                      lrelu(acc[mi][nt][2 * r + 1], slope));
       }
     }
   __syncwarp();
@@ -289,8 +314,8 @@ __device__ void emit64(const float (&acc)[2][8][4], const MTiles& mt,
     const int i = k * 32 + lane, q = i >> 3, u = i & 7, p = mt.pixel(q);
     if (p < mt.npx) {
       const int py = mt.cw.div(p);
-      const int by = org + mt.ry0 + py;
-      const int bx = org + mt.rx0 + p - py * mt.cw.d;
+      const int by = tl.Hh + mt.ry0 + py;
+      const int bx = tl.Hh + mt.rx0 + p - py * mt.cw.d;
       *reinterpret_cast<uint4*>(dst + ((size_t)by * tl.S + bx) * NF +
                                 u * 8) =
           *reinterpret_cast<const uint4*>(stage + q * ROW + u * 8);
@@ -303,12 +328,12 @@ __device__ void emit64(const float (&acc)[2][8][4], const MTiles& mt,
 // taps x 64 channels; A by ldmatrix from the staged rectangle, B by
 // ldmatrix.trans from the HWIO weights ([tap * 64 + ci][co], rows of ROW)
 __device__ void mid_rect(const bf16* sx, bf16* dst, const bf16* sw,
-                         const float* sb, bf16* stage, const Tile& tl, int m,
+                         const float* sb, bf16* stage, const Tile& tl,
                          int ry0, int rx0, int rh, int cw, float slope) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int npx = rh * cw, nmt = (npx + 15) / 16, iw = cw + 2;
   for (int mt0 = warp; mt0 < nmt; mt0 += 2 * WARPS) {
-    const MTiles mt{mt0, npx, FastDiv(cw), ry0, rx0, m};
+    const MTiles mt{mt0, npx, FastDiv(cw), ry0, rx0};
     int abase[2];
     a_rows(mt, abase);
     float acc[2][8][4];
@@ -343,29 +368,29 @@ __device__ void mid_rect(const bf16* sx, bf16* dst, const bf16* sw,
 }
 
 // compute(staged input, ry0, rx0, rh, cw) over the rectangles of the
-// margin-m region, each rectangle's input (from src) in flight while the
-// one before is computed; copies the caller issued before are waited for
-// with the first rectangle's.  Ends with the block in step.
+// margin-m region (tile coordinates), each rectangle's input (from src) in
+// flight while the one before is computed; copies the caller issued
+// before are waited for with the first rectangle's.  Ends with the block
+// in step.
 template <typename F>
 __device__ void level_rects(const bf16* src, bf16* sx, const Tile& tl, int m,
                             F&& compute) {
-  const int side = TILE + 2 * m;
-  const Cut cut(side);
+  const Region rg(tl, m);
+  const Cut cut(rg.h, rg.w);
   const int nrect = cut.nr * cut.nc;
   int ry0, rx0, rh, cw;
-  cut.at(0, side, ry0, rx0, rh, cw);
-  load_rect(sx, src, tl, m, ry0, rx0, rh, cw);
+  cut.at(0, rg, ry0, rx0, rh, cw);
+  load_rect(sx, src, tl, ry0, rx0, rh, cw);
   cp_async_commit();
   for (int r = 0; r < nrect; ++r) {
     if (r + 1 < nrect) {
-      cut.at(r + 1, side, ry0, rx0, rh, cw);
-      load_rect(sx + ((r + 1) & 1) * IN_PX * ROW, src, tl, m, ry0, rx0, rh,
-                cw);
+      cut.at(r + 1, rg, ry0, rx0, rh, cw);
+      load_rect(sx + ((r + 1) & 1) * IN_PX * ROW, src, tl, ry0, rx0, rh, cw);
     }
     cp_async_commit();
     cp_async_wait<1>();
     __syncthreads();
-    cut.at(r, side, ry0, rx0, rh, cw);
+    cut.at(r, rg, ry0, rx0, rh, cw);
     compute(sx + (r & 1) * IN_PX * ROW, ry0, rx0, rh, cw);
     __syncthreads();  // this input buffer is the target of the next copy
   }
@@ -381,7 +406,7 @@ __device__ void mid_level(const bf16* src, bf16* dst, const bf16* wm,
   if (threadIdx.x < NF) sb[threadIdx.x] = tof(bm[threadIdx.x]);
   level_rects(src, sx, tl, m,
               [&](const bf16* sxr, int ry0, int rx0, int rh, int cw) {
-                mid_rect(sxr, dst, sw, sb, stage, tl, m, ry0, rx0, rh, cw,
+                mid_rect(sxr, dst, sw, sb, stage, tl, ry0, rx0, rh, cw,
                          slope);
               });
 }
@@ -395,7 +420,7 @@ __device__ void mid_level(const bf16* src, bf16* dst, const bf16* wm,
 __device__ void conv1_level(const Args& a, const Tile& tl, bf16* dst,
                             bf16* sw, bf16* sx, float* sb, bf16* stage) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int tig = lane & 3, m = tl.Hh, side = TILE + 2 * m;
+  const int tig = lane & 3;
   __syncthreads();  // sw, sx and sb are free
   fill(
       32 * NF,
@@ -404,12 +429,12 @@ __device__ void conv1_level(const Args& a, const Tile& tl, bf16* dst,
         sw[(i / NF) * ROW + i % NF] = __ushort_as_bfloat16(v);
       });
   if (threadIdx.x < NF) sb[threadIdx.x] = tof(a.b1[threadIdx.x]);
-  const bf16* xn = a.x + (size_t)tl.n * a.H * a.W * CI;
   uint16_t* xs = reinterpret_cast<uint16_t*>(sx);
-  const Cut cut(side);
+  const Region rg(tl, tl.Hh);
+  const Cut cut(rg.h, rg.w);
   // a chunk: nb rows of rectangles x gc columns of them
   constexpr int CAP = (int)(2 * IN_BYTES / (XC * 2));  // staged pixels
-  int nb = (CAP / (side + 2) - 2) / cut.rh, gc = cut.nc;
+  int nb = (CAP / (rg.w + 2) - 2) / cut.rh, gc = cut.nc;
   if (nb < 1) {
     nb = 1;
     gc = (CAP / (cut.rh + 2) - 2) / cut.cw;
@@ -417,20 +442,19 @@ __device__ void conv1_level(const Args& a, const Tile& tl, bf16* dst,
   for (int bi0 = 0; bi0 < cut.nr; bi0 += nb)
     for (int cj0 = 0; cj0 < cut.nc; cj0 += gc) {
       const int bi1 = min(cut.nr, bi0 + nb), cj1 = min(cut.nc, cj0 + gc);
-      const int by0 = bi0 * cut.rh, bx0 = cj0 * cut.cw;
-      const int ih = min(side, bi1 * cut.rh) - by0 + 2;
-      const int iw = min(side, cj1 * cut.cw) - bx0 + 2;
+      // the chunk's first output pixel, in tile coordinates
+      const int by0 = rg.y0 + bi0 * cut.rh, bx0 = rg.x0 + cj0 * cut.cw;
+      const int ih = min(rg.h, bi1 * cut.rh) - bi0 * cut.rh + 2;
+      const int iw = min(rg.w, cj1 * cut.cw) - cj0 * cut.cw + 2;
       __syncthreads();  // the chunk before is done with xs
       const FastDiv fiw(iw);
       fill(
           ih * iw * XC,
           [&](int i) -> uint16_t {
             const int p = i / XC, c = i % XC, py = fiw.div(p);
-            const int ly = by0 - 1 + py - m, lx = bx0 - 1 + p - py * iw - m;
-            return c < CI && tl.in_image(ly, lx)
-                       ? bits(xn[((size_t)(tl.ty0 + ly) * a.W + tl.tx0 + lx) *
-                                     CI + c])
-                       : 0;
+            return c < CI ? x_at(a, tl, by0 - 1 + py, bx0 - 1 + p - py * iw,
+                                 c)
+                          : 0;
           },
           [&](int i, uint16_t v) { xs[i] = v; });
       __syncthreads();
@@ -450,10 +474,10 @@ __device__ void conv1_level(const Args& a, const Tile& tl, bf16* dst,
       for (int bi = bi0; bi < bi1; ++bi)
         for (int cj = cj0; cj < cj1; ++cj) {
           int ry0, rx0, rh, cw;
-          cut.at(bi * cut.nc + cj, side, ry0, rx0, rh, cw);
+          cut.at(bi * cut.nc + cj, rg, ry0, rx0, rh, cw);
           const int npx = rh * cw, nmt = (npx + 15) / 16;
           for (int mt0 = warp; mt0 < nmt; mt0 += 2 * WARPS) {
-            const MTiles mt{mt0, npx, FastDiv(cw), ry0, rx0, m};
+            const MTiles mt{mt0, npx, FastDiv(cw), ry0, rx0};
             int off[2][2];
             lane_rows(mt, iw, ry0 - by0, rx0 - bx0, XC, off);
             float acc[2][8][4];
@@ -494,7 +518,8 @@ __device__ void conv1_level(const Args& a, const Tile& tl, bf16* dst,
 // ring): N = 8 of which co are used, K = 9 x 64; the mids' staging and A,
 // B by ldmatrix.trans from [tap * 64 + ci][8] weights.  Epilogue in f32:
 // logits rounded, sigma = exp(clip) out for the tile's pixels, rounded
-// sqrt(sigma) into the head's plane xe, zero outside the image.
+// sqrt(sigma) into the head's plane xe (zeroed first: outside the image
+// it stays zero).
 __device__ void last_level(const Args& a, const Tile& tl, const bf16* src,
                            bf16* sw, bf16* sx, float* sb, uint16_t* xe) {
   const int CO = a.CO;
@@ -506,25 +531,22 @@ __device__ void last_level(const Args& a, const Tile& tl, const bf16* src,
       },
       [&](int i, uint16_t v) { sw[i] = __ushort_as_bfloat16(v); });
   if (threadIdx.x < CO) sb[threadIdx.x] = tof(a.bl[threadIdx.x]);
-  // the head's plane: x in channels 0..2, zero outside the image
-  const bf16* xn = a.x + (size_t)tl.n * a.H * a.W * CI;
+  // the head's plane, (TH + 2) x ES pixels: x in channels 0..2, zero
+  // outside the image, and zeros in the sqrt(sigma) channels
   fill(
-      ES * ES * CI,
+      (tl.TH + 2) * ES * EC,
       [&](int i) -> uint16_t {
-        const int p = i / CI, ly = p / ES - 1, lx = p % ES - 1;
-        return tl.in_image(ly, lx)
-                   ? bits(xn[((size_t)(tl.ty0 + ly) * a.W + tl.tx0 + lx) *
-                                 CI + i % CI])
-                   : 0;
+        const int p = i / EC, c = i - p * EC, py = p / ES;
+        return c < CI ? x_at(a, tl, py - 1, p - py * ES - 1, c) : 0;
       },
-      [&](int i, uint16_t v) { xe[(i / CI) * EC + i % CI] = v; });
+      [&](int i, uint16_t v) { xe[i] = v; });
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, tig = lane & 3;
   level_rects(src, sx, tl, 1, [&](const bf16* sxr, int ry0, int rx0, int rh,
                                   int cw) {
     const int npx = rh * cw, nmt = (npx + 15) / 16, iw = cw + 2;
     for (int mt0 = warp; mt0 < nmt; mt0 += 2 * WARPS) {
-      const MTiles mt{mt0, npx, FastDiv(cw), ry0, rx0, 1};
+      const MTiles mt{mt0, npx, FastDiv(cw), ry0, rx0};
       int abase[2];
       a_rows(mt, abase);
       float acc[2][1][4];
@@ -557,19 +579,14 @@ __device__ void last_level(const Args& a, const Tile& tl, const bf16* src,
         for (int r = 0; r < 2; ++r) {
           const int p = mt.pixel(mi * 16 + g + 8 * r);
           if (p >= npx) continue;
-          const int ly = ry0 + mt.cw.div(p) - 1;
-          const int lx = rx0 + mt.cw.mod(p) - 1;
-          const bool in = tl.in_image(ly, lx);
-          const bool own = ly >= 0 && ly < TILE && lx >= 0 && lx < TILE;
+          const int ly = ry0 + mt.cw.div(p);
+          const int lx = rx0 + mt.cw.mod(p);
+          const bool own = ly >= 0 && ly < tl.TH && lx >= 0 && lx < TILE;
           uint16_t* ep = xe + ((ly + 1) * ES + lx + 1) * EC + CI;
 #pragma unroll
           for (int e = 0; e < 2; ++e) {
             const int c = 2 * tig + e;
             if (c >= CO) continue;
-            if (!in) {
-              ep[c] = 0;
-              continue;
-            }
             const float lg = round_to<bf16>(acc[mi][0][2 * r + e] + sb[c]);
             const float sig = expf(fminf(fmaxf(lg, a.lmin), a.lmax));
             if (own)
@@ -617,11 +634,13 @@ __device__ void head_level(const Args& a, const Tile& tl, bf16* sw,
         koff[kb][j][e] =
             k < K ? ((tap / 3) * ES + tap % 3) * EC + k % CC : -1;
       }
-  for (int mt = warp; mt < TILE * TILE / 16; mt += WARPS) {
+  const int tpx = tl.TH * TILE;  // the tile's pixels
+  for (int mt = warp; mt < (tpx + 15) / 16; mt += WARPS) {
     int off[2];
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
-      const int p = mt * 16 + g + 8 * r;
+      int p = mt * 16 + g + 8 * r;
+      if (p >= tpx) p = 0;  // past the tile: read pixel 0, store nothing
       off[r] = ((p / TILE) * ES + p % TILE) * EC;
     }
     uint32_t af[4][4];
@@ -670,7 +689,7 @@ __device__ void head_level(const Args& a, const Tile& tl, bf16* sw,
       for (int i = lane; i < 16 * nnt; i += 32) {
         const int q = i / nnt, u = i % nnt, p = mt * 16 + q;
         const int gy = tl.ty0 + p / TILE, gx = tl.tx0 + p % TILE;
-        if (gy < a.H && gx < a.W)
+        if (p < tpx && gy < a.H && gx < a.W)
           *reinterpret_cast<uint4*>(
               a.head + (((size_t)tl.n * a.H + gy) * a.W + gx) * CF + c0 +
               u * 8) = *reinterpret_cast<const uint4*>(stage + q * ROW +
@@ -694,15 +713,18 @@ __global__ void __launch_bounds__(THREADS) dncnn_head_bf16_kernel(Args a) {
   Tile tl;
   tl.H = a.H;
   tl.W = a.W;
+  tl.TH = a.TH;
   tl.Hh = a.L + 2;
   tl.S = TILE + 2 * tl.Hh;
-  const size_t level = (size_t)tl.S * tl.S * NF;
+  const size_t level = (size_t)(a.TH + 2 * tl.Hh) * tl.S * NF;
   bf16* buf0 = a.scratch + (size_t)blockIdx.x * 2 * level;
   bf16* buf1 = buf0 + level;
-  const TileGrid tg(a.N, a.H, a.W, TILE, TILE);
+  const TileGrid tg(a.N, a.H, a.W, a.TH, TILE);
 
   for (int t = blockIdx.x; t < tg.count; t += gridDim.x) {
     tg.at(t, tl.n, tl.ty0, tl.tx0);
+    // K8: row 0 of an input image's first slab reads the zero row above
+    tl.zr = a.XS > 0 && tl.n % a.XS == 0 ? -tl.ty0 : -(1 << 30);
     conv1_level(a, tl, buf0, sw, sx, sb, stage);
     for (int lev = 1; lev <= a.L; ++lev)
       mid_level(lev % 2 ? buf0 : buf1, lev % 2 ? buf1 : buf0,
@@ -722,15 +744,16 @@ cudaError_t prepare() {
 
 }  // namespace
 
-// Persistent grid at this image size (bf16 only): the wrapper sizes the
-// block-private scratch from it, grid * vt_dncnn_head_scratch_elems(L).
-extern "C" int vt_dncnn_head_grid(int dtype, int N, int H, int W,
+// Persistent grid at this image size and tile height TH (bf16 only): the
+// wrapper sizes the block-private scratch from it, grid *
+// vt_dncnn_head_scratch_elems(L, TH).
+extern "C" int vt_dncnn_head_grid(int dtype, int N, int H, int W, int TH,
                                   int* grid) {
-  if (dtype != VT_BF16 || N < 1 || H < 1 || W < 1)
+  if (dtype != VT_BF16 || N < 1 || H < 1 || W < 1 || TH < 1 || TH > MAX_TH)
     return cudaErrorInvalidValue;
   cudaError_t err = prepare();
   if (err != cudaSuccess) return err;
-  const TileGrid tg(N, H, W, TILE, TILE);
+  const TileGrid tg(N, H, W, TH, TILE);
   const int blocks =
       persistent_blocks(dncnn_head_bf16_kernel, THREADS, SMEM, tg.count);
   if (blocks <= 0) {
@@ -741,25 +764,30 @@ extern "C" int vt_dncnn_head_grid(int dtype, int N, int H, int W,
   return cudaSuccess;
 }
 
-// Scratch elements one block needs: two (TILE + 2 (L + 2))^2 x 64 buffers.
-extern "C" long long vt_dncnn_head_scratch_elems(int L) {
-  const long long s = TILE + 2 * (L + 2);
-  return 2 * s * s * NF;
+// Scratch elements one block needs: two (TH + 2 (L + 2)) x (TILE + 2 (L +
+// 2)) x 64 buffers.
+extern "C" long long vt_dncnn_head_scratch_elems(int L, int TH) {
+  const long long hh = L + 2;
+  return 2 * (TH + 2 * hh) * (TILE + 2 * hh) * NF;
 }
 
 // x (N,H,W,3); w1 HWIO (3,3,3,64), b1 (64); wm (L,3,3,64,64), bm (L,64);
 // wl (3,3,64,CO), bl (CO); wh (3,3,3+CO,CF), bh (CF).  head = out0
 // (N,H,W,CF), sigma = out1 (N,H,W,CO).  All bf16; wm and out0 16-byte
-// aligned.
+// aligned.  Tiles of TH (1..32) x 24 pixels: K3 takes TH = 24 and XS = 0.
+// K8 passes the slab view, N * H / r images of r rows, with TH = min(r,
+// 32) and XS = H / r: x is then read one row up, with zeros in row -1 of
+// every input image (the first row of every XS-th slab).
 extern "C" int vt_dncnn_head(const void* x, const void* w1, const void* b1,
                              const void* wm, const void* bm, const void* wl,
                              const void* bl, const void* wh, const void* bh,
                              void* out0, void* out1, void* scratch, int grid,
                              int N, int H, int W, int L, int CO, int CF,
-                             int dtype, float slope, float lmin, float lmax,
-                             void* stream) {
+                             int TH, int XS, int dtype, float slope,
+                             float lmin, float lmax, void* stream) {
   if (dtype != VT_BF16 || grid < 1 || N < 1 || H < 1 || W < 1 || L < 1 ||
-      CO < 1 || CO > 3 || CF < 0 || CF % 16 != 0 || CF > MAX_CF)
+      CO < 1 || CO > 3 || CF < 0 || CF % 16 != 0 || CF > MAX_CF || TH < 1 ||
+      TH > MAX_TH || XS < 0 || (XS > 0 && N % XS != 0))
     return cudaErrorInvalidValue;
   cudaError_t err = prepare();
   if (err != cudaSuccess) return err;
@@ -769,7 +797,7 @@ extern "C" int vt_dncnn_head(const void* x, const void* w1, const void* b1,
          static_cast<const bf16*>(bl), static_cast<const bf16*>(wh),
          static_cast<const bf16*>(bh), static_cast<bf16*>(out0),
          static_cast<bf16*>(out1),     static_cast<bf16*>(scratch),
-         N, H, W, L, CO, CF, slope, lmin, lmax};
+         N, H, W, L, CO, CF, TH, XS, slope, lmin, lmax};
   dncnn_head_bf16_kernel<<<grid, THREADS, SMEM,
                            static_cast<cudaStream_t>(stream)>>>(a);
   return cudaGetLastError();

@@ -9,8 +9,15 @@
 //
 // Replaces: virnet_tpu/ops/pallas_conv.py:dncnn_pair_fused (:474; body
 // _dncnn_kernel :369) and, in fp32, dncnn_head_fused (:1289; halo
-// pallas_call :1512, carry :1459).  K3 in bf16 stays one fused launch
-// (dncnn_head.cu).
+// pallas_call :1512, carry :1459) and its mode 'slabzero', the probe K8
+// (_dncnn_head_kernel_slabzero :1183, pallas_call :1412).  K3 and K8 in
+// bf16 are one fused launch (dncnn_head.cu).
+//
+// K8 runs the chain on a view of the input cut into slabs of r rows (N * H
+// / r images of r rows): the level maps and K1 see slab edges as image
+// edges, and snet_conv1 and snet_last, given XS = H / r, read x one row up
+// with zeros in row -1 of every input image (row 0 of every XS-th slab).
+// Nothing is recomputed in either mode.
 //
 // Function: conv1 3->64 + LeakyReLU, L mids 64->64 + LeakyReLU, conv_last
 // 64->co, zero 'same' padding at every level with exact image borders,
@@ -128,22 +135,33 @@ __device__ __forceinline__ void store4(__nv_bfloat16* p, const float* v) {
 constexpr int XS = TS + 2;                   // side of the staged x tile
 constexpr int XN = (CI * XS * XS + THREADS - 1) / THREADS;  // per thread
 
+// x at pixel (gy, gx) of image n of the grid, channel c, zero outside the
+// image; with xs > 0 (K8) the images are slabs of the input and x is read
+// one row up, zero in row -1 of every input image
+template <typename T>
+__device__ __forceinline__ float x_at(const T* x, const TileGrid& tg, int xs,
+                                      int n, int gy, int gx, int c) {
+  const bool in = gy >= 0 && gy < tg.H && gx >= 0 && gx < tg.W &&
+                  !(xs > 0 && gy == 0 && n % xs == 0);
+  const long long row = (long long)n * tg.H + gy - (xs > 0);
+  return in ? tof(x[(row * tg.W + gx) * CI + c]) : 0.f;
+}
+
 // The x tile of tile t (with its ring, zeros outside the image), as
 // thread-owned values: element k of this thread is x tile entry
 // threadIdx.x + k THREADS, pixel-major (p, c), so that the loads read x
 // in order.
 template <typename T>
 __device__ __forceinline__ void fetch_x(float (&xr)[XN], const T* x,
-                                        const TileGrid& tg, int t) {
+                                        const TileGrid& tg, int xs, int t) {
   int n, y0, x0;
   tg.at(t, n, y0, x0);
 #pragma unroll
   for (int k = 0; k < XN; ++k) {
     const int i = threadIdx.x + k * THREADS, p = i / CI, c = i - p * CI;
-    const int gy = y0 - 1 + p / XS, gx = x0 - 1 + p % XS;
-    const bool in = i < CI * XS * XS && gy >= 0 && gy < tg.H && gx >= 0 &&
-                    gx < tg.W;
-    xr[k] = in ? tof(x[((size_t)(n * tg.H + gy) * tg.W + gx) * CI + c]) : 0.f;
+    xr[k] = i < CI * XS * XS
+                ? x_at(x, tg, xs, n, y0 - 1 + p / XS, x0 - 1 + p % XS, c)
+                : 0.f;
   }
 }
 
@@ -151,7 +169,7 @@ template <typename T>
 __global__ void __launch_bounds__(THREADS, 2)
 snet_conv1_kernel(const T* __restrict__ x, const T* __restrict__ w,
                   const T* __restrict__ b, T* __restrict__ y, TileGrid tg,
-                  float slope) {
+                  int xs, float slope) {
   __shared__ __align__(16) float sw[9 * CI * NF];  // HWIO: [tap][ci][co]
   __shared__ __align__(16) float sb[NF];
   __shared__ float sx[2][CI][XS * XS];             // two x tiles, planar
@@ -159,7 +177,7 @@ snet_conv1_kernel(const T* __restrict__ x, const T* __restrict__ w,
   if (threadIdx.x < NF) sb[threadIdx.x] = tof(b[threadIdx.x]);
   const Block8 bk;
   float xr[XN];
-  if (blockIdx.x < tg.count) fetch_x(xr, x, tg, blockIdx.x);
+  if (blockIdx.x < tg.count) fetch_x(xr, x, tg, xs, blockIdx.x);
 
   int it = 0;
   for (int t = blockIdx.x; t < tg.count; t += gridDim.x, ++it) {
@@ -170,7 +188,7 @@ snet_conv1_kernel(const T* __restrict__ x, const T* __restrict__ w,
       if (i < CI * XS * XS) s[i - p * CI][p] = xr[k];
     }
     __syncthreads();  // the tile is staged (and, the first time, sw, sb)
-    if (t + gridDim.x < tg.count) fetch_x(xr, x, tg, t + gridDim.x);
+    if (t + gridDim.x < tg.count) fetch_x(xr, x, tg, xs, t + gridDim.x);
 
     // channels cg*4 .. +3 (lo) and 32 + cg*4 .. +3 (hi), started at the bias
     float acc[8][8];
@@ -245,6 +263,7 @@ struct LastArgs {
   const void *lev, *x, *wl, *bl, *wh, *bh;
   void *out0, *out1;  // logits, or head and sigma
   int N, H, W, CF;
+  int xs;  // 0, or (K8) slabs per input image: x is read one row up
   float lmin, lmax;
 };
 
@@ -382,8 +401,7 @@ snet_last_kernel(LastArgs a, TileGrid tg) {
       } else {
         // the sigma epilogue over the region (the tile and a 1-pixel
         // ring), then [x | sqrt(sigma)] into the plane, zero outside
-        const T* xn =
-            static_cast<const T*>(a.x) + (size_t)n * tg.H * tg.W * CI;
+        const T* x = static_cast<const T*>(a.x);
 #pragma unroll
         for (int j = 0; j < NP; ++j) {
           if (rp[j] >= RPX) continue;
@@ -394,7 +412,7 @@ snet_last_kernel(LastArgs a, TileGrid tg) {
           const size_t pix = (size_t)gy * tg.W + gx;
 #pragma unroll
           for (int c = 0; c < CI; ++c)
-            plane[c * RPX + rp[j]] = in ? tof(xn[pix * CI + c]) : 0.f;
+            plane[c * RPX + rp[j]] = x_at(x, tg, a.xs, n, gy, gx, c);
 #pragma unroll
           for (int c = 0; c < CO; ++c) {
             float e = 0.f;
@@ -473,14 +491,14 @@ int error_or(cudaError_t fallback) {
 
 template <typename T>
 int conv1(const void* x, const void* w, const void* b, void* y, int N, int H,
-          int W, float slope, cudaStream_t stream) {
+          int W, int xs, float slope, cudaStream_t stream) {
   const TileGrid tg(N, H, W, TS, TS);
   const int blocks =
       persistent_blocks(snet_conv1_kernel<T>, THREADS, 0, tg.count);
   if (blocks <= 0) return error_or(cudaErrorInvalidConfiguration);
   snet_conv1_kernel<T><<<blocks, THREADS, 0, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(w),
-      static_cast<const T*>(b), static_cast<T*>(y), tg, slope);
+      static_cast<const T*>(b), static_cast<T*>(y), tg, xs, slope);
   return cudaGetLastError();
 }
 
@@ -508,15 +526,17 @@ int last_co(const LastArgs& a, int CO, cudaStream_t stream) {
 }  // namespace
 
 // snet_conv1: x (N,H,W,3), w HWIO (3,3,3,64), b (64) -> y (N,H,W,64)
-// = lrelu(conv(x, w) + b), all of dtype; y 16-byte aligned.
+// = lrelu(conv(x, w) + b), all of dtype; y 16-byte aligned.  With xs > 0
+// (K8: N slabs, xs of them per input image) x is read one row up.
 extern "C" int vt_snet_conv1(const void* x, const void* w, const void* b,
-                             void* y, int N, int H, int W, int dtype,
+                             void* y, int N, int H, int W, int xs, int dtype,
                              float slope, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (N < 1 || H < 1 || W < 1) return cudaErrorInvalidValue;
-  if (dtype == VT_F32) return conv1<float>(x, w, b, y, N, H, W, slope, s);
+  if (N < 1 || H < 1 || W < 1 || xs < 0 || (xs > 0 && N % xs != 0))
+    return cudaErrorInvalidValue;
+  if (dtype == VT_F32) return conv1<float>(x, w, b, y, N, H, W, xs, slope, s);
   if (dtype == VT_BF16)
-    return conv1<__nv_bfloat16>(x, w, b, y, N, H, W, slope, s);
+    return conv1<__nv_bfloat16>(x, w, b, y, N, H, W, xs, slope, s);
   return cudaErrorInvalidValue;
 }
 
@@ -524,17 +544,19 @@ extern "C" int vt_snet_conv1(const void* x, const void* w, const void* b,
 // head = 0: out0 = logits (N,H,W,CO); x, wh, bh, out1 unused.
 // head = 1: x (N,H,W,3), wh HWIO (3,3,3+CO,CF), bh (CF); out0 = head
 // (N,H,W,CF), out1 = sigma (N,H,W,CO).  All of dtype; lev and out0
-// 16-byte aligned.
+// 16-byte aligned.  With xs > 0 (K8, head = 1) x is read one row up, as
+// in vt_snet_conv1.
 extern "C" int vt_snet_last(const void* lev, const void* x, const void* wl,
                             const void* bl, const void* wh, const void* bh,
                             void* out0, void* out1, int N, int H, int W,
-                            int CO, int CF, int head, int dtype, float lmin,
-                            float lmax, void* stream) {
+                            int CO, int CF, int head, int xs, int dtype,
+                            float lmin, float lmax, void* stream) {
   if (N < 1 || H < 1 || W < 1 || CO < 1 || CO > 3 ||
-      (head && (CF < 16 || CF % 16 != 0 || CF > MAX_CF)))
+      (head && (CF < 16 || CF % 16 != 0 || CF > MAX_CF)) || xs < 0 ||
+      (xs > 0 && N % xs != 0))
     return cudaErrorInvalidValue;
   const LastArgs a{lev, x, wl, bl, wh, bh, out0, out1,
-                   N, H, W, head ? CF : 0, lmin, lmax};
+                   N, H, W, head ? CF : 0, xs, lmin, lmax};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == VT_F32)
     return head ? last_co<float, true>(a, CO, s)

@@ -1,8 +1,10 @@
 // Device helpers for tiled 3x3 convolutions on Hopper: asynchronous
 // global->shared copies with zero fill (cp.async), ldmatrix, bf16
-// mma.sync, and a persistent walk over output tiles.  Shared by K1
-// (conv3x3_mid.cu), K3 in bf16 (dncnn_head.cu), K4 (tail_residual.cu) and
-// the SNet level kernels of K2 and fp32 K3 (snet_levels.cu).
+// mma.sync, division by a multiply, and a persistent walk over output
+// tiles.  Shared by K1 (conv3x3_mid.cu), K3 and K8 in bf16
+// (dncnn_head.cu), K4 (tail_residual.cu), the SNet level kernels of K2
+// and fp32 K3 and K8 (snet_levels.cu) and the blur kernels K5, K6
+// (blur.cu).
 //
 // Layout convention: a halo tile in shared memory is (TH+2) x (TW+2)
 // pixels, each pixel a row of `stride` 16-byte units whose count is ODD.
@@ -92,6 +94,23 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
+// n / d and n % d by a multiply: with m = ceil(2^32 / d), __umulhi(n, m)
+// is floor(n / d) for 0 <= n < 2^21 and 2 <= d < 2^11 (the error n (m d -
+// 2^32) / 2^32 stays under 1); d = 1 (m = 2^32 does not fit) is n itself.
+// A division by a value known only at run time costs some 20
+// instructions, and the index math of the staging copies and epilogues
+// runs one per pixel.
+struct FastDiv {
+  int d;
+  unsigned m;
+  __device__ explicit FastDiv(int d_)
+      : d(d_), m(d_ > 1 ? 0xFFFFFFFFu / d_ + 1 : 0u) {}
+  __device__ int div(int n) const {
+    return m ? (int)__umulhi((unsigned)n, m) : n;
+  }
+  __device__ int mod(int n) const { return n - div(n) * d; }
+};
+
 // Output tiles of TH x TW pixels over N images of H x W, numbered image by
 // image, row of tiles by row of tiles; a persistent block takes tiles
 // blockIdx.x, blockIdx.x + gridDim.x, ...
@@ -110,16 +129,36 @@ struct TileGrid {
 };
 
 // Blocks for a persistent launch: as many as fit on the card at once,
-// and no more than there are tiles.  Returns 0 on a CUDA error.
+// and no more than there are tiles.  Returns 0 on a CUDA error.  What fits
+// is asked once per (kernel, device, block size, shared memory) and kept:
+// the occupancy query costs more host time than a small kernel runs.
 template <typename K>
 int persistent_blocks(K kern, int threads, size_t smem, int tiles) {
-  int dev = 0, sms = 0, per_sm = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess ||
-      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
-          cudaSuccess ||
-      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, threads,
-                                                    smem) != cudaSuccess)
-    return 0;
-  const int fit = sms * (per_sm > 0 ? per_sm : 1);
+  struct Fit {
+    const void* kern;
+    int dev, threads;
+    size_t smem;
+    int fit;
+  };
+  static Fit known[32];
+  static int n_known = 0;
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess) return 0;
+  const void* key = reinterpret_cast<const void*>(kern);
+  int fit = 0;
+  for (int i = 0; i < n_known && fit == 0; ++i)
+    if (known[i].kern == key && known[i].dev == dev &&
+        known[i].threads == threads && known[i].smem == smem)
+      fit = known[i].fit;
+  if (fit == 0) {
+    int sms = 0, per_sm = 0;
+    if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+            cudaSuccess ||
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, threads,
+                                                      smem) != cudaSuccess)
+      return 0;
+    fit = sms * (per_sm > 0 ? per_sm : 1);
+    if (n_known < 32) known[n_known++] = Fit{key, dev, threads, smem, fit};
+  }
   return tiles < fit ? tiles : fit;
 }

@@ -12,7 +12,8 @@ version (counterpart of virnet_tpu/ops/pallas_conv.py).
                                   sigma + head mode
   K4 ``conv3x3_tail_residual`` <- pallas_conv.conv3x3_tail_residual
   K8 ``dncnn_head_slabzero``   <- pallas_conv.dncnn_head_fused (slabzero),
-                                  a speed probe that no product path routes
+                                  a speed probe that no product path routes:
+                                  K3's kernels on the input cut into slabs
 
 All tensors are NHWC and conv weights HWIO, as in the JAX package.  Every
 conv accumulates in f32 and rounds once to the activation dtype (float32
@@ -51,18 +52,12 @@ _F = ctypes.c_float
 _SIGNATURES = {
     "vt_conv3x3_mid": ("conv3x3_mid",
                        [_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P]),
-    "vt_snet_conv1": ("snet_levels", [_P] * 4 + [_I] * 4 + [_F, _P]),
-    "vt_snet_last": ("snet_levels", [_P] * 8 + [_I] * 7 + [_F, _F, _P]),
-    "vt_dncnn_slab_grid": ("dncnn_fused", [_I, _I, _I, _I,
-                                           ctypes.POINTER(_I)]),
-    "vt_dncnn_slab_scratch_elems": ("dncnn_fused", [_I, _I, _I]),
-    "vt_dncnn_head_slabzero": ("dncnn_fused",
-                               [_P] * 12 + [_I] * 9 + [_F, _F, _F, _P]),
-    "vt_dncnn_head_grid": ("dncnn_head", [_I, _I, _I, _I,
-                                          ctypes.POINTER(_I)]),
-    "vt_dncnn_head_scratch_elems": ("dncnn_head", [_I]),
+    "vt_snet_conv1": ("snet_levels", [_P] * 4 + [_I] * 5 + [_F, _P]),
+    "vt_snet_last": ("snet_levels", [_P] * 8 + [_I] * 8 + [_F, _F, _P]),
+    "vt_dncnn_head_grid": ("dncnn_head", [_I] * 5 + [ctypes.POINTER(_I)]),
+    "vt_dncnn_head_scratch_elems": ("dncnn_head", [_I, _I]),
     "vt_dncnn_head": ("dncnn_head",
-                      [_P] * 12 + [_I] * 8 + [_F, _F, _F, _P]),
+                      [_P] * 12 + [_I] * 10 + [_F, _F, _F, _P]),
     "vt_tail_residual": ("tail_residual", [_P] * 5 + [_I] * 7 + [_P]),
     "vt_blur_valid": ("blur", [_P] * 3 + [_I] * 5 + [_P]),
     "vt_blur_dx": ("blur", [_P] * 3 + [_I] * 5 + [_P]),
@@ -227,6 +222,36 @@ def dncnn_head_slabzero_plain(x, w1, b1, wms, bms, wl, bl, wh, bh, rows=32,
     return head.reshape(n, h, w, -1), sig.reshape(n, h, w, -1)
 
 
+def slab_rows_up(x, rows) -> torch.Tensor:
+    """What K8's kernels read as x: the (N*H/rows, rows, W, C) slab view of
+    x in which each pixel reads the pixel one row up in memory, and row 0
+    of every input image (row 0 of every (H/rows)-th slab) reads zeros."""
+    n, h, w, c = x.shape
+    flat = x.reshape(n * h, w, c)
+    up = torch.cat([flat.new_zeros(1, w, c), flat[:-1]]).reshape(n, h, w, c)
+    up[:, 0] = 0
+    return up.reshape(n * h // rows, rows, w, c)
+
+
+def slabzero_chain_plain(x, w1, b1, wms, bms, wl, bl, wh, bh, rows=32,
+                         slope=0.25, lmin=-23.025850929940457,
+                         lmax=4.605170185988092):
+    """K8's decomposition on the level chain, eagerly: snet_conv1 on the
+    slab view with x read one row up (``slab_rows_up``), one K1 per mid
+    level on the view, snet_last's conv_last, sigma epilogue and head conv
+    on the view, reading x the same way; the outputs reshaped back."""
+    n, h, w, _ = x.shape
+    _check_rows(h, rows)
+    xv = slab_rows_up(x, rows)
+    y = conv3x3_plain(xv, w1, b1, slope)
+    for wm, bm in zip(wms, bms):
+        y = conv3x3_mid_plain(y, wm, bm, slope)
+    sig = exp_clip(conv3x3_plain(y, wl, bl), lmin, lmax)
+    head = conv3x3_plain(
+        torch.cat([xv, torch.sqrt(sig).to(x.dtype)], dim=-1), wh, bh)
+    return head.reshape(n, h, w, -1), sig.to(x.dtype).reshape(n, h, w, -1)
+
+
 def conv3x3_tail_residual_plain(feats, x_in, w, b):
     h, w_img = x_in.shape[1], x_in.shape[2]
     y = conv3x3_plain(feats, w, b)[:, :h, :w_img]
@@ -271,10 +296,12 @@ def conv3x3_mid_stack(x, wms, bms, slope=None) -> torch.Tensor:
 
 def _dncnn_launch(head: bool, x, w1, b1, wms, bms, wl, bl, wh, bh, slope,
                   lmin, lmax, rows=None):
-    """Check and launch K2 (``head`` False), K3, or with ``rows`` K8.  K2
-    and K3 in fp32 are the level chain (``_snet_chain``); K3 in bf16 is
-    csrc/dncnn_head.cu's kernel and K8 csrc/dncnn_fused.cu's, each sizing
-    its block-private scratch from its persistent grid."""
+    """Check and launch K2 (``head`` False), K3, or with ``rows`` K8.  K2,
+    and K3 and K8 in fp32, are the level chain (``_snet_chain``); K3 and K8
+    in bf16 are one launch of csrc/dncnn_head.cu's kernel, which sizes its
+    block-private scratch from its persistent grid.  K8 runs them on the
+    view of x cut into slabs of ``rows`` rows, with x read one row up
+    (``xs`` slabs per image); its outputs are x's shape."""
     n, h, wd, ci = x.shape
     dt = x.dtype
     code = _dtype_code(x)
@@ -301,42 +328,46 @@ def _dncnn_launch(head: bool, x, w1, b1, wms, bms, wl, bl, wh, bh, slope,
                              f"256, got {cf}")
         _check(wh, "wh", dt, (3, 3, 3 + co, cf))
         _check(bh, "bh", dt, (cf,))
-    if rows is None and not (head and dt == torch.bfloat16):
+    xs = 0
+    if rows is not None:           # K8: the slab view
+        xs = h // rows
+        n, h = n * xs, rows
+    if not (head and dt == torch.bfloat16):
         return _snet_chain(head, x, w1, b1, wm, bm, wl, bl, wh, bh, slope,
-                           lmin, lmax)
+                           lmin, lmax, (n, h, xs))
+    th = 24 if rows is None else min(rows, 32)   # tile rows
+    _aligned(x=x, wms=wm)
     grid = ctypes.c_int(0)
-    if rows is None:
-        _aligned(x=x, wms=wm)
-        _ret(_fn("vt_dncnn_head_grid")(code, n, h, wd, ctypes.byref(grid)),
-             "vt_dncnn_head_grid")
-        per_block = _fn("vt_dncnn_head_scratch_elems")(L)
-        symbol, tail = "vt_dncnn_head", (code,)
-    else:
-        _ret(_fn("vt_dncnn_slab_grid")(code, n, h, rows, ctypes.byref(grid)),
-             "vt_dncnn_slab_grid")
-        per_block = _fn("vt_dncnn_slab_scratch_elems")(rows, wd, co)
-        symbol, tail = "vt_dncnn_head_slabzero", (rows, code)
+    _ret(_fn("vt_dncnn_head_grid")(code, n, h, wd, th, ctypes.byref(grid)),
+         "vt_dncnn_head_grid")
+    per_block = _fn("vt_dncnn_head_scratch_elems")(L, th)
     scratch = torch.empty(grid.value * per_block, dtype=dt, device=x.device)
-    out0 = torch.empty((n, h, wd, cf), dtype=dt, device=x.device)
-    out1 = torch.empty((n, h, wd, co), dtype=dt, device=x.device)
-    _ret(_fn(symbol)(
+    out0 = torch.empty((*x.shape[:3], cf), dtype=dt, device=x.device)
+    out1 = torch.empty((*x.shape[:3], co), dtype=dt, device=x.device)
+    _ret(_fn("vt_dncnn_head")(
         x.data_ptr(), w1.data_ptr(), b1.data_ptr(), wm.data_ptr(),
         bm.data_ptr(), wl.data_ptr(), bl.data_ptr(), wh.data_ptr(),
         bh.data_ptr(), out0.data_ptr(), out1.data_ptr(), scratch.data_ptr(),
-        grid.value, n, h, wd, L, co, cf, *tail, float(slope), float(lmin),
-        float(lmax), _stream(x)), symbol)
+        grid.value, n, h, wd, L, co, cf, th, xs, code, float(slope),
+        float(lmin), float(lmax), _stream(x)), "vt_dncnn_head")
     return out0, out1
 
 
 def _snet_chain(head: bool, x, w1, b1, wm, bm, wl, bl, wh, bh, slope, lmin,
-                lmax):
+                lmax, view=None):
     """The SNet level by level (csrc/snet_levels.cu): snet_conv1 into a
     64-channel level map, one K1 launch per mid level (counted under
     ``conv3x3_mid``), then snet_last: the logits (``head`` False), or sigma
-    and the head conv on [x | sqrt(sigma)].  Level maps are ``torch.empty``
-    on x's device; every launch goes on its current stream.  Arguments
-    checked by ``_dncnn_launch``; wm and bm stacked."""
+    and the head conv on [x | sqrt(sigma)].  ``view`` (n, h, xs) runs the
+    chain on x seen as n images of h rows (K8's slabs), snet_conv1 and
+    snet_last reading x one row up when xs > 0; outputs have x's shape.
+    Level maps are ``torch.empty`` on x's device; every launch goes on its
+    current stream.  Arguments checked by ``_dncnn_launch``; wm and bm
+    stacked."""
     n, h, wd, _ = x.shape
+    xs = 0
+    if view is not None:
+        n, h, xs = view
     code = _dtype_code(x)
     co = wl.shape[3]
     cf = wh.shape[3] if head else 0
@@ -344,18 +375,18 @@ def _snet_chain(head: bool, x, w1, b1, wm, bm, wl, bl, wh, bh, slope, lmin,
     y = torch.empty((n, h, wd, 64), dtype=x.dtype, device=x.device)
     _ret(_fn("vt_snet_conv1")(
         x.data_ptr(), w1.data_ptr(), b1.data_ptr(), y.data_ptr(), n, h, wd,
-        code, float(slope), _stream(x)), "vt_snet_conv1")
+        xs, code, float(slope), _stream(x)), "vt_snet_conv1")
     for w, b in zip(wm, bm):
         y = conv3x3_mid(y, w, b, slope)
-    out0 = torch.empty((n, h, wd, cf if head else co), dtype=x.dtype,
+    out0 = torch.empty((*x.shape[:3], cf if head else co), dtype=x.dtype,
                        device=x.device)
-    out1 = (torch.empty((n, h, wd, co), dtype=x.dtype, device=x.device)
+    out1 = (torch.empty((*x.shape[:3], co), dtype=x.dtype, device=x.device)
             if head else None)
     _ret(_fn("vt_snet_last")(
         y.data_ptr(), x.data_ptr(), wl.data_ptr(), bl.data_ptr(),
         wh.data_ptr() if head else None, bh.data_ptr() if head else None,
         out0.data_ptr(), out1.data_ptr() if head else None, n, h, wd, co,
-        cf, int(head), code, float(lmin), float(lmax), _stream(x)),
+        cf, int(head), xs, code, float(lmin), float(lmax), _stream(x)),
         "vt_snet_last")
     return out0, out1
 
@@ -399,19 +430,24 @@ def dncnn_head_fused(x, w1, b1, wms, bms, wl, bl, wh, bh, slope=0.25,
 def dncnn_head_slabzero(x, w1, b1, wms, bms, wl, bl, wh, bh, rows=32,
                         slope=0.25, lmin=-23.025850929940457,
                         lmax=4.605170185988092):
-    """K8, a speed probe only: K3's arithmetic with every ``rows``-row slab
-    of the image treated as an image of its own, so that no pixel of any
-    level is computed twice.  Slab t reads image rows [t*rows - 1, t*rows +
-    rows - 1) (row -1 is zeros) and writes output rows [t*rows, (t+1)*rows).
-    The result is therefore WRONG within L+2 rows of every slab edge and
-    shifted down one row against the true prologue (as the JAX package's
-    mode='slabzero' is); farther inside a slab it equals K3's output one
-    row up.  K3's time less this kernel's, at rows=32 (K3's tile height),
-    is what K3 spends on its recomputed halo.  Never routed by ``VIRNet``,
+    """K8, a speed probe only: K3's function with every ``rows``-row slab
+    of the image treated as an image of its own.  Slab t reads image rows
+    [t*rows - 1, t*rows + rows - 1) (row -1 is zeros) and writes output
+    rows [t*rows, (t+1)*rows).  The result is therefore WRONG within L+2
+    rows of every slab edge and shifted down one row against the true
+    prologue (as the JAX package's mode='slabzero' is); farther inside a
+    slab it equals K3's output one row up.  Never routed by ``VIRNet``,
     ``Restorer`` or any command line but the probe's
     (cli/bench_fused_head).  ``rows`` must divide H; there is no automatic
-    slab size.  One block owns a whole slab, all W columns, so nothing is
-    recomputed in the column direction either."""
+    slab size.
+
+    On the card it runs K3's own kernels on the view of x cut into slabs,
+    with x read one row up (no shifted copy is made): in bf16 one launch of
+    csrc/dncnn_head.cu with tiles of min(rows, 32) x 24, each level's
+    region clipped to its slab, so that only the column halo is recomputed
+    up to rows = 32 and K3 minus K8 is the cost of K3's row halo; in fp32
+    the level chain (snet_conv1, K1 per mid level under ``conv3x3_mid``,
+    snet_last), which recomputes nothing, as for K3."""
     _forward_only("dncnn_head_slabzero", x, w1, b1, *_seq(wms), *_seq(bms),
                   wl, bl, wh, bh)
     _check_rows(x.shape[1], rows)
