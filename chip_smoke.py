@@ -27,7 +27,9 @@ Phases (all by default; any failure raises and the exit code is not 0):
              training shape (16x192^2x3, k=21; also through the public op
              in both pad modes with autograd), one eval shape (1x512^2x3)
              and one awkward shape (2x13x17x2, k=5), K6 and K7 run twice
-             for equal bits
+             for equal bits; K5 and K6 at the training shape also through
+             a second build of blur.cu whose images take the any-C build
+             (same bits required; its time is any_c_ms)
   serve      Restorer('denoising-syn', bf16) on the flagship 32x256^2 batch
              (K3 + K4), MP/s
   profile    torch.profiler device-time breakdown of that forward by kernel
@@ -681,14 +683,64 @@ def check_abs(name, got, want, atol):
     return err
 
 
+def any_c_blur_build():
+    """Start nvcc on a copy of csrc/blur.cu whose images (C = 3) take the
+    any-C build of K5/K6 instead of the C = 3 builds; returns the process
+    and a function that waits for it and gives its vt_blur_valid and
+    vt_blur_dx."""
+    import ctypes
+
+    from virnet_tpu_torch.ops import _build
+    from virnet_tpu_torch.ops import fused_conv as fc
+
+    src = (_build.CSRC / "blur.cu").read_text()
+    pat = "(C != 3 ? 0 :"
+    if src.count(pat) != 1:
+        raise RuntimeError(f"blur.cu: {pat!r} occurs {src.count(pat)} "
+                           f"times, expected once")
+    d = _build.build_dir() / "blur_any_c"
+    d.mkdir(parents=True, exist_ok=True)
+    (d / "blur.cu").write_text(src.replace(pat, "(true ? 0 :"))
+    proc = subprocess.Popen(
+        [_build.nvcc_path(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC),
+         "-o", str(d / "libblur.so"), str(d / "blur.cu")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+    def fns():
+        out, _ = proc.communicate()
+        if proc.returncode:
+            raise RuntimeError(f"nvcc failed for the any-C blur.cu:\n{out}")
+        lib = ctypes.CDLL(str(d / "libblur.so"))
+        got = {}
+        for sym in ("vt_blur_valid", "vt_blur_dx"):
+            f = getattr(lib, sym)
+            f.argtypes, f.restype = fc._SIGNATURES[sym][1], ctypes.c_int
+            got[sym] = f
+        return got
+    return proc, fns
+
+
 def phase_blur_kernels(report, peaks):
+    proc, any_c = any_c_blur_build()
+    try:
+        blur_kernels(report, peaks, any_c)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
+def blur_kernels(report, peaks, any_c):
     """K5-K7 against their plain versions on the card in f32.  Bounds:
     forward and dX atol 2e-5 on inputs in [0, 1) with taps summing to 1
     (the same k*k products summed in another order), dW 1e-5 of max|dW| (a
-    sum of H*W*C products per tap).  K6 and K7 run twice: equal bits."""
+    sum of H*W*C products per tap).  K6 and K7 run twice: equal bits.  At
+    the training shape K5 and K6 are also timed through the any-C build
+    (`any_c_ms`), which must give the same bits as the C = 3 build."""
     import torch.nn.functional as F
 
     from virnet_tpu_torch.ops import blur
+    from virnet_tpu_torch.ops import fused_conv as fc
     from virnet_tpu_torch.ops.degrade import blur_per_sample
 
     dev = torch.device("cuda")
@@ -774,6 +826,24 @@ def phase_blur_kernels(report, peaks):
 
         if label != "train":
             continue
+        # the any-C build on the same inputs: the same sums in the same
+        # order, so the same bits; what the C = 3 builds' constant shared
+        # row is worth
+        saved = {sym: fc._fn(sym) for sym in ("vt_blur_valid", "vt_blur_dx")}
+        try:
+            fc._FNS.update(any_c())
+            if not (torch.equal(blur.blur_valid(xp, kern), out)
+                    and torch.equal(blur.blur_dx(g, kern), dxp)):
+                raise AssertionError("the any-C build of K5/K6 gave other "
+                                     "bits than the C = 3 build")
+            for name in ("blur_valid", "blur_dx"):
+                ms = time_ms(kerns[name], 20)
+                results[name][tag]["any_c_ms"] = ms
+                log(f"  {name}: any-C build {ms:.4f} ms (C = 3 build "
+                    f"{results[name][tag]['ms']:.4f} ms)")
+        finally:
+            fc._FNS.update(saved)
+
         # the public op: both pad modes, correlation and convolution, value
         # and gradients (K5 forward, K6 + K7 backward) against autograd of
         # the plain op

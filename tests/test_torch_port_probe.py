@@ -52,11 +52,17 @@ def _torch_args(args):
     ("denoising-syn", (1, 32, 32, 3), 16),
     ("denoising-syn", (1, 32, 48, 3), 8),
     ("denoising-real", (1, 32, 32, 3), 16),
+    # two images, so that the second image's first slab reads zeros above
+    # it; slabs of 4 (under both depths' L + 3), 8 and 16 rows
+    *[(task, (2, 16, 24, 3), rows)
+      for task in ("denoising-syn", "denoising-real") for rows in (4, 8, 16)],
 ])
 def test_slabzero_plain_matches_jax_interpret(task, shape, rows):
-    """K8's plain version against the Pallas slabzero kernel in interpret
-    mode with the same HWIO weights: head and sigma atol 5e-6, the JAX
-    package's own bar for this kernel (f32 sums in another order)."""
+    """K8's plain version (K3's function on the slab view with x read one
+    row up: what K8's kernels compute in both dtypes) against the Pallas
+    slabzero kernel in interpret mode with the same HWIO weights: head and
+    sigma atol 5e-6, the JAX package's own bar for this kernel (f32 sums
+    in another order)."""
     model, params, x = _jax_model(task, shape, 5)
     args = _snet_head_params(model, params)
     head_j, sig_j = pc.dncnn_head_fused(
@@ -76,40 +82,19 @@ def test_slabzero_plain_matches_jax_interpret(task, shape, rows):
     assert torch.equal(*got)
 
 
-@pytest.mark.parametrize("rows", [4, 8, 16])
-@pytest.mark.parametrize("task", ["denoising-syn", "denoising-real"],
-                         ids=["syn", "real"])
-def test_slabzero_chain_decomposition_matches_jax_interpret(task, rows):
-    """K8's fp32 decomposition on the card, emulated eagerly: the level
-    chain on the slab view with x read one row up (snet_conv1, K1 per mid
-    level, snet_last), against the Pallas slabzero kernel in interpret mode
-    with the same weights, two images so that the second image's first
-    slab reads zeros above it; head and sigma atol 5e-6, the JAX package's
-    own bar for this kernel (f32 sums in another order)."""
-    model, params, x = _jax_model(task, (2, 16, 24, 3), 9)
-    args = _snet_head_params(model, params)
-    head_j, sig_j = pc.dncnn_head_fused(
-        jnp.asarray(x), *args, slope=0.25, lmin=LOG_MIN, lmax=LOG_MAX,
-        mode="slabzero", rows=rows, interpret=True)
-    head, sig = fc.slabzero_chain_plain(_t(x), *_torch_args(args), rows=rows,
-                                        slope=0.25, lmin=LOG_MIN,
-                                        lmax=LOG_MAX)
-    np.testing.assert_allclose(head.numpy(), np.asarray(head_j), atol=5e-6,
-                               rtol=0)
-    np.testing.assert_allclose(sig.numpy(), np.asarray(sig_j), atol=5e-6,
-                               rtol=0)
-
-
 def test_slab_rows_up_is_the_shifted_slab_view():
     """What the kernels read for K8 (x one row up in memory, zero in row -1
     of every image) is the plain version's shifted and re-sliced x."""
     x = torch.arange(2 * 8 * 3 * 2, dtype=torch.float32).reshape(2, 8, 3, 2)
     up = fc.slab_rows_up(x, 4)
     assert up.shape == (4, 4, 3, 2)
-    want = torch.nn.functional.pad(x, (0, 0, 0, 0, 1, 0))[:, :8]
-    assert torch.equal(up, want.reshape(4, 4, 3, 2))
-    assert torch.equal(up[2, 0], torch.zeros(3, 2))    # image 1, row -1
-    assert torch.equal(up[1, 0], x[0, 3])              # slab 1 reads row 3
+    zero = torch.zeros(3, 2)
+    assert torch.equal(up[0, 0], zero) and torch.equal(up[2, 0], zero)
+    for slab in range(4):
+        img, y0 = divmod(slab * 4, 8)
+        for r in range(4):
+            if y0 + r > 0:        # row y0 + r reads row y0 + r - 1
+                assert torch.equal(up[slab, r], x[img, y0 + r - 1])
 
 
 def test_slabzero_interior_is_the_true_prologue_one_row_up():

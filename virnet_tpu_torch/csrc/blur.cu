@@ -17,8 +17,8 @@
 //
 // A row of an NHWC image is W*C contiguous floats, and the tap (dy, dx)
 // reads the same row layout shifted by dy rows and dx*C floats, so the
-// kernels work on "flat columns" X = x*C + c: K7 takes any C >= 1, K5 and
-// K6 any C up to 8.
+// kernels work on "flat columns" X = x*C + c.  K5 and K6 take any C >= 1;
+// K7 any C whose chunk fits shared memory (up to 45 at k = 21).
 //
 // Bound on an H100: k*k FMAs per output float against 8 bytes moved per
 // output float; at k = 21 that is 110 FLOP/B, operations bound on the f32
@@ -28,37 +28,45 @@
 // be needed to keep f32 accuracy: nothing over the f32 cores at k = 21.)
 //
 // Design of K5/K6 (one device function, blur_tiles):
-//  - a tile is R rows x 96 pixels x C channels (R = 6 for K5, 8 for K6);
-//    its block has one warp per channel, and lane l owns pixels 3l .. 3l+2
-//    of its channel in the R rows: 3R outputs, 3 flat columns C apart,
-//    whose windows overlap.  For each tap column dx a thread loads one new
-//    window column of R + k - 1 inputs (the other two it kept) and the k
-//    taps of that column (float4 broadcasts of a transposed copy), then
-//    does 3 R k FMAs: at R = 8, k = 21, 504 FMAs per 34 shared-memory
-//    loads, against 3.4 FMAs per load in the first design, whose one
-//    column per thread read every input once per dx and every tap once
-//    per dx and row.  A new column is loaded as soon as the column it
-//    replaces has had its last sum, under the other two columns' sums;
-//  - the lanes of a warp read columns 3C floats apart: for odd C (images,
-//    C = 3: 9 floats) a load hits 32 different banks.  A first version
-//    with lanes 2C floats apart took two bank cycles per column load and
-//    with the taps saturated the shared-memory pipe;
+//  - a block takes a group of up to 8 channels (images, C = 3: one group),
+//    one warp per channel.  A warp's 32 lanes are `by` bands of `lx` lanes
+//    (1 x 32, 2 x 16 or 4 x 8, picked per launch: the tile width 3 lx that
+//    pads an output row least), and lane x of band b owns pixels 3x ..
+//    3x+2 of its channel in rows bR .. bR+R-1 of the tile: 3R outputs, 3
+//    flat columns CG apart (CG the group's channels), whose windows
+//    overlap.  A tile is by R rows x 3 lx pixels x CG channels: K5's 192
+//    pixel rows take one band of 32 lanes, K6's 212-pixel rows four bands
+//    of 8 (24 x 24 tiles pad 212 to 216 where 96-pixel tiles padded it to
+//    288);
+//  - for each tap column dx a thread loads one new window column of R +
+//    k - 1 inputs (the other two it kept, a ring of three) and the k taps
+//    of that column (float4 broadcasts of a transposed copy), then does
+//    3 R k FMAs: 378 per 32 shared-memory loads at R = 6, k = 21, against
+//    3.4 FMAs per load in the first design, whose one column per thread
+//    read every input once per dx and every tap once per dx and row.  A
+//    new column is loaded as soon as the column it replaces has had its
+//    last sum, under the other two columns' sums;
+//  - the lanes of a band read columns 3 CG floats apart: for odd CG
+//    (images: 9 floats) they hit different banks, and a shared row of sw
+//    floats is padded so that R sw is an odd multiple of lx: band b starts
+//    b lx banks (times an odd number) on, and all 32 lanes of a load hit
+//    32 different banks (even CG costs 2-8 bank cycles a load);
 //  - the tile and the sample's taps arrive by cp.async (16-byte copies
 //    where source and destination are aligned, 4-byte ones with zero fill
-//    elsewhere, index math by multiplies: FastDiv), in 41-47 KB of shared
-//    memory: four or five blocks share an SM, and while one fills its
-//    strip the others compute; in a strip of two tiles the second tile's
-//    rows arrive under the first one's FMAs.  The blocks are persistent
-//    (as many as fit, walking the strips).  A double-buffered tile halves
-//    the blocks per SM; so did prefetching the next tap column into more
-//    registers, and both read slower;
-//  - C = 3 (images) is built with C fixed: the tile's row is a constant
-//    and each column load one instruction with an immediate offset.
-//    K5/K6 take C up to 8 (one warp each); the bounds checks are in the
-//    tile load: nothing is padded in device memory.
+//    elsewhere, index math by multiplies: FastDiv), in 25-47 KB of shared
+//    memory at C = 3: several blocks share an SM, and while one fills its
+//    strip the others compute; in K5's strips of two tiles the second
+//    tile's rows arrive under the first one's FMAs.  The blocks are
+//    persistent (as many as fit, walking the strips).  A double-buffered
+//    tile halves the blocks per SM; so did prefetching the next tap
+//    column into more registers, and both read slower;
+//  - images (C = 3) get a build per band width whose shared row is a
+//    constant, so that each column load is one instruction with an
+//    immediate offset; any other C takes the any-C build;
+//  - the bounds checks are in the tile load and the stores: nothing is
+//    padded in device memory.
 //  What bounds it now: the FFMA stream itself, 90% of the loop's
-//  instructions, issues below the card's FFMA rate, and K6 pads its
-//  212-pixel rows to three 96-pixel tiles.
+//  instructions, issues below the card's FFMA rate.
 // k is a template parameter so that the windows live in registers; the
 // sizes built are 3, 5, 7, 15 and 21 (ops/blur.py SUPPORTED_K), any other
 // is refused.  K6 is the same device code with the taps flipped and the
@@ -87,108 +95,163 @@ constexpr int MAX_SMEM = 227 * 1024;
 // K5 / K6
 // ---------------------------------------------------------------------------
 
-// output rows per thread (and per tile), and tiles of R rows one block
-// takes one above the other (a strip), sharing their k - 1 rows of halo:
-// K5's and K6's, each the pair that read fastest at the SISR training
-// shape (16 x 192^2 x 3, k = 21; K6's outputs are 212^2; R 4..8, S 1..2).
-// K5's strips of 2 x 6 rows are 512, one round of the 528 blocks that fit
-// the card, and the second tile's rows arrive under the first one's FMAs
-constexpr int R_VALID = 6;
+// output rows per lane, and tiles one block takes one above the other (a
+// strip), sharing their k - 1 rows of halo: K5's and K6's, each what read
+// fastest at the SISR training shape (16 x 192^2 x 3, k = 21; K6's
+// outputs are 212^2).  K5's strips of 2 x 6 rows are 512, one round of
+// the 528 blocks that fit the card, and the second tile's rows arrive
+// under the first one's FMAs
+constexpr int R = 6;
 constexpr int S_VALID = 2;
-constexpr int R_DX = 8;
 constexpr int S_DX = 1;
 static_assert(S_VALID <= 2 && S_DX <= 2, "the waits for a strip's tiles");
-constexpr int P = 3;        // pixels per thread, side by side in a row
-constexpr int PX = 32 * P;  // pixels of a tile row: a warp's 32 lanes
-constexpr int MAX_C = 8;    // channels: one warp each
+static_assert(R % 4 == 2, "R sw an odd multiple of 8 or 16 for sw % 4 == 0");
+constexpr int P = 3;       // pixels per lane, side by side in a row
+constexpr int MAX_CG = 8;  // channels of a block: one warp each
 
 // taps of one sample in shared memory, transposed: column dx at
 // tap_stride(K) * dx, padded to whole float4s
 __host__ __device__ constexpr int tap_stride(int K) { return (K + 3) / 4 * 4; }
 
-// The shapes of a launch.  out[n, y, X] = sum_{dy,dx} tap[dy, dx] *
-// in'[n, y + dy, X + dx*C], where in' is `in` shifted by `off` rows and
-// off*C flat columns and zero outside [0, Hin) x [0, WCin), and tap =
-// taps[n], flipped in both axes for K6.  off = 0: VALID correlation (K5).
-// off = K-1 with the flip: the full correlation of the cotangent with the
-// flipped kernel (K6).  A tile is R rows x PX pixels x C channels, and a
-// block's unit of work a strip of S tiles one above the other.
+// floats of a shared row of the input tile, (P lx + K - 1) CG rounded up
+// to 16-byte rows; with several bands (lx < 32) then padded until R sw =
+// lx mod 2 lx, so that band b's rows start b lx banks (times an odd
+// number) on.  R = 2 mod 4 makes that four steps of 4 at most
+__host__ __device__ constexpr int shared_row(int K, int CG, int lx) {
+  int sw = ((P * lx + K - 1) * CG + 3) / 4 * 4;
+  while (lx < 32 && R * sw % (2 * lx) != lx) sw += 4;
+  return sw;
+}
+
+// The shapes of a launch.  out[n, y, x, c] = sum_{dy,dx} tap[dy, dx] *
+// in'[n, y + dy, x + dx, c], where in' is `in` shifted by `off` rows and
+// columns and zero outside [0, Hin) x [0, Win), and tap = taps[n],
+// flipped in both axes for K6.  off = 0: VALID correlation (K5).  off =
+// K-1 with the flip: the full correlation of the cotangent with the
+// flipped kernel (K6).  A block's unit of work is a strip: S tiles of th
+// rows x px pixels x CG channels, one above the other.
 struct BlurShape {
-  int R, S;
-  int N, Hin, WCin, Hout, WCout, C, off;
-  int sw;  // floats of a shared row of the input tile: (PX + K - 1) C,
-           // rounded up to 4
-  int tiles_x, per_image, count;
+  int N, Hin, Win, Hout, Wout, C, off;
+  int S, lx, by;  // tiles per strip; lanes of a band and bands (lx by = 32)
+  int CG;         // channels of a group: min(C, MAX_CG)
+  int px, th;     // pixels (P lx) and rows (by R) of a tile
+  int sw;         // floats of a shared row of the input tile
+  int tiles_x, per_group, per_image, count;
 };
 
-__host__ __device__ constexpr int tile_row(int K, int C) {
-  return ((PX + K - 1) * C + 3) / 4 * 4;
-}
-
 template <int K>
-__host__ __device__ constexpr int tile_floats(int R, int S, int C) {
-  return K * tap_stride(K) + (S * R + K - 1) * tile_row(K, C);
-}
-
-template <int K>
-BlurShape blur_shape(int N, int Hin, int WCin, int Hout, int WCout, int C,
+BlurShape blur_shape(int N, int Hin, int Win, int Hout, int Wout, int C,
                      bool full) {
-  const int R = full ? R_DX : R_VALID, S = full ? S_DX : S_VALID;
-  BlurShape s{R, S, N, Hin, WCin, Hout, WCout, C, full ? K - 1 : 0};
-  s.sw = tile_row(K, C);
-  s.tiles_x = (WCout / C + PX - 1) / PX;
-  s.per_image = s.tiles_x * ((Hout + S * R - 1) / (S * R));
+  BlurShape s{N, Hin, Win, Hout, Wout, C, full ? K - 1 : 0};
+  s.S = full ? S_DX : S_VALID;
+  // the band width that pads an output row least, the widest of equals
+  s.lx = 32;
+  for (int lx = 16, best = (Wout + 95) / 96 * 96; lx >= 8; lx /= 2) {
+    const int padded = (Wout + P * lx - 1) / (P * lx) * (P * lx);
+    if (padded < best) best = padded, s.lx = lx;
+  }
+  s.by = 32 / s.lx;
+  s.CG = C < MAX_CG ? C : MAX_CG;
+  s.px = P * s.lx;
+  s.th = s.by * R;
+  s.sw = shared_row(K, s.CG, s.lx);
+  s.tiles_x = (Wout + s.px - 1) / s.px;
+  s.per_group = s.tiles_x * ((Hout + s.S * s.th - 1) / (s.S * s.th));
+  s.per_image = (C + MAX_CG - 1) / MAX_CG * s.per_group;
   s.count = N * s.per_image;
   return s;
 }
 
-// issue the copies of strip t's taps into `buf`, transposed (and flipped
+template <int K>
+size_t smem_bytes(const BlurShape& s) {
+  return sizeof(float) *
+         (K * tap_stride(K) + (size_t)(s.S * s.th + K - 1) * s.sw);
+}
+
+// sample, first channel, first output row and pixel of strip t
+struct Strip {
+  int n, c0, y0, x0;
+};
+
+__device__ __forceinline__ Strip strip_at(const BlurShape& s, int t) {
+  Strip p;
+  p.n = t / s.per_image;
+  int r = t - p.n * s.per_image;
+  const int g = r / s.per_group;
+  r -= g * s.per_group;
+  const int ty = r / s.tiles_x;
+  p.c0 = g * MAX_CG;
+  p.y0 = ty * s.S * s.th;
+  p.x0 = (r - ty * s.tiles_x) * s.px;
+  return p;
+}
+
+// issue the copies of sample n's taps into `buf`, transposed (and flipped
 // for K6)
 template <int K, bool FLIP>
 __device__ __forceinline__ void copy_taps(float* buf, const float* taps,
-                                          const BlurShape& s, int t) {
+                                          int n) {
   constexpr int TS = tap_stride(K);
-  const float* tn = taps + (size_t)(t / s.per_image) * K * K;
+  const float* tn = taps + (size_t)n * K * K;
   for (int i = threadIdx.x; i < K * K; i += blockDim.x) {
     const int dy = i / K, dx = i - dy * K;  // K is a constant
     cp_async4(buf + dx * TS + dy, tn + (FLIP ? K * K - 1 - i : i), 4);
   }
 }
 
-// issue the copies of rows [r0, r1) of strip t's input (S R + K - 1 rows
-// of sw floats at `tile`), 16 bytes at a time where source and
-// destination are aligned, else by 4-byte copies with zero fill outside
-// the input
+// issue the copies of rows [r0, r1) of strip p's input tile (S th + K - 1
+// rows of sw floats at `tile`: pixels x0 - off ... of channels c0 .. c0 +
+// CG - 1), zero outside the input.  With one channel group a tile row is
+// one run of floats in device memory, copied 16 bytes at a time where
+// source and destination are aligned; with several, float by float.
 __device__ __forceinline__ void copy_rows(float* tile, const float* in,
-                                          const BlurShape& s, int t, int r0,
-                                          int r1) {
-  const int n = t / s.per_image, rt = t - n * s.per_image;
-  const int ty = rt / s.tiles_x, tx = rt - ty * s.tiles_x;
-  const int gy0 = ty * s.S * s.R - s.off, gx0 = (tx * PX - s.off) * s.C;
-  const float* inn = in + (size_t)n * s.Hin * s.WCin;
+                                          const BlurShape& s, const Strip& p,
+                                          int r0, int r1) {
+  const int WC = s.Win * s.C, gy0 = p.y0 - s.off, gp0 = p.x0 - s.off;
+  const float* inn = in + (size_t)p.n * s.Hin * WC;
   const int nq = s.sw / 4;
   const FastDiv fq(nq);
-  for (int i = threadIdx.x + r0 * nq; i < r1 * nq; i += blockDim.x) {
-    const int r = fq.div(i), q = i - r * nq;
-    const int gy = gy0 + r, gx = gx0 + 4 * q;
-    float* dst = tile + r * s.sw + 4 * q;
-    const bool row_in = gy >= 0 && gy < s.Hin;
-    const float* src = inn + (size_t)(row_in ? gy : 0) * s.WCin;
-    if (row_in && gx >= 0 && gx + 4 <= s.WCin &&
-        ((reinterpret_cast<uintptr_t>(src + gx) & 15) == 0)) {
-      cp_async16(dst, src + gx, 16);
-    } else {
+  if (s.CG == s.C) {
+    const int gx0 = gp0 * s.C;
+    for (int i = threadIdx.x + r0 * nq; i < r1 * nq; i += blockDim.x) {
+      const int r = fq.div(i), q = i - r * nq;
+      const int gy = gy0 + r, gx = gx0 + 4 * q;
+      float* dst = tile + r * s.sw + 4 * q;
+      const bool row_in = gy >= 0 && gy < s.Hin;
+      const float* src = inn + (size_t)(row_in ? gy : 0) * WC;
+      if (row_in && gx >= 0 && gx + 4 <= WC &&
+          ((reinterpret_cast<uintptr_t>(src + gx) & 15) == 0)) {
+        cp_async16(dst, src + gx, 16);
+        continue;
+      }
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const bool in_e = row_in && gx + e >= 0 && gx + e < s.WCin;
+        const bool in_e = row_in && gx + e >= 0 && gx + e < WC;
         cp_async4(dst + e, in_e ? src + gx + e : inn, in_e ? 4 : 0);
       }
+    }
+    return;
+  }
+  const FastDiv fc(s.CG);
+  for (int i = threadIdx.x + r0 * nq; i < r1 * nq; i += blockDim.x) {
+    const int r = fq.div(i), q = i - r * nq;
+    const int gy = gy0 + r;
+    float* dst = tile + r * s.sw + 4 * q;
+    const bool row_in = gy >= 0 && gy < s.Hin;
+    const float* src = inn + (size_t)(row_in ? gy : 0) * WC;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int f = 4 * q + e, px = fc.div(f);
+      const int gx = gp0 + px, c = p.c0 + f - px * s.CG;
+      const bool in_e = row_in && gx >= 0 && gx < s.Win && c < s.C;
+      cp_async4(dst + e, in_e ? src + (size_t)gx * s.C + c : inn,
+                in_e ? 4 : 0);
     }
   }
 }
 
 // acc[r][j] += t[dy] * v[r + dy]: one tap column over one window column
-template <int K, int R>
+template <int K>
 __device__ __forceinline__ void tap_column(float (&acc)[R][P], int j,
                                            const float (&t)[tap_stride(K)],
                                            const float (&v)[R + K - 1]) {
@@ -198,7 +261,7 @@ __device__ __forceinline__ void tap_column(float (&acc)[R][P], int j,
     for (int r = 0; r < R; ++r) acc[r][j] = fmaf(t[dy], v[r + dy], acc[r][j]);
 }
 
-template <int K, int R>
+template <int K>
 __device__ __forceinline__ void load_column(float (&v)[R + K - 1],
                                             const float* col, int sw) {
 #pragma unroll
@@ -218,41 +281,44 @@ __device__ __forceinline__ void load_taps(float (&t)[tap_stride(K)],
   }
 }
 
-// The tiles of this block, one after the other.  Warp c takes channel c;
-// lane l owns pixels P l .. P l + P - 1 of its channel in the tile's R
-// rows: flat columns (P l + j) C + c, C apart, whose windows overlap, so
-// that one window column of R + K - 1 inputs serves P outputs at three
-// tap columns.  The lanes' columns are P C floats apart: for odd C (images:
-// C = 3, lanes 9 floats apart) the 32 lanes of a load hit 32 different
-// banks.  CC is C when the build knows it (a constant shared row: each
-// column load is one instruction with an immediate offset), else 0.
-template <int K, int R, int CC, bool FLIP>
+// The strips of this block, one after the other.  Warp w takes channel
+// c0 + w of the strip's group; lane x of band b owns pixels P x .. P x +
+// P - 1 in rows b R .. b R + R - 1 of each tile: flat columns CG apart in
+// the shared tile, whose windows overlap, so that one window column of R
+// + K - 1 inputs serves P outputs at three tap columns.  LX3 > 0: the
+// build for C = 3 (images) and bands of LX3 lanes, whose shared row is a
+// constant, so that each column load is one instruction with an immediate
+// offset (a row known only at run time costs K5 and K6 7-9% at the
+// training shape: chip_smoke.py's any_c_ms); LX3 = 0: any C and band
+// width.
+template <int K, bool FLIP, int LX3>
 __device__ __forceinline__ void blur_tiles(const float* __restrict__ in,
                                            const float* __restrict__ taps,
                                            float* __restrict__ out,
                                            const BlurShape& s) {
   extern __shared__ float sm[];  // 16-byte aligned: the dynamic base
   constexpr int W = R + K - 1, TS = tap_stride(K);
-  const int C = CC > 0 ? CC : s.C;
-  const int sw = CC > 0 ? tile_row(K, CC) : s.sw;
-  const int c = threadIdx.x >> 5, l = threadIdx.x & 31;
-  const int col0 = P * l * C + c;
-  const int S = s.S;
+  constexpr int SW3 = LX3 ? shared_row(K, 3, LX3) : 0;
+  const int C = LX3 ? 3 : s.C, CG = LX3 ? 3 : s.CG, lx = LX3 ? LX3 : s.lx;
+  const int sw = LX3 ? SW3 : s.sw, S = s.S;
+  const int w = threadIdx.x >> 5, l = threadIdx.x & 31;
+  const int b = l / lx, x = l - b * lx;
+  const int col0 = b * R * sw + P * x * CG + w;
 
   for (int t = blockIdx.x; t < s.count; t += gridDim.x) {
     __syncthreads();  // the strip before is done with shared memory
-    // the taps and the first tile's rows, then each further tile's R rows,
+    const Strip p = strip_at(s, t);
+    // the taps and the first tile's rows, then each further tile's rows,
     // each a group of copies of its own
-    copy_taps<K, FLIP>(sm, taps, s, t);
-    copy_rows(sm + K * TS, in, s, t, 0, W);
+    copy_taps<K, FLIP>(sm, taps, p.n);
+    copy_rows(sm + K * TS, in, s, p, 0, s.th + K - 1);
     cp_async_commit();
     for (int st = 1; st < S; ++st) {
-      copy_rows(sm + K * TS, in, s, t, W + (st - 1) * R, W + st * R);
+      copy_rows(sm + K * TS, in, s, p, st * s.th + K - 1,
+                (st + 1) * s.th + K - 1);
       cp_async_commit();
     }
-    const int n = t / s.per_image, rt = t - n * s.per_image;
-    const int ty = rt / s.tiles_x, tx = rt - ty * s.tiles_x;
-    const int X = tx * PX * C + col0;
+    const int c = p.c0 + w, x0 = p.x0 + P * x;
 #pragma unroll 1
     for (int st = 0; st < S; ++st) {
       if (st + 1 < S)
@@ -260,29 +326,29 @@ __device__ __forceinline__ void blur_tiles(const float* __restrict__ in,
       else
         cp_async_wait<0>();
       __syncthreads();
-      const float* tile = sm + K * TS + st * R * sw + col0;
-      const int y0 = (ty * S + st) * R;
-      if (X >= s.WCout || y0 >= s.Hout) continue;
+      const float* tile = sm + K * TS + st * s.th * sw + col0;
+      const int y0 = p.y0 + st * s.th + b * R;
+      if (c >= C || x0 >= s.Wout || y0 >= s.Hout) continue;
       float acc[R][P];
 #pragma unroll
       for (int r = 0; r < R; ++r)
 #pragma unroll
         for (int j = 0; j < P; ++j) acc[r][j] = 0.f;
-      // window columns dx, dx + 1, dx + 2 (in units of C) in a ring of
+      // window columns dx, dx + 1, dx + 2 (in units of CG) in a ring of
       // three; step dx sums tap column dx over them (output j over column
       // dx + j), and loads column dx + 3 into the ring's slot of column dx
       // as soon as its last sum is issued, under the other two columns' sums
       float c0[W], c1[W], c2[W], tp[TS];
-      load_column<K, R>(c0, tile, sw);
-      load_column<K, R>(c1, tile + C, sw);
-      load_column<K, R>(c2, tile + 2 * C, sw);
-      auto step = [&](int dx, float(&a)[W], const float(&b)[W],
-                      const float(&d)[W]) {
+      load_column<K>(c0, tile, sw);
+      load_column<K>(c1, tile + CG, sw);
+      load_column<K>(c2, tile + 2 * CG, sw);
+      auto step = [&](int dx, float(&a)[W], const float(&d1)[W],
+                      const float(&d2)[W]) {
         load_taps<K>(tp, sm + dx * TS);
-        tap_column<K, R>(acc, 0, tp, a);
-        if (dx + 3 < K + P - 1) load_column<K, R>(a, tile + (dx + 3) * C, sw);
-        tap_column<K, R>(acc, 1, tp, b);
-        tap_column<K, R>(acc, 2, tp, d);
+        tap_column<K>(acc, 0, tp, a);
+        if (dx + 3 < K + P - 1) load_column<K>(a, tile + (dx + 3) * CG, sw);
+        tap_column<K>(acc, 1, tp, d1);
+        tap_column<K>(acc, 2, tp, d2);
       };
 #pragma unroll 1
       for (int dx = 0; dx < K; dx += 3) {
@@ -290,56 +356,61 @@ __device__ __forceinline__ void blur_tiles(const float* __restrict__ in,
         if (dx + 1 < K) step(dx + 1, c1, c2, c0);
         if (dx + 2 < K) step(dx + 2, c2, c0, c1);
       }
-      float* on = out + (size_t)n * s.Hout * s.WCout;
+      // one 64-bit address per tile, offsets from it in 32 bits: the
+      // blocks of one round all store at once, and per-store address
+      // chains held up K5 by a tenth of its time
+      float* o = out + (((size_t)p.n * s.Hout + y0) * s.Wout + x0) * C + c;
+      const int ow = s.Wout * C;  // floats of an output row
 #pragma unroll
       for (int r = 0; r < R; ++r) {
-        const int y = y0 + r;
-        if (y >= s.Hout) break;
+        if (y0 + r >= s.Hout) break;
 #pragma unroll
         for (int j = 0; j < P; ++j)
-          if (X + j * C < s.WCout)
-            on[(size_t)y * s.WCout + X + j * C] = acc[r][j];
+          if (x0 + j < s.Wout) o[r * ow + j * C] = acc[r][j];
       }
     }
   }
 }
 
-// one entry per function, so that a profile tells K5 from K6; blocks of 32
-// C threads (96 for images)
-template <int K, int CC>
-__global__ void __launch_bounds__(32 * (CC > 0 ? CC : MAX_C))
+// one entry per function, so that a profile tells K5 from K6; blocks of
+// 32 CG threads (96 for images)
+template <int K, int LX3>
+__global__ void __launch_bounds__(32 * (LX3 ? 3 : MAX_CG))
 blur_valid_kernel(const float* __restrict__ xp,
                   const float* __restrict__ taps, float* __restrict__ out,
                   BlurShape s) {
-  blur_tiles<K, R_VALID, CC, false>(xp, taps, out, s);
+  blur_tiles<K, false, LX3>(xp, taps, out, s);
 }
 
-template <int K, int CC>
-__global__ void __launch_bounds__(32 * (CC > 0 ? CC : MAX_C))
+template <int K, int LX3>
+__global__ void __launch_bounds__(32 * (LX3 ? 3 : MAX_CG))
 blur_dx_kernel(const float* __restrict__ g, const float* __restrict__ taps,
                float* __restrict__ dxp, BlurShape s) {
-  blur_tiles<K, R_DX, CC, true>(g, taps, dxp, s);
+  blur_tiles<K, true, LX3>(g, taps, dxp, s);
 }
 
 // full = false: K5, `in` is the padded input; full = true: K6, `in` is the
 // cotangent and `out` the padded-size gradient.  Images (C = 3) get the
-// build with C fixed.
+// build for their band width.
 template <int K>
 int launch_blur(bool full, const float* in, const float* taps, float* out,
-                int N, int Hin, int WCin, int Hout, int WCout, int C,
+                int N, int Hin, int Win, int Hout, int Wout, int C,
                 cudaStream_t stream) {
-  if (C < 1 || C > MAX_C) return cudaErrorInvalidValue;
-  const BlurShape s = blur_shape<K>(N, Hin, WCin, Hout, WCout, C, full);
-  const size_t smem = sizeof(float) * (size_t)tile_floats<K>(s.R, s.S, C);
+  const BlurShape s = blur_shape<K>(N, Hin, Win, Hout, Wout, C, full);
+  const size_t smem = smem_bytes<K>(s);
   if (smem > MAX_SMEM) return cudaErrorInvalidValue;
   using Kern = void (*)(const float*, const float*, float*, BlurShape);
-  const int v = (full ? 2 : 0) + (C == 3 ? 1 : 0);
-  const Kern kernels[4] = {blur_valid_kernel<K, 0>, blur_valid_kernel<K, 3>,
-                           blur_dx_kernel<K, 0>, blur_dx_kernel<K, 3>};
+  const Kern kernels[8] = {
+      blur_valid_kernel<K, 0>,  blur_valid_kernel<K, 32>,
+      blur_valid_kernel<K, 16>, blur_valid_kernel<K, 8>,
+      blur_dx_kernel<K, 0>,     blur_dx_kernel<K, 32>,
+      blur_dx_kernel<K, 16>,    blur_dx_kernel<K, 8>};
+  const int v = (full ? 4 : 0) +
+                (C != 3 ? 0 : s.lx == 32 ? 1 : s.lx == 16 ? 2 : 3);
   const Kern kernel = kernels[v];
   // the cap on dynamic shared memory, raised once per kernel and device
   // (a host call that costs microseconds)
-  static int raised[4] = {-1, -1, -1, -1};
+  static int raised[8] = {-1, -1, -1, -1, -1, -1, -1, -1};
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return e;
@@ -349,7 +420,7 @@ int launch_blur(bool full, const float* in, const float* taps, float* out,
     if (e != cudaSuccess) return e;
     raised[v] = dev;
   }
-  const int threads = 32 * C;
+  const int threads = 32 * s.CG;
   const int blocks = persistent_blocks(kernel, threads, smem, s.count);
   if (blocks <= 0) {
     e = cudaGetLastError();
@@ -360,11 +431,11 @@ int launch_blur(bool full, const float* in, const float* taps, float* out,
 }
 
 int dispatch_blur(int k, bool full, const float* in, const float* taps,
-                  float* out, int N, int Hin, int WCin, int Hout, int WCout,
+                  float* out, int N, int Hin, int Win, int Hout, int Wout,
                   int C, cudaStream_t stream) {
-#define VT_BLUR_CASE(K)                                                      \
-  case K:                                                                    \
-    return launch_blur<K>(full, in, taps, out, N, Hin, WCin, Hout, WCout, C, \
+#define VT_BLUR_CASE(K)                                                     \
+  case K:                                                                   \
+    return launch_blur<K>(full, in, taps, out, N, Hin, Win, Hout, Wout, C, \
                           stream);
   switch (k) {
     VT_BLUR_CASE(3) VT_BLUR_CASE(5) VT_BLUR_CASE(7) VT_BLUR_CASE(15)
@@ -500,8 +571,8 @@ extern "C" int vt_blur_valid(const void* xp, const void* kernels, void* out,
     return cudaErrorInvalidValue;
   return dispatch_blur(k, false, static_cast<const float*>(xp),
                        static_cast<const float*>(kernels),
-                       static_cast<float*>(out), N, H + k - 1,
-                       (W + k - 1) * C, H, W * C, C,
+                       static_cast<float*>(out), N, H + k - 1, W + k - 1, H,
+                       W, C,
                        static_cast<cudaStream_t>(stream));
 }
 
@@ -513,8 +584,8 @@ extern "C" int vt_blur_dx(const void* g, const void* kernels, void* dxp,
     return cudaErrorInvalidValue;
   return dispatch_blur(k, true, static_cast<const float*>(g),
                        static_cast<const float*>(kernels),
-                       static_cast<float*>(dxp), N, H, W * C, H + k - 1,
-                       (W + k - 1) * C, C,
+                       static_cast<float*>(dxp), N, H, W, H + k - 1,
+                       W + k - 1, C,
                        static_cast<cudaStream_t>(stream));
 }
 

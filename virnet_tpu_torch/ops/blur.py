@@ -7,9 +7,9 @@ PyTorch version (counterpart of virnet_tpu/ops/pallas_blur.py).
 
 Images are NHWC float32 and kernels (N, k, k) float32; the CUDA sources
 are in ``csrc/blur.cu``, which builds K5 and K6 for the k of
-``SUPPORTED_K`` (the configs' 21, the tests' 3, 5, 7, and 15) and C up to
-``MAX_C`` (one warp per channel; images are C = 3); the plain versions
-take any k and C.  ``valid_blur`` is the op with a
+``SUPPORTED_K`` (the configs' 21, the tests' 3, 5, 7, and 15) and any C
+(a block takes up to 8 channels); the plain versions take any k.
+``valid_blur`` is the op with a
 gradient: forward K5, backward K6 and K7.  The padding stays outside it,
 so autograd folds the halo back according to the pad mode (``pad_hw``).
 A wrapper given CPU tensors runs the plain version (the k*k shifted-slice
@@ -25,19 +25,12 @@ import torch
 from .fused_conv import COPIES, LAUNCHES, _check, _fn, _on_cpu, _ret, _stream
 
 SUPPORTED_K = (3, 5, 7, 15, 21)
-MAX_C = 8   # K5, K6: channels, one warp each
 
 
 def _check_k(k: int) -> None:
     if k not in SUPPORTED_K:
         raise ValueError(f"the blur kernels are built for k in "
                          f"{SUPPORTED_K}, got {k}")
-
-
-def _check_c(c: int) -> None:
-    if c > MAX_C:
-        raise ValueError(f"blur_valid and blur_dx take at most {MAX_C} "
-                         f"channels, got {c}")
 
 
 def _shapes(xp: torch.Tensor, kernels: torch.Tensor):
@@ -102,7 +95,6 @@ def blur_valid(xp: torch.Tensor, kernels: torch.Tensor) -> torch.Tensor:
         return blur_valid_plain(xp, kernels)
     n, h, w, c, k = _shapes(xp, kernels)
     _check_k(k)
-    _check_c(c)
     _check(xp, "xp", torch.float32, (n, h + k - 1, w + k - 1, c))
     _check(kernels, "kernels", torch.float32, (n, k, k))
     out = torch.empty((n, h, w, c), dtype=torch.float32, device=xp.device)
@@ -120,7 +112,6 @@ def blur_dx(g: torch.Tensor, kernels: torch.Tensor) -> torch.Tensor:
     n, h, w, c = g.shape
     k = kernels.shape[-1]
     _check_k(k)
-    _check_c(c)
     _check(g, "g", torch.float32, (n, h, w, c))
     _check(kernels, "kernels", torch.float32, (n, k, k))
     out = torch.empty((n, h + k - 1, w + k - 1, c), dtype=torch.float32,

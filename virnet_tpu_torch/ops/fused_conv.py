@@ -214,42 +214,20 @@ def dncnn_head_slabzero_plain(x, w1, b1, wms, bms, wl, bl, wh, bh, rows=32,
     """K8's function: x shifted down one row under a row of zeros (the last
     row dropped), cut into (N*H/rows) slabs of ``rows`` rows, each through
     ``dncnn_head_fused_plain`` as an image of its own."""
-    n, h, w, c = x.shape
+    n, h, w, _ = x.shape
     _check_rows(h, rows)
-    xs = F.pad(x, (0, 0, 0, 0, 1, 0))[:, :h].reshape(n * h // rows, rows, w, c)
-    head, sig = dncnn_head_fused_plain(xs, w1, b1, wms, bms, wl, bl, wh, bh,
-                                       slope, lmin, lmax)
+    head, sig = dncnn_head_fused_plain(slab_rows_up(x, rows), w1, b1, wms,
+                                       bms, wl, bl, wh, bh, slope, lmin, lmax)
     return head.reshape(n, h, w, -1), sig.reshape(n, h, w, -1)
 
 
 def slab_rows_up(x, rows) -> torch.Tensor:
-    """What K8's kernels read as x: the (N*H/rows, rows, W, C) slab view of
-    x in which each pixel reads the pixel one row up in memory, and row 0
-    of every input image (row 0 of every (H/rows)-th slab) reads zeros."""
+    """What K8 computes on, and its kernels read in place: x shifted down
+    one row under a row of zeros (the last row dropped), as (N*H/rows,
+    rows, W, C) slabs; row 0 of every image's first slab is zero."""
     n, h, w, c = x.shape
-    flat = x.reshape(n * h, w, c)
-    up = torch.cat([flat.new_zeros(1, w, c), flat[:-1]]).reshape(n, h, w, c)
-    up[:, 0] = 0
-    return up.reshape(n * h // rows, rows, w, c)
-
-
-def slabzero_chain_plain(x, w1, b1, wms, bms, wl, bl, wh, bh, rows=32,
-                         slope=0.25, lmin=-23.025850929940457,
-                         lmax=4.605170185988092):
-    """K8's decomposition on the level chain, eagerly: snet_conv1 on the
-    slab view with x read one row up (``slab_rows_up``), one K1 per mid
-    level on the view, snet_last's conv_last, sigma epilogue and head conv
-    on the view, reading x the same way; the outputs reshaped back."""
-    n, h, w, _ = x.shape
-    _check_rows(h, rows)
-    xv = slab_rows_up(x, rows)
-    y = conv3x3_plain(xv, w1, b1, slope)
-    for wm, bm in zip(wms, bms):
-        y = conv3x3_mid_plain(y, wm, bm, slope)
-    sig = exp_clip(conv3x3_plain(y, wl, bl), lmin, lmax)
-    head = conv3x3_plain(
-        torch.cat([xv, torch.sqrt(sig).to(x.dtype)], dim=-1), wh, bh)
-    return head.reshape(n, h, w, -1), sig.to(x.dtype).reshape(n, h, w, -1)
+    return F.pad(x, (0, 0, 0, 0, 1, 0))[:, :h].reshape(n * h // rows, rows,
+                                                       w, c)
 
 
 def conv3x3_tail_residual_plain(feats, x_in, w, b):
