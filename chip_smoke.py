@@ -2,7 +2,8 @@
 """Smoke run of the virnet_tpu_torch port on one NVIDIA GPU (H100).
 
     python3 chip_smoke.py [--phases build,kernels,serve,profile,serve_odd,
-                           ops,real,fp32,psnr,probe,sisr_fwd,train_fp32,
+                           ops,real,fp32,psnr,probe,sisr_fwd,serve_sisr,
+                           train_fp32,
                            train_sisr,train_denoise_fp32,train_denoise]
                           [--report PATH]
 
@@ -36,6 +37,10 @@ Phases (all by default; any failure raises and the exit code is not 0):
              group, and the device's idle share
   serve_odd  restore_image at 321x481, a shape that fails the fused-head
              gate (K2: snet_conv1, K1 x3, snet_last; then K4), ms per image
+             in bf16 and in fp32, the default compute (its library
+             convolutions with cuDNN off: precision.library_conv_route);
+             fails above 150 ms per fp32 image; one fp32 forward timed
+             with cuDNN off and on, and profiled with it on
   ops        the same image on SNet's per-op route, conv_impl='ops' (K1),
              ms per image
   real       the denoising-real demo weights on a 4x256^2 batch (co=3, L=6)
@@ -50,6 +55,14 @@ Phases (all by default; any failure raises and the exit code is not 0):
              rows this is what K3's row halo costs an apply)
   sisr_fwd   VIRNetSR with the x4 demo weights on a 4x48x48 LR batch, card
              (K2 + K4) vs CPU in fp32
+  serve_sisr Restorer('sisr', sf=4) with the x4 demo weights: restore_image
+             of a seeded 125x171 LR image (odd sizes through K2 and KNet)
+             to 500x684, fp32 card vs CPU (mu atol 1e-4); launches of one
+             image in fp32 and in bf16, exactly K2 (snet_conv1 + K1 x3 +
+             snet_last) once and K4 once; ms per image in bf16 and fp32
+             with cli/bench_restore's timer, output MP/s; one forward
+             timed with cuDNN off and on in both computes, and in fp32
+             at x3 107x160 and x2 321x481
   train_fp32 one SISR training step at 2x96^2 (full width) in fp32 with
              injected noise, card vs CPU: loss, ELBO terms, gradient norms
   train_sisr the SISR trainer built from configs/sisr_x4.json (full width,
@@ -72,7 +85,7 @@ Phases (all by default; any failure raises and the exit code is not 0):
              forces plain convolutions: no kernel of the package launches
 
 Every main-path phase (serve, serve_odd, ops, real, fp32, probe,
-train_sisr) zeroes the
+serve_sisr, train_sisr) zeroes the
 launch counters, drives its path once and reads them; it fails if a kernel
 of its path did not launch.  The line before the card's line is one JSON
 object with the kernels' numbers: times and errors from the syn weights
@@ -105,7 +118,8 @@ import torch
 
 ROOT = Path(__file__).resolve().parent
 ALL_PHASES = ("build", "kernels", "serve", "profile", "serve_odd", "ops",
-              "real", "fp32", "psnr", "probe", "sisr_fwd", "train_fp32",
+              "real", "fp32", "psnr", "probe", "sisr_fwd", "serve_sisr",
+              "train_fp32",
               "train_sisr", "train_denoise_fp32", "train_denoise")
 SYN_CKPT = ROOT / "model_zoo" / "virnet_denoising_syn_demo.pth"
 REAL_CKPT = ROOT / "model_zoo" / "virnet_denoising_real_demo.pth"
@@ -1075,6 +1089,99 @@ def phase_sisr_fwd(report):
         raise AssertionError("sisr_fwd: card forward disagrees with the CPU")
 
 
+SISR_PATH = {"dncnn_fused": 1, "conv3x3_mid": 3, "conv3x3_tail_residual": 1}
+
+
+def route_ab(name, restorer, im, reps=3, profile=False):
+    """ms per forward of one image already on the card, the model called
+    directly, by CUDA events: with cuDNN off (PyTorch's im2col + cuBLAS)
+    and on (cuDNN's heuristics pick the algorithms).  Serving takes the
+    first route in fp32 and the second in bf16
+    (precision.library_conv_route).  ``profile``: also the device kernels
+    of one forward with cuDNN on (cli/bench_restore.device_kernels)."""
+    from virnet_tpu_torch.cli.bench_restore import device_kernels
+
+    x = torch.from_numpy(im[None]).cuda()
+    args = (restorer.sf,) if restorer.sisr else ()
+
+    def fwd():
+        with torch.inference_mode():
+            restorer.model(x, *args)
+
+    saved = torch.backends.cudnn.enabled
+    res = {}
+    try:
+        for on in (False, True):
+            torch.backends.cudnn.enabled = on
+            key = "cudnn_ms" if on else "no_cudnn_ms"
+            res[key] = time_ms(fwd, reps, warmup=1)
+        if profile:
+            res["cudnn_kernels"] = device_kernels(fwd, top=8)
+    finally:
+        torch.backends.cudnn.enabled = saved
+    log(f"  route, {restorer.compute} {name}: cuDNN off "
+        f"{res['no_cudnn_ms']:.2f} ms, on {res['cudnn_ms']:.2f} ms per "
+        f"forward")
+    for kname, ms, n in res.get("cudnn_kernels", ()):
+        log(f"    cuDNN on: {ms:9.3f} ms x{n:<6d} {kname[:90]}")
+    return res
+
+
+def phase_serve_sisr(report, launches, lr_hw=(125, 171), sf=4):
+    """SISR serving through Restorer at full width (the x4 demo weights):
+    one odd-size LR image, fp32 on the card against the CPU, the launches
+    of one image in each compute (exactly SISR_PATH), and ms per image by
+    cli/bench_restore's timer."""
+    from virnet_tpu_torch.cli.bench_restore import time_image
+    from virnet_tpu_torch.eval.engine import Restorer
+
+    h, w = lr_hw
+    out_hw = (h * sf, w * sf, 3)
+    log(f"[serve_sisr] Restorer('sisr', sf={sf}) restore_image {h}x{w} -> "
+        f"{out_hw[0]}x{out_hw[1]} (K2: snet_conv1, K1 x3, snet_last; K4)")
+    lr = np.random.default_rng(4).random((h, w, 3), dtype=np.float32)
+    res = {"route": {}}
+    for compute in ("fp32", "bf16"):
+        sr = Restorer("sisr", ckpt_path=SISR_CKPT, sf=sf, compute=compute)
+        key = "serve_sisr" if compute == "fp32" else "serve_sisr_bf16"
+        out, launches[key] = run_path(key, lambda: sr.restore_image(lr),
+                                      tuple(SISR_PATH))
+        check_image(key, out, out_hw)
+        extra = {k: n for k, n in launches[key].items()
+                 if n != SISR_PATH.get(k, 0)}
+        if extra:
+            raise AssertionError(f"{key}: one image launched {extra}, "
+                                 f"expected exactly {SISR_PATH}")
+        if compute == "fp32":
+            cpu = Restorer("sisr", ckpt_path=SISR_CKPT, sf=sf,
+                           device="cpu").restore_image(lr)
+            res["mu_abs"] = float(np.abs(out - cpu).max())
+            log(f"  fp32 card vs CPU: mu max diff {res['mu_abs']:.3g} "
+                f"(atol 1e-4)")
+            if res["mu_abs"] > 1e-4:
+                raise AssertionError("serve_sisr: fp32 card output disagrees "
+                                     "with the CPU")
+        t = time_image(sr, lr, reps=20)
+        mp = out_hw[0] * out_hw[1] / t["median_ms"] / 1e3
+        res[compute] = dict(ms_per_image=t["median_ms"], min_ms=t["min_ms"],
+                            out_mp_per_s=mp)
+        log(f"  {compute}: {t['median_ms']:.2f} ms per image, median of 20 "
+            f"(least {t['min_ms']:.2f}; host clock, copies included; "
+            f"cli/bench_restore), {mp:.2f} output MP/s")
+        res["route"][f"{compute} x{sf} {h}x{w}"] = route_ab(
+            f"x{sf} {h}x{w}", sr, lr, reps=5)
+        del sr
+    # the route at the other scale factors (fp32, the demo weights)
+    for sf2, (h2, w2) in ((3, (107, 160)), (2, (321, 481))):
+        sr = Restorer("sisr", ckpt_path=SISR_CKPT.with_name(
+            f"virnet_sisr_x{sf2}_demo.pth"), sf=sf2, compute="fp32")
+        im = np.random.default_rng(5).random((h2, w2, 3), dtype=np.float32)
+        res["route"][f"fp32 x{sf2} {h2}x{w2}"] = route_ab(
+            f"x{sf2} {h2}x{w2}", sr, im)
+        del sr
+    report["serve_sisr"] = res
+
+
 def sisr_config(**overrides) -> dict:
     from virnet_tpu_torch.config import load_config
 
@@ -1477,6 +1584,21 @@ def main(argv=None) -> int:
         log(f"  {res['median_ms']:.2f} ms per image, median of 20 (least "
             f"{res['min_ms']:.2f}; host clock, copies to and from the card "
             f"included; cli/bench_restore)")
+        syn32 = Restorer("denoising-syn", ckpt_path=SYN_CKPT, compute="fp32")
+        out32, launches["serve_odd_fp32"] = run_path(
+            "serve_odd_fp32", lambda: syn32.restore_image(odd),
+            ("dncnn_fused", "conv3x3_mid", "conv3x3_tail_residual"))
+        check_image("serve_odd_fp32", out32, (321, 481, 3))
+        res = time_image(syn32, odd, reps=10)
+        report["serve_odd"].update(
+            fp32_ms_per_image=res["median_ms"], fp32_min_ms=res["min_ms"],
+            route=route_ab("321x481", syn32, odd, profile=True))
+        log(f"  fp32: {res['median_ms']:.2f} ms per image, median of 10 "
+            f"(least {res['min_ms']:.2f}; bar 150)")
+        if res["median_ms"] > 150:
+            raise AssertionError("serve_odd: one fp32 321x481 image took "
+                                 f"{res['median_ms']:.1f} ms (bar 150)")
+        del syn32
 
     if "ops" in phases:
         log("[ops] restore_image 321x481 on the per-op SNet route (K1)")
@@ -1576,6 +1698,9 @@ def main(argv=None) -> int:
     if "sisr_fwd" in phases:
         log("[sisr_fwd] VIRNetSR x4 demo weights, card vs CPU, fp32")
         phase_sisr_fwd(report)
+
+    if "serve_sisr" in phases:
+        phase_serve_sisr(report, launches)
 
     if "train_fp32" in phases:
         log("[train_fp32] one SISR training step at 2x96^2, card vs CPU")

@@ -490,12 +490,22 @@ def test_real_cli_trains_and_resumes_from_paired_folders(tmp_path):
     log = (save / "train.log").read_text()
     assert "resumed at epoch 1, step 2" in log
     assert "Number of training patch pairs: 3" in log
-    # validation data that is there asks for what is not ported: refused
-    (tmp_path / "n.mat").write_bytes(b"")
-    (tmp_path / "g.mat").write_bytes(b"")
-    with pytest.raises(NotImplementedError, match="validation"):
-        main(["--config", str(cfg), "--save_dir", str(save), "--device",
-              "cpu"])
+    assert "PSNR=" not in log                   # no .mat pair: no validation
+    # with the SIDD validation pair there, the next epoch validates on it
+    from scipy.io import savemat
+
+    rng = np.random.default_rng(16)
+    gt = (rng.random((2, 2, 24, 24, 3)) * 255).astype(np.uint8)
+    noisy = np.clip(gt + rng.normal(0, 12, gt.shape), 0, 255).astype(np.uint8)
+    savemat(str(tmp_path / "n.mat"), {"ValidationNoisyBlocksSrgb": noisy})
+    savemat(str(tmp_path / "g.mat"), {"ValidationGtBlocksSrgb": gt})
+    main(["--config", str(cfg), "--save_dir", str(save), "--device", "cpu",
+          "--resume", "latest", "--epochs", "3"])
+    assert CheckpointManager(save).steps() == [1, 2, 3]
+    line = [x for x in (save / "train.log").read_text().splitlines()
+            if "test: PSNR=" in x]
+    assert len(line) == 1 and "SSIM=" in line[0], line
+    assert np.isfinite(float(line[0].split("PSNR=")[1].split(",")[0]))
 
 
 @pytest.mark.parametrize("key,value,where", [
@@ -557,7 +567,7 @@ def test_cli_messages_name_roadmap_items_by_title():
 
     from virnet_tpu_torch.cli import common
 
-    for msg in [*common.UNPORTED.values(), common.VALIDATION]:
+    for msg in common.UNPORTED.values():
         assert not re.search(r"\bitems?\s+\d", msg), msg
         assert "ROADMAP.md" in msg and ".py" in msg, msg
     with pytest.raises(NotImplementedError, match="multi-device and runtime"):

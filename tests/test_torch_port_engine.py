@@ -109,9 +109,10 @@ def test_demo_cli_writes_restored_png(tmp_path):
 
 
 def test_entry_points_need_cuda_unless_cpu_is_asked():
-    with pytest.raises(NotImplementedError, match="SISR"):
-        Restorer("sisr", ckpt_path="model_zoo/virnet_sisr_x4_demo.pth",
-                 device="cpu")
+    sisr = Restorer("sisr", ckpt_path=ROOT / "model_zoo" /
+                    "virnet_sisr_x4_demo.pth", sf=4, device="cpu")
+    out = sisr.restore_image(_im(9, 11, 13))
+    assert out.shape == (44, 52, 3) and np.isfinite(out).all()
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -133,6 +134,27 @@ def test_bench_restore_times_restore_image_and_needs_the_card():
         bench_restore.main(["--size", "13x15"])
 
 
+def test_bench_restore_takes_the_sisr_task_and_its_flags():
+    """cli/bench_restore --task sisr --sf N [--profile]: the flags parse,
+    the default weights are the scale's demo checkpoint, and its timer
+    drives a SISR ``restore_image`` (here on the CPU, at a small size)."""
+    from virnet_tpu_torch.cli import bench_restore
+
+    args = bench_restore.build_parser().parse_args(
+        ["--task", "sisr", "--sf", "3", "--profile", "--compute", "fp32"])
+    assert (args.task, args.sf, args.profile, args.compute) == \
+        ("sisr", 3, True, "fp32")
+    assert not bench_restore.build_parser().parse_args([]).profile
+    with pytest.raises(SystemExit):
+        bench_restore.build_parser().parse_args(["--sf", "5"])
+    ckpt = bench_restore.default_ckpt("sisr", 3)
+    assert ckpt.name == "virnet_sisr_x3_demo.pth" and ckpt.exists()
+    assert bench_restore.default_ckpt("denoising-syn", 3).exists()
+    cpu = Restorer("sisr", ckpt_path=ckpt, sf=3, device="cpu")
+    res = bench_restore.time_image(cpu, _im(10, 9, 11), reps=2, warmup=1)
+    assert len(res["ms"]) == 2 and 0 < res["min_ms"] <= res["median_ms"]
+
+
 FORBIDDEN = ("jax", "flax", "virnet_tpu")
 
 
@@ -150,8 +172,23 @@ def test_port_imports_no_jax():
         "        'virnet_tpu_torch.train.loop_sisr',\n"
         "        'virnet_tpu_torch.losses.elbo',\n"
         "        'virnet_tpu_torch.data.sisr_synth',\n"
-        "        'virnet_tpu_torch.data.sources']\n"
+        "        'virnet_tpu_torch.data.sources',\n"
+        "        'virnet_tpu_torch.eval.metrics',\n"
+        "        'virnet_tpu_torch.data.eval_sets',\n"
+        "        'virnet_tpu_torch.ops.sigma_fields',\n"
+        "        'virnet_tpu_torch.ops.degrade',\n"
+        "        'virnet_tpu_torch.cli.bench_restore',\n"
+        "        'virnet_tpu_torch.cli.train_denoising_syn',\n"
+        "        'virnet_tpu_torch.cli.train_denoising_real']\n"
         "for m in mods: importlib.import_module(m)\n"
+        # the demo's SISR path, driven on a tiny image on the CPU
+        "import tempfile, cv2, numpy as np\n"
+        "from virnet_tpu_torch.cli.demo import main\n"
+        "d = tempfile.mkdtemp()\n"
+        "cv2.imwrite(d + '/a.png', np.full((9, 11, 3), 99, np.uint8))\n"
+        "main(['--task', 'sisr', '--sf', '3', '--in_path', d + '/a.png',\n"
+        "      '--out_path', d, '--device', 'cpu'])\n"
+        "assert cv2.imread(d + '/restored_a.png').shape == (27, 33, 3)\n"
         "bad = [m for m in sys.modules if m in ('jax', 'flax', 'virnet_tpu')"
         " or m.startswith(('jax.', 'flax.', 'virnet_tpu.'))]\n"
         "print(bad); sys.exit(1 if bad else 0)\n")

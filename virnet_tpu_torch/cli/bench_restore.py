@@ -3,15 +3,19 @@ image of one size (the copies to and from the card included), or with
 ``--batch N`` ``Restorer.restore_batch`` on a seeded batch on the card.
 
     python -m virnet_tpu_torch.cli.bench_restore [--task denoising-syn] \
-        [--size 321x481] [--batch 0] [--compute bf16] [--reps 30] \
-        [--ckpt PATH]
+        [--sf 4] [--size 321x481] [--batch 0] [--compute bf16] [--reps 30] \
+        [--ckpt PATH] [--profile]
 
 The default size is a CBSD68 image's (321x481), which fails the fused-head
 gate (models/fused.py:fused_head_supported), so SNet runs K2, RNet its pad
-and head in torch, and the tail K4; 32 x 256x256 passes it (K3).  Each
-call is timed by the host clock and ends in a synchronisation with the
-card; three calls warm up first.  Prints one JSON line: the median and
-least ms per call, and the card.  Needs a CUDA device.
+and head in torch, and the tail K4; 32 x 256x256 passes it (K3).  ``--task
+sisr`` serves the LR image of that size at ``--sf`` (default weights
+``model_zoo/virnet_sisr_x{sf}_demo.pth``; K2 and K4).  Each call is timed
+by the host clock and ends in a synchronisation with the card; three calls
+warm up first.  Prints one JSON line: the median and least ms per call,
+the output megapixels per second at the median, and the card;
+``--profile`` adds the device kernels of one more call, longest first
+(torch.profiler).  Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -26,7 +30,12 @@ import torch
 
 ZOO = Path(__file__).resolve().parents[2] / "model_zoo"
 CKPTS = {"denoising-syn": ZOO / "virnet_denoising_syn_demo.pth",
-         "denoising-real": ZOO / "virnet_denoising_real_demo.pth"}
+         "denoising-real": ZOO / "virnet_denoising_real_demo.pth",
+         "sisr": ZOO / "virnet_sisr_x{sf}_demo.pth"}
+
+
+def default_ckpt(task: str, sf: int) -> Path:
+    return Path(str(CKPTS[task]).format(sf=sf))
 
 
 def time_calls(fn, reps: int = 30, warmup: int = 3) -> dict:
@@ -51,35 +60,74 @@ def time_image(restorer, image: np.ndarray, reps: int = 30,
     return time_calls(lambda: restorer.restore_image(image), reps, warmup)
 
 
-def main(argv=None) -> int:
-    from virnet_tpu_torch.eval.engine import Restorer
+def device_kernels(fn, top: int = 12) -> list:
+    """The device kernels of one ``fn()`` call by torch.profiler (CUPTI):
+    [name (its first 120 characters), total ms, launches], longest first,
+    at most ``top`` rows."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
 
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows: dict = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            ms, n = rows.get(e.name, (0.0, 0))
+            rows[e.name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
+    return [[name[:120], ms, n] for name, (ms, n) in
+            sorted(rows.items(), key=lambda kv: -kv[1][0])[:top]]
+
+
+def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--task", default="denoising-syn", choices=sorted(CKPTS))
-    ap.add_argument("--size", default="321x481", help="HxW")
+    ap.add_argument("--sf", type=int, default=4, choices=(2, 3, 4),
+                    help="SISR scale factor (--task sisr)")
+    ap.add_argument("--size", default="321x481", help="HxW (the LR size "
+                    "for sisr)")
     ap.add_argument("--batch", type=int, default=0,
                     help="time restore_batch on N images (0: restore_image)")
     ap.add_argument("--compute", default="bf16", choices=("bf16", "fp32"))
     ap.add_argument("--reps", type=int, default=30)
     ap.add_argument("--ckpt", type=Path, default=None)
+    ap.add_argument("--profile", action="store_true",
+                    help="also list the device kernels of one call")
+    return ap
+
+
+def main(argv=None) -> int:
+    from virnet_tpu_torch.eval.engine import Restorer
+
+    ap = build_parser()
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         ap.error("needs a CUDA device: this measures the card")
     h, w = (int(v) for v in args.size.split("x"))
-    restorer = Restorer(args.task, ckpt_path=args.ckpt or CKPTS[args.task],
-                        compute=args.compute)
+    restorer = Restorer(args.task, sf=args.sf, compute=args.compute,
+                        ckpt_path=args.ckpt or default_ckpt(args.task,
+                                                            args.sf))
     rng = np.random.default_rng(0)
     if args.batch:
         x = torch.as_tensor(rng.random((args.batch, h, w, 3),
                                        dtype=np.float32), device="cuda")
-        res = time_calls(lambda: restorer.restore_batch(x), args.reps)
+        call = lambda: restorer.restore_batch(x)          # noqa: E731
+        res = time_calls(call, args.reps)
     else:
         image = rng.random((h, w, 3), dtype=np.float32)
+        call = lambda: restorer.restore_image(image)      # noqa: E731
         res = time_image(restorer, image, args.reps)
-    print(json.dumps(dict(task=args.task, size=[h, w], batch=args.batch,
-                          compute=args.compute,
-                          card=torch.cuda.get_device_name(0),
-                          median_ms=res["median_ms"], min_ms=res["min_ms"])))
+    out_px = max(args.batch, 1) * h * w * restorer.sf ** 2
+    line = dict(task=args.task, sf=restorer.sf, size=[h, w],
+                batch=args.batch, compute=args.compute,
+                card=torch.cuda.get_device_name(0),
+                median_ms=res["median_ms"], min_ms=res["min_ms"],
+                out_mp_per_s=out_px / res["median_ms"] / 1e3)
+    if args.profile:
+        line["kernels"] = device_kernels(call)
+    print(json.dumps(line))
     return 0
 
 

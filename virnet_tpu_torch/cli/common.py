@@ -1,12 +1,20 @@
 """Shared plumbing of the trainer command lines (counterpart of
-virnet_tpu/cli/common.py)."""
+virnet_tpu/cli/common.py): arguments and config, the refusals of what is
+not ported, resume, and per-epoch validation."""
 
 from __future__ import annotations
 
 import argparse
-from typing import Dict
+from typing import Dict, Optional
+
+import numpy as np
+import torch
 
 from ..config import as_bool, load_config, update_args
+from ..eval.metrics import batch_psnr, batch_ssim
+from ..eval.tiling import bucket_size
+from ..ops.pad import pad_bottom_right
+from ..precision import library_conv_route
 
 # config keys of the JAX trainers whose modules are not ported yet, with
 # where ROADMAP.md queues them: by the item's title, never its number,
@@ -24,9 +32,6 @@ UNPORTED = {
     "num_processes": f"train/mesh.py ({_RUNTIME})",
     "process_id": f"train/mesh.py ({_RUNTIME})",
 }
-VALIDATION = ("per-epoch validation needs data/eval_sets.py and "
-              "eval/metrics.py (metrics, eval sets and trainer validation, "
-              f"{_QUEUE})")
 
 
 def trainer_argparser(default_config: str,
@@ -83,3 +88,59 @@ def resume_epoch(trainer, resume, log_fn) -> int:
     epoch = trainer.restore(None if resume == "latest" else int(resume))
     log_fn(f"resumed at epoch {epoch}, step {trainer.step}")
     return epoch
+
+
+VAL_PAD_MULTIPLE = 64   # the JAX trainers' validation pad buckets
+
+
+def eval_restore_fn(model: torch.nn.Module, device, sf: Optional[int] = None):
+    """A single-image restore closure over the model's current weights, for
+    per-epoch validation: the image reflect-padded to a multiple of
+    ``VAL_PAD_MULTIPLE``, one forward in eval mode and fp32 (no autocast)
+    on ``device``, cropped back (``sf`` times larger for SISR) and clamped
+    to [0, 1]."""
+    scale = 1 if sf is None else sf
+
+    def restore(im_hwc: np.ndarray) -> np.ndarray:
+        h, w = im_hwc.shape[:2]
+        x = torch.as_tensor(im_hwc[None], dtype=torch.float32).to(device)
+        x = pad_bottom_right(x, bucket_size(h, VAL_PAD_MULTIPLE),
+                             bucket_size(w, VAL_PAD_MULTIPLE))
+        was_training = model.training
+        model.eval()
+        try:
+            with torch.inference_mode(), library_conv_route(
+                    "fp32", torch.device(device)):
+                out = model(x)[0] if sf is None else model(x, sf)[0]
+        finally:
+            model.train(was_training)
+        out = out[0, :h * scale, :w * scale].float().clamp(0.0, 1.0)
+        return out.cpu().numpy()
+
+    return restore
+
+
+def eval_on_pairs(restore, pairs, border: int = 0,
+                  ycbcr: bool = False) -> Dict[str, float]:
+    """``pairs`` yields (noisy or LR, GT) float32 HWC images; returns the
+    mean PSNR and SSIM under the reference's uint8 round-trip protocol."""
+    psnrs, ssims = [], []
+    for inp, gt in pairs:
+        out = restore(inp)
+        psnrs.append(batch_psnr(out[None], gt[None], border, ycbcr))
+        ssims.append(batch_ssim(out[None], gt[None], border, ycbcr))
+    return dict(psnr=float(np.mean(psnrs)), ssim=float(np.mean(ssims)))
+
+
+def validate(restore, pairs, epoch: int, logger, writer, label: str = "test",
+             tag: str = "test", border: int = 0,
+             ycbcr: bool = False) -> Dict[str, float]:
+    """One set's validation: PSNR and SSIM logged as ``label`` and written
+    as the TensorBoard scalars ``PSNR_epoch_<tag>`` / ``SSIM_epoch_<tag>``
+    (the JAX trainers' names)."""
+    metrics = eval_on_pairs(restore, pairs, border, ycbcr)
+    logger.info(f"{label}: PSNR={metrics['psnr']:4.2f}, "
+                f"SSIM={metrics['ssim']:5.4f}")
+    writer.scalar(f"PSNR_epoch_{tag}", metrics["psnr"], epoch)
+    writer.scalar(f"SSIM_epoch_{tag}", metrics["ssim"], epoch)
+    return metrics

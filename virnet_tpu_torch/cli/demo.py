@@ -1,10 +1,14 @@
-"""Demo CLI for the denoising tasks (counterpart of
-virnet_tpu/cli/demo.py; reference scripts/testing_demo.py:99-135):
+"""Demo CLI (counterpart of virnet_tpu/cli/demo.py; reference
+scripts/testing_demo.py:99-135):
 
-    python -m virnet_tpu_torch.cli.demo --task {denoising-syn,denoising-real}
-        --in_path <file-or-dir> --out_path <dir> [--ckpt_path <pth>]
+    python -m virnet_tpu_torch.cli.demo
+        --task {denoising-syn,denoising-real,sisr} --in_path <file-or-dir>
+        --out_path <dir> [--sf {2,3,4}] [--ckpt_path <pth>]
         [--prefix restored_] [--flip] [--compute fp32|bf16]
         [--device cuda|cpu]
+
+``sisr`` writes each image ``--sf`` times larger; its default weights are
+``model_zoo/virnet_sisr_x{sf}_demo.pth``.
 """
 
 from __future__ import annotations
@@ -18,6 +22,7 @@ IMG_EXTS = (".png", ".jpg", ".jpeg", ".bmp", ".tif", ".tiff")
 DEFAULT_CKPTS = {
     "denoising-syn": "model_zoo/virnet_denoising_syn_demo.pth",
     "denoising-real": "model_zoo/virnet_denoising_real_demo.pth",
+    "sisr": "model_zoo/virnet_sisr_x{sf}_demo.pth",
 }
 
 
@@ -33,6 +38,8 @@ def main(argv=None):
     parser.add_argument("--task", required=True, choices=sorted(DEFAULT_CKPTS))
     parser.add_argument("--in_path", required=True, type=str)
     parser.add_argument("--out_path", type=str, default="./results")
+    parser.add_argument("--sf", type=int, default=2, choices=[2, 3, 4],
+                        help="SISR scale factor")
     parser.add_argument("--ckpt_path", type=str, default=None,
                         help="reference .pth checkpoint (default: the "
                              "task's demo weights under model_zoo/)")
@@ -52,11 +59,11 @@ def main(argv=None):
     from ..ops.color import imread, imwrite
     from ..ops.quant import img_as_ubyte
 
-    ckpt = args.ckpt_path or DEFAULT_CKPTS[args.task]
+    ckpt = args.ckpt_path or DEFAULT_CKPTS[args.task].format(sf=args.sf)
     if not Path(ckpt).exists():
         raise SystemExit(f"checkpoint not found: {ckpt}")
-    restorer = Restorer(args.task, ckpt_path=ckpt, compute=args.compute,
-                        device=args.device)
+    restorer = Restorer(args.task, ckpt_path=ckpt, sf=args.sf,
+                        compute=args.compute, device=args.device)
     out_dir = Path(args.out_path)
     out_dir.mkdir(parents=True, exist_ok=True)
     for im_path in collect_images(Path(args.in_path)):

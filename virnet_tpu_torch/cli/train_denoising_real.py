@@ -7,28 +7,31 @@ virnet_tpu/cli/train_denoising_real.py; reference train_denoising_real.py).
 Paired noisy/GT patches come from a SIDD-style folder pair
 (<root>/noisy/*.png, <root>/gt/*.png, the config's ``train_pch_dir`` being
 the noisy folder); MixUp and the sigma^2-prior residual filter run on the
-device inside the train step.  Per epoch: a checkpoint under
-``<save_dir>/ckpts`` and the epoch's mean loss as a TensorBoard scalar
-(where tensorboardX is installed).  ``--resume latest`` (or a saved epoch
-number) continues from a checkpoint.  The trainer runs on the card unless
-``--device cpu`` is given.
+device inside the train step.  Per epoch: validation on the SIDD
+validation .mat pair (``test_noisy_path``, ``test_gt_path``; skipped when
+either is missing), PSNR and SSIM logged; a checkpoint under
+``<save_dir>/ckpts``; the epoch's mean loss and the validation scores as
+TensorBoard scalars (where tensorboardX is installed).  ``--resume
+latest`` (or a saved epoch number) continues from a checkpoint.  The
+trainer runs on the card unless ``--device cpu`` is given.
 
-Not ported yet, and refused when the config asks for them: per-epoch
-validation on the SIDD validation .mat pair (skipped when the files are
-missing, as in the JAX CLI), ``device_data``, ``train_pack_file``,
-``auto_resume``, the RSS watchdog and multi-host runs.
+Not ported yet, and refused when the config asks for them:
+``device_data``, ``train_pack_file``, ``auto_resume``, the RSS watchdog
+and multi-host runs.
 """
 
 from __future__ import annotations
 
 from pathlib import Path
 
+import numpy as np
+
 from ..config import as_bool
 from ..data.sources import PairedPatchSampler
 from ..train.logging import TrainWriter, make_log
 from ..train.loop_denoise import DenoiseTrainConfig, DenoiseTrainer
-from .common import (VALIDATION, load_trainer_config, refuse_unported,
-                     resume_epoch, trainer_argparser)
+from .common import (eval_restore_fn, load_trainer_config, refuse_unported,
+                     resume_epoch, trainer_argparser, validate)
 
 
 def build_trainer(cfg: dict, device="cuda") -> DenoiseTrainer:
@@ -52,6 +55,21 @@ def build_trainer(cfg: dict, device="cuda") -> DenoiseTrainer:
     return DenoiseTrainer(tcfg, real=True, device=device)
 
 
+def sidd_val_pairs(noisy_mat: str, gt_mat: str):
+    """Yield (noisy, gt) float32 HWC pairs from the SIDD validation .mat
+    files (reference datasets/DenoisingDatasets.py:157-177)."""
+    from scipy.io import loadmat
+
+    noisy = loadmat(noisy_mat)["ValidationNoisyBlocksSrgb"]
+    gt = loadmat(gt_mat)["ValidationGtBlocksSrgb"]
+    h, w, c = noisy.shape[2:]
+    noisy = noisy.reshape(-1, h, w, c)
+    gt = gt.reshape(-1, h, w, c)
+    for i in range(noisy.shape[0]):
+        yield (noisy[i].astype(np.float32) / 255.0,
+               gt[i].astype(np.float32) / 255.0)
+
+
 def main(argv=None) -> None:
     args = trainer_argparser("configs/denoising_real.json",
                              __doc__.splitlines()[0]).parse_args(argv)
@@ -70,9 +88,8 @@ def main(argv=None) -> None:
         raise SystemExit("no training patches found — check train_pch_dir")
     sampler = PairedPatchSampler(cfg["train_pch_dir"], cfg["patch_size"])
     logger.info(f"Number of training patch pairs: {len(sampler.noisy)}")
-    if all(cfg.get(k) and Path(cfg[k]).exists()
-           for k in ("test_noisy_path", "test_gt_path")):
-        raise NotImplementedError(VALIDATION)
+    have_val = all(cfg.get(k) and Path(cfg[k]).exists()
+                   for k in ("test_noisy_path", "test_gt_path"))
     steps = cfg.get("steps_per_epoch", 10000)
 
     for epoch in range(resume_epoch(trainer, cfg.get("resume"), logger.info),
@@ -83,6 +100,11 @@ def main(argv=None) -> None:
                    for _ in range(steps))
         stats = trainer.train_epoch(epoch, batches, log_fn=logger.info)
         writer.scalar("Loss_epoch", stats.get("loss", 0.0), epoch)
+        if have_val:
+            validate(eval_restore_fn(trainer.model, trainer.device),
+                     sidd_val_pairs(cfg["test_noisy_path"],
+                                    cfg["test_gt_path"]),
+                     epoch, logger, writer)
         trainer.save(epoch)
         logger.info(f"epoch {epoch + 1} took {stats['epoch_time']:.2f}s")
     writer.close()

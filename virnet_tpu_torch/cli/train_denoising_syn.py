@@ -6,16 +6,17 @@ virnet_tpu/cli/train_denoising_syn.py; reference train_denoising_syn.py).
 
 The host serves GT patch batches from a RAM cache of the images under the
 config's ``train_data`` (dir, glob) pairs; sigma maps and noise are
-synthesized on the device inside the train step.  Per epoch: a checkpoint
-under ``<save_dir>/ckpts`` and the epoch's mean loss as a TensorBoard
-scalar (where tensorboardX is installed).  ``--resume latest`` (or a saved
-epoch number) continues from a checkpoint.  The trainer runs on the card
-unless ``--device cpu`` is given.
+synthesized on the device inside the train step.  Per epoch: validation
+on the PNGs under ``val_data`` with the fixed-seed noise of
+``data/eval_sets.DenoiseValSet`` (skipped when there are none), PSNR and
+SSIM logged; a checkpoint under ``<save_dir>/ckpts``; the epoch's mean
+loss and the validation scores as TensorBoard scalars (where tensorboardX
+is installed).  ``--resume latest`` (or a saved epoch number) continues
+from a checkpoint.  The trainer runs on the card unless ``--device cpu``
+is given.
 
-Not ported yet, and refused when the config asks for them: per-epoch
-validation on ``val_data`` (skipped when no image is found there, as in
-the JAX CLI), ``device_data``, ``auto_resume``, the RSS watchdog and
-multi-host runs.
+Not ported yet, and refused when the config asks for them:
+``device_data``, ``auto_resume``, the RSS watchdog and multi-host runs.
 """
 
 from __future__ import annotations
@@ -23,11 +24,12 @@ from __future__ import annotations
 from pathlib import Path
 
 from ..config import as_bool
+from ..data.eval_sets import DenoiseValSet
 from ..data.sources import ImageCache, PatchSampler, glob_images
 from ..train.logging import TrainWriter, make_log
 from ..train.loop_denoise import DenoiseTrainConfig, DenoiseTrainer
-from .common import (VALIDATION, load_trainer_config, refuse_unported,
-                     resume_epoch, trainer_argparser)
+from .common import (eval_restore_fn, load_trainer_config, refuse_unported,
+                     resume_epoch, trainer_argparser, validate)
 
 
 def build_trainer(cfg: dict, device="cuda") -> DenoiseTrainer:
@@ -71,8 +73,9 @@ def main(argv=None) -> None:
         raise SystemExit("no training images found — check train_data paths")
     logger.info(f"Number of training images: {len(train_paths)}")
     sampler = PatchSampler(ImageCache(train_paths), cfg["patch_size"])
-    if cfg.get("val_data") and any(Path(cfg["val_data"]).glob("*.png")):
-        raise NotImplementedError(VALIDATION)
+    val_paths = (sorted(str(p) for p in Path(cfg["val_data"]).glob("*.png"))
+                 if cfg.get("val_data") else [])
+    val_set = DenoiseValSet(val_paths) if val_paths else None
     steps = cfg.get("steps_per_epoch", 10000)
 
     for epoch in range(resume_epoch(trainer, cfg.get("resume"), logger.info),
@@ -87,6 +90,9 @@ def main(argv=None) -> None:
                     f"lh={stats.get('lh', 0):+.2e}, "
                     f"KLG={stats.get('kl_gauss', 0):+.2e}, "
                     f"KLIG={stats.get('kl_ig', 0):+.2e}")
+        if val_set is not None:
+            validate(eval_restore_fn(trainer.model, trainer.device),
+                     iter(val_set), epoch, logger, writer)
         trainer.save(epoch)
         logger.info(f"epoch {epoch + 1} took {stats['epoch_time']:.2f}s")
     writer.close()

@@ -6,12 +6,17 @@ reference train_SISR.py).
 
 HR patches stream from a RAM cache of the PNGs under the config's
 ``train_hr_patchs``; the whole degradation pipeline runs on the device
-inside the train step.  The trainer runs on the card unless ``--device
-cpu`` is given.  ``--resume latest`` (or a saved epoch number) continues
-from a checkpoint under ``<save_dir>/ckpts``.
+inside the train step.  Per epoch: validation on the images under
+``val_hr_path`` (Set14 in the configs; skipped when there are none), one
+``data/eval_sets.SISRValSet`` per noise type (Gaussian; JPEG too with
+``add_jpeg``), PSNR and SSIM on the Y channel with a border of sf^2
+logged and written as TensorBoard scalars (where tensorboardX is
+installed); a checkpoint under ``<save_dir>/ckpts``.  The trainer runs on
+the card unless ``--device cpu`` is given.  ``--resume latest`` (or a
+saved epoch number) continues from a checkpoint.
 
-Not ported yet: per-epoch validation on Set14, TensorBoard summaries and
-the host-side JPEG degradation (data/sisr_host.py); device-resident data,
+Not ported yet: the TensorBoard image and kernel summaries and the
+host-side JPEG degradation (data/sisr_host.py); device-resident data,
 ``auto_resume``, the RSS watchdog and multi-host runs are refused when the
 config asks for them.
 """
@@ -21,11 +26,12 @@ from __future__ import annotations
 from pathlib import Path
 
 from ..config import as_bool
+from ..data.eval_sets import SISRValSet
 from ..data.sources import ImageCache, PatchSampler
-from ..train.logging import make_log
+from ..train.logging import TrainWriter, make_log
 from ..train.loop_sisr import SISRTrainConfig, SISRTrainer
-from .common import (load_trainer_config, refuse_unported, resume_epoch,
-                     trainer_argparser)
+from .common import (eval_restore_fn, load_trainer_config, refuse_unported,
+                     resume_epoch, trainer_argparser, validate)
 
 
 def build_trainer(cfg: dict, device="cuda") -> SISRTrainer:
@@ -64,6 +70,27 @@ def build_trainer(cfg: dict, device="cuda") -> SISRTrainer:
     return SISRTrainer(tcfg, device=device, host_batches=host_batches)
 
 
+def sisr_val_sets(cfg: dict) -> dict:
+    """One SISRValSet per noise type over the .bmp (else .png) images under
+    ``val_hr_path`` (reference train_SISR.py:277-321); empty without
+    images."""
+    if not cfg.get("val_hr_path"):
+        return {}
+    root = Path(cfg["val_hr_path"])
+    paths = (sorted(str(p) for p in root.glob("*.bmp"))
+             or sorted(str(p) for p in root.glob("*.png")))
+    if not paths:
+        return {}
+    noise_types = ["Gaussian"]
+    if as_bool(cfg.get("add_jpeg", False)):
+        noise_types.append("JPEG")
+    return {nt: SISRValSet(
+        paths, sf=cfg["sf"], k_size=cfg.get("k_size", 21),
+        kernel_shift=as_bool(cfg.get("kernel_shift", False)),
+        downsampler=str(cfg.get("downsampler", "Bicubic")).lower(),
+        noise_type=nt) for nt in noise_types}
+
+
 def main(argv=None) -> None:
     args = trainer_argparser("configs/sisr_x4.json",
                              __doc__.splitlines()[0]).parse_args(argv)
@@ -86,6 +113,9 @@ def main(argv=None) -> None:
         raise SystemExit("no HR patches found — check train_hr_patchs")
     logger.info(f"Number of HR patches: {len(hr_paths)}")
     sampler = PatchSampler(ImageCache(hr_paths), cfg["hr_size"])
+    sf = cfg["sf"]
+    val_sets = sisr_val_sets(cfg)
+    writer = TrainWriter(save_dir / "logs")
     steps = cfg.get("steps_per_epoch", 10000)
 
     for epoch in range(resume_epoch(trainer, cfg.get("resume"), logger.info),
@@ -94,9 +124,16 @@ def main(argv=None) -> None:
         batches = (sampler.sample(cfg["batch_size"], raw=True)
                    for _ in range(steps))
         stats = trainer.train_epoch(epoch, batches, log_fn=logger.info)
+        writer.scalar("Loss_epoch", stats.get("loss", 0.0), epoch)
+        for nt, val_set in val_sets.items():
+            validate(eval_restore_fn(trainer.model, trainer.device, sf=sf),
+                     ((lr, hr) for hr, lr, _ in val_set), epoch, logger,
+                     writer, label=f"test[{nt}]", tag=f"test_{nt}",
+                     border=sf ** 2, ycbcr=True)
         trainer.save(epoch)
         logger.info(f"epoch {epoch + 1} took {stats['epoch_time']:.2f}s, "
                     f"loss {stats.get('loss', 0.0):.4f}")
+    writer.close()
 
 
 if __name__ == "__main__":

@@ -1,9 +1,9 @@
-"""Inference engine for the denoising tasks (counterpart of
-virnet_tpu/eval/engine.py:Restorer).
+"""Inference engine (counterpart of virnet_tpu/eval/engine.py:Restorer).
 
-The forward is the model's own: K3 + RNet + K4 on shapes that pass the
-fused-head gate, K2 + RNet + K4 on the others (models/virnet.py).  The
-JAX engine's mesh, rows_shard and int8 paths are not ported yet.
+The forward is the model's own.  Denoising: K3 + RNet + K4 on shapes that
+pass the fused-head gate, K2 + RNet + K4 on the others; SISR: K2 (SNet),
+KNet and RNet in torch, K4 (models/virnet.py).  The JAX engine's mesh,
+rows_shard and int8 paths are not ported yet.
 """
 
 from __future__ import annotations
@@ -15,17 +15,22 @@ from ..convert import load_pth
 from ..models import ARCH_PRESETS, build_model
 from ..ops.augment import dihedral_inverse_np, dihedral_np
 from ..ops.pad import pad_bottom_right
-from ..precision import compute_dtype, resolve_device, set_parity_mode
+from ..precision import (compute_dtype, library_conv_route, resolve_device,
+                         set_parity_mode)
 from .tiling import bucket_size, forward_chop
 
 CHOP_THRESHOLD = 160000   # pixels; above this, quadrant tiling kicks in
 
 
 class Restorer:
-    """Denoising inference on HWC float32 numpy images, with the weights
-    of a reference ``.pth`` (``ckpt_path``).
+    """Denoising and SISR inference on HWC float32 numpy images, with the
+    weights of a reference ``.pth`` (``ckpt_path``).  ``sf`` is the SISR
+    scale factor (outputs are ``sf`` times the input's size); the
+    denoising tasks ignore it.
 
-    ``compute='fp32'`` is the checkpoint-faithful parity mode (TF32 off);
+    ``compute='fp32'`` is the checkpoint-faithful parity mode (TF32 off;
+    on the card the library convolutions run with cuDNN off,
+    ``precision.library_conv_route``);
     ``'bf16'`` runs bf16 weights and activations with an fp32 image in and
     out.  ``pad_multiple=0`` feeds the model the raw image (the
     reference's semantics); > 0 reflect-pads to size buckets first.
@@ -34,15 +39,14 @@ class Restorer:
     kernels' plain versions and must be asked for.  Extra keyword
     arguments go to ``build_model`` (e.g. ``conv_impl='ops'``)."""
 
-    def __init__(self, task: str, ckpt_path, pad_multiple: int = 0,
-                 gray_mean: bool = False,
+    def __init__(self, task: str, ckpt_path, sf: int = 2,
+                 pad_multiple: int = 0, gray_mean: bool = False,
                  compute: str = "fp32", device="cuda", **model_overrides):
         if task not in ARCH_PRESETS:
             raise ValueError(f"task must be one of {sorted(ARCH_PRESETS)}, "
                              f"got {task!r}")
-        if ARCH_PRESETS[task].get("cls") == "VIRNetSR":
-            raise NotImplementedError(
-                "the SISR tasks of Restorer are not ported yet")
+        self.sisr = ARCH_PRESETS[task].get("cls") == "VIRNetSR"
+        self.sf = sf if self.sisr else 1
         self.device = resolve_device(device)
         dtype = compute_dtype(compute)
         if self.device.type == "cuda":
@@ -59,8 +63,12 @@ class Restorer:
         """NHWC float32 batch (numpy or tensor) -> restored NHWC float32
         tensor on the engine's device, clamped to [0, 1]."""
         x = torch.as_tensor(x, dtype=torch.float32).to(self.device)
-        with torch.inference_mode():
-            mu, _ = self.model(x.contiguous())
+        with torch.inference_mode(), library_conv_route(self.compute,
+                                                        self.device):
+            if self.sisr:
+                mu, _, _ = self.model(x.contiguous(), self.sf)
+            else:
+                mu, _ = self.model(x.contiguous())
         return torch.clamp(mu.float(), 0.0, 1.0)
 
     def _restore_padded(self, batch: np.ndarray) -> np.ndarray:
@@ -71,7 +79,8 @@ class Restorer:
         if hb != h or wb != w:
             batch = np.pad(batch, ((0, 0), (0, hb - h), (0, wb - w), (0, 0)),
                            mode="reflect")
-        return self.restore_batch(batch)[:, :h, :w].cpu().numpy()
+        sf = self.sf
+        return self.restore_batch(batch)[:, :h * sf, :w * sf].cpu().numpy()
 
     def restore_image(self, im: np.ndarray) -> np.ndarray:
         """HWC float32 [0, 1] -> restored HWC.  Gray inputs are stacked to
@@ -86,10 +95,11 @@ class Restorer:
                 hh, ww = x.shape[1], x.shape[2]
                 x = pad_bottom_right(x, bucket_size(hh, self.pad_multiple),
                                      bucket_size(ww, self.pad_multiple))
-                return self.restore_batch(x)[:, :hh, :ww]
+                return self.restore_batch(x)[:, :hh * self.sf,
+                                             :ww * self.sf]
 
             x = torch.as_tensor(im[None], dtype=torch.float32).to(self.device)
-            out = forward_chop(fwd, x, shave=10,
+            out = forward_chop(fwd, x, sf=self.sf, shave=10,
                                min_size=CHOP_THRESHOLD)[0].cpu().numpy()
         else:
             out = self._restore_padded(im[None])[0]

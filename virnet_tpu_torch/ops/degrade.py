@@ -17,17 +17,21 @@ Padding semantics, both reproduced deliberately:
 denoising training) blur with one shared filter through a depthwise
 library convolution, as the JAX package leaves them to XLA: they are no
 kernel of either package.  The numpy twins ``imconv_np`` / ``degrade_np``
-(the eval harness) are not ported yet.
+are the seeded host degradation of the SISR eval sets (scipy.ndimage, no
+kernel in either package).
 """
 
 from __future__ import annotations
 
+from typing import Optional
+
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 from .blur import pad_hw, valid_blur
 from .kernels import gaussian_filter_kernel
-from .resize import resize_nhwc
+from .resize import resize_nhwc, resize_np
 
 
 def blur_per_sample(x: torch.Tensor, kernels: torch.Tensor,
@@ -87,3 +91,42 @@ def noise_estimate(im_noisy: torch.Tensor, im_gt: torch.Tensor,
     kernel = torch.as_tensor(gaussian_filter_kernel(k_size),
                              dtype=im_noisy.dtype, device=im_noisy.device)
     return blur_shared((im_noisy - im_gt) ** 2, kernel).clamp_min(1e-10)
+
+
+def imconv_np(im: np.ndarray, kernel: np.ndarray,
+              padding_mode: str = "reflect",
+              correlate: bool = False) -> np.ndarray:
+    """scipy.ndimage-style image convolution (reference
+    utils/util_sisr.py:110-125).  scipy's 'reflect' is edge-repeating."""
+    import scipy.ndimage as snd
+
+    if kernel.ndim != im.ndim:
+        kernel = kernel[:, :, np.newaxis]
+    if correlate:
+        return snd.correlate(im, kernel, mode=padding_mode)
+    return snd.convolve(im, kernel, mode=padding_mode)
+
+
+def degrade_np(im_hr: np.ndarray, kernel: np.ndarray, sf: int,
+               nlevel: float = 2.55, qf: Optional[int] = None,
+               seed: int = 1234, downsampler: str = "direct") -> np.ndarray:
+    """Seeded eval degradation: blur -> clip -> downsample -> Gaussian noise
+    -> optional JPEG (reference utils/util_sisr.py:146-177)."""
+    im_blur = imconv_np(im_hr, kernel, padding_mode="reflect", correlate=False)
+    im_blur = np.clip(im_blur, 0.0, 1.0)
+
+    if downsampler.lower() == "direct":
+        im_lr = im_blur[::sf, ::sf]
+    elif downsampler.lower() == "bicubic":
+        im_lr = resize_np(im_blur, scale_factors=1 / sf, axes=(0, 1))
+    else:
+        raise ValueError("downsampler must be 'direct' or 'bicubic'")
+
+    rng = np.random.default_rng(seed)
+    im_lr = im_lr + rng.standard_normal(size=im_lr.shape) * (nlevel / 255.0)
+    im_lr = np.clip(im_lr.astype(np.float32), 0.0, 1.0)
+
+    if qf is not None:
+        from .color import jpeg_compress
+        im_lr = jpeg_compress(im_lr, qf=int(qf), chn_in="rgb")
+    return im_lr

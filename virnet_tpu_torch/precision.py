@@ -5,6 +5,13 @@
   ``Precision.HIGHEST`` means on the TPU side.
 * ``'bf16'`` — the fast path: bf16 weights and activations, fp32 image in
   and out (the RNet residual and the restored image stay fp32).
+
+Serving in fp32 on the card runs the library convolutions with cuDNN off
+(``library_conv_route``): with TF32 off, cuDNN's heuristics pick FFT
+algorithms for RNet's 3x3 convolutions at many image sizes (on an H100,
+396,288 gemv launches and 1.26 s of device time for one 321x481 image),
+while PyTorch's own route (im2col and a cuBLAS sgemm) serves the image in
+about 33 ms.  bf16 keeps cuDNN, whose bf16 kernels are the faster route.
 """
 
 from __future__ import annotations
@@ -41,6 +48,21 @@ def parity_mode():
     finally:
         (torch.backends.cudnn.allow_tf32,
          torch.backends.cuda.matmul.allow_tf32) = saved
+
+
+@contextlib.contextmanager
+def library_conv_route(compute: str, device: torch.device):
+    """The library route of the serving forward's convolutions: cuDNN off
+    inside the block for fp32 on the card (see the module docstring),
+    unchanged otherwise; the process-wide flag is put back on the way
+    out."""
+    saved = torch.backends.cudnn.enabled
+    if compute == "fp32" and device.type == "cuda":
+        torch.backends.cudnn.enabled = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.enabled = saved
 
 
 def resolve_device(device) -> torch.device:
