@@ -38,9 +38,11 @@ Phases (all by default; any failure raises and the exit code is not 0):
   serve_odd  restore_image at 321x481, a shape that fails the fused-head
              gate (K2: snet_conv1, K1 x3, snet_last; then K4), ms per image
              in bf16 and in fp32, the default compute (its library
-             convolutions with cuDNN off: precision.library_conv_route);
-             fails above 150 ms per fp32 image; one fp32 forward timed
-             with cuDNN off and on, and profiled with it on
+             convolutions on PyTorch's im2col route, not cuDNN:
+             precision.im2col_convs); fails above 150 ms per fp32 image;
+             one fp32 image timed with the convolutions on cuDNN instead
+             (its heuristics choosing), which watches for a cuDNN that
+             no longer picks FFT there
   ops        the same image on SNet's per-op route, conv_impl='ops' (K1),
              ms per image
   real       the denoising-real demo weights on a 4x256^2 batch (co=3, L=6)
@@ -59,10 +61,11 @@ Phases (all by default; any failure raises and the exit code is not 0):
              of a seeded 125x171 LR image (odd sizes through K2 and KNet)
              to 500x684, fp32 card vs CPU (mu atol 1e-4); launches of one
              image in fp32 and in bf16, exactly K2 (snet_conv1 + K1 x3 +
-             snet_last) once and K4 once; ms per image in bf16 and fp32
-             with cli/bench_restore's timer, output MP/s; one forward
-             timed with cuDNN off and on in both computes, and in fp32
-             at x3 107x160 and x2 321x481
+             snet_last) once and K4 once; in each compute K2, each of its
+             K1 levels and K4 against their plain versions on the
+             arguments one image hands them (recorded on another call);
+             ms per image in bf16 and fp32 with cli/bench_restore's
+             timer, output MP/s
   train_fp32 one SISR training step at 2x96^2 (full width) in fp32 with
              injected noise, card vs CPU: loss, ELBO terms, gradient norms
   train_sisr the SISR trainer built from configs/sisr_x4.json (full width,
@@ -106,6 +109,7 @@ a CUDA device and nvcc; imports nothing of JAX.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import subprocess
@@ -904,25 +908,14 @@ TRAIN_GROUPS = (
 def phase_profile(fn, report, key, what, groups=GROUPS, iters=2, top_ops=6,
                   rest="other"):
     """Device time of ``fn()`` by kernel group (``rest`` names the kernels
-    no group claims), from torch.profiler (CUPTI), and the share of the
-    wall time the device was idle (the profiler's own overhead counts as
-    idle)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    no group claims), from torch.profiler (CUPTI,
+    cli/bench_restore.profile_calls), and the share of the wall time the
+    device was idle (the profiler's own overhead counts as idle)."""
+    from virnet_tpu_torch.cli.bench_restore import profile_calls
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3 / iters
-    kernels: dict = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            kernels[e.name] = (kernels.get(e.name, 0.0)
-                               + e.time_range.elapsed_us() / 1e3 / iters)
+    prof = profile_calls(fn, iters)
+    wall_ms = prof["wall_ms"]
+    kernels = {name: ms for name, (ms, _) in prof["kernels"].items()}
     if not kernels:
         log("  device time: not measured (the profiler saw no kernels)")
         report[key] = None
@@ -940,10 +933,7 @@ def phase_profile(fn, report, key, what, groups=GROUPS, iters=2, top_ops=6,
         log(f"  {g}: {ms:.3f} ms ({ms / busy:.1%} of device time)")
     for name, ms in sorted(kernels.items(), key=lambda kv: -kv[1])[:8]:
         log(f"    {ms:8.3f} ms  {name[:90]}")
-    ops = sorted(((e.key, e.self_device_time_total / 1e3 / iters,
-                   e.count // iters) for e in prof.key_averages()
-                  if e.key.startswith("aten::")
-                  and e.self_device_time_total > 0), key=lambda r: -r[1])
+    ops = prof["torch_ops"]
     for op, ms, count in ops[:top_ops]:
         log(f"    {ms:8.3f} ms  {op} x{count} (torch op, own kernels)")
     report[key] = dict(wall_ms=wall_ms, busy_ms=busy, groups=by_group,
@@ -1092,46 +1082,68 @@ def phase_sisr_fwd(report):
 SISR_PATH = {"dncnn_fused": 1, "conv3x3_mid": 3, "conv3x3_tail_residual": 1}
 
 
-def route_ab(name, restorer, im, reps=3, profile=False):
-    """ms per forward of one image already on the card, the model called
-    directly, by CUDA events: with cuDNN off (PyTorch's im2col + cuBLAS)
-    and on (cuDNN's heuristics pick the algorithms).  Serving takes the
-    first route in fp32 and the second in bf16
-    (precision.library_conv_route).  ``profile``: also the device kernels
-    of one forward with cuDNN on (cli/bench_restore.device_kernels)."""
-    from virnet_tpu_torch.cli.bench_restore import device_kernels
+@contextlib.contextmanager
+def recording(module, name, calls):
+    """Inside the block ``module.<name>`` appends the arguments of each
+    call to ``calls`` and computes as before."""
+    fn = getattr(module, name)
 
-    x = torch.from_numpy(im[None]).cuda()
-    args = (restorer.sf,) if restorer.sisr else ()
+    def rec(*args, **kwargs):
+        calls.append((args, kwargs))
+        return fn(*args, **kwargs)
 
-    def fwd():
-        with torch.inference_mode():
-            restorer.model(x, *args)
-
-    saved = torch.backends.cudnn.enabled
-    res = {}
+    setattr(module, name, rec)
     try:
-        for on in (False, True):
-            torch.backends.cudnn.enabled = on
-            key = "cudnn_ms" if on else "no_cudnn_ms"
-            res[key] = time_ms(fwd, reps, warmup=1)
-        if profile:
-            res["cudnn_kernels"] = device_kernels(fwd, top=8)
+        yield
     finally:
-        torch.backends.cudnn.enabled = saved
-    log(f"  route, {restorer.compute} {name}: cuDNN off "
-        f"{res['no_cudnn_ms']:.2f} ms, on {res['cudnn_ms']:.2f} ms per "
-        f"forward")
-    for kname, ms, n in res.get("cudnn_kernels", ()):
-        log(f"    cuDNN on: {ms:9.3f} ms x{n:<6d} {kname[:90]}")
-    return res
+        setattr(module, name, fn)
+
+
+def check_path_kernels(key, restorer, im):
+    """K2, each of its K1 levels and K4 against their plain versions on the
+    card, on the arguments that one ``restorer.restore_image(im)`` hands
+    them (recorded on a call of its own, after the counted one), with
+    check_close's bounds in the compute dtype.  Returns the max diffs."""
+    from virnet_tpu_torch.models import attresunet
+    from virnet_tpu_torch.ops import fused_conv as fc
+
+    snet, tail = [], []
+    with recording(fc, "dncnn_fused", snet), \
+            recording(attresunet, "conv3x3_tail_residual", tail):
+        restorer.restore_image(im)
+    if len(snet) != 1 or len(tail) != 1:
+        raise AssertionError(f"{key}: one image called K2 {len(snet)} and "
+                             f"K4 {len(tail)} times, expected once each")
+    with torch.inference_mode():   # the wrappers are forward-only
+        (args, kw), (targs, tkw) = snet[0], tail[0]
+        x, w1, b1, wms, bms = args[:5]
+        slope = kw.get("slope", 0.25)
+        shape = "x".join(map(str, x.shape))
+        errs = dict(dncnn_fused=check_close(
+            f"{key} dncnn_fused {shape}", fc.dncnn_fused(*args, **kw),
+            fc.dncnn_fused_plain(*args, **kw), x.dtype))
+        y = fc.conv3x3_plain(x, w1, b1, slope)
+        for i in range(wms.shape[0]):
+            want = fc.conv3x3_mid_plain(y, wms[i], bms[i], slope)
+            errs[f"conv3x3_mid {i}"] = check_close(
+                f"{key} conv3x3_mid level {i}, "
+                f"{'x'.join(map(str, y.shape))}",
+                fc.conv3x3_mid(y, wms[i], bms[i], slope), want, x.dtype)
+            y = want
+        feats = targs[0]
+        errs["conv3x3_tail_residual"] = check_close(
+            f"{key} conv3x3_tail_residual {'x'.join(map(str, feats.shape))}",
+            fc.conv3x3_tail_residual(*targs, **tkw),
+            fc.conv3x3_tail_residual_plain(*targs, **tkw), feats.dtype)
+    return errs
 
 
 def phase_serve_sisr(report, launches, lr_hw=(125, 171), sf=4):
     """SISR serving through Restorer at full width (the x4 demo weights):
     one odd-size LR image, fp32 on the card against the CPU, the launches
-    of one image in each compute (exactly SISR_PATH), and ms per image by
-    cli/bench_restore's timer."""
+    of one image in each compute (exactly SISR_PATH), the path's kernels
+    against their plain versions on its own arguments, and ms per image
+    by cli/bench_restore's timer."""
     from virnet_tpu_torch.cli.bench_restore import time_image
     from virnet_tpu_torch.eval.engine import Restorer
 
@@ -1140,7 +1152,7 @@ def phase_serve_sisr(report, launches, lr_hw=(125, 171), sf=4):
     log(f"[serve_sisr] Restorer('sisr', sf={sf}) restore_image {h}x{w} -> "
         f"{out_hw[0]}x{out_hw[1]} (K2: snet_conv1, K1 x3, snet_last; K4)")
     lr = np.random.default_rng(4).random((h, w, 3), dtype=np.float32)
-    res = {"route": {}}
+    res = {}
     for compute in ("fp32", "bf16"):
         sr = Restorer("sisr", ckpt_path=SISR_CKPT, sf=sf, compute=compute)
         key = "serve_sisr" if compute == "fp32" else "serve_sisr_bf16"
@@ -1152,6 +1164,8 @@ def phase_serve_sisr(report, launches, lr_hw=(125, 171), sf=4):
         if extra:
             raise AssertionError(f"{key}: one image launched {extra}, "
                                  f"expected exactly {SISR_PATH}")
+        res[f"{compute}_kernels_max_abs_err"] = check_path_kernels(key, sr,
+                                                                   lr)
         if compute == "fp32":
             cpu = Restorer("sisr", ckpt_path=SISR_CKPT, sf=sf,
                            device="cpu").restore_image(lr)
@@ -1168,16 +1182,6 @@ def phase_serve_sisr(report, launches, lr_hw=(125, 171), sf=4):
         log(f"  {compute}: {t['median_ms']:.2f} ms per image, median of 20 "
             f"(least {t['min_ms']:.2f}; host clock, copies included; "
             f"cli/bench_restore), {mp:.2f} output MP/s")
-        res["route"][f"{compute} x{sf} {h}x{w}"] = route_ab(
-            f"x{sf} {h}x{w}", sr, lr, reps=5)
-        del sr
-    # the route at the other scale factors (fp32, the demo weights)
-    for sf2, (h2, w2) in ((3, (107, 160)), (2, (321, 481))):
-        sr = Restorer("sisr", ckpt_path=SISR_CKPT.with_name(
-            f"virnet_sisr_x{sf2}_demo.pth"), sf=sf2, compute="fp32")
-        im = np.random.default_rng(5).random((h2, w2, 3), dtype=np.float32)
-        res["route"][f"fp32 x{sf2} {h2}x{w2}"] = route_ab(
-            f"x{sf2} {h2}x{w2}", sr, im)
         del sr
     report["serve_sisr"] = res
 
@@ -1590,11 +1594,16 @@ def main(argv=None) -> int:
             ("dncnn_fused", "conv3x3_mid", "conv3x3_tail_residual"))
         check_image("serve_odd_fp32", out32, (321, 481, 3))
         res = time_image(syn32, odd, reps=10)
-        report["serve_odd"].update(
-            fp32_ms_per_image=res["median_ms"], fp32_min_ms=res["min_ms"],
-            route=route_ab("321x481", syn32, odd, profile=True))
         log(f"  fp32: {res['median_ms']:.2f} ms per image, median of 10 "
             f"(least {res['min_ms']:.2f}; bar 150)")
+        # the route monitor: the same image with cuDNN choosing
+        syn32.im2col = False
+        cudnn = time_image(syn32, odd, reps=1, warmup=1)["median_ms"]
+        log(f"  fp32 with the convolutions on cuDNN: {cudnn:.2f} ms per "
+            f"image (one call)")
+        report["serve_odd"].update(
+            fp32_ms_per_image=res["median_ms"], fp32_min_ms=res["min_ms"],
+            fp32_cudnn_ms=cudnn)
         if res["median_ms"] > 150:
             raise AssertionError("serve_odd: one fp32 321x481 image took "
                                  f"{res['median_ms']:.1f} ms (bar 150)")

@@ -135,9 +135,10 @@ def test_bench_restore_times_restore_image_and_needs_the_card():
 
 
 def test_bench_restore_takes_the_sisr_task_and_its_flags():
-    """cli/bench_restore --task sisr --sf N [--profile]: the flags parse,
-    the default weights are the scale's demo checkpoint, and its timer
-    drives a SISR ``restore_image`` (here on the CPU, at a small size)."""
+    """cli/bench_restore --task sisr --sf N [--profile] [--cudnn]: the
+    flags parse, the default weights are the scale's demo checkpoint, and
+    its timer drives a SISR ``restore_image`` (here on the CPU, at a small
+    size)."""
     from virnet_tpu_torch.cli import bench_restore
 
     args = bench_restore.build_parser().parse_args(
@@ -145,6 +146,8 @@ def test_bench_restore_takes_the_sisr_task_and_its_flags():
     assert (args.task, args.sf, args.profile, args.compute) == \
         ("sisr", 3, True, "fp32")
     assert not bench_restore.build_parser().parse_args([]).profile
+    assert not bench_restore.build_parser().parse_args([]).cudnn
+    assert bench_restore.build_parser().parse_args(["--cudnn"]).cudnn
     with pytest.raises(SystemExit):
         bench_restore.build_parser().parse_args(["--sf", "5"])
     ckpt = bench_restore.default_ckpt("sisr", 3)

@@ -323,20 +323,40 @@ def test_sisr_cli_validates_each_epoch_on_val_hr_path(tmp_path):
 
 
 def test_validation_forward_leaves_cudnn_as_it_was():
-    """The library route of the fp32 forward (cuDNN off on the card) is a
-    scoped change: the process-wide flag is put back, also on the CPU
-    where it changes nothing."""
-    from virnet_tpu_torch.precision import library_conv_route
+    """The im2col route of the fp32 forward on the card is a context
+    variable, never cuDNN's process-wide flag: a block (the validation
+    forward's, a Restorer's) leaves ``cudnn.enabled`` as it was, nests,
+    ends with its block, and another thread does not see it while it
+    lasts."""
+    import threading
+
+    from virnet_tpu_torch.cli.common import eval_restore_fn
+    from virnet_tpu_torch.models import build_model
+    from virnet_tpu_torch.precision import im2col_convs, im2col_on
 
     saved = torch.backends.cudnn.enabled
-    with library_conv_route("fp32", torch.device("cpu")):
-        assert torch.backends.cudnn.enabled == saved
-    try:
-        torch.backends.cudnn.enabled = True
-        with library_conv_route("fp32", torch.device("cuda")):
-            assert not torch.backends.cudnn.enabled
-        assert torch.backends.cudnn.enabled
-        with library_conv_route("bf16", torch.device("cuda")):
-            assert torch.backends.cudnn.enabled
-    finally:
-        torch.backends.cudnn.enabled = saved
+    seen = {}
+    inside, done = threading.Event(), threading.Event()
+
+    def other():
+        inside.wait(5)
+        seen["other"] = im2col_on()
+        done.set()
+
+    t = threading.Thread(target=other)
+    t.start()
+    assert not im2col_on()
+    with im2col_convs():
+        assert im2col_on() and torch.backends.cudnn.enabled == saved
+        with im2col_convs(False):
+            assert not im2col_on()
+        assert im2col_on()
+        inside.set()
+        done.wait(5)
+    t.join()
+    assert seen == {"other": False} and not im2col_on()
+    assert torch.backends.cudnn.enabled == saved
+    restore = eval_restore_fn(build_model("denoising-syn").eval(), "cpu")
+    out = restore(_rand(3, 12, 14, 3).astype(np.float32))
+    assert out.shape == (12, 14, 3) and not im2col_on()
+    assert torch.backends.cudnn.enabled == saved

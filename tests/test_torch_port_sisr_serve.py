@@ -64,6 +64,26 @@ def test_tta_and_restore_images_match_jax(x2):
         np.testing.assert_allclose(a, b, atol=1e-5)
 
 
+def test_im2col_route_matches_jax(x2):
+    """The route fp32 serving takes on the card (``Restorer.im2col``: every
+    library convolution of RNet and KNet through PyTorch's im2col ops, run
+    here on the CPU) computes the same function: mu atol 1e-5 against the
+    JAX Restorer at an odd size, and the im2col ops did run."""
+    from torch.profiler import ProfilerActivity, profile
+
+    jr, tr = x2
+    im = _im(9, 23, 29)
+    tr.im2col = True
+    try:
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            got = tr.restore_image(im)
+    finally:
+        tr.im2col = False
+    ops = {e.key for e in prof.key_averages()}
+    assert {"aten::thnn_conv2d", "aten::slow_conv_transpose2d"} <= ops
+    np.testing.assert_allclose(got, jr.restore_image(im), atol=1e-5)
+
+
 def test_forward_chop_at_sf_matches_jax(x2):
     """forward_chop with sf = 2 on the x2 model's forward at a small
     min_size (the quadrant tiling of an image above CHOP_THRESHOLD, at a

@@ -4,7 +4,7 @@ image of one size (the copies to and from the card included), or with
 
     python -m virnet_tpu_torch.cli.bench_restore [--task denoising-syn] \
         [--sf 4] [--size 321x481] [--batch 0] [--compute bf16] [--reps 30] \
-        [--ckpt PATH] [--profile]
+        [--ckpt PATH] [--profile] [--cudnn]
 
 The default size is a CBSD68 image's (321x481), which fails the fused-head
 gate (models/fused.py:fused_head_supported), so SNet runs K2, RNet its pad
@@ -15,7 +15,10 @@ by the host clock and ends in a synchronisation with the card; three calls
 warm up first.  Prints one JSON line: the median and least ms per call,
 the output megapixels per second at the median, and the card;
 ``--profile`` adds the device kernels of one more call, longest first
-(torch.profiler).  Needs a CUDA device.
+(torch.profiler).  ``--cudnn`` serves fp32 with the library convolutions
+on cuDNN (its heuristics choosing) instead of the im2col route that
+``Restorer`` takes in fp32 (``precision.im2col_convs``), to compare the
+two at a shape.  Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -60,25 +63,43 @@ def time_image(restorer, image: np.ndarray, reps: int = 30,
     return time_calls(lambda: restorer.restore_image(image), reps, warmup)
 
 
-def device_kernels(fn, top: int = 12) -> list:
-    """The device kernels of one ``fn()`` call by torch.profiler (CUPTI):
-    [name (its first 120 characters), total ms, launches], longest first,
-    at most ``top`` rows."""
+def profile_calls(fn, iters: int = 1) -> dict:
+    """torch.profiler (CUPTI) of ``iters`` calls of ``fn()``, each per
+    call: ``wall_ms``; ``kernels``, {device kernel: [ms, launches]}; and
+    ``torch_ops``, [aten op, ms of its own kernels, count], longest
+    first."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        fn()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
         torch.cuda.synchronize()
-    rows: dict = {}
+        wall_ms = (time.perf_counter() - t0) * 1e3 / iters
+    kernels: dict = {}
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
-            ms, n = rows.get(e.name, (0.0, 0))
-            rows[e.name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
+            us, n = kernels.get(e.name, (0.0, 0))
+            kernels[e.name] = (us + e.time_range.elapsed_us(), n + 1)
+    kernels = {k: [us / 1e3 / iters, n // iters]
+               for k, (us, n) in kernels.items()}
+    ops = sorted(([e.key, e.self_device_time_total / 1e3 / iters,
+                   e.count // iters] for e in prof.key_averages()
+                  if e.key.startswith("aten::")
+                  and e.self_device_time_total > 0), key=lambda r: -r[1])
+    return dict(wall_ms=wall_ms, kernels=kernels, torch_ops=ops)
+
+
+def device_kernels(fn, top: int = 12) -> list:
+    """The device kernels of one ``fn()`` call (``profile_calls``): [name
+    (its first 120 characters), ms, launches], longest first, at most
+    ``top`` rows."""
+    kernels = profile_calls(fn)["kernels"]
     return [[name[:120], ms, n] for name, (ms, n) in
-            sorted(rows.items(), key=lambda kv: -kv[1][0])[:top]]
+            sorted(kernels.items(), key=lambda kv: -kv[1][0])[:top]]
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -95,6 +116,9 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--ckpt", type=Path, default=None)
     ap.add_argument("--profile", action="store_true",
                     help="also list the device kernels of one call")
+    ap.add_argument("--cudnn", action="store_true",
+                    help="fp32: library convolutions on cuDNN instead of "
+                    "the im2col route")
     return ap
 
 
@@ -109,6 +133,8 @@ def main(argv=None) -> int:
     restorer = Restorer(args.task, sf=args.sf, compute=args.compute,
                         ckpt_path=args.ckpt or default_ckpt(args.task,
                                                             args.sf))
+    if args.cudnn:
+        restorer.im2col = False
     rng = np.random.default_rng(0)
     if args.batch:
         x = torch.as_tensor(rng.random((args.batch, h, w, 3),
@@ -122,6 +148,7 @@ def main(argv=None) -> int:
     out_px = max(args.batch, 1) * h * w * restorer.sf ** 2
     line = dict(task=args.task, sf=restorer.sf, size=[h, w],
                 batch=args.batch, compute=args.compute,
+                im2col=restorer.im2col,
                 card=torch.cuda.get_device_name(0),
                 median_ms=res["median_ms"], min_ms=res["min_ms"],
                 out_mp_per_s=out_px / res["median_ms"] / 1e3)

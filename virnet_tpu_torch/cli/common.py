@@ -14,7 +14,7 @@ from ..config import as_bool, load_config, update_args
 from ..eval.metrics import batch_psnr, batch_ssim
 from ..eval.tiling import bucket_size
 from ..ops.pad import pad_bottom_right
-from ..precision import library_conv_route
+from ..precision import im2col_convs
 
 # config keys of the JAX trainers whose modules are not ported yet, with
 # where ROADMAP.md queues them: by the item's title, never its number,
@@ -97,7 +97,8 @@ def eval_restore_fn(model: torch.nn.Module, device, sf: Optional[int] = None):
     """A single-image restore closure over the model's current weights, for
     per-epoch validation: the image reflect-padded to a multiple of
     ``VAL_PAD_MULTIPLE``, one forward in eval mode and fp32 (no autocast)
-    on ``device``, cropped back (``sf`` times larger for SISR) and clamped
+    on ``device`` (on the card, the library convolutions on the im2col
+    route: ``precision.im2col_convs``), cropped back (``sf`` times larger for SISR) and clamped
     to [0, 1]."""
     scale = 1 if sf is None else sf
 
@@ -109,8 +110,8 @@ def eval_restore_fn(model: torch.nn.Module, device, sf: Optional[int] = None):
         was_training = model.training
         model.eval()
         try:
-            with torch.inference_mode(), library_conv_route(
-                    "fp32", torch.device(device)):
+            with torch.inference_mode(), im2col_convs(
+                    torch.device(device).type == "cuda"):
                 out = model(x)[0] if sf is None else model(x, sf)[0]
         finally:
             model.train(was_training)

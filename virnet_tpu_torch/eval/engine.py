@@ -15,7 +15,7 @@ from ..convert import load_pth
 from ..models import ARCH_PRESETS, build_model
 from ..ops.augment import dihedral_inverse_np, dihedral_np
 from ..ops.pad import pad_bottom_right
-from ..precision import (compute_dtype, library_conv_route, resolve_device,
+from ..precision import (compute_dtype, im2col_convs, resolve_device,
                          set_parity_mode)
 from .tiling import bucket_size, forward_chop
 
@@ -29,8 +29,9 @@ class Restorer:
     denoising tasks ignore it.
 
     ``compute='fp32'`` is the checkpoint-faithful parity mode (TF32 off;
-    on the card the library convolutions run with cuDNN off,
-    ``precision.library_conv_route``);
+    on the card the library convolutions take PyTorch's im2col route
+    instead of cuDNN, ``precision.im2col_convs``; ``self.im2col`` holds
+    that choice);
     ``'bf16'`` runs bf16 weights and activations with an fp32 image in and
     out.  ``pad_multiple=0`` feeds the model the raw image (the
     reference's semantics); > 0 reflect-pads to size buckets first.
@@ -58,13 +59,13 @@ class Restorer:
         model = build_model(task, **model_overrides)
         model.load_state_dict(load_pth(ckpt_path), strict=True)
         self.model = model.to(self.device, dtype).eval()
+        self.im2col = compute == "fp32" and self.device.type == "cuda"
 
     def restore_batch(self, x) -> torch.Tensor:
         """NHWC float32 batch (numpy or tensor) -> restored NHWC float32
         tensor on the engine's device, clamped to [0, 1]."""
         x = torch.as_tensor(x, dtype=torch.float32).to(self.device)
-        with torch.inference_mode(), library_conv_route(self.compute,
-                                                        self.device):
+        with torch.inference_mode(), im2col_convs(self.im2col):
             if self.sisr:
                 mu, _, _ = self.model(x.contiguous(), self.sf)
             else:

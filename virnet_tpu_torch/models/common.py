@@ -16,6 +16,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..precision import im2col_on
+
 
 def torch_default_init_(weight: torch.Tensor, bias: torch.Tensor | None,
                         fan_in: int) -> None:
@@ -50,9 +52,13 @@ def make_conv(in_chn: int, out_chn: int, kernel: int,
 
 
 def conv(m: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
-    """Apply ``m`` to ``x`` in the weights' dtype (the compute dtype)."""
-    return F.conv2d(x.to(m.weight.dtype), m.weight, m.bias, m.stride,
-                    m.padding)
+    """Apply ``m`` to ``x`` in the weights' dtype (the compute dtype), on
+    the im2col route inside ``precision.im2col_convs``."""
+    x = x.to(m.weight.dtype)
+    if im2col_on():
+        return torch.ops.aten.thnn_conv2d(x, m.weight, m.kernel_size, m.bias,
+                                          m.stride, m.padding)
+    return F.conv2d(x, m.weight, m.bias, m.stride, m.padding)
 
 
 def lrelu(x: torch.Tensor, slope: float) -> torch.Tensor:

@@ -6,17 +6,26 @@
 * ``'bf16'`` — the fast path: bf16 weights and activations, fp32 image in
   and out (the RNet residual and the restored image stay fp32).
 
-Serving in fp32 on the card runs the library convolutions with cuDNN off
-(``library_conv_route``): with TF32 off, cuDNN's heuristics pick FFT
-algorithms for RNet's 3x3 convolutions at many image sizes (on an H100,
-396,288 gemv launches and 1.26 s of device time for one 321x481 image),
-while PyTorch's own route (im2col and a cuBLAS sgemm) serves the image in
-about 33 ms.  bf16 keeps cuDNN, whose bf16 kernels are the faster route.
+Serving in fp32 on the card runs the library convolutions on PyTorch's
+im2col route (im2col and a cuBLAS sgemm, TF32 off) instead of cuDNN
+(``im2col_convs``): with TF32 off, cuDNN's heuristics pick FFT algorithms
+for RNet's 3x3 convolutions at many image sizes (on an H100, 396,288 gemv
+launches and 1.26 s of device time for one 321x481 image), while the
+im2col route serves the image in about 33 ms.  bf16 keeps cuDNN, whose
+bf16 kernels are the faster route.  Where cuDNN does not pick FFT it is
+up to about a fifth faster in fp32 (PERF.md); a trial per shape would
+cost the FFT forward itself, so the route holds for every shape.  The
+choice is a context variable that
+the port's convolution helpers (``models/common.conv``,
+``ops/upsample.conv_transpose_2x2``) read: it holds for the thread (or
+task) that set it and for the block alone, and no process-wide flag
+changes.
 """
 
 from __future__ import annotations
 
 import contextlib
+import contextvars
 
 import torch
 
@@ -50,19 +59,25 @@ def parity_mode():
          torch.backends.cuda.matmul.allow_tf32) = saved
 
 
+_IM2COL = contextvars.ContextVar("virnet_tpu_torch_im2col_convs",
+                                 default=False)
+
+
 @contextlib.contextmanager
-def library_conv_route(compute: str, device: torch.device):
-    """The library route of the serving forward's convolutions: cuDNN off
-    inside the block for fp32 on the card (see the module docstring),
-    unchanged otherwise; the process-wide flag is put back on the way
-    out."""
-    saved = torch.backends.cudnn.enabled
-    if compute == "fp32" and device.type == "cuda":
-        torch.backends.cudnn.enabled = False
+def im2col_convs(on: bool = True):
+    """The port's convolutions take the im2col route inside the block when
+    ``on`` (see the module docstring); the route before the block holds
+    again on the way out.  Nests, and other threads do not see it."""
+    token = _IM2COL.set(bool(on))
     try:
         yield
     finally:
-        torch.backends.cudnn.enabled = saved
+        _IM2COL.reset(token)
+
+
+def im2col_on() -> bool:
+    """Whether the current block asks for the im2col route."""
+    return _IM2COL.get()
 
 
 def resolve_device(device) -> torch.device:
