@@ -4,7 +4,8 @@
     python3 chip_smoke.py [--phases build,kernels,serve,profile,serve_odd,
                            ops,real,fp32,psnr,probe,sisr_fwd,serve_sisr,
                            train_fp32,
-                           train_sisr,train_denoise_fp32,train_denoise]
+                           train_sisr,train_denoise_fp32,train_denoise,
+                           eval_tables]
                           [--report PATH]
 
 Phases (all by default; any failure raises and the exit code is not 0):
@@ -86,9 +87,23 @@ Phases (all by default; any failure raises and the exit code is not 0):
              10 steps of configs/denoising_real.json, ms per step.  The
              model is built with conv_impl='torch', as the JAX trainer
              forces plain convolutions: no kernel of the package launches
+  eval_tables  the benchmark harnesses on seeded synthetic data and the
+             demo weights (no data set is in the repo).  Table 4: a SIDD validation pair in the real layout
+             (40 x 32 blocks of 256^2 uint8) through cli.eval_sidd in bf16
+             with --batch 16 and --device_metrics, the x8 ensemble one
+             forward of 128 blocks: megatime, peak memory, exactly one K3
+             and one K4 launch per forward, device against host PSNR/SSIM
+             per block (bars 2e-3 dB, 1e-4), K3 and K4 against their plain
+             versions on the arguments one forward hands them; fp32 on the
+             first 64 blocks (megatime, peak memory); tta_x8 of 4 blocks
+             against Restorer.restore_image_tta in fp32 (atol 1e-4).
+             Tables 1/2 (8 images at 321x481 and 481x321, niid) and 5 (4 HR 500x684, x4, the 7 kernels,
+             LPIPS with seeded random weights) through K2 + K4 in bf16 and
+             fp32, seconds per case and per kernel; LPIPS card against CPU
+             (rtol 1e-4); the eval command lines' parameter and FLOPs lines
 
 Every main-path phase (serve, serve_odd, ops, real, fp32, probe,
-serve_sisr, train_sisr) zeroes the
+serve_sisr, train_sisr, eval_tables) zeroes the
 launch counters, drives its path once and reads them; it fails if a kernel
 of its path did not launch.  The line before the card's line is one JSON
 object with the kernels' numbers: times and errors from the syn weights
@@ -115,6 +130,7 @@ import math
 import subprocess
 import sys
 import time
+import types
 from pathlib import Path
 
 import numpy as np
@@ -124,7 +140,8 @@ ROOT = Path(__file__).resolve().parent
 ALL_PHASES = ("build", "kernels", "serve", "profile", "serve_odd", "ops",
               "real", "fp32", "psnr", "probe", "sisr_fwd", "serve_sisr",
               "train_fp32",
-              "train_sisr", "train_denoise_fp32", "train_denoise")
+              "train_sisr", "train_denoise_fp32", "train_denoise",
+              "eval_tables")
 SYN_CKPT = ROOT / "model_zoo" / "virnet_denoising_syn_demo.pth"
 REAL_CKPT = ROOT / "model_zoo" / "virnet_denoising_real_demo.pth"
 SISR_CKPT = ROOT / "model_zoo" / "virnet_sisr_x4_demo.pth"
@@ -1487,6 +1504,349 @@ def phase_train_sisr(report, launches, steps=30):
                              "not go down")
 
 
+SIDD_BF16_PATH = {"dncnn_head_fused": 1, "conv3x3_tail_residual": 1}
+SIDD_FP32_PATH = {"dncnn_head_fused": 1, "conv3x3_mid": 6,
+                  "conv3x3_tail_residual": 1}
+K2_PATH = {"dncnn_fused": 1, "conv3x3_mid": 3, "conv3x3_tail_residual": 1}
+
+
+@contextlib.contextmanager
+def counting_forwards():
+    """Inside the block every Restorer.restore_batch call adds one to the
+    yielded list's only item (the forwards a harness made)."""
+    from virnet_tpu_torch.eval.engine import Restorer
+
+    fn = Restorer.restore_batch
+    calls = [0]
+
+    def counted(self, x):
+        calls[0] += 1
+        return fn(self, x)
+
+    Restorer.restore_batch = counted
+    try:
+        yield calls
+    finally:
+        Restorer.restore_batch = fn
+
+
+def harness_path(key, launches, fn, per_forward):
+    """Drive a harness once with the launch counters zeroed just before and
+    read just after; fail unless each kernel of ``per_forward`` launched
+    exactly that many times per forward and nothing else launched."""
+    with counting_forwards() as calls:
+        out, counts = run_path(key, fn, tuple(per_forward))
+    n = calls[0]
+    launches[key] = counts
+    if n == 0:
+        raise AssertionError(f"{key}: the harness made no forward")
+    want = {k: v * n for k, v in per_forward.items()}
+    got = {k: c for k, c in counts.items() if c}
+    log(f"  {key}: {n} forwards; launches per forward "
+        f"{ {k: c / n for k, c in got.items()} }")
+    if got != want:
+        raise AssertionError(f"{key}: {n} forwards launched {got}, expected "
+                             f"{want} (per forward {per_forward})")
+    return out, n
+
+
+def sidd_blocks(seed, n_img, n_blk, size=256, sigma=10.0, device="cuda"):
+    """A seeded SIDD validation pair in the real layout, (images, blocks,
+    size, size, 3) uint8: each image's blocks are shifted orientations of
+    one smooth image, the noise N(0, sigma) in uint8 levels, drawn on the
+    card."""
+    from virnet_tpu_torch.ops.augment import dihedral_np
+
+    rng = np.random.default_rng(seed)
+    gt = np.empty((n_img, n_blk, size, size, 3), np.uint8)
+    for i in range(n_img):
+        im = smooth_image(rng, size, size)
+        for j in range(n_blk):
+            shifted = np.roll(im, tuple(rng.integers(0, size, 2)), (0, 1))
+            gt[i, j] = np.round(dihedral_np(shifted, j % 8) * 255)
+    g = torch.Generator(device=device).manual_seed(seed)
+    noisy = torch.from_numpy(gt).to(device).float()
+    noisy += sigma * torch.randn(noisy.shape, generator=g, device=device)
+    return noisy.round().clamp(0, 255).to(torch.uint8).cpu().numpy(), gt
+
+
+def write_sidd(folder, noisy, gt):
+    import scipy.io as sio
+
+    folder.mkdir(parents=True, exist_ok=True)
+    # MATLAB files are column-major: savemat writes a Fortran-ordered
+    # array as it lies (0.3 s for 250 MB, a C-ordered one ~10 s)
+    sio.savemat(str(folder / "ValidationNoisyBlocksSrgb.mat"),
+                {"ValidationNoisyBlocksSrgb": np.asfortranarray(noisy)})
+    sio.savemat(str(folder / "ValidationGtBlocksSrgb.mat"),
+                {"ValidationGtBlocksSrgb": np.asfortranarray(gt)})
+    return folder
+
+
+def host_scores(gt, blocks):
+    """Host PSNR and SSIM of every block (eval/metrics.py), on threads."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from virnet_tpu_torch.eval.metrics import calculate_psnr, calculate_ssim
+
+    def score(i):
+        return calculate_psnr(gt[i], blocks[i]), calculate_ssim(gt[i],
+                                                                blocks[i])
+
+    with ThreadPoolExecutor(8) as pool:
+        return np.array(list(pool.map(score, range(len(blocks))))).T
+
+
+def check_sidd_path_kernels(restorer, x):
+    """K3 and K4 against their plain versions on the card, on the
+    arguments one x8 TTA forward of the batch ``x`` hands them."""
+    from virnet_tpu_torch.eval.tta import tta_x8
+    from virnet_tpu_torch.models import attresunet
+    from virnet_tpu_torch.ops import fused_conv as fc
+
+    head, tail = [], []
+    with recording(fc, "dncnn_head_fused", head), \
+            recording(attresunet, "conv3x3_tail_residual", tail):
+        tta_x8(restorer.restore_batch, x)
+    if len(head) != 1 or len(tail) != 1:
+        raise AssertionError(f"one TTA forward called K3 {len(head)} and K4 "
+                             f"{len(tail)} times, expected once each")
+    (args, kw), (targs, tkw) = head[0], tail[0]
+    dtype = args[0].dtype
+    shape = "x".join(map(str, args[0].shape))
+    with torch.inference_mode():
+        h, s = fc.dncnn_head_fused(*args, **kw)
+        ph, ps = fc.dncnn_head_fused_plain(*args, **kw)
+        errs = dict(
+            head=check_close(f"eval_sidd K3 head {shape}", h, ph, dtype),
+            sigma=check_close(f"eval_sidd K3 sigma {shape}", s, ps, dtype,
+                              kind="sigma"))
+        del h, s, ph, ps
+        feats = targs[0]
+        errs["conv3x3_tail_residual"] = check_close(
+            f"eval_sidd K4 {'x'.join(map(str, feats.shape))}",
+            fc.conv3x3_tail_residual(*targs, **tkw),
+            fc.conv3x3_tail_residual_plain(*targs, **tkw), dtype)
+    return errs
+
+
+def lpips_file(path, seed=0):
+    """Seeded random LPIPS-alex weights saved in the lpips package's key
+    layout (no pretrained weights are in the repo)."""
+    g = torch.Generator().manual_seed(seed)
+    sd = {}
+    for k, (ci, co, ks, idx) in enumerate(((3, 64, 11, 0), (64, 192, 5, 3),
+                                           (192, 384, 3, 6), (384, 256, 3, 8),
+                                           (256, 256, 3, 10))):
+        sd[f"net.slice{k + 1}.{idx}.weight"] = torch.randn(
+            co, ci, ks, ks, generator=g) * 0.05
+        sd[f"net.slice{k + 1}.{idx}.bias"] = torch.randn(co, generator=g) \
+            * 0.05
+        sd[f"lin{k}.model.1.weight"] = torch.rand(
+            1, co, 1, 1, generator=g) * 0.1
+    torch.save(sd, path)
+    return path
+
+
+def phase_eval_tables(report, launches, sidd=(40, 32, 256), fp32_blocks=64,
+                      cbsd=(321, 481), hr_hw=(500, 684), device="cuda"):
+    """The benchmark harnesses on the card with the demo weights and seeded
+    synthetic data (no data set is in the repo; no image file is read).
+    Table 4: cli.eval_sidd on 40 x 32 blocks of 256^2 in bf16, x8 TTA as
+    one forward of 128 blocks (K3 + RNet + K4), megatime, device against
+    host metrics, K3 and K4 on one forward's arguments; fp32 on the first
+    64 blocks; one TTA batch against the host ensemble.  Tables 1/2 (niid)
+    and 5 (x4, 7 kernels, LPIPS
+    card against CPU) through K2 + K4 in both computes.  FLOPs and
+    parameters of the eval command lines."""
+    import tempfile
+
+    from virnet_tpu_torch.cli import eval_sidd
+    from virnet_tpu_torch.cli.common import log_model_size
+    from virnet_tpu_torch.eval import lpips
+    from virnet_tpu_torch.eval.engine import Restorer
+    from virnet_tpu_torch.eval.tables import (denoise_synthetic_table,
+                                              sisr_synthetic_table)
+    from virnet_tpu_torch.eval.tta import tta_x8
+    from virnet_tpu_torch.ops.quant import img_as_float32
+
+    res = {}
+    n_img, n_blk, size = sidd
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        t0 = time.perf_counter()
+        noisy, gt = sidd_blocks(5, n_img, n_blk, size, device=device)
+        sidd = write_sidd(tmp / "sidd", noisy, gt)
+        res["sidd_setup_s"] = time.perf_counter() - t0
+        log(f"[eval_tables] SIDD validation layout {noisy.shape} uint8, "
+            f"{res['sidd_setup_s']:.1f} s to make and write")
+
+        log("  Table 4: cli.eval_sidd bf16 --batch 16 --device_metrics (x8 "
+            "TTA: 128 x 256^2 a forward)")
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out, n = harness_path(
+            "eval_sidd", launches, lambda: eval_sidd.main([
+                "--sidd_dir", str(sidd), "--ckpt_path", str(REAL_CKPT),
+                "--compute", "bf16", "--batch", "16", "--device_metrics",
+                "--device", device]),
+            SIDD_BF16_PATH)
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        flat_gt = gt.reshape(-1, size, size, 3)
+        flat_noisy = noisy.reshape(flat_gt.shape)
+        t0 = time.perf_counter()
+        hp, hs = host_scores(flat_gt, out["blocks"])
+        host_s = time.perf_counter() - t0
+        dp = float(np.abs(out["psnr_per_block"] - hp).max())
+        ds = float(np.abs(out["ssim_per_block"] - hs).max())
+        res["sidd_bf16"] = dict(
+            megatime=out["megatime"], forwards=n, wall_s=wall,
+            peak_gib=peak, psnr_device=out["psnr"], ssim_device=out["ssim"],
+            psnr_host=float(hp.mean()), ssim_host=float(hs.mean()),
+            max_block_psnr_diff=dp, max_block_ssim_diff=ds,
+            host_scoring_s=host_s)
+        noisy_psnr = float(np.mean(host_scores(flat_gt[:64],
+                                               flat_noisy[:64])[0]))
+        fwd = out["forward_seconds"]
+        res["sidd_bf16"].update(first_forward_s=fwd[0],
+                                median_forward_s=float(np.median(fwd[1:])))
+        log(f"  megatime {out['megatime']:.4f} s/MP (bf16, x8 TTA, "
+            f"{1 / out['megatime']:.2f} restored MP/s); forwards: the first "
+            f"{fwd[0]:.3f} s, the median of the rest "
+            f"{np.median(fwd[1:]):.4f} s; {wall:.1f} s for the command; "
+            f"peak {peak:.2f} GiB")
+        log(f"  PSNR/SSIM device {out['psnr']:.4f} / {out['ssim']:.4f}, "
+            f"host {hp.mean():.4f} / {hs.mean():.4f} ({host_s:.1f} s on 8 "
+            f"threads); largest per-block difference {dp:.3g} dB (bar "
+            f"2e-3), {ds:.3g} SSIM (bar 1e-4); noisy input "
+            f"{noisy_psnr:.2f} dB")
+        if dp > 2e-3 or ds > 1e-4:
+            raise AssertionError("eval_sidd: device metrics disagree with "
+                                 "the host scorers")
+        if not out["psnr"] > noisy_psnr:
+            raise AssertionError("eval_sidd: restoration did not raise the "
+                                 "PSNR")
+
+        real16 = Restorer("denoising-real", ckpt_path=REAL_CKPT,
+                          compute="bf16", device=device)
+        x16 = torch.from_numpy(img_as_float32(flat_noisy[:16])).to(device)
+        res["sidd_bf16"]["kernels_max_abs_err"] = check_sidd_path_kernels(
+            real16, x16)
+        del real16, x16
+
+        k = fp32_blocks // n_blk
+        sub = write_sidd(tmp / "sidd_fp32", noisy[:k], gt[:k])
+        fp32_batch = 16
+        log(f"  Table 4 subset: cli.eval_sidd fp32 --batch {fp32_batch} on "
+            f"the first {k * n_blk} blocks (host metrics)")
+        torch.cuda.reset_peak_memory_stats()
+        out32, n32 = harness_path(
+            "eval_sidd_fp32", launches, lambda: eval_sidd.main([
+                "--sidd_dir", str(sub), "--ckpt_path", str(REAL_CKPT),
+                "--batch", str(fp32_batch), "--device", device]),
+            SIDD_FP32_PATH)
+        peak32 = torch.cuda.max_memory_allocated() / 2 ** 30
+        res["sidd_fp32_64"] = dict(
+            megatime=out32["megatime"], forwards=n32, batch=fp32_batch,
+            peak_gib=peak32, psnr=out32["psnr"], ssim=out32["ssim"],
+            psnr_bf16_same_blocks=float(
+                out["psnr_per_block"][:k * n_blk].mean()))
+        fwd = out32["forward_seconds"]
+        res["sidd_fp32_64"].update(first_forward_s=fwd[0],
+                                   median_forward_s=float(np.median(fwd[1:])))
+        log(f"  forwards: the first {fwd[0]:.3f} s, the median of the rest "
+            f"{np.median(fwd[1:]):.4f} s")
+        log(f"  fp32 megatime {out32['megatime']:.4f} s/MP; peak "
+            f"{peak32:.2f} GiB; PSNR {out32['psnr']:.4f} (bf16 on the same "
+            f"blocks {res['sidd_fp32_64']['psnr_bf16_same_blocks']:.4f})")
+
+        real32 = Restorer("denoising-real", ckpt_path=REAL_CKPT,
+                          device=device)
+        blocks4 = img_as_float32(flat_noisy[:4])
+        with torch.inference_mode():
+            dev = tta_x8(real32.restore_batch,
+                         torch.from_numpy(blocks4).to(device)).cpu().numpy()
+        host = np.stack([real32.restore_image_tta(b) for b in blocks4])
+        e = float(np.abs(dev - host).max())
+        res["tta_vs_host_ensemble"] = e
+        log(f"  tta_x8 of 4 blocks vs Restorer.restore_image_tta, fp32: max "
+            f"diff {e:.3g} (atol 1e-4)")
+        if e > 1e-4:
+            raise AssertionError("tta_x8 disagrees with the host ensemble")
+        del real32
+
+        rng = np.random.default_rng(6)
+        cbsd = [(f"{i}", np.round(smooth_image(rng, *hw) * 255).astype(
+            np.uint8)) for i, hw in enumerate([cbsd] * 4 + [cbsd[::-1]] * 4)]
+        res["table12"] = {}
+        for compute in ("bf16", "fp32"):
+            syn = Restorer("denoising-syn", ckpt_path=SYN_CKPT,
+                           compute=compute, device=device)
+            t0 = time.perf_counter()
+            tab, n = harness_path(
+                f"table12_{compute}", launches,
+                lambda: denoise_synthetic_table(
+                    syn, {"CBSD68 shapes": cbsd}, "niid",
+                    log_fn=lambda m: log("  " + m)), K2_PATH)
+            cases = tab["CBSD68 shapes"]
+            res["table12"][compute] = dict(
+                forwards=n, wall_s=time.perf_counter() - t0,
+                psnr={c: r["psnr"] for c, r in cases.items()},
+                seconds={c: r["seconds"] for c, r in cases.items()})
+            log(f"  Table 1/2 {compute}: seconds per case "
+                f"{ {c: round(r['seconds'], 3) for c, r in cases.items()} }")
+            del syn
+
+        hr = [(f"{i}", np.round(smooth_image(rng, *hr_hw) * 255).astype(
+            np.uint8)) for i in range(4)]
+        hr_key = "x".join(map(str, hr_hw))
+        lpips.set_params(lpips.load_lpips_params(str(lpips_file(
+            tmp / "lpips_alex.pth"))))
+        res["table5"] = {}
+        try:
+            for compute in ("bf16", "fp32"):
+                sr = Restorer("sisr", ckpt_path=SISR_CKPT, sf=4,
+                              compute=compute, device=device)
+                t0 = time.perf_counter()
+                tab, n = harness_path(
+                    f"table5_{compute}", launches,
+                    lambda: sisr_synthetic_table(
+                        sr, {hr_key: hr}, 4, use_lpips=True,
+                        log_fn=lambda m: log("  " + m)), K2_PATH)
+                ks = tab[hr_key]["per_kernel"]
+                res["table5"][compute] = dict(
+                    forwards=n, wall_s=time.perf_counter() - t0,
+                    psnr_y=[k["psnr"] for k in ks],
+                    lpips=[k["lpips"] for k in ks],
+                    seconds=[k["seconds"] for k in ks])
+                log(f"  Table 5 {compute}: seconds per kernel "
+                    f"{[round(k['seconds'], 3) for k in ks]}")
+                del sr
+            errs = []
+            for (_, a), (_, b) in ((hr[0], hr[1]), (hr[2], hr[3])):
+                on_card = lpips.lpips_rgb(a, b, device)
+                on_cpu = lpips.lpips_rgb(a, b, "cpu")
+                log(f"  LPIPS card {on_card!r}, CPU {on_cpu!r}")
+                errs.append(abs(on_card - on_cpu) / abs(on_cpu))
+            res["lpips_card_vs_cpu_rel"] = max(errs)
+            log(f"  LPIPS card vs CPU on two image pairs: max rel diff "
+                f"{max(errs):.3g} (rtol 1e-4)")
+            if max(errs) > 1e-4:
+                raise AssertionError("LPIPS on the card disagrees with the "
+                                     "CPU")
+        finally:
+            lpips.set_params(None)
+
+    log("  FLOPs and parameters (cli/eval_denoising_syn, cli/eval_sidd)")
+    for task, ckpt in (("denoising-syn", SYN_CKPT),
+                       ("denoising-real", REAL_CKPT)):
+        log(f"  {task}:")
+        log_model_size(types.SimpleNamespace(info=lambda m: log("    " + m)),
+                       Restorer(task, ckpt_path=ckpt, device=device))
+    report["eval_tables"] = res
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(ALL_PHASES),
@@ -1725,6 +2085,9 @@ def main(argv=None) -> int:
 
     if "train_denoise" in phases:
         phase_train_denoise(report, launches)
+
+    if "eval_tables" in phases:
+        phase_eval_tables(report, launches)
 
     report["launches"] = launches
     report["total_s"] = time.perf_counter() - t_all

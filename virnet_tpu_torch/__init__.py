@@ -1,7 +1,7 @@
 """virnet_tpu_torch — the PyTorch/CUDA port of virnet_tpu for NVIDIA Hopper.
 
 Three paths so far: the denoising VIRNet forward (SNet -> sigma epilogue
--> RNet) served by ``Restorer`` and the demo CLI; the blind-SISR training
+-> RNet) served by ``Restorer``, the demo CLI and the benchmark harnesses; the blind-SISR training
 step (``SISRTrainer``: on-device degradation synthesis, VIRNetSR, the SISR
 ELBO through the per-sample blur, clipped Adam); and the denoising training
 step (``DenoiseTrainer``: on-device noise synthesis, or real pairs with
@@ -24,9 +24,11 @@ data/     on-device noise and SISR batch synthesis, MixUp, host patch
           sampling
 train/    optimizer stack, checkpoints, logging, the denoising and SISR
           trainers
-eval/     Restorer (pad buckets, TTA, folder batches) and tiled inference
-cli/      the demo, the three trainers and the fused-prologue A/B
-          (bench_fused_head)
+eval/     Restorer (pad buckets, TTA, folder batches), tiled inference,
+          metrics, and the benchmark harnesses (tables, the device x8
+          ensemble, device metrics, LPIPS, DND, analysis, profiling)
+cli/      the demo, the three trainers, the four eval harnesses and the
+          fused-prologue A/B (bench_fused_head)
 csrc/     the CUDA sources
 """
 

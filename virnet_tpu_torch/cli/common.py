@@ -1,6 +1,7 @@
-"""Shared plumbing of the trainer command lines (counterpart of
-virnet_tpu/cli/common.py): arguments and config, the refusals of what is
-not ported, resume, and per-epoch validation."""
+"""Shared plumbing of the command lines (counterpart of
+virnet_tpu/cli/common.py): the trainers' arguments and config, the
+refusals of what is not ported (config keys, the eval CLIs' options),
+resume, and per-epoch validation."""
 
 from __future__ import annotations
 
@@ -11,6 +12,7 @@ import numpy as np
 import torch
 
 from ..config import as_bool, load_config, update_args
+from ..eval.analysis import calculate_parameters, model_flops
 from ..eval.metrics import batch_psnr, batch_ssim
 from ..eval.tiling import bucket_size
 from ..ops.pad import pad_bottom_right
@@ -22,6 +24,7 @@ from ..precision import im2col_convs
 _QUEUE = "in ROADMAP.md's Queue 1, modules still to port"
 _INPUT = f"the input pipeline, {_QUEUE}"
 _RUNTIME = f"multi-device and runtime, {_QUEUE}"
+_REMAINDER = f"the remainder, {_QUEUE}"
 UNPORTED = {
     "device_data": f"data/device_data.py ({_INPUT})",
     "train_pack_file": f"data/packdb.py ({_INPUT})",
@@ -32,6 +35,47 @@ UNPORTED = {
     "num_processes": f"train/mesh.py ({_RUNTIME})",
     "process_id": f"train/mesh.py ({_RUNTIME})",
 }
+
+
+def add_eval_args(p: argparse.ArgumentParser) -> None:
+    """The device and compute options of the eval command lines, and the
+    JAX package's options that are not ported yet (refused by
+    ``refuse_unported_eval``)."""
+    p.add_argument("--device", type=str, default="cuda",
+                   help="cuda (default) runs the CUDA kernels; cpu runs "
+                        "their plain PyTorch versions")
+    p.add_argument("--compute", type=str, default="fp32",
+                   choices=["fp32", "bf16", "int8"],
+                   help="fp32 (default) = checkpoint-faithful parity "
+                        "eval; bf16 = fast path; int8 is not ported yet")
+    p.add_argument("--mesh", action="store_true",
+                   help="data-parallel eval over devices (not ported yet)")
+
+
+def refuse_unported_eval(args) -> None:
+    """Raise when an eval command line asks for a module that is not
+    ported yet, naming it."""
+    if args.mesh:
+        raise NotImplementedError(
+            f"--mesh needs train/mesh.py and eval/spatial.py ({_RUNTIME}), "
+            "which are not ported yet")
+    if args.compute == "int8":
+        raise NotImplementedError(
+            f"--compute int8 needs ops/qconv.py ({_REMAINDER}), which is "
+            "not ported yet")
+
+
+def log_model_size(logger, restorer, sizes=(256, 512)) -> None:
+    """The reference's thop lines: parameters, and FLOPs of one forward at
+    each size (the LR input of size // sf for SISR)."""
+    logger.info(f"Number of parameters: "
+                f"{calculate_parameters(restorer.model) / 1000 ** 2:.2f}M")
+    for size in sizes:
+        s = size // restorer.sf
+        flops = model_flops(restorer.task, s, s,
+                            restorer.sf if restorer.sisr else None,
+                            **restorer.model_overrides)
+        logger.info(f"FLOPs for {size}: {flops / 1000 ** 3:.2f}G")
 
 
 def trainer_argparser(default_config: str,

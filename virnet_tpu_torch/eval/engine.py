@@ -24,7 +24,8 @@ CHOP_THRESHOLD = 160000   # pixels; above this, quadrant tiling kicks in
 
 class Restorer:
     """Denoising and SISR inference on HWC float32 numpy images, with the
-    weights of a reference ``.pth`` (``ckpt_path``).  ``sf`` is the SISR
+    weights of a reference ``.pth`` (``ckpt_path``) or a state dict in
+    memory (``state_dict``, the JAX Restorer's ``params``).  ``sf`` is the SISR
     scale factor (outputs are ``sf`` times the input's size); the
     denoising tasks ignore it.
 
@@ -40,9 +41,10 @@ class Restorer:
     kernels' plain versions and must be asked for.  Extra keyword
     arguments go to ``build_model`` (e.g. ``conv_impl='ops'``)."""
 
-    def __init__(self, task: str, ckpt_path, sf: int = 2,
+    def __init__(self, task: str, ckpt_path=None, sf: int = 2,
                  pad_multiple: int = 0, gray_mean: bool = False,
-                 compute: str = "fp32", device="cuda", **model_overrides):
+                 compute: str = "fp32", device="cuda", state_dict=None,
+                 **model_overrides):
         if task not in ARCH_PRESETS:
             raise ValueError(f"task must be one of {sorted(ARCH_PRESETS)}, "
                              f"got {task!r}")
@@ -56,8 +58,13 @@ class Restorer:
         self.compute = compute
         self.pad_multiple = pad_multiple
         self.gray_mean = gray_mean
+        if state_dict is None:
+            if ckpt_path is None:
+                raise ValueError("need ckpt_path or state_dict")
+            state_dict = load_pth(ckpt_path)
+        self.model_overrides = model_overrides
         model = build_model(task, **model_overrides)
-        model.load_state_dict(load_pth(ckpt_path), strict=True)
+        model.load_state_dict(state_dict, strict=True)
         self.model = model.to(self.device, dtype).eval()
         self.im2col = compute == "fp32" and self.device.type == "cuda"
 

@@ -1,7 +1,8 @@
-"""Host-side colour conversion, image I/O and JPEG round trips
-(counterpart of the numpy half of virnet_tpu/ops/color.py; reference
-utils/util_image.py:129-257).  cv2 is imported where it is used: the card's
-machine serves without it.
+"""Colour conversion, image I/O and JPEG round trips (counterpart of
+virnet_tpu/ops/color.py; reference utils/util_image.py:129-257): the host's
+numpy conversion and its tensor form for the device metrics.  cv2 is
+imported only where files are read or written (and JPEG round trips), so
+serving and scoring run without it.
 
 The YCbCr conversion has MATLAB's coefficients: the SISR metrics' Y
 channel is part of the Table-5 protocol.
@@ -12,6 +13,7 @@ from __future__ import annotations
 from pathlib import Path
 
 import numpy as np
+import torch
 
 _YCBCR_VEC = np.array([65.481, 128.553, 24.966]) / 255.0
 _YCBCR_MAT = np.array([[65.481, -37.797, 112.0],
@@ -38,6 +40,20 @@ def rgb2ycbcr_np(im: np.ndarray, only_y: bool = True) -> np.ndarray:
     else:
         rlt = rlt / 255.0
     return rlt.astype(im.dtype)
+
+
+def rgb2ycbcr(x: torch.Tensor, only_y: bool = True) -> torch.Tensor:
+    """MATLAB rgb2ycbcr for NHWC float [0, 1] tensors, clamped to [0, 1]
+    (reference utils/util_image.py:155-176)."""
+    xt = x * 255.0
+    if only_y:
+        vec = torch.as_tensor(_YCBCR_VEC, dtype=x.dtype, device=x.device)
+        y = xt @ vec[:, None] + 16.0
+    else:
+        mat = torch.as_tensor(_YCBCR_MAT, dtype=x.dtype, device=x.device)
+        off = torch.as_tensor(_YCBCR_OFFSET, dtype=x.dtype, device=x.device)
+        y = xt @ mat + off
+    return torch.clamp(y / 255.0, 0.0, 1.0)
 
 
 def imread(path, chn: str = "rgb", dtype: str = "float32") -> np.ndarray:
