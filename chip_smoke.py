@@ -88,19 +88,28 @@ Phases (all by default; any failure raises and the exit code is not 0):
              model is built with conv_impl='torch', as the JAX trainer
              forces plain convolutions: no kernel of the package launches
   eval_tables  the benchmark harnesses on seeded synthetic data and the
-             demo weights (no data set is in the repo).  Table 4: a SIDD validation pair in the real layout
-             (40 x 32 blocks of 256^2 uint8) through cli.eval_sidd in bf16
-             with --batch 16 and --device_metrics, the x8 ensemble one
-             forward of 128 blocks: megatime, peak memory, exactly one K3
-             and one K4 launch per forward, device against host PSNR/SSIM
-             per block (bars 2e-3 dB, 1e-4), K3 and K4 against their plain
-             versions on the arguments one forward hands them; fp32 on the
-             first 64 blocks (megatime, peak memory); tta_x8 of 4 blocks
+             demo weights (no data set is in the repo).  Table 4: a SIDD
+             validation pair in the real layout (40 x 32 blocks of 256^2
+             uint8) through cli.eval_sidd in bf16 with --batch 16 and
+             --device_metrics, the x8 ensemble one forward of 128 blocks:
+             megatime, peak memory, exactly one K3 and one K4 launch per
+             forward, device against host PSNR/SSIM per block (bars 2e-3
+             dB, 1e-4); fp32 on the first 64 blocks (megatime, peak
+             memory); in each compute K3 (in fp32 each K1 level of its
+             chain, and sigma against the float64 function) and K4
+             against their plain versions on the arguments one forward
+             of 128 blocks hands them; tta_x8 of 4 blocks
              against Restorer.restore_image_tta in fp32 (atol 1e-4).
-             Tables 1/2 (8 images at 321x481 and 481x321, niid) and 5 (4 HR 500x684, x4, the 7 kernels,
-             LPIPS with seeded random weights) through K2 + K4 in bf16 and
-             fp32, seconds per case and per kernel; LPIPS card against CPU
-             (rtol 1e-4); the eval command lines' parameter and FLOPs lines
+             Tables 1/2 (8 images at 321x481 and 481x321, niid; each case
+             must beat its noisy input's PSNR) and 5 (4 HR 500x684, x4,
+             the 7 kernels, LPIPS with seeded random weights) through K2 +
+             K4 in bf16 and fp32, seconds per case and per kernel; K2, its
+             K1 levels and K4 against their plain versions on the first
+             call of each shape the harness made (batches of 4 in both
+             orientations; the LR batch 4x125x171); LPIPS card against CPU
+             (rtol 1e-4); the host SSIM against the cv2 version it
+             replaced (ms and difference, bar 1e-12); the eval command
+             lines' parameter and FLOPs lines
 
 Every main-path phase (serve, serve_odd, ops, real, fp32, probe,
 serve_sisr, train_sisr, eval_tables) zeroes the
@@ -1100,13 +1109,19 @@ SISR_PATH = {"dncnn_fused": 1, "conv3x3_mid": 3, "conv3x3_tail_residual": 1}
 
 
 @contextlib.contextmanager
-def recording(module, name, calls):
+def recording(module, name, calls, per_shape=False):
     """Inside the block ``module.<name>`` appends the arguments of each
-    call to ``calls`` and computes as before."""
+    call to ``calls`` and computes as before; with ``per_shape`` only the
+    first call of each input shape, its tensors copied (a harness drives
+    many forwards and may reuse its buffers)."""
     fn = getattr(module, name)
 
     def rec(*args, **kwargs):
-        calls.append((args, kwargs))
+        if not per_shape:
+            calls.append((args, kwargs))
+        elif all(a[0].shape != args[0].shape for a, _ in calls):
+            calls.append((tuple(a.clone() if torch.is_tensor(a) else a
+                                for a in args), kwargs))
         return fn(*args, **kwargs)
 
     setattr(module, name, rec)
@@ -1131,27 +1146,56 @@ def check_path_kernels(key, restorer, im):
     if len(snet) != 1 or len(tail) != 1:
         raise AssertionError(f"{key}: one image called K2 {len(snet)} and "
                              f"K4 {len(tail)} times, expected once each")
-    with torch.inference_mode():   # the wrappers are forward-only
-        (args, kw), (targs, tkw) = snet[0], tail[0]
-        x, w1, b1, wms, bms = args[:5]
-        slope = kw.get("slope", 0.25)
-        shape = "x".join(map(str, x.shape))
-        errs = dict(dncnn_fused=check_close(
-            f"{key} dncnn_fused {shape}", fc.dncnn_fused(*args, **kw),
-            fc.dncnn_fused_plain(*args, **kw), x.dtype))
-        y = fc.conv3x3_plain(x, w1, b1, slope)
-        for i in range(wms.shape[0]):
-            want = fc.conv3x3_mid_plain(y, wms[i], bms[i], slope)
-            errs[f"conv3x3_mid {i}"] = check_close(
-                f"{key} conv3x3_mid level {i}, "
-                f"{'x'.join(map(str, y.shape))}",
-                fc.conv3x3_mid(y, wms[i], bms[i], slope), want, x.dtype)
-            y = want
+    return check_k2_calls(key, snet, tail)
+
+
+def shape_of(t) -> str:
+    return "x".join(map(str, t.shape))
+
+
+def check_levels(key, x, w1, b1, wms, bms, slope, errs):
+    """Each K1 level of an SNet chain against its plain version, on the
+    levels the plain chain computes from ``x`` (into ``errs``)."""
+    from virnet_tpu_torch.ops import fused_conv as fc
+
+    y = fc.conv3x3_plain(x, w1, b1, slope)
+    for i in range(wms.shape[0]):
+        want = fc.conv3x3_mid_plain(y, wms[i], bms[i], slope)
+        errs[f"conv3x3_mid {shape_of(y)} {i}"] = check_close(
+            f"{key} conv3x3_mid level {i}, {shape_of(y)}",
+            fc.conv3x3_mid(y, wms[i], bms[i], slope), want, x.dtype)
+        y = want
+
+
+def check_tail(key, calls, errs):
+    """K4 against its plain version on each recorded call (into ``errs``)."""
+    from virnet_tpu_torch.ops import fused_conv as fc
+
+    for targs, tkw in calls:
         feats = targs[0]
-        errs["conv3x3_tail_residual"] = check_close(
-            f"{key} conv3x3_tail_residual {'x'.join(map(str, feats.shape))}",
+        errs[f"conv3x3_tail_residual {shape_of(feats)}"] = check_close(
+            f"{key} conv3x3_tail_residual {shape_of(feats)}",
             fc.conv3x3_tail_residual(*targs, **tkw),
             fc.conv3x3_tail_residual_plain(*targs, **tkw), feats.dtype)
+
+
+def check_k2_calls(key, snet, tail):
+    """K2, its K1 levels and K4 against their plain versions on the card,
+    on each recorded call's arguments, with check_close's bounds in the
+    compute dtype.  Returns the max diffs."""
+    from virnet_tpu_torch.ops import fused_conv as fc
+
+    errs = {}
+    with torch.inference_mode():   # the wrappers are forward-only
+        for args, kw in snet:
+            x, w1, b1, wms, bms = args[:5]
+            errs[f"dncnn_fused {shape_of(x)}"] = check_close(
+                f"{key} dncnn_fused {shape_of(x)}",
+                fc.dncnn_fused(*args, **kw),
+                fc.dncnn_fused_plain(*args, **kw), x.dtype)
+            check_levels(key, x, w1, b1, wms, bms, kw.get("slope", 0.25),
+                         errs)
+        check_tail(key, tail, errs)
     return errs
 
 
@@ -1597,9 +1641,53 @@ def host_scores(gt, blocks):
         return np.array(list(pool.map(score, range(len(blocks))))).T
 
 
-def check_sidd_path_kernels(restorer, x):
-    """K3 and K4 against their plain versions on the card, on the
-    arguments one x8 TTA forward of the batch ``x`` hands them."""
+def check_sigma_exact(name, got, plain, args, kw):
+    """fp32 sigma of K3 against the exact function: the SNet chain in
+    float64 on the card.  On SIDD-like blocks at 128 x 256^2 two f32 orders
+    differ by more than check_close's rtol 1e-5 (|logits| reach ~9, where
+    an f32 ulp is 9.5e-7, through 8 levels): the plain version itself
+    misses the float64 function by ~1.5e-5 in log sigma.  So the kernel's
+    log sigma error against float64 must stay within 1e-5 or twice the
+    plain f32 version's own error, whichever is larger (an f32 kernel no
+    less exact than its plain version; a wrong tap moves log sigma by a
+    large part of its scale).  Returns the kernel's error."""
+    import torch.nn.functional as F
+
+    def conv64(y, w, b, slope=None):
+        y = F.conv2d(y.double().permute(0, 3, 1, 2),
+                     w.double().permute(3, 2, 0, 1), b.double(), padding=1)
+        y = y if slope is None else F.leaky_relu(y, slope)
+        return y.permute(0, 2, 3, 1)
+
+    x, w1, b1, wms, bms, wl, bl = args[:7]
+    slope = kw.get("slope", 0.25)
+    y = conv64(x, w1, b1, slope)
+    for i in range(wms.shape[0]):
+        y = conv64(y, wms[i], bms[i], slope)
+    exact = conv64(y, wl, bl).clamp(kw.get("lmin", -23.025850929940457),
+                                    kw.get("lmax", 4.605170185988092))
+    del y
+    if not torch.isfinite(got).all():
+        raise AssertionError(f"{name}: non-finite kernel output")
+    err = float((got.double().log() - exact).abs().max())
+    plain_err = float((plain.double().log() - exact).abs().max())
+    rel = float(((got.double() - plain.double()).abs()
+                 / plain.double().abs()).max())
+    tol = max(1e-5, 2 * plain_err)
+    ok = err <= tol
+    log(f"  {name}: log sigma against float64 {err:.3g}, the plain f32 "
+        f"version's {plain_err:.3g} (bar {tol:.3g}); against the plain "
+        f"version rel {rel:.3g} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{name}: kernel misses the float64 function "
+                             f"by {err} (bar {tol})")
+    return err
+
+
+def check_sidd_path_kernels(key, restorer, x):
+    """K3 (and in fp32 each K1 level of its chain) and K4 against their
+    plain versions on the card, on the arguments one x8 TTA forward of the
+    batch ``x`` hands them."""
     from virnet_tpu_torch.eval.tta import tta_x8
     from virnet_tpu_torch.models import attresunet
     from virnet_tpu_torch.ops import fused_conv as fc
@@ -1611,23 +1699,116 @@ def check_sidd_path_kernels(restorer, x):
     if len(head) != 1 or len(tail) != 1:
         raise AssertionError(f"one TTA forward called K3 {len(head)} and K4 "
                              f"{len(tail)} times, expected once each")
-    (args, kw), (targs, tkw) = head[0], tail[0]
+    (args, kw), = head
     dtype = args[0].dtype
-    shape = "x".join(map(str, args[0].shape))
+    shape = shape_of(args[0])
     with torch.inference_mode():
         h, s = fc.dncnn_head_fused(*args, **kw)
         ph, ps = fc.dncnn_head_fused_plain(*args, **kw)
-        errs = dict(
-            head=check_close(f"eval_sidd K3 head {shape}", h, ph, dtype),
-            sigma=check_close(f"eval_sidd K3 sigma {shape}", s, ps, dtype,
-                              kind="sigma"))
-        del h, s, ph, ps
-        feats = targs[0]
-        errs["conv3x3_tail_residual"] = check_close(
-            f"eval_sidd K4 {'x'.join(map(str, feats.shape))}",
-            fc.conv3x3_tail_residual(*targs, **tkw),
-            fc.conv3x3_tail_residual_plain(*targs, **tkw), dtype)
+        errs = dict(head=check_close(f"{key} K3 head {shape}", h, ph, dtype))
+        if dtype == torch.float32:    # fp32 K3 is the level chain
+            errs["sigma"] = check_sigma_exact(f"{key} K3 sigma {shape}", s,
+                                              ps, args, kw)
+            del h, s, ph, ps
+            check_levels(key, *args[:5], kw.get("slope", 0.25), errs)
+        else:
+            errs["sigma"] = check_close(f"{key} K3 sigma {shape}", s, ps,
+                                        dtype, kind="sigma")
+            del h, s, ph, ps
+        check_tail(key, tail, errs)
     return errs
+
+
+@contextlib.contextmanager
+def recording_k2():
+    """Inside the block the first call of each input shape to K2 and to K4
+    is recorded, as (snet, tail) lists of (args, kwargs)."""
+    from virnet_tpu_torch.models import attresunet
+    from virnet_tpu_torch.ops import fused_conv as fc
+
+    snet, tail = [], []
+    with recording(fc, "dncnn_fused", snet, per_shape=True), \
+            recording(attresunet, "conv3x3_tail_residual", tail,
+                      per_shape=True):
+        yield snet, tail
+
+
+def check_k2_shapes(key, snet, tail, want):
+    """check_k2_calls on a harness's recorded calls, after checking that K2
+    saw exactly the (batch, h, w) input shapes ``want``."""
+    got = {tuple(a[0].shape[:3]) for a, _ in snet}
+    if got != want:
+        raise AssertionError(f"{key}: K2 saw input shapes {sorted(got)}, "
+                             f"expected {sorted(want)}")
+    return check_k2_calls(key, snet, tail)
+
+
+def table12_noisy_psnr(images, noise_type="niid", seed=1000):
+    """Each Table 1/2 case's mean PSNR of the noisy inputs themselves, from
+    the harness's own synthesis (one seeded stream, in its order)."""
+    from virnet_tpu_torch.data.eval_sets import DenoiseBenchmark
+    from virnet_tpu_torch.eval.metrics import calculate_psnr
+    from virnet_tpu_torch.ops.quant import img_as_ubyte
+
+    bench = DenoiseBenchmark(noise_type, seed)
+    return {str(case): float(np.mean([calculate_psnr(img_as_ubyte(np.clip(
+        bench.noisy(im, base), 0.0, 1.0)), im, border=0) for _, im in images]))
+        for case, base in bench.cases()}
+
+
+def ssim_cv2(im1, im2):
+    """The host SSIM as it stood before eval/metrics.py dropped cv2:
+    cv2.filter2D over the whole image, then the 5-px crop (timed beside
+    the port's, not used by it)."""
+    import cv2
+
+    g = np.exp(-(np.arange(11) - 5.0) ** 2 / (2 * 1.5 ** 2))
+    win = np.outer(g / g.sum(), g / g.sum())
+    c1, c2 = (0.01 * 255) ** 2, (0.03 * 255) ** 2
+    vals = []
+    for c in range(im1.shape[2]):
+        a = im1[..., c].astype(np.float64)
+        b = im2[..., c].astype(np.float64)
+
+        def f(m):
+            return cv2.filter2D(m, -1, win)[5:-5, 5:-5]
+
+        mu1, mu2 = f(a), f(b)
+        s1, s2, s12 = (f(a * a) - mu1 ** 2, f(b * b) - mu2 ** 2,
+                       f(a * b) - mu1 * mu2)
+        vals.append((((2 * mu1 * mu2 + c1) * (2 * s12 + c2)) / (
+            (mu1 ** 2 + mu2 ** 2 + c1) * (s1 + s2 + c2))).mean())
+    return float(np.mean(vals))
+
+
+def time_host_ssim(shapes=((256, 256), (321, 481)), reps=20):
+    """ms of one host SSIM (eval/metrics.py, numpy) against the cv2
+    version it replaced, median of ``reps`` on the host's clock, and their
+    difference (bar 1e-12)."""
+    from virnet_tpu_torch.eval.metrics import calculate_ssim
+
+    rng = np.random.default_rng(7)
+    out = {}
+    for h, w in shapes:
+        a = rng.integers(0, 256, (h, w, 3), dtype=np.uint8)
+        b = np.clip(a + rng.normal(0, 12, a.shape), 0, 255).astype(np.uint8)
+        row = {}
+        for name, fn in (("numpy_ms", calculate_ssim), ("cv2_ms", ssim_cv2)):
+            fn(a, b)
+            ts = []
+            for _ in range(reps):
+                t0 = time.perf_counter()
+                fn(a, b)
+                ts.append((time.perf_counter() - t0) * 1e3)
+            row[name] = float(np.median(ts))
+        row["diff"] = abs(calculate_ssim(a, b) - ssim_cv2(a, b))
+        log(f"  host SSIM {h}x{w}x3: numpy {row['numpy_ms']:.2f} ms, cv2 "
+            f"{row['cv2_ms']:.2f} ms (medians of {reps}); diff "
+            f"{row['diff']:.3g} (bar 1e-12)")
+        if row["diff"] > 1e-12:
+            raise AssertionError("host SSIM disagrees with the cv2 version")
+        out[f"{h}x{w}"] = row
+    return out
 
 
 def lpips_file(path, seed=0):
@@ -1654,11 +1835,13 @@ def phase_eval_tables(report, launches, sidd=(40, 32, 256), fp32_blocks=64,
     synthetic data (no data set is in the repo; no image file is read).
     Table 4: cli.eval_sidd on 40 x 32 blocks of 256^2 in bf16, x8 TTA as
     one forward of 128 blocks (K3 + RNet + K4), megatime, device against
-    host metrics, K3 and K4 on one forward's arguments; fp32 on the first
-    64 blocks; one TTA batch against the host ensemble.  Tables 1/2 (niid)
-    and 5 (x4, 7 kernels, LPIPS
-    card against CPU) through K2 + K4 in both computes.  FLOPs and
-    parameters of the eval command lines."""
+    host metrics; fp32 on the first 64 blocks; in each compute K3 (and in
+    fp32 its K1 levels) and K4 on one forward's arguments; one TTA batch
+    against the host ensemble.  Tables 1/2 (niid, each case above its
+    noisy input's PSNR) and 5 (x4, 7 kernels, LPIPS card against CPU)
+    through K2 + K4 in both computes, K2/K1/K4 held against their plain
+    versions on each shape the harness handed them.  The host SSIM against
+    its cv2 version.  FLOPs and parameters of the eval command lines."""
     import tempfile
 
     from virnet_tpu_torch.cli import eval_sidd
@@ -1732,8 +1915,8 @@ def phase_eval_tables(report, launches, sidd=(40, 32, 256), fp32_blocks=64,
                           compute="bf16", device=device)
         x16 = torch.from_numpy(img_as_float32(flat_noisy[:16])).to(device)
         res["sidd_bf16"]["kernels_max_abs_err"] = check_sidd_path_kernels(
-            real16, x16)
-        del real16, x16
+            "eval_sidd", real16, x16)
+        del real16
 
         k = fp32_blocks // n_blk
         sub = write_sidd(tmp / "sidd_fp32", noisy[:k], gt[:k])
@@ -1763,6 +1946,9 @@ def phase_eval_tables(report, launches, sidd=(40, 32, 256), fp32_blocks=64,
 
         real32 = Restorer("denoising-real", ckpt_path=REAL_CKPT,
                           device=device)
+        res["sidd_fp32_64"]["kernels_max_abs_err"] = check_sidd_path_kernels(
+            "eval_sidd_fp32", real32, x16)
+        del x16
         blocks4 = img_as_float32(flat_noisy[:4])
         with torch.inference_mode():
             dev = tta_x8(real32.restore_batch,
@@ -1779,24 +1965,36 @@ def phase_eval_tables(report, launches, sidd=(40, 32, 256), fp32_blocks=64,
         rng = np.random.default_rng(6)
         cbsd = [(f"{i}", np.round(smooth_image(rng, *hw) * 255).astype(
             np.uint8)) for i, hw in enumerate([cbsd] * 4 + [cbsd[::-1]] * 4)]
+        noisy_psnr = table12_noisy_psnr(cbsd)
         res["table12"] = {}
         for compute in ("bf16", "fp32"):
+            key = f"table12_{compute}"
             syn = Restorer("denoising-syn", ckpt_path=SYN_CKPT,
                            compute=compute, device=device)
             t0 = time.perf_counter()
-            tab, n = harness_path(
-                f"table12_{compute}", launches,
-                lambda: denoise_synthetic_table(
-                    syn, {"CBSD68 shapes": cbsd}, "niid",
-                    log_fn=lambda m: log("  " + m)), K2_PATH)
+            with recording_k2() as (snet, tail):
+                tab, n = harness_path(
+                    key, launches, lambda: denoise_synthetic_table(
+                        syn, {"CBSD68 shapes": cbsd}, "niid",
+                        log_fn=lambda m: log("  " + m)), K2_PATH)
+            wall = time.perf_counter() - t0
             cases = tab["CBSD68 shapes"]
             res["table12"][compute] = dict(
-                forwards=n, wall_s=time.perf_counter() - t0,
+                forwards=n, wall_s=wall,
                 psnr={c: r["psnr"] for c, r in cases.items()},
-                seconds={c: r["seconds"] for c, r in cases.items()})
+                noisy_psnr=noisy_psnr,
+                seconds={c: r["seconds"] for c, r in cases.items()},
+                kernels_max_abs_err=check_k2_shapes(key, snet, tail, {
+                    (4,) + hw for hw in ((cbsd[0][1].shape[:2]),
+                                         (cbsd[-1][1].shape[:2]))}))
             log(f"  Table 1/2 {compute}: seconds per case "
                 f"{ {c: round(r['seconds'], 3) for c, r in cases.items()} }")
-            del syn
+            for c, r in cases.items():
+                if not r["psnr"] > noisy_psnr[c]:
+                    raise AssertionError(
+                        f"{key} case {c}: PSNR {r['psnr']:.3f} does not beat "
+                        f"the noisy input's {noisy_psnr[c]:.3f}")
+            del syn, snet, tail
 
         hr = [(f"{i}", np.round(smooth_image(rng, *hr_hw) * 255).astype(
             np.uint8)) for i in range(4)]
@@ -1808,21 +2006,25 @@ def phase_eval_tables(report, launches, sidd=(40, 32, 256), fp32_blocks=64,
             for compute in ("bf16", "fp32"):
                 sr = Restorer("sisr", ckpt_path=SISR_CKPT, sf=4,
                               compute=compute, device=device)
+                key = f"table5_{compute}"
                 t0 = time.perf_counter()
-                tab, n = harness_path(
-                    f"table5_{compute}", launches,
-                    lambda: sisr_synthetic_table(
-                        sr, {hr_key: hr}, 4, use_lpips=True,
-                        log_fn=lambda m: log("  " + m)), K2_PATH)
+                with recording_k2() as (snet, tail):
+                    tab, n = harness_path(
+                        key, launches, lambda: sisr_synthetic_table(
+                            sr, {hr_key: hr}, 4, use_lpips=True,
+                            log_fn=lambda m: log("  " + m)), K2_PATH)
+                wall = time.perf_counter() - t0
                 ks = tab[hr_key]["per_kernel"]
                 res["table5"][compute] = dict(
-                    forwards=n, wall_s=time.perf_counter() - t0,
+                    forwards=n, wall_s=wall,
                     psnr_y=[k["psnr"] for k in ks],
                     lpips=[k["lpips"] for k in ks],
-                    seconds=[k["seconds"] for k in ks])
+                    seconds=[k["seconds"] for k in ks],
+                    kernels_max_abs_err=check_k2_shapes(key, snet, tail, {
+                        (4, hr_hw[0] // 4, hr_hw[1] // 4)}))
                 log(f"  Table 5 {compute}: seconds per kernel "
                     f"{[round(k['seconds'], 3) for k in ks]}")
-                del sr
+                del sr, snet, tail
             errs = []
             for (_, a), (_, b) in ((hr[0], hr[1]), (hr[2], hr[3])):
                 on_card = lpips.lpips_rgb(a, b, device)
@@ -1838,6 +2040,7 @@ def phase_eval_tables(report, launches, sidd=(40, 32, 256), fp32_blocks=64,
         finally:
             lpips.set_params(None)
 
+    res["host_ssim"] = time_host_ssim()
     log("  FLOPs and parameters (cli/eval_denoising_syn, cli/eval_sidd)")
     for task, ckpt in (("denoising-syn", SYN_CKPT),
                        ("denoising-real", REAL_CKPT)):

@@ -448,12 +448,12 @@ def test_lpips_matches_jax(layout, tmp_path, monkeypatch):
     a = (rng.random((48, 48, 3)) * 255).astype(np.uint8)
     b = np.clip(a.astype(int) + rng.integers(-30, 30, a.shape), 0,
                 255).astype(np.uint8)
-    d = lpips.lpips_rgb(a, b)
+    d = lpips.lpips_rgb(a, b, "cpu")
     with torch.inference_mode():
         want_ab = float(net(_t(lpips.normalize_lpips(a)),
                             _t(lpips.normalize_lpips(b)))[0])
     assert d == want_ab and d > 0
-    assert lpips.lpips_rgb(a, a) == 0.0
+    assert lpips.lpips_rgb(a, a, "cpu") == 0.0
 
 
 def test_lpips_absent_weights_are_loud(tmp_path, monkeypatch):
@@ -463,7 +463,7 @@ def test_lpips_absent_weights_are_loud(tmp_path, monkeypatch):
     assert "none.pth" in lpips.skip_reason()
     with pytest.raises(RuntimeError, match="VIRNET_LPIPS_WEIGHTS"):
         lpips.lpips_rgb(np.zeros((8, 8, 3), np.uint8),
-                        np.zeros((8, 8, 3), np.uint8))
+                        np.zeros((8, 8, 3), np.uint8), "cpu")
     with pytest.raises(ValueError, match="conv1"):
         lpips.load_lpips_params({"lin0.weight": torch.zeros(64)})
 
@@ -542,7 +542,7 @@ def test_make_denoiser_matches_jax(real_pair, flip):
     atol 1e-5 (the fp32 parity bar)."""
     jr, tr = real_pair
     crop = _rand(61, 24, 24, 3)
-    got = dnd.make_denoiser(tr.restore_batch, flip=flip)(crop, None)
+    got = dnd.make_denoiser(tr, flip=flip)(crop, None)
     want = jdnd.make_denoiser(jr.restore_batch, flip=flip)(crop, None)
     assert got.dtype == np.float32 and got.shape == (24, 24, 3)
     np.testing.assert_allclose(got, want, atol=1e-5)

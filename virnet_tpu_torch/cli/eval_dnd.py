@@ -35,8 +35,7 @@ def main(argv=None):
     logger = make_log(Path(args.save_dir) / "dnd.log")
     restorer = Restorer("denoising-real", ckpt_path=args.ckpt_path,
                         compute=args.compute, device=args.device)
-    denoiser = make_denoiser(restorer.restore_batch, flip=not args.no_flip,
-                             device=restorer.device)
+    denoiser = make_denoiser(restorer, flip=not args.no_flip)
     denoise_srgb(denoiser, args.dnd_dir, args.save_dir, log_fn=logger.info)
     bundle_submissions_srgb(args.save_dir)
     logger.info(f"submission bundle written to {args.save_dir}/bundled")

@@ -5,10 +5,10 @@ The vendored Plötz/Roth kit the reference ships
 (dnd_submission_py/dnd_denoise.py:78-123, bundle_submissions.py:45-73): 50
 sRGB images x 20 bounding boxes from info.mat, each crop denoised and saved
 as %04d_%02d.mat, then bundled into per-image object arrays for upload.
-The denoiser is a restore function on the device with the x8 flip ensemble
-as one batched forward (eval/tta.py).  The loops are numpy, scipy and h5py,
-imported where they are used (h5py is not installed on the card's
-machine).
+The denoiser is a Restorer's batch forward on its device, with the x8
+flip ensemble as one batched forward (eval/tta.py).  The loops are numpy,
+scipy and h5py, imported where they are used (h5py is not installed on the
+card's machine).
 """
 
 from __future__ import annotations
@@ -19,20 +19,21 @@ from typing import Callable
 import numpy as np
 import torch
 
+from .engine import Restorer
 from .tta import tta_x8
 
 
-def make_denoiser(restore_batch: Callable, flip: bool = True,
-                  device="cpu"):
-    """Wrap an NHWC-batch restore function into the (Inoisy, nlf) ->
+def make_denoiser(restorer: Restorer, flip: bool = True):
+    """Wrap a Restorer's NHWC batch forward into the (Inoisy, nlf) ->
     denoised interface of the DND loop (reference
-    dnd_submission_py/pytorch_wrapper.py:15-49): the crop goes to
-    ``device``, through the x8 ensemble (``flip``; crops are square) or one
-    forward, and back as float32 HWC."""
+    dnd_submission_py/pytorch_wrapper.py:15-49): the crop goes to the
+    restorer's device, through the x8 ensemble (``flip``; crops are
+    square) or one forward, and back as float32 HWC."""
+    restore_batch = restorer.restore_batch
 
     def denoiser(inoisy: np.ndarray, nlf=None) -> np.ndarray:
         x = torch.as_tensor(np.ascontiguousarray(inoisy[None]),
-                            dtype=torch.float32).to(device)
+                            dtype=torch.float32).to(restorer.device)
         out = tta_x8(restore_batch, x) if flip else restore_batch(x)
         return out[0].float().cpu().numpy()
 
@@ -118,8 +119,9 @@ def denoise_raw(denoiser: Callable, data_folder, out_folder,
         log_fn(f"[{i + 1}/50] {filename.name} done")
 
 
-def bundle_submissions_raw(submission_folder) -> None:
-    """Bundle raw-track per-crop .mats (eval_version 1.0, israw=True)."""
+def _bundle(submission_folder, israw: bool) -> None:
+    """Bundle per-crop .mats into per-image object arrays for upload
+    (eval_version 1.0)."""
     import scipy.io as sio
 
     submission_folder = Path(submission_folder)
@@ -132,23 +134,15 @@ def bundle_submissions_raw(submission_folder) -> None:
                                 / f"{i + 1:04d}_{k + 1:02d}.mat"))
             denoised[k] = s["Idenoised_crop"]
         sio.savemat(str(out_folder / f"{i + 1:04d}.mat"),
-                    {"Idenoised": denoised, "israw": True,
+                    {"Idenoised": denoised, "israw": israw,
                      "eval_version": "1.0"})
+
+
+def bundle_submissions_raw(submission_folder) -> None:
+    """Bundle the raw track's per-crop .mats (israw=True)."""
+    _bundle(submission_folder, True)
 
 
 def bundle_submissions_srgb(submission_folder) -> None:
-    """Bundle per-crop .mats into the per-image submission format."""
-    import scipy.io as sio
-
-    submission_folder = Path(submission_folder)
-    out_folder = submission_folder / "bundled"
-    out_folder.mkdir(exist_ok=True)
-    for i in range(50):
-        denoised = np.zeros((20,), dtype=object)
-        for k in range(20):
-            s = sio.loadmat(str(submission_folder
-                                / f"{i + 1:04d}_{k + 1:02d}.mat"))
-            denoised[k] = s["Idenoised_crop"]
-        sio.savemat(str(out_folder / f"{i + 1:04d}.mat"),
-                    {"Idenoised": denoised, "israw": False,
-                     "eval_version": "1.0"})
+    """Bundle the sRGB track's per-crop .mats (israw=False)."""
+    _bundle(submission_folder, False)

@@ -178,7 +178,7 @@ def normalize_lpips(im_uint8: np.ndarray) -> np.ndarray:
 
 
 def lpips_rgb(im1_uint8: np.ndarray, im2_uint8: np.ndarray,
-              device="cpu") -> float:
+              device="cuda") -> float:
     """LPIPS-alex between two HWC uint8 images (reference
     scripts/sisr_virnet_syn.py:158-161), on ``device`` in fp32 (TF32 off)."""
     net = _net(device)

@@ -123,8 +123,8 @@ def sidd_table(restorer: Restorer, noisy: np.ndarray,
     (host scorers, or eval/metrics_device.py with ``device_metrics``).
     Megatime is seconds per restored 1024^2 megapixel, forward time only
     (the first forward's warm-up included, as in the reference): the input
-    is on the device before the clock starts and the clock stops after a
-    synchronisation.  Returns psnr, ssim (means; None without gt),
+    is on the device before the clock starts and the clock stops once the
+    output is on the host, as in the JAX harness.  Returns psnr, ssim (means; None without gt),
     psnr_per_block, ssim_per_block, megatime, blocks (uint8 (n, h, w, c))
     and forward_seconds (one per forward call)."""
     from .metrics_device import batch_psnr_device, batch_ssim_device
@@ -144,9 +144,9 @@ def sidd_table(restorer: Restorer, noisy: np.ndarray,
         tic = time.perf_counter()
         out = (tta_x8(restorer.restore_batch, x) if flip_tta
                else restorer.restore_batch(x))
-        sync()
+        out = out.cpu().numpy()     # the host fetch is the sync
         forward_seconds.append(time.perf_counter() - tic)
-        out_u8 = img_as_ubyte(np.clip(out.cpu().numpy(), 0.0, 1.0))
+        out_u8 = img_as_ubyte(np.clip(out, 0.0, 1.0))
         blocks[start:end] = out_u8
         if gt is not None and device_metrics:
             gt_f = torch.from_numpy(img_as_float32(gt[start:end])).to(device)
