@@ -4,8 +4,8 @@
     python3 chip_smoke.py [--phases build,kernels,serve,profile,serve_odd,
                            ops,real,fp32,psnr,probe,sisr_fwd,serve_sisr,
                            train_fp32,
-                           train_sisr,train_denoise_fp32,train_denoise,
-                           eval_tables]
+                           train_sisr,train_pipeline,train_denoise_fp32,
+                           train_denoise,eval_tables]
                           [--report PATH]
 
 Phases (all by default; any failure raises and the exit code is not 0):
@@ -74,6 +74,28 @@ Phases (all by default; any failure raises and the exit code is not 0):
              HR batches: launches of one step (K5 x2, K6, K7), ms per step,
              peak memory, a device-time breakdown of one step, and the
              ELBO on a fixed batch with fixed noise before and after
+  train_pipeline  the input pipeline under the trainers, full width (and
+             the host cost of one tiny launch, beside the one taken
+             before any phase: an earlier profiler session raises it):
+             configs/sisr_x4.json with add_jpeg + jpeg_in_graph for 30
+             steps of SISRTrainer.run_step_device on 64 seeded uint8
+             records of 256^2 (DeviceDataset): exactly K5 x2, K6, K7 a
+             step, each held against its plain version on the first
+             step's own arguments (the kernels phase's bars scaled by the
+             input's range), the ELBO on a fixed batch with fixed draws
+             before and after, ms per step beside train_sisr's host-fed
+             step and, in turns, beside host-fed steps and device-data
+             steps with the JPEG branch off, jpeg_degrade
+             on that step's 16x48^2 LR batch on the card with TF32 off
+             and on (the same bits) and on the CPU (no difference outside
+             a tie); host JPEG (HostSISRSampler,
+             libjpeg) for 10 steps with prefetch=2 and 10 with 0, ms per
+             step and the prefetcher's stats (K5, K6, K7 once a step);
+             configs/denoising_real.json on a pack file of 64 seeded
+             pairs of 256^2, 10 steps through PackDBSampler and the
+             prefetcher and 10 through DeviceDataset.from_packdb, twice in
+             turns, ms per step and the records' bytes on the card (no
+             kernel of ours)
   train_denoise_fp32  one denoising training step at 2x64^2 (full width)
              in fp32 with injected draws, card vs CPU: the synthetic
              trainer of configs/denoising_syn.json and the real-noise one
@@ -112,7 +134,7 @@ Phases (all by default; any failure raises and the exit code is not 0):
              lines' parameter and FLOPs lines
 
 Every main-path phase (serve, serve_odd, ops, real, fp32, probe,
-serve_sisr, train_sisr, eval_tables) zeroes the
+serve_sisr, train_sisr, train_pipeline, eval_tables) zeroes the
 launch counters, drives its path once and reads them; it fails if a kernel
 of its path did not launch.  The line before the card's line is one JSON
 object with the kernels' numbers: times and errors from the syn weights
@@ -149,8 +171,8 @@ ROOT = Path(__file__).resolve().parent
 ALL_PHASES = ("build", "kernels", "serve", "profile", "serve_odd", "ops",
               "real", "fp32", "psnr", "probe", "sisr_fwd", "serve_sisr",
               "train_fp32",
-              "train_sisr", "train_denoise_fp32", "train_denoise",
-              "eval_tables")
+              "train_sisr", "train_pipeline", "train_denoise_fp32",
+              "train_denoise", "eval_tables")
 SYN_CKPT = ROOT / "model_zoo" / "virnet_denoising_syn_demo.pth"
 REAL_CKPT = ROOT / "model_zoo" / "virnet_denoising_real_demo.pth"
 SISR_CKPT = ROOT / "model_zoo" / "virnet_sisr_x4_demo.pth"
@@ -234,6 +256,19 @@ def peaks_for(name: str) -> tuple:
         if key in name:
             return f"H100 {key}", PEAKS[f"H100 {key}"]
     return "H100 SXM", PEAKS["H100 SXM"]
+
+
+def launch_us(n: int = 2000) -> float:
+    """Host microseconds per launch of a tiny in-place add, back to back
+    (the eager steps of the trainers are bound by this cost)."""
+    x = torch.zeros(1024, device="cuda")
+    x.add_(1.0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        x.add_(1.0)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / n * 1e6
 
 
 def time_ms(fn, iters: int, warmup: int = 2) -> float:
@@ -1548,6 +1583,308 @@ def phase_train_sisr(report, launches, steps=30):
                              "not go down")
 
 
+PIPELINE_DIR = ROOT / "build" / "chip_smoke_pipeline"
+BLUR_STEP = {"blur_valid": 2, "blur_dx": 1, "blur_dw": 1}
+HOST_BLUR_STEP = {"blur_valid": 1, "blur_dx": 1, "blur_dw": 1}
+
+
+def textured_records(rng, n, size) -> np.ndarray:
+    """Seeded uint8 images: smooth_image plus N(0, 0.03) texture, so that
+    JPEG has detail to quantize."""
+    im = smooth_batch(rng, n, size)
+    im = im + rng.normal(0, 0.03, im.shape).astype(np.float32)
+    return np.round(np.clip(im, 0, 1) * 255).astype(np.uint8)
+
+
+def blur_bar(name, args) -> float:
+    """The kernels phase's bars (forward and dX atol 2e-5 on inputs in
+    [0, 1) with taps summing to 1) scaled by the range of this call's
+    input times the largest kernel's tap sum; dW 1e-5 of max |dW|."""
+    from virnet_tpu_torch.ops import blur
+
+    if name == "blur_dw":
+        with torch.no_grad():
+            return 1e-5 * float(blur.blur_dw_plain(*args).abs().max())
+    x, kern = args
+    scale = float(x.abs().max()) * float(kern.abs().sum((1, 2)).max())
+    return 2e-5 * max(scale, 1.0)
+
+
+def hold_blur_calls(calls) -> dict:
+    """K5, K6 and K7 against their plain versions on the card, on the
+    arguments one training step handed them."""
+    from virnet_tpu_torch.ops import blur
+
+    errs = {}
+    for name, recorded in calls.items():
+        plain = torch.no_grad()(getattr(blur, f"{name}_plain"))
+        for i, (args, kw) in enumerate(recorded):
+            args = tuple(a.detach() for a in args)
+            errs[f"{name} {i}"] = check_abs(
+                f"{name} call {i} of the step, {shape_of(args[0])}",
+                getattr(blur, name)(*args, **kw), plain(*args, **kw),
+                blur_bar(name, args))
+    return errs
+
+
+def check_step_launches(what, counts, per_step, steps):
+    want = {k: v * steps for k, v in per_step.items()}
+    extra = {k: n for k, n in counts.items() if n != want.get(k, 0)}
+    if extra:
+        raise AssertionError(f"{what}: {steps} steps launched {extra}, "
+                             f"expected {per_step} per step")
+
+
+def epoch_ms(trainer, steps, run_epoch):
+    """Wall ms per step of one epoch of ``steps`` steps (``run_epoch()``
+    returns the trainer's stats), synchronised on both ends."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    stats = run_epoch()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / steps
+    bad = [k for k, v in stats.items()
+           if isinstance(v, float) and not math.isfinite(v)]
+    if bad:
+        raise AssertionError(f"non-finite {bad} after {trainer.step} steps")
+    return ms, stats
+
+
+def phase_train_pipeline(report, launches, steps=30):
+    """The input pipeline under the trainers at full width:
+    (1) configs/sisr_x4.json with add_jpeg + jpeg_in_graph on device data
+    (64 seeded uint8 records of 256^2), ``steps`` steps through
+    SISRTrainer.run_step_device: exactly K5 x2, K6, K7 a step, each held
+    against its plain version on the first step's arguments, the ELBO on
+    a fixed batch with fixed draws before and after, ms per step, and
+    jpeg_degrade on that step's LR batch on the card (TF32 off and on:
+    the same bits) and on the CPU (the tie rule); (2) host JPEG
+    (HostSISRSampler, libjpeg) through train_epoch, 10 steps with
+    prefetch=2 and 10 with 0: ms per step and the prefetcher's stats;
+    (3) configs/denoising_real.json on a pack file of seeded pairs, 10
+    steps through PackDBSampler and the prefetcher, 10 through
+    DeviceDataset.from_packdb, twice in turns: ms per step and the
+    records' bytes on the card."""
+    import cv2
+
+    from virnet_tpu_torch.cli.train_sisr import build_trainer
+    from virnet_tpu_torch.data import sisr_synth
+    from virnet_tpu_torch.data.device_data import DeviceDataset
+    from virnet_tpu_torch.data.packdb import PackDBSampler, write_packdb
+    from virnet_tpu_torch.data.sisr_host import HostSISRSampler
+    from virnet_tpu_torch.data.sources import ImageCache
+    from virnet_tpu_torch.ops import blur
+    from virnet_tpu_torch.ops import fused_conv as fc
+    from virnet_tpu_torch.ops import jpeg
+
+    # a torch.profiler session earlier in the process (phases profile,
+    # train_sisr) leaves every later launch dearer on the host
+    res = {"launch_us": launch_us()}
+    report.setdefault("launch_us", {})["train_pipeline"] = res["launch_us"]
+    log(f"[train_pipeline] host cost of one tiny launch now: "
+        f"{res['launch_us']:.2f} us")
+    rng = np.random.default_rng(12)
+    trainer = build_trainer(sisr_config(add_jpeg=True, jpeg_in_graph=True))
+    tc = trainer.cfg
+    log(f"[train_pipeline] SISR, in-graph JPEG on device data: n_feat "
+        f"{tc.n_feat}, batch {tc.batch_size}, HR {tc.hr_size}^2, sf {tc.sf}, "
+        f"k {tc.k_size}, bf16 autocast {tc.mixed_precision}, JPEG in graph "
+        f"{tc.add_jpeg_in_graph}")
+    if ((tuple(tc.n_feat), tc.batch_size, tc.hr_size, tc.sf, tc.k_size) != (
+            (96, 160, 224), 16, 192, 4, 21) or not tc.add_jpeg_in_graph
+            or trainer.host_batches or trainer.device.type != "cuda"):
+        raise AssertionError("train_pipeline: not the full-width in-graph "
+                             "JPEG configuration")
+    records = textured_records(rng, 64, 256)
+    ds = DeviceDataset(records)
+    n = tc.batch_size
+    fixed = torch.from_numpy(records[:n, :tc.hr_size, :tc.hr_size]).cuda()
+    fixed_noise = sisr_noise(n, tc.hr_size, tc.sf, tc.kappa0, 13, "cuda")
+    fixed_noise["synth"].update(
+        is_jpeg=torch.arange(n, device="cuda") % 2 == 0,
+        nlevel_jpeg=torch.full((n,), 5 / 255, device="cuda"),
+        qf=torch.tensor([30., 35, 40, 45, 60, 70, 80, 95] * (n // 8),
+                        device="cuda"))
+
+    def fixed_elbo():
+        return float(trainer.loss_and_grads(fixed, 0, fixed_noise)[0])
+
+    before = fixed_elbo()
+    calls = {k: [] for k in BLUR_STEP}
+    jpeg_calls = []
+    fc.reset_launches()
+    with recording(blur, "blur_valid", calls["blur_valid"]), \
+            recording(blur, "blur_dx", calls["blur_dx"]), \
+            recording(blur, "blur_dw", calls["blur_dw"]), \
+            recording(sisr_synth, "jpeg_degrade", jpeg_calls):
+        trainer.run_step_device(ds, 0)
+    times, last = timed_steps(lambda d: trainer.run_step_device(d, 0),
+                              lambda: ds, steps - 1, "train_pipeline")
+    torch.cuda.synchronize()
+    counts = dict(fc.LAUNCHES)
+    launches["train_pipeline"] = counts
+    log(f"  launches in {steps} steps {counts}")
+    check_step_launches("train_pipeline", counts, BLUR_STEP, steps)
+    res["kernels_max_abs_err"] = hold_blur_calls(calls)
+    ms = float(np.median(times[-20:]))
+    host_fed = report.get("train_sisr", {}).get("ms_per_step")
+    log(f"  {ms:.2f} ms per step (median of the last 20), {1e3 / ms:.2f} "
+        f"steps/s; host-fed Gaussian step of phase train_sisr in this call: "
+        f"{'not run' if host_fed is None else f'{host_fed:.2f} ms'}")
+    after = fixed_elbo()
+    log(f"  ELBO on the fixed batch with fixed draws: {before:.6g} before, "
+        f"{after:.6g} after {trainer.step} steps")
+    if not (math.isfinite(after) and after < before):
+        raise AssertionError("train_pipeline: the ELBO on the fixed batch "
+                             "did not go down")
+
+    # jpeg_degrade on the first step's LR batch: card with TF32 off and
+    # on, and the CPU
+    if len(jpeg_calls) != 1:
+        raise AssertionError(f"train_pipeline: one step called jpeg_degrade "
+                             f"{len(jpeg_calls)} times, expected once")
+    lr, qf = jpeg_calls[0][0]
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    try:
+        outs = []
+        for tf32 in (False, True):
+            torch.backends.cuda.matmul.allow_tf32 = tf32
+            torch.backends.cudnn.allow_tf32 = tf32
+            outs.append(jpeg.jpeg_degrade(lr, qf))
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = saved
+    cpu = jpeg.jpeg_degrade(lr.cpu(), qf.cpu())
+    card = outs[0].cpu()
+    differ = float((card != cpu).any(-1).float().mean())
+    # the tie rule of tests/test_torch_port_pipeline.py
+    untied = int(jpeg._untied(lr.cpu(), qf.cpu(), card, cpu).sum())
+    log(f"  jpeg_degrade on the step's LR batch {shape_of(lr)}: TF32 on "
+        f"equal to off: {torch.equal(outs[0], outs[1])}; card vs CPU: "
+        f"{differ:.4%} of pixels differ, {untied} outside a tie")
+    if not torch.equal(outs[0], outs[1]) or untied:
+        raise AssertionError("train_pipeline: jpeg_degrade depends on TF32 "
+                             "or disagrees with the CPU outside ties")
+    res["jpeg"] = dict(shape=list(lr.shape), card_cpu_differ=differ,
+                       untied=untied, tf32_equal=True)
+    # what device data and the codec add to the step: the same trainer
+    # and records, in turns (medians of 10 steps): HR crops handed to
+    # run_step as train_sisr does (taken outside the timer), device data
+    # with the JPEG branch off, and on
+    def hr_crops():
+        idx = torch.from_numpy(rng.choice(len(records), n, replace=False))
+        return ds.arrays[0][idx.cuda(), :tc.hr_size, :tc.hr_size]
+
+    turns = {"host_fed_gaussian": (hr_crops, trainer.run_step, False),
+             "device_gaussian": (lambda: ds, trainer.run_step_device, False),
+             "device_jpeg": (lambda: ds, trainer.run_step_device, True)}
+    turns_ms = {name: [] for name in turns}
+    for _ in range(2):
+        for name, (data, step, jpeg_on) in turns.items():
+            tc.add_jpeg_in_graph = jpeg_on
+            t, _ = timed_steps(lambda d: step(d, 0), data, 10,
+                               f"train_pipeline {name}")
+            turns_ms[name].append(float(np.median(t)))
+    tc.add_jpeg_in_graph = True
+    log(f"  in turns, ms per step: {turns_ms}")
+    res["jpeg_device_data"] = dict(
+        ms_per_step=ms, steps_per_s=1e3 / ms, step_ms=times, last=last,
+        elbo_before=before, elbo_after=after, launches=counts,
+        host_fed_gaussian_ms=host_fed, turns_ms=turns_ms)
+    del trainer, ds
+
+    # (2) host JPEG through the prefetcher and without it
+    PIPELINE_DIR.mkdir(parents=True, exist_ok=True)
+    paths = []
+    for i, im in enumerate(textured_records(rng, 8, 384)):
+        paths.append(str(PIPELINE_DIR / f"hr{i}.png"))
+        cv2.imwrite(paths[-1], cv2.cvtColor(im, cv2.COLOR_RGB2BGR))
+    cfg = sisr_config(add_jpeg=True, jpeg_in_graph=False, steps_per_epoch=10)
+    trainer = build_trainer(cfg)
+    tc = trainer.cfg
+    if not trainer.host_batches:
+        raise AssertionError("train_pipeline: add_jpeg without jpeg_in_graph "
+                             "must feed degraded host batches")
+    sampler = HostSISRSampler(
+        ImageCache(paths), tc.hr_size, tc.sf, k_size=tc.k_size,
+        noise_level=tuple(cfg["noise_level"]),
+        noise_jpeg=tuple(cfg["noise_jpeg"]), add_jpeg=True)
+    log(f"[train_pipeline] SISR on host JPEG batches (HostSISRSampler, "
+        f"libjpeg), {tc.steps_per_epoch} steps a run")
+    t0 = time.perf_counter()
+    warm = sampler.sample(tc.batch_size)
+    sample_ms = (time.perf_counter() - t0) * 1e3
+    trainer.run_step(warm, 0)
+    host = dict(sample_ms_one_batch=sample_ms)
+    fc.reset_launches()
+    for depth in (2, 0):
+        tc.prefetch = depth
+        sampler.reset_seed(depth)
+        ms, stats = epoch_ms(trainer, tc.steps_per_epoch, lambda: (
+            trainer.train_epoch(0, (sampler.sample(tc.batch_size)
+                                    for _ in range(tc.steps_per_epoch)),
+                                log_fn=lambda m: None)))
+        pf = {k: v for k, v in stats.items() if k.startswith("prefetch_")}
+        log(f"  prefetch={depth}: {ms:.1f} ms per step"
+            + (f", prefetcher {pf}" if pf else ""))
+        host[f"prefetch_{depth}"] = dict(ms_per_step=ms, stats=pf)
+    torch.cuda.synchronize()
+    counts = dict(fc.LAUNCHES)
+    launches["train_pipeline_host_jpeg"] = counts
+    log(f"  one host batch sampled in {sample_ms:.1f} ms; launches in "
+        f"{2 * tc.steps_per_epoch} steps {counts}")
+    check_step_launches("train_pipeline host JPEG", counts, HOST_BLUR_STEP,
+                        2 * tc.steps_per_epoch)
+    host["launches"] = counts
+    res["host_jpeg"] = host
+    del trainer, sampler
+
+    # (3) denoising real on a pack file: the native sampler and device data
+    trainer = denoise_trainer("real", steps_per_epoch=10)
+    tc = trainer.cfg
+    gt = textured_records(rng, 64, 256)
+    noisy = np.clip(gt + rng.normal(0, 12, gt.shape), 0, 255).astype(np.uint8)
+    pack = PIPELINE_DIR / "train_real.vpk"
+    write_packdb(pack, noisy, gt)
+    log(f"[train_pipeline] denoising real on a pack of {len(gt)} pairs of "
+        f"256^2: batch {tc.batch_size}, patch {tc.patch_size}^2, "
+        f"{tc.steps_per_epoch} steps a run")
+    sampler = PackDBSampler(pack, tc.patch_size)
+    ds = DeviceDataset.from_packdb(pack)
+    trainer.run_step(sampler.sample(tc.batch_size, raw=True), 0)
+    trainer.run_step_device(ds, 0)
+    real = dict(records_bytes_on_card=ds.nbytes, packdb_prefetch=[],
+                device_data=[])
+    fc.reset_launches()
+    for _ in range(2):      # in turns: the native sampler, device data
+        ms, stats = epoch_ms(trainer, tc.steps_per_epoch, lambda: (
+            trainer.train_epoch(0, (sampler.sample(tc.batch_size, raw=True)
+                                    for _ in range(tc.steps_per_epoch)),
+                                log_fn=lambda m: None)))
+        pf = {k: v for k, v in stats.items() if k.startswith("prefetch_")}
+        real["packdb_prefetch"].append(dict(ms_per_step=ms, stats=pf))
+        log(f"  PackDBSampler + prefetcher: {ms:.2f} ms per step, "
+            f"prefetcher {pf}")
+        ms, _ = epoch_ms(trainer, tc.steps_per_epoch, lambda: (
+            trainer.train_epoch_device(0, ds, tc.steps_per_epoch,
+                                       log_fn=lambda m: None)))
+        real["device_data"].append(dict(ms_per_step=ms))
+        log(f"  DeviceDataset.from_packdb: {ms:.2f} ms per step")
+    torch.cuda.synchronize()
+    counts = dict(fc.LAUNCHES)
+    launches["train_pipeline_real"] = counts
+    log(f"  records on the card {ds.nbytes / 2 ** 20:.1f} MiB; launches in "
+        f"{4 * tc.steps_per_epoch} steps {counts}")
+    if any(counts.values()):
+        raise AssertionError("train_pipeline: the denoising step is built "
+                             "on plain convolutions and launches no kernel "
+                             "of the package")
+    sampler.close()
+    res["real"] = real
+    report["train_pipeline"] = res
+
+
 SIDD_BF16_PATH = {"dncnn_head_fused": 1, "conv3x3_tail_residual": 1}
 SIDD_FP32_PATH = {"dncnn_head_fused": 1, "conv3x3_mid": 6,
                   "conv3x3_tail_residual": 1}
@@ -2085,6 +2422,9 @@ def main(argv=None) -> int:
                   cuda=torch.version.cuda, peaks=dict(table=table, **peaks))
     set_parity_mode()
     t_all = time.perf_counter()
+    report["launch_us"] = {"start": launch_us()}
+    log(f"host cost of one tiny launch at the start: "
+        f"{report['launch_us']['start']:.2f} us")
 
     if "build" in phases:
         t0 = time.perf_counter()
@@ -2280,6 +2620,9 @@ def main(argv=None) -> int:
 
     if "train_sisr" in phases:
         phase_train_sisr(report, launches)
+
+    if "train_pipeline" in phases:
+        phase_train_pipeline(report, launches)
 
     if "train_denoise_fp32" in phases:
         log("[train_denoise_fp32] one denoising training step at 2x64^2, "

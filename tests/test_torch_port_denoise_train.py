@@ -509,8 +509,8 @@ def test_real_cli_trains_and_resumes_from_paired_folders(tmp_path):
 
 
 @pytest.mark.parametrize("key,value,where", [
-    ("device_data", '"True"', "device_data.py"),
-    ("train_pack_file", '"/data/train.pack"', "packdb.py"),
+    ("multihost", "true", "mesh.py"),
+    ("coordinator_address", '"localhost:1234"', "mesh.py"),
     ("auto_resume", "true", "resilience.py"),
     ("rss_limit_mb", "4096", "resilience.py"),
     ("num_processes", "2", "mesh.py"),

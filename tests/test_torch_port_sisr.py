@@ -300,5 +300,14 @@ def test_synthesize_sisr_batch_with_a_generator():
     assert (a.kinfo[:, :2] > 0).all() and (a.kinfo[:, 2].abs() <= 1).all()
     lo, hi = 0.1 / 255, 15.0 / 255
     assert ((a.nlevel >= lo) & (a.nlevel <= hi)).all()
-    with pytest.raises(NotImplementedError, match="ops/jpeg.py"):
-        sisr_synth.synthesize_sisr_batch(im_hr, 2, 5, add_jpeg=True)
+    # the JPEG branch: its draws follow all the others, so the kernels and
+    # the Gaussian std of a JPEG run are those of the Gaussian-only run
+    j = sisr_synth.synthesize_sisr_batch(
+        im_hr, 2, 5, add_jpeg=True, generator=torch.Generator().manual_seed(0))
+    assert torch.equal(j.kinfo, a.kinfo) and torch.equal(j.im_blur, a.im_blur)
+    assert float(j.im_lr.min()) >= 0 and float(j.im_lr.max()) <= 1
+    jpeg = (j.nlevel != a.nlevel).view(-1)
+    # a JPEG sample lands on the uint8 grid; a Gaussian one keeps its std
+    on_grid = (j.im_lr * 255 - torch.round(j.im_lr * 255)).abs().amax(
+        (1, 2, 3)) < 1e-4
+    assert bool(on_grid[jpeg].all()) and 0 < int(jpeg.sum()) < 8

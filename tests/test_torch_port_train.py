@@ -257,7 +257,8 @@ def test_checkpoint_manager_keeps_the_latest(tmp_path):
 
 def test_trainer_entry_points_default_to_the_card(tmp_path):
     """No card here: the trainer and the CLI's build_trainer raise unless
-    device='cpu' is passed; add_jpeg raises, naming what is missing."""
+    device='cpu' is passed; add_jpeg with jpeg_in_graph trains on the
+    device-side codec, and without it on degraded host batches."""
     from virnet_tpu_torch.cli.train_sisr import build_trainer, main
 
     cfg = config.load_config("configs/sisr_x4.json")
@@ -274,10 +275,18 @@ def test_trainer_entry_points_default_to_the_card(tmp_path):
                 4, 21, "bicubic", "both", True, False)
     cfg.update(add_jpeg=True, jpeg_in_graph="True")
     tr = build_trainer(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="ops/jpeg.py"):
-        tr.run_step(np.zeros((2, 32, 32, 3), np.float32), 0)
+    assert tr.cfg.add_jpeg_in_graph and not tr.host_batches
+    out = tr.run_step(np.zeros((2, 32, 32, 3), np.float32), 0)
+    assert all(np.isfinite(float(v)) for v in out.values())
     cfg.update(jpeg_in_graph="False")
-    assert build_trainer(cfg, device="cpu").host_batches
+    tr = build_trainer(cfg, device="cpu")
+    assert tr.host_batches and not tr.cfg.add_jpeg_in_graph
+    host = tuple(np.full(s, 0.5, np.float32) for s in
+                 ((2, 32, 32, 3), (2, 8, 8, 3), (2, 3), (2, 1)))
+    host[2][:] = (1.0, 1.0, 0.0)
+    host[3][:] = 5 / 255
+    out = tr.run_step(host, 0)
+    assert all(np.isfinite(float(v)) for v in out.values())
     with pytest.raises(SystemExit):
         main(["--save_dir", str(tmp_path / "cli"), "--device", "cpu"])
 

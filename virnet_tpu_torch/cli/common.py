@@ -22,12 +22,9 @@ from ..precision import im2col_convs
 # where ROADMAP.md queues them: by the item's title, never its number,
 # which changes when the queue is renumbered
 _QUEUE = "in ROADMAP.md's Queue 1, modules still to port"
-_INPUT = f"the input pipeline, {_QUEUE}"
 _RUNTIME = f"multi-device and runtime, {_QUEUE}"
 _REMAINDER = f"the remainder, {_QUEUE}"
 UNPORTED = {
-    "device_data": f"data/device_data.py ({_INPUT})",
-    "train_pack_file": f"data/packdb.py ({_INPUT})",
     "auto_resume": f"train/resilience.py ({_RUNTIME})",
     "rss_limit_mb": f"train/resilience.py ({_RUNTIME})",
     "multihost": f"train/mesh.py ({_RUNTIME})",

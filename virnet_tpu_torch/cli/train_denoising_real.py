@@ -6,8 +6,14 @@ virnet_tpu/cli/train_denoising_real.py; reference train_denoising_real.py).
 
 Paired noisy/GT patches come from a SIDD-style folder pair
 (<root>/noisy/*.png, <root>/gt/*.png, the config's ``train_pch_dir`` being
-the noisy folder); MixUp and the sigma^2-prior residual filter run on the
-device inside the train step.  Per epoch: validation on the SIDD
+the noisy folder), or from the pack file ``train_pack_file`` through the
+native sampler of data/packdb.py (a pack is written by
+``data/packdb.pack_from_folders`` or converted from the reference's LMDB
+by ``data/lmdb_convert``), through the prefetcher (``prefetch`` batches
+ahead, default 2; 0 switches it off).  ``device_data`` keeps the pack's
+records on the device and samples every batch there; it needs
+``train_pack_file``.  MixUp and the sigma^2-prior residual filter run on
+the device inside the train step.  Per epoch: validation on the SIDD
 validation .mat pair (``test_noisy_path``, ``test_gt_path``; skipped when
 either is missing), PSNR and SSIM logged; a checkpoint under
 ``<save_dir>/ckpts``; the epoch's mean loss and the validation scores as
@@ -16,8 +22,7 @@ latest`` (or a saved epoch number) continues from a checkpoint.  The
 trainer runs on the card unless ``--device cpu`` is given.
 
 Not ported yet, and refused when the config asks for them:
-``device_data``, ``train_pack_file``, ``auto_resume``, the RSS watchdog
-and multi-host runs.
+``auto_resume``, the RSS watchdog and multi-host runs.
 """
 
 from __future__ import annotations
@@ -27,6 +32,8 @@ from pathlib import Path
 import numpy as np
 
 from ..config import as_bool
+from ..data.device_data import DeviceDataset
+from ..data.packdb import PackDBSampler
 from ..data.sources import PairedPatchSampler
 from ..train.logging import TrainWriter, make_log
 from ..train.loop_denoise import DenoiseTrainConfig, DenoiseTrainer
@@ -49,6 +56,7 @@ def build_trainer(cfg: dict, device="cuda") -> DenoiseTrainer:
         clip_grad_S=cfg.get("clip_grad_S", 1e2),
         eps2=cfg.get("eps2", 1e-6), var_window=cfg.get("var_window", 7),
         use_mixup=as_bool(cfg.get("use_mixup", True)),
+        prefetch=int(cfg.get("prefetch", 2)),
         mixed_precision=as_bool(cfg.get("mixed_precision", True)),
         remat=as_bool(cfg.get("remat", False)),
         save_dir=cfg["save_dir"], print_freq=cfg.get("print_freq", 100))
@@ -84,21 +92,43 @@ def main(argv=None) -> None:
     trainer = build_trainer(cfg, device=args.device)
     writer = TrainWriter(save_dir / "logs")
 
-    if not any(Path(cfg["train_pch_dir"]).glob("*.png")):
-        raise SystemExit("no training patches found — check train_pch_dir")
-    sampler = PairedPatchSampler(cfg["train_pch_dir"], cfg["patch_size"])
-    logger.info(f"Number of training patch pairs: {len(sampler.noisy)}")
+    dataset = sampler = None
+    if as_bool(cfg.get("device_data", False)):
+        if not cfg.get("train_pack_file"):
+            raise ValueError("device_data=true needs train_pack_file "
+                             "(fixed-size records); pack folders with "
+                             "data/packdb.pack_from_folders or convert "
+                             "LMDB via data/lmdb_convert")
+        dataset = DeviceDataset.from_packdb(cfg["train_pack_file"],
+                                            device=trainer.device)
+        logger.info(f"Device-resident records: {dataset.num_records} x "
+                    f"{dataset.rec_shape}")
+    elif cfg.get("train_pack_file"):
+        sampler = PackDBSampler(cfg["train_pack_file"], cfg["patch_size"])
+        logger.info(f"Number of training records (packdb): {len(sampler)}")
+    else:
+        if not any(Path(cfg["train_pch_dir"]).glob("*.png")):
+            raise SystemExit("no training patches found — check "
+                             "train_pch_dir")
+        sampler = PairedPatchSampler(cfg["train_pch_dir"],
+                                     cfg["patch_size"])
+        logger.info(f"Number of training patch pairs: "
+                    f"{len(sampler.noisy)}")
     have_val = all(cfg.get(k) and Path(cfg[k]).exists()
                    for k in ("test_noisy_path", "test_gt_path"))
     steps = cfg.get("steps_per_epoch", 10000)
 
     for epoch in range(resume_epoch(trainer, cfg.get("resume"), logger.info),
                        cfg["epochs"]):
-        sampler.reset_seed(epoch)
-        # uint8 pairs to the device; the trainer normalizes there
-        batches = (sampler.sample(cfg["batch_size"], raw=True)
-                   for _ in range(steps))
-        stats = trainer.train_epoch(epoch, batches, log_fn=logger.info)
+        if dataset is not None:
+            stats = trainer.train_epoch_device(epoch, dataset, steps,
+                                               log_fn=logger.info)
+        else:
+            sampler.reset_seed(epoch)
+            # uint8 pairs to the device; the trainer normalizes there
+            batches = (sampler.sample(cfg["batch_size"], raw=True)
+                       for _ in range(steps))
+            stats = trainer.train_epoch(epoch, batches, log_fn=logger.info)
         writer.scalar("Loss_epoch", stats.get("loss", 0.0), epoch)
         if have_val:
             validate(eval_restore_fn(trainer.model, trainer.device),

@@ -5,9 +5,18 @@ reference train_SISR.py).
         --config configs/sisr_x4.json --save_dir ./run1 [--device cpu]
 
 HR patches stream from a RAM cache of the PNGs under the config's
-``train_hr_patchs``; the whole degradation pipeline runs on the device
-inside the train step.  Per epoch: validation on the images under
-``val_hr_path`` (Set14 in the configs; skipped when there are none), one
+``train_hr_patchs`` through the prefetcher (``prefetch`` batches ahead,
+default 2; 0 switches it off), and the whole degradation pipeline runs on
+the device inside the train step.  ``add_jpeg`` adds the JPEG noise
+type: with ``jpeg_in_graph`` on the device (ops/jpeg.py), otherwise with
+libjpeg on the host (data/sisr_host.py, the reference's own semantics),
+which degrades whole batches there.  ``device_data`` crops
+``device_records_per_image`` (default 4) records of
+``device_record_size``^2 (default max(hr_size, 256)) from each image once,
+keeps them on the device and samples every batch there; it needs the
+degradation on the device, so it is refused with host JPEG.  Per epoch:
+validation on the images under ``val_hr_path`` (Set14 in the configs;
+skipped when there are none), one
 ``data/eval_sets.SISRValSet`` per noise type (Gaussian; JPEG too with
 ``add_jpeg``), PSNR and SSIM on the Y channel with a border of sf^2
 logged and written as TensorBoard scalars (where tensorboardX is
@@ -15,10 +24,9 @@ installed); a checkpoint under ``<save_dir>/ckpts``.  The trainer runs on
 the card unless ``--device cpu`` is given.  ``--resume latest`` (or a
 saved epoch number) continues from a checkpoint.
 
-Not ported yet: the TensorBoard image and kernel summaries and the
-host-side JPEG degradation (data/sisr_host.py); device-resident data,
-``auto_resume``, the RSS watchdog and multi-host runs are refused when the
-config asks for them.
+Not ported yet: the TensorBoard image and kernel summaries; ``auto_resume``,
+the RSS watchdog and multi-host runs are refused when the config asks for
+them.
 """
 
 from __future__ import annotations
@@ -26,7 +34,9 @@ from __future__ import annotations
 from pathlib import Path
 
 from ..config import as_bool
+from ..data.device_data import DeviceDataset, records_from_images
 from ..data.eval_sets import SISRValSet
+from ..data.sisr_host import HostSISRSampler
 from ..data.sources import ImageCache, PatchSampler
 from ..train.logging import TrainWriter, make_log
 from ..train.loop_sisr import SISRTrainConfig, SISRTrainer
@@ -57,6 +67,7 @@ def build_trainer(cfg: dict, device="cuda") -> SISRTrainer:
         var_window=cfg.get("var_window", 9),
         kappa0=cfg.get("kappa0", 50),
         penalty_K=tuple(cfg.get("penalty_K", (0.02, 2))),
+        prefetch=int(cfg.get("prefetch", 2)),
         mixed_precision=as_bool(cfg.get("mixed_precision", True)),
         remat=as_bool(cfg.get("remat", False)),
         add_jpeg_in_graph=(as_bool(cfg.get("add_jpeg", False))
@@ -103,16 +114,34 @@ def main(argv=None) -> None:
         logger.info(f"{k:<16s}: {v}")
 
     trainer = build_trainer(cfg, device=args.device)
-    if trainer.host_batches:
-        raise NotImplementedError(
-            "add_jpeg without jpeg_in_graph needs the host-side degradation "
-            "(data/sisr_host.py), which is not ported yet")
     hr_paths = sorted(str(p) for p in
                       Path(cfg["train_hr_patchs"]).glob("*.png"))
     if not hr_paths:
         raise SystemExit("no HR patches found — check train_hr_patchs")
     logger.info(f"Number of HR patches: {len(hr_paths)}")
-    sampler = PatchSampler(ImageCache(hr_paths), cfg["hr_size"])
+    dataset = sampler = None
+    if as_bool(cfg.get("device_data", False)):
+        if trainer.host_batches:
+            raise SystemExit("device_data is incompatible with the JPEG "
+                             "noise branch (host-side libjpeg)")
+        dataset = DeviceDataset(records_from_images(
+            hr_paths,
+            int(cfg.get("device_record_size", max(cfg["hr_size"], 256))),
+            per_image=int(cfg.get("device_records_per_image", 4))),
+            device=trainer.device)
+        logger.info(f"Device-resident HR records: {dataset.num_records} x "
+                    f"{dataset.rec_shape}")
+    elif trainer.host_batches:
+        sampler = HostSISRSampler(
+            ImageCache(hr_paths), cfg["hr_size"], cfg["sf"],
+            k_size=cfg.get("k_size", 21),
+            kernel_shift=as_bool(cfg.get("kernel_shift", False)),
+            downsampler=str(cfg.get("downsampler", "Bicubic")).lower(),
+            noise_level=tuple(cfg.get("noise_level", (0.1, 15))),
+            noise_jpeg=tuple(cfg.get("noise_jpeg", (0.1, 10))),
+            add_jpeg=True)
+    else:
+        sampler = PatchSampler(ImageCache(hr_paths), cfg["hr_size"])
     sf = cfg["sf"]
     val_sets = sisr_val_sets(cfg)
     writer = TrainWriter(save_dir / "logs")
@@ -120,10 +149,18 @@ def main(argv=None) -> None:
 
     for epoch in range(resume_epoch(trainer, cfg.get("resume"), logger.info),
                        cfg["epochs"]):
-        sampler.reset_seed(epoch * 1000)
-        batches = (sampler.sample(cfg["batch_size"], raw=True)
-                   for _ in range(steps))
-        stats = trainer.train_epoch(epoch, batches, log_fn=logger.info)
+        if dataset is not None:
+            stats = trainer.train_epoch_device(epoch, dataset, steps,
+                                               log_fn=logger.info)
+        else:
+            sampler.reset_seed(epoch * 1000)
+            # HR patches go as uint8 (normalized on the device); the host
+            # sampler's degraded batches are float
+            batches = (sampler.sample(cfg["batch_size"])
+                       if trainer.host_batches else
+                       sampler.sample(cfg["batch_size"], raw=True)
+                       for _ in range(steps))
+            stats = trainer.train_epoch(epoch, batches, log_fn=logger.info)
         writer.scalar("Loss_epoch", stats.get("loss", 0.0), epoch)
         for nt, val_set in val_sets.items():
             validate(eval_restore_fn(trainer.model, trainer.device, sf=sf),

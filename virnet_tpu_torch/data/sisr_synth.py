@@ -12,8 +12,10 @@ Parity notes:
     is transposed to match;
   * the host pipeline pads with scipy's edge-repeating 'reflect'
     (= 'symmetric') and uses true convolution (flipped kernel);
-  * the JPEG noise branch (``add_jpeg``) needs ops/jpeg.py, which is not
-    ported yet.
+  * the JPEG noise branch (``add_jpeg``) runs on the device through the
+    block-DCT codec of ops/jpeg.py (a measured-close float approximation
+    of libjpeg); the exact libjpeg path is the host sampler
+    (data/sisr_host.py), and validation always uses libjpeg.
 
 Every draw takes a ``torch.Generator`` or the drawn tensors themselves
 (``draws``), so a test can hand this package and the JAX package the same
@@ -28,7 +30,13 @@ from typing import NamedTuple, Optional
 import torch
 
 from ..ops.degrade import blur_per_sample, downsample
+from ..ops.jpeg import jpeg_degrade
 from ..ops.kernels import sigma2kernel
+
+# the MATLAB-style JPEG quality table (reference
+# datasets/SISRDatasets.py:52-60): (start, end) buckets, inclusive
+QF_START = (30, 35, 40, 45, 60, 70, 80)
+QF_END = (35, 40, 45, 60, 70, 80, 95)
 
 
 class SISRBatch(NamedTuple):
@@ -80,6 +88,33 @@ def blur_symmetric_convolve(x: torch.Tensor,
     return blur_per_sample(x, kernels, correlate=False, pad_mode="symmetric")
 
 
+_QF_TABLES: dict = {}
+
+
+def _qf_table(device) -> torch.Tensor:
+    """(QF_START; QF_END) as a float32 (2, 7) tensor on ``device``, copied
+    there once (a copy from pageable host memory makes the host wait for
+    the card)."""
+    key = torch.device(device)
+    if key not in _QF_TABLES:
+        _QF_TABLES[key] = torch.tensor((QF_START, QF_END),
+                                       dtype=torch.float32, device=device)
+    return _QF_TABLES[key]
+
+
+def random_qf_device(batch: int, device,
+                     generator: Optional[torch.Generator] = None
+                     ) -> torch.Tensor:
+    """Per-sample JPEG quality factors from the table (the device twin of
+    data/sisr_host.random_qf): a (start, end) bucket uniformly, then an
+    integer uniformly inside it, as float32 (N,)."""
+    ind = torch.randint(0, len(QF_START), (batch,), generator=generator,
+                        device=device)
+    lo, hi = _qf_table(device)[:, ind]
+    u = torch.rand((batch,), generator=generator, device=device)
+    return torch.minimum(lo + torch.floor(u * (hi - lo + 1.0)), hi)
+
+
 @torch.no_grad()
 def synthesize_sisr_batch(im_hr: torch.Tensor, sf: int, k_size: int = 21,
                           kernel_shift: bool = False,
@@ -91,11 +126,17 @@ def synthesize_sisr_batch(im_hr: torch.Tensor, sf: int, k_size: int = 21,
     """HR batch (N, H, W, C) float32 -> degraded training batch, on the
     device of ``im_hr``.  ``draws`` holds the kernel draws of
     ``sample_kernel_params`` plus ``nlevel`` (N,), the noise std, and
-    ``noise``, standard normals of the LR shape."""
-    if add_jpeg:
-        raise NotImplementedError(
-            "the JPEG noise branch needs ops/jpeg.py, which is not ported "
-            "yet")
+    ``noise``, standard normals of the LR shape; with ``add_jpeg`` also
+    ``is_jpeg`` (N,) bool, ``nlevel_jpeg`` (N,), the std of a JPEG
+    sample, and ``qf`` (N,).
+
+    With ``add_jpeg`` each sample draws its noise type with probability
+    1/2 each (reference datasets/SISRDatasets.py:102-114): Gaussian at
+    U(noise_level)/255, or Gaussian at U(noise_jpeg)/255 followed by a
+    JPEG round trip at a table-drawn quality (ops/jpeg.jpeg_degrade).
+    ``nlevel`` is the Gaussian std in both branches, as in the reference.
+    The JPEG draws come after all the others, so a Gaussian-only run
+    draws what it drew before the JPEG branch existed."""
     batch, dev = im_hr.shape[0], im_hr.device
     cov, kinfo = sample_kernel_params(batch, sf, generator, draws, dev)
     # torch-convention kernel transposed == numpy/data-convention kernel
@@ -111,7 +152,21 @@ def synthesize_sisr_batch(im_hr: torch.Tensor, sf: int, k_size: int = 21,
         noise = torch.randn(im_blur_lr.shape, generator=generator, device=dev)
     else:
         std, noise = draws["nlevel"], draws["noise"]
+    if add_jpeg:
+        if draws is None:
+            is_jpeg = torch.rand((batch,), generator=generator,
+                                 device=dev) < 0.5
+            std_j = _uniform((batch,), noise_jpeg[0] / 255.0,
+                             noise_jpeg[1] / 255.0, generator, dev)
+            qf = random_qf_device(batch, dev, generator)
+        else:
+            is_jpeg, std_j, qf = (draws["is_jpeg"], draws["nlevel_jpeg"],
+                                  draws["qf"])
+        std = torch.where(is_jpeg, std_j, std)
     im_lr = torch.clamp(im_blur_lr + noise * std.view(batch, 1, 1, 1),
                         0.0, 1.0)
+    if add_jpeg:
+        im_lr = torch.where(is_jpeg.view(batch, 1, 1, 1),
+                            jpeg_degrade(im_lr, qf), im_lr)
     return SISRBatch(im_hr=im_hr, im_lr=im_lr, im_blur=im_blur_lr,
                      kinfo=kinfo, nlevel=std.reshape(batch, 1))

@@ -15,8 +15,14 @@ beta0 = alpha0 * sigma_gt.  The model is built with ``conv_impl='torch'``:
 the fused SNet, head and tail kernels are forward-only, as the Pallas
 kernels they replace are, so the step launches no kernel of this package.
 
-Not ported yet: the data mesh, the device prefetcher and device-resident
-data (``run_step_device`` / ``train_epoch_device``).
+Input: host batches (``train_epoch``, through the prefetcher of
+data/prefetch.py when ``cfg.prefetch > 0``) or records resident on the
+device (``run_step_device`` / ``train_epoch_device``, data/device_data.py:
+GT records for synthetic mode, paired records for real mode, whose noisy
+and GT crops share their record, offsets and dihedral mode); the patch
+draws come from the step's generator before the synthesis draws.  Not
+ported yet: the data mesh and RNet rematerialization (``remat`` is
+accepted and does nothing).
 """
 
 from __future__ import annotations
@@ -28,7 +34,9 @@ from typing import Callable, Dict, Optional
 import torch
 
 from ..data.denoise_synth import synthesize_noisy_batch
+from ..data.device_data import DeviceDataset, sample_patches
 from ..data.mixup import mixup_pairs
+from ..data.prefetch import DevicePrefetcher
 from ..losses.elbo import elbo_denoising
 from ..models.virnet import VIRNet
 from ..ops.degrade import noise_estimate
@@ -61,8 +69,8 @@ class DenoiseTrainConfig:
     eps2: float = 1e-6
     var_window: int = 7
     noise_mode: str = "niid"    # niid | iid  (synthetic mode)
-    prefetch: int = 2           # accepted for config compatibility; no
-                                # prefetcher is ported yet, so it is a no-op
+    prefetch: int = 2           # host batches in flight ahead of the step
+                                # (data/prefetch.py; 0 switches it off)
     mixed_precision: bool = True  # bf16 autocast around the model forward
                                   # (parameters and Adam state stay fp32)
     remat: bool = False         # accepted for config compatibility; a no-op
@@ -119,6 +127,8 @@ class DenoiseTrainer:
         """(im_noisy, im_gt, sigma_gt) on the device."""
         cfg = self.cfg
         noise = noise or {}
+        if isinstance(data, DeviceDataset):
+            data = self._sample(data, noise.get("sample"))
         if self.real:
             im_noisy, im_gt = (self._to_device(t) for t in data)
             if cfg.use_mixup:
@@ -133,16 +143,32 @@ class DenoiseTrainer:
             draws=noise.get("synth"))
         return im_noisy, im_gt, sigma_gt
 
+    def _sample(self, dataset: DeviceDataset, draws: Optional[dict]):
+        """A uint8 batch drawn on the device from ``dataset``'s records: GT
+        patches (synthetic) or (noisy, gt) pairs with shared draws
+        (real)."""
+        if dataset.paired != self.real:
+            raise ValueError(
+                "real-noise training needs paired (noisy, gt) records and "
+                "synthetic training GT records alone; got "
+                f"{'paired' if dataset.paired else 'unpaired'} records")
+        arrays = dataset.arrays
+        return sample_patches(arrays[0], self.cfg.batch_size,
+                              self.cfg.patch_size,
+                              extra=arrays[1] if self.real else None,
+                              generator=self.generator, draws=draws)
+
     def loss_and_grads(self, batch, epoch: int, noise: Optional[dict] = None):
         """Forward and backward of one step; the gradients are left in the
         parameters' ``.grad``.  ``batch``: GT NHWC (synthetic) or a (noisy,
-        gt) pair (real), float in [0, 1] or uint8.  ``noise``: dict(synth=
-        the draws of synthesize_noisy_batch, mixup=(indices, lam)), each
-        optional, in place of the per-step generator.  Returns (loss, aux
-        scalars).  TF32 is off from the synthesis to the end of the
-        backward (the convolutions run in bf16 under autocast when
-        ``mixed_precision``), and the process-wide flags are put back
-        afterwards."""
+        gt) pair (real), float in [0, 1] or uint8, or a DeviceDataset to
+        sample from.  ``noise``: dict(synth=the draws of
+        synthesize_noisy_batch, mixup=(indices, lam), sample=the draws of
+        data/device_data.sample_patches), each optional, in place of the
+        per-step generator.  Returns (loss, aux scalars).  TF32 is off from
+        the synthesis to the end of the backward (the convolutions run in
+        bf16 under autocast when ``mixed_precision``), and the process-wide
+        flags are put back afterwards."""
         with parity_mode():
             return self._loss_and_grads(batch, epoch, noise)
 
@@ -173,19 +199,49 @@ class DenoiseTrainer:
         aux.update(loss=loss, gnorm_r=norms["rnet"], gnorm_s=norms["snet"])
         return aux
 
+    def run_step_device(self, dataset: DeviceDataset, epoch: int,
+                        noise: Optional[dict] = None
+                        ) -> Dict[str, torch.Tensor]:
+        """One optimization step on a batch sampled on the device from
+        ``dataset``'s records: sampling, synthesis (or MixUp) draw from
+        the step's generator, so a resumed run draws what the
+        uninterrupted run would have."""
+        return self.run_step(dataset, epoch, noise)
+
     def train_epoch(self, epoch: int, batch_iter,
                     log_fn: Optional[Callable] = None) -> Dict[str, float]:
+        """One epoch over host batches, through the prefetcher when
+        ``cfg.prefetch > 0``; its stats come back as ``prefetch_*``."""
+        if self.cfg.prefetch <= 0:
+            return self._epoch(epoch, batch_iter, self.cfg.steps_per_epoch,
+                               log_fn)
+        with DevicePrefetcher(batch_iter, self.device,
+                              self.cfg.prefetch) as batches:
+            out = self._epoch(epoch, batches, self.cfg.steps_per_epoch,
+                              log_fn)
+        out.update({f"prefetch_{k}": v for k, v in batches.stats.items()})
+        return out
+
+    def train_epoch_device(self, epoch: int, dataset: DeviceDataset,
+                           steps: int, log_fn: Optional[Callable] = None
+                           ) -> Dict[str, float]:
+        """``steps`` steps of ``run_step_device`` on ``dataset``."""
+        return self._epoch(epoch, (dataset for _ in range(steps)), steps,
+                           log_fn)
+
+    def _epoch(self, epoch: int, batches, steps: int,
+               log_fn: Optional[Callable]) -> Dict[str, float]:
         cfg = self.cfg
         tic = time.time()
         sums: Dict[str, float] = {}
         count = 0
-        for ii, batch in enumerate(batch_iter):
+        for ii, batch in enumerate(batches):
             aux = self.run_step(batch, epoch)
             if (ii + 1) % cfg.print_freq == 0 or ii == 0:
                 vals = {k: float(v) for k, v in aux.items()}
                 lr = self.schedule(self.step)
                 msg = (f"[Epoch:{epoch + 1:>2d}/{cfg.epochs:<2d}] "
-                       f"train:{ii + 1:0>5d}/{cfg.steps_per_epoch:0>5d}, "
+                       f"train:{ii + 1:0>5d}/{steps:0>5d}, "
                        f"lh={vals['lh']:+4.2f}, KLG={vals['kl_gauss']:+7.2f}, "
                        f"KLIG={vals['kl_ig']:+6.2f}, "
                        f"GNorm_R={vals['gnorm_r']:.1e}, "

@@ -15,8 +15,13 @@ sigma prior = nlevel^2, alpha0 = 0.5 * var_window^2, kappa0 and penalty_K
 from the config.  The model is built with ``conv_impl='torch'``: the fused
 SNet and tail kernels are forward-only.
 
-Not ported yet: the data mesh, the device prefetcher and device-resident
-data (``run_step_device``).
+Input: host HR batches (``train_epoch``, through the prefetcher of
+data/prefetch.py when ``cfg.prefetch > 0``), already degraded host batches
+(``host_batches``, the libjpeg path of data/sisr_host.py), or HR records
+resident on the device (``run_step_device`` / ``train_epoch_device``,
+data/device_data.py), where the patch draws come from the step's
+generator before the synthesis draws.  Not ported yet: the data mesh and
+RNet rematerialization (``remat`` is accepted and does nothing).
 """
 
 from __future__ import annotations
@@ -27,6 +32,8 @@ from typing import Callable, Dict, Optional
 
 import torch
 
+from ..data.device_data import DeviceDataset, sample_patches
+from ..data.prefetch import DevicePrefetcher
 from ..data.sisr_synth import SISRBatch, synthesize_sisr_batch
 from ..losses.elbo import elbo_sisr
 from ..models.virnet import VIRNetSR
@@ -54,8 +61,8 @@ class SISRTrainConfig:
     kernel_shift: bool = False
     downsampler: str = "bicubic"
     noise_level: tuple = (0.01, 15.0)
-    add_jpeg_in_graph: bool = False   # device-side JPEG noise branch; needs
-                                      # ops/jpeg.py, not ported yet: raises
+    add_jpeg_in_graph: bool = False   # device-side JPEG noise branch
+                                      # (ops/jpeg.py)
     noise_jpeg: tuple = (0.1, 10.0)
     # training
     batch_size: int = 16
@@ -73,8 +80,8 @@ class SISRTrainConfig:
     var_window: int = 9
     kappa0: float = 50.0
     penalty_K: tuple = (0.02, 2.0)
-    prefetch: int = 2           # accepted for config compatibility; no
-                                # prefetcher is ported yet, so it is a no-op
+    prefetch: int = 2           # host batches in flight ahead of the step
+                                # (data/prefetch.py; 0 switches it off)
     mixed_precision: bool = True  # bf16 autocast around the model forward
                                   # (parameters and Adam state stay fp32)
     remat: bool = False         # accepted for config compatibility; a no-op
@@ -135,6 +142,14 @@ class SISRTrainer:
 
     def _batch(self, data, noise: Optional[dict]) -> SISRBatch:
         cfg = self.cfg
+        noise = noise or {}
+        if isinstance(data, DeviceDataset):
+            if self.host_batches:
+                raise ValueError("device-resident data requires on-device "
+                                 "degradation (host_batches=False)")
+            data = sample_patches(data.arrays[0], cfg.batch_size,
+                                  cfg.hr_size, generator=self.generator,
+                                  draws=noise.get("sample"))
         if self.host_batches:
             im_hr, im_lr, kinfo_gt, nlevel = (self._to_device(t)
                                               for t in data)
@@ -144,13 +159,14 @@ class SISRTrainer:
             self._to_device(data), cfg.sf, cfg.k_size,
             cfg.kernel_shift, cfg.downsampler, cfg.noise_level,
             add_jpeg=cfg.add_jpeg_in_graph, noise_jpeg=cfg.noise_jpeg,
-            generator=self.generator, draws=(noise or {}).get("synth"))
+            generator=self.generator, draws=noise.get("synth"))
 
     def loss_and_grads(self, data, epoch: int, noise: Optional[dict] = None):
         """Forward and backward of one step; the gradients are left in the
         parameters' ``.grad``.  ``noise``: dict(synth=the draws of
-        synthesize_sisr_batch, elbo=the noise of elbo_sisr), each optional,
-        in place of the per-step generator.  Returns (loss, aux scalars).
+        synthesize_sisr_batch, elbo=the noise of elbo_sisr, sample=the
+        draws of data/device_data.sample_patches), each optional, in place
+        of the per-step generator.  Returns (loss, aux scalars).
         TF32 is off from the synthesis to the end of the backward (the
         blur, the resize and the ELBO are full f32; the convolutions run
         in bf16 under autocast when ``mixed_precision``), and the
@@ -190,19 +206,50 @@ class SISRTrainer:
                    gnorm_k=norms["knet"])
         return aux
 
+    def run_step_device(self, dataset: DeviceDataset, epoch: int,
+                        noise: Optional[dict] = None
+                        ) -> Dict[str, torch.Tensor]:
+        """One training step on an HR batch sampled on the device from
+        ``dataset``'s records (random record, crop and dihedral mode), then
+        degraded there: sampling, synthesis and the ELBO all draw from the
+        step's generator, so a resumed run draws what the uninterrupted
+        run would have.  Raises with ``host_batches``."""
+        return self.run_step(dataset, epoch, noise)
+
     def train_epoch(self, epoch: int, batch_iter,
                     log_fn: Optional[Callable] = None) -> Dict[str, float]:
+        """One epoch over host batches, through the prefetcher when
+        ``cfg.prefetch > 0``; its stats come back as ``prefetch_*``."""
+        if self.cfg.prefetch <= 0:
+            return self._epoch(epoch, batch_iter, self.cfg.steps_per_epoch,
+                               log_fn)
+        with DevicePrefetcher(batch_iter, self.device,
+                              self.cfg.prefetch) as batches:
+            out = self._epoch(epoch, batches, self.cfg.steps_per_epoch,
+                              log_fn)
+        out.update({f"prefetch_{k}": v for k, v in batches.stats.items()})
+        return out
+
+    def train_epoch_device(self, epoch: int, dataset: DeviceDataset,
+                           steps: int, log_fn: Optional[Callable] = None
+                           ) -> Dict[str, float]:
+        """``steps`` steps of ``run_step_device`` on ``dataset``."""
+        return self._epoch(epoch, (dataset for _ in range(steps)), steps,
+                           log_fn)
+
+    def _epoch(self, epoch: int, batches, steps: int,
+               log_fn: Optional[Callable]) -> Dict[str, float]:
         cfg = self.cfg
         tic = time.time()
         sums: Dict[str, float] = {}
         count = 0
-        for ii, batch in enumerate(batch_iter):
+        for ii, batch in enumerate(batches):
             aux = self.run_step(batch, epoch)
             if (ii + 1) % cfg.print_freq == 0 or ii == 0:
                 vals = {k: float(v) for k, v in aux.items()}
                 lr = self.schedule(self.step)
                 msg = (f"[Epoch:{epoch + 1:>2d}/{cfg.epochs:<2d}] "
-                       f"train:{ii + 1:0>5d}/{cfg.steps_per_epoch:0>5d}, "
+                       f"train:{ii + 1:0>5d}/{steps:0>5d}, "
                        f"lh={vals['lh']:+4.2f}, KLR={vals['kl_rnet']:+6.2f}, "
                        f"KLS={vals['kl_snet']:+6.2f}, "
                        f"KLK={vals['kl_knet']:+6.2f}, lr={lr:.2e}")
