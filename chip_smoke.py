@@ -5,7 +5,7 @@
                            ops,real,fp32,psnr,probe,sisr_fwd,serve_sisr,
                            train_fp32,
                            train_sisr,train_pipeline,train_denoise_fp32,
-                           train_denoise,eval_tables]
+                           train_denoise,eval_tables,runtime]
                           [--report PATH]
 
 Phases (all by default; any failure raises and the exit code is not 0):
@@ -132,9 +132,33 @@ Phases (all by default; any failure raises and the exit code is not 0):
              (rtol 1e-4); the host SSIM against the cv2 version it
              replaced (ms and difference, bar 1e-12); the eval command
              lines' parameter and FLOPs lines
+  runtime    the multi-device and runtime modules at full width with the
+             demo weights.  Row-sharded restores (eval/spatial.py) on
+             mesh = [cuda:0] x 4: denoising syn and real on a seeded
+             smooth 2048x1536 image (halo 160) and SISR x4 384x512 ->
+             1536x2048 (halo 64, noise_avg), fp32 and bf16, against the
+             raw whole-image forward on the card (fp32 max abs 1e-5; bf16
+             PSNR against the clean image within 0.01 dB), exactly one K2
+             chain and one K4 per run, each held against its plain version
+             on the run's own arguments, peak memory and ms of both
+             routes; Restorer(bf16, mesh=[cuda:0] x 2) on 33 x 256^2
+             against no mesh, K3 + K4 once per chunk, held on a chunk's
+             arguments; the SISR step of configs/sisr_x4.json, world 1 on
+             NCCL against the plain trainer (10 steps, the same bits; K5
+             x2, K6, K7 held on a step's arguments; ms in turns) and two
+             ranks spawned on the card over gloo (fp32, 8 rows each, 5
+             steps) against one process (loss rtol 1e-5, parameters atol
+             1e-5); remat on against off for the syn and SISR steps (the
+             same bits in the loss and every gradient; peak memory and ms
+             in turns); two runs of each step with cuDNN deterministic and
+             with TF32 off alone (differing tensors counted; ms in turns);
+             cli/resilience_proof on configs/denoising_syn.json (2 x 20
+             steps, killed at epoch 2 step 10: bitwise); cli/endurance
+             --minutes 0.5 --mode real through the pack and with
+             --device_data
 
 Every main-path phase (serve, serve_odd, ops, real, fp32, probe,
-serve_sisr, train_sisr, train_pipeline, eval_tables) zeroes the
+serve_sisr, train_sisr, train_pipeline, eval_tables, runtime) zeroes the
 launch counters, drives its path once and reads them; it fails if a kernel
 of its path did not launch.  The line before the card's line is one JSON
 object with the kernels' numbers: times and errors from the syn weights
@@ -172,7 +196,7 @@ ALL_PHASES = ("build", "kernels", "serve", "profile", "serve_odd", "ops",
               "real", "fp32", "psnr", "probe", "sisr_fwd", "serve_sisr",
               "train_fp32",
               "train_sisr", "train_pipeline", "train_denoise_fp32",
-              "train_denoise", "eval_tables")
+              "train_denoise", "eval_tables", "runtime")
 SYN_CKPT = ROOT / "model_zoo" / "virnet_denoising_syn_demo.pth"
 REAL_CKPT = ROOT / "model_zoo" / "virnet_denoising_real_demo.pth"
 SISR_CKPT = ROOT / "model_zoo" / "virnet_sisr_x4_demo.pth"
@@ -2387,6 +2411,603 @@ def phase_eval_tables(report, launches, sidd=(40, 32, 256), fp32_blocks=64,
     report["eval_tables"] = res
 
 
+RUNTIME_DIR = ROOT / "build" / "chip_smoke_runtime"
+SHARD_PATH = {"dncnn_fused": 1, "conv3x3_tail_residual": 1}
+
+
+def wall_ms(fn, reps=1):
+    """Host ms per call of ``fn``, synchronised on both ends (one call
+    first, unmeasured); returns (ms, the last call's result)."""
+    out = fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        out = fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / reps * 1e3, out
+
+
+def peak_ms(fn, reps=1):
+    """(peak bytes of one call, ms per call by wall_ms, result)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fn()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    ms, out = wall_ms(fn, reps)
+    return peak, ms, out
+
+
+def check_exact(name, got, want):
+    """Two bit patterns that must be one: fails with the largest
+    difference otherwise."""
+    if not torch.equal(got, want):
+        d = float((got.double() - want.double()).abs().max())
+        raise AssertionError(f"{name}: differs (max abs {d:.3g}), expected "
+                             f"the same bits")
+
+
+def shard_case(key, launches, restorer, im, ref_clean, mesh, halo, out_hw):
+    """restore_image_sharded of ``im`` on ``mesh`` against the raw
+    whole-image forward (restore_batch) on the same card: launches of the
+    sharded run (exactly one K2 chain and one K4: one stage batch on one
+    card), K2, its K1 levels and K4 against their plain versions on the
+    sharded run's own arguments, the max abs difference (fp32: 1e-5) and,
+    in bf16, the PSNR against ``ref_clean`` of both routes (within 0.01
+    dB), and the peak memory and ms of each route."""
+    from virnet_tpu_torch.models import attresunet
+    from virnet_tpu_torch.ops import fused_conv as fc
+
+    def whole():
+        return restorer.restore_batch(im[None])[0]
+
+    def sharded():
+        return restorer.restore_image_sharded(im, mesh, halo=halo)
+
+    out, counts = run_path(key, sharded, tuple(SHARD_PATH))
+    launches[key] = counts
+    check_image(key, out, out_hw)
+    extra = {k: n for k, n in counts.items()
+             if k not in ("conv3x3_mid",) and n != SHARD_PATH.get(k, 0)}
+    if extra:
+        raise AssertionError(f"{key}: the sharded restore launched {extra}, "
+                             f"expected exactly {SHARD_PATH} (one stage "
+                             f"batch each on one card)")
+    snet, tail = [], []
+    with recording(fc, "dncnn_fused", snet), \
+            recording(attresunet, "conv3x3_tail_residual", tail):
+        sharded()
+    errs = check_k2_calls(key, snet, tail)
+    p_w, ms_w, w = peak_ms(whole)
+    w = w.cpu().numpy()
+    p_s, ms_s, s = peak_ms(sharded)
+    err = float(np.abs(s - w).max())
+    res = dict(max_abs=err, whole_ms=ms_w, sharded_ms=ms_s,
+               whole_peak_bytes=p_w, sharded_peak_bytes=p_s,
+               launches=counts, kernels_max_abs_err=errs)
+    line = (f"  {key}: sharded vs whole max abs {err:.3g}; whole "
+            f"{ms_w:.1f} ms, peak {p_w / 2 ** 30:.2f} GiB; sharded "
+            f"{ms_s:.1f} ms, peak {p_s / 2 ** 30:.2f} GiB")
+    if restorer.compute == "fp32":
+        log(line + " (bar 1e-5)")
+        if err > 1e-5:
+            raise AssertionError(f"{key}: sharded restore misses the whole "
+                                 f"image by {err} (bar 1e-5)")
+    else:
+        res.update(psnr_whole=psnr(w, ref_clean),
+                   psnr_sharded=psnr(s, ref_clean))
+        d = abs(res["psnr_sharded"] - res["psnr_whole"])
+        log(line + f"; PSNR against the clean image {res['psnr_whole']:.4f} "
+            f"whole, {res['psnr_sharded']:.4f} sharded (bar 0.01 dB)")
+        if d > 0.01:
+            raise AssertionError(f"{key}: PSNR of the sharded restore moved "
+                                 f"{d} dB")
+    return res
+
+
+def runtime_sharded(res, launches):
+    """Row-sharded restores on mesh = [cuda:0] * 4 at full width with the
+    demo weights: denoising syn and real on a seeded smooth 2048x1536
+    image with sigma=15/255 noise (halo 160), SISR x4 on a 384x512 LR
+    image to 1536x2048 (halo 64, noise_avg), fp32 and bf16."""
+    from virnet_tpu_torch.eval.engine import Restorer
+    from virnet_tpu_torch.train.mesh import Mesh
+
+    mesh = Mesh(["cuda:0"] * 4)
+    clean = smooth_image(np.random.default_rng(20), 2048, 1536)
+    noisy = (clean + np.random.default_rng(21).normal(
+        0, 15 / 255, clean.shape)).astype(np.float32)
+    out = {}
+    for task, ckpt in (("denoising-syn", SYN_CKPT),
+                       ("denoising-real", REAL_CKPT)):
+        for compute in ("fp32", "bf16"):
+            log(f"[runtime] row-sharded {task} {compute} 2048x1536 on "
+                f"[cuda:0] x 4, halo 160")
+            r = Restorer(task, ckpt_path=ckpt, compute=compute)
+            key = f"runtime_shard_{task.split('-')[1]}_{compute}"
+            out[key] = shard_case(key, launches, r, noisy, clean, mesh, 160,
+                                  noisy.shape)
+            del r
+    hr = smooth_image(np.random.default_rng(22), 1536, 2048)
+    lr = np.ascontiguousarray(hr[1::4, 1::4] + np.random.default_rng(
+        23).normal(0, 5 / 255, (384, 512, 3))).astype(np.float32)
+    for compute in ("fp32", "bf16"):
+        log(f"[runtime] row-sharded SISR x4 {compute} 384x512 -> 1536x2048 "
+            f"on [cuda:0] x 4, halo 64")
+        r = Restorer("sisr", ckpt_path=SISR_CKPT, sf=4, compute=compute)
+        key = f"runtime_shard_sisr_{compute}"
+        out[key] = shard_case(key, launches, r, lr, hr, mesh, 64,
+                              (1536, 2048, 3))
+        del r
+    res["sharded"] = out
+
+
+def runtime_dp_restore(res, launches):
+    """Restorer(compute='bf16', mesh=[cuda:0] * 2) on the flagship 33 x
+    256^2 batch (repeat-padded to 34, two chunks of 17) against no mesh:
+    per image within 4 bf16 ulps of the scale (check_close), exactly K3 +
+    K4 once per chunk, each held against its plain version on a chunk's
+    own arguments, ms of each."""
+    from virnet_tpu_torch.eval.engine import Restorer
+    from virnet_tpu_torch.models import attresunet
+    from virnet_tpu_torch.ops import fused_conv as fc
+    from virnet_tpu_torch.train.mesh import Mesh
+
+    log("[runtime] data-parallel restore_batch 33x256^2 bf16 on "
+        "[cuda:0] x 2")
+    x = torch.from_numpy(np.random.default_rng(24).random(
+        (33, 256, 256, 3), dtype=np.float32)).cuda()
+    plain = Restorer("denoising-syn", ckpt_path=SYN_CKPT, compute="bf16")
+    meshed = Restorer("denoising-syn", ckpt_path=SYN_CKPT, compute="bf16",
+                      mesh=Mesh(["cuda:0"] * 2))
+    want = plain.restore_batch(x)
+    got, counts = run_path("runtime_dp_restore",
+                           lambda: meshed.restore_batch(x),
+                           ("dncnn_head_fused", "conv3x3_tail_residual"))
+    launches["runtime_dp_restore"] = counts
+    per_chunk = {"dncnn_head_fused": 2, "conv3x3_tail_residual": 2}
+    extra = {k: n for k, n in counts.items() if n != per_chunk.get(k, 0)}
+    if extra:
+        raise AssertionError(f"runtime_dp_restore: launched {extra}, "
+                             f"expected K3 + K4 once per chunk {per_chunk}")
+    err = check_close("runtime_dp_restore mesh vs no mesh, all 33 images",
+                      got, want, torch.bfloat16)
+    head, tail = [], []
+    with recording(fc, "dncnn_head_fused", head), \
+            recording(attresunet, "conv3x3_tail_residual", tail):
+        meshed.restore_batch(x)
+    errs = {}
+    with torch.inference_mode():
+        for i, (args, kw) in enumerate(head):
+            h, s = fc.dncnn_head_fused(*args, **kw)
+            ph, ps = fc.dncnn_head_fused_plain(*args, **kw)
+            errs[f"K3 head chunk {i}"] = check_close(
+                f"runtime_dp_restore K3 head chunk {i} {shape_of(args[0])}",
+                h, ph, torch.bfloat16)
+            errs[f"K3 sigma chunk {i}"] = check_close(
+                f"runtime_dp_restore K3 sigma chunk {i}", s, ps,
+                torch.bfloat16, kind="sigma")
+        check_tail("runtime_dp_restore", tail, errs)
+    ms_plain = wall_ms(lambda: plain.restore_batch(x), 3)[0]
+    ms_mesh = wall_ms(lambda: meshed.restore_batch(x), 3)[0]
+    log(f"  {ms_plain:.2f} ms without a mesh, {ms_mesh:.2f} ms on "
+        f"[cuda:0] x 2 (34 images, two launches of each kernel)")
+    res["dp_restore"] = dict(max_abs=err, launches=counts,
+                             kernels_max_abs_err=errs, ms_plain=ms_plain,
+                             ms_mesh=ms_mesh)
+
+
+def traced_steps(trainer, batches) -> dict:
+    """``run_step``'s work on each batch, keeping the losses, the
+    launches, the first step's averaged gradients (before the clip) and
+    the parameters after each step, on the host."""
+    from virnet_tpu_torch.ops import fused_conv as fc
+
+    out = dict(losses=[], launches=[], params=[])
+    for i, batch in enumerate(batches):
+        fc.reset_launches()
+        loss, _ = trainer.loss_and_grads(batch, 0)
+        if i == 0:
+            out["grads"] = {n: p.grad.detach().cpu().clone()
+                            for n, p in trainer.model.named_parameters()}
+        trainer.optim.step()
+        if i == 0:
+            # |the first update's clipped gradient| from Adam's state
+            adam = trainer.optim.adam
+            (_, beta2), = {g["betas"] for g in adam.param_groups}
+            out["adam_eps"] = adam.param_groups[0]["eps"]
+            out["lr"] = adam.param_groups[0]["lr"]
+            out["clipped"] = {
+                n: (adam.state[p]["exp_avg_sq"] / (1 - beta2)).sqrt().cpu()
+                for n, p in trainer.model.named_parameters()}
+        trainer.step += 1
+        torch.cuda.synchronize()
+        out["launches"].append(dict(fc.LAUNCHES))
+        out["losses"].append(float(loss))
+        out["params"].append({k: v.detach().cpu().clone() for k, v in
+                              trainer.model.state_dict().items()})
+    return out
+
+
+def _rank_run(rank, world, port, out_path, steps):
+    """One rank of the two-rank SISR run (spawned): gloo over the one
+    card, fp32 (mixed_precision off), ``traced_steps`` over the global
+    batches of ``dp_batches``, saved to ``out_path``."""
+    sys.path.insert(0, str(ROOT))
+    from virnet_tpu_torch.cli.train_sisr import build_trainer
+    from virnet_tpu_torch.train import mesh as mesh_mod
+
+    torch.cuda.set_device(0)
+    mesh_mod.init_multihost(f"localhost:{port}", world, rank,
+                            backend="gloo", timeout_s=300)
+    try:
+        mesh = mesh_mod.make_mesh(["cuda:0"])
+        trainer = build_trainer(sisr_config(mixed_precision=False),
+                                mesh=mesh)
+        out = traced_steps(trainer, dp_batches(steps))
+        out["rows"] = mesh.rows(trainer.cfg.batch_size)
+        torch.save(out, out_path)
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def max_diff(a: dict, b: dict) -> tuple:
+    """(max abs difference, its tensor's name, that tensor's max abs in
+    ``b``) over two dicts of tensors."""
+    return max((float((a[k] - v).abs().max()), k, float(v.abs().max()))
+               for k, v in b.items())
+
+
+def dp_batches(steps):
+    """The seeded global HR batches (16 x 192^2) of the data-parallel
+    runs, on the card."""
+    rng = np.random.default_rng(25)
+    pool = torch.from_numpy(smooth_batch(rng, 24, 192)).cuda()
+    return [pool[torch.from_numpy(rng.choice(24, 16, replace=False)).cuda()]
+            for _ in range(steps)]
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def runtime_dp_train(res, launches, steps1=10, steps2=5):
+    """The data-parallel SISR step of configs/sisr_x4.json at full width
+    (16 x 192^2, k 21): world 1 on NCCL in this process against the plain
+    trainer (``steps1`` steps, the same bits; K5 x2, K6, K7 a step, each
+    held against its plain version on a step's own arguments; ms per step
+    of each, in turns), then two ranks spawned on the one card over gloo
+    (8 rows each, fp32) against one process, ``steps2`` steps: losses
+    rtol 1e-5, parameters atol 1e-5, the ranks' losses equal."""
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+
+    from virnet_tpu_torch.cli.train_sisr import build_trainer
+    from virnet_tpu_torch.ops import blur
+    from virnet_tpu_torch.ops import fused_conv as fc
+    from virnet_tpu_torch.train import mesh as mesh_mod
+
+    log(f"[runtime] SISR step, world 1 on NCCL against the plain trainer, "
+        f"{steps1} steps")
+    world = mesh_mod.init_multihost(f"localhost:{free_port()}", 1, 0,
+                                    backend="nccl")
+    out = {}
+    try:
+        mesh = mesh_mod.make_mesh(["cuda:0"])
+        if (world, mesh.world, mesh.grouped) != (1, 1, True):
+            raise AssertionError("runtime: no NCCL group of one process")
+        plain = build_trainer(sisr_config())
+        dp = build_trainer(sisr_config(), mesh=mesh)
+        batches = dp_batches(steps1)
+        for name, tr in (("plain", plain), ("world1", dp)):
+            losses = [float(tr.run_step(b, 0)["loss"]) for b in batches]
+            out[f"{name}_losses"] = losses
+        for k, v in plain.model.state_dict().items():
+            check_exact(f"runtime world 1 vs plain, {k}",
+                        dp.model.state_dict()[k], v)
+        if out["plain_losses"] != out["world1_losses"]:
+            raise AssertionError("runtime: world 1 losses differ from the "
+                                 "plain trainer's")
+        log(f"  {steps1} steps: parameters and losses bitwise equal "
+            f"(last loss {out['plain_losses'][-1]:.6g})")
+        calls = {k: [] for k in BLUR_STEP}
+        fc.reset_launches()
+        with recording(blur, "blur_valid", calls["blur_valid"]), \
+                recording(blur, "blur_dx", calls["blur_dx"]), \
+                recording(blur, "blur_dw", calls["blur_dw"]):
+            dp.run_step(batches[0], 0)
+        torch.cuda.synchronize()
+        counts = dict(fc.LAUNCHES)
+        launches["runtime_dp_train"] = counts
+        check_step_launches("runtime_dp_train", counts, BLUR_STEP, 1)
+        out["kernels_max_abs_err"] = hold_blur_calls(calls)
+        grads = [p.grad for p in dp.optim.params]
+        out["all_reduce_ms"] = wall_ms(
+            lambda: mesh.all_reduce_mean_(grads), 10)[0]
+        log(f"  one all-reduce of the {sum(g.numel() for g in grads)} "
+            f"gradients (NCCL, one process): {out['all_reduce_ms']:.3f} ms")
+        turns = []
+        for name, tr in (("plain", plain), ("world1", dp), ("world1", dp),
+                         ("plain", plain)):
+            times, _ = timed_steps(lambda b: tr.run_step(b, 0),
+                                   lambda: batches[1], 5, name)
+            turns.append((name, float(np.median(times))))
+        out["ms_turns"] = turns
+        log(f"  ms per step in turns: "
+            + ", ".join(f"{n} {m:.2f}" for n, m in turns))
+        del plain, dp
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+
+    log(f"[runtime] SISR step, two ranks on the one card over gloo (8 rows "
+        f"each, fp32) against one process, {steps2} steps")
+    RUNTIME_DIR.mkdir(parents=True, exist_ok=True)
+    files = [RUNTIME_DIR / f"rank{r}.pt" for r in range(2)]
+    port = free_port()
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=_rank_run,
+                         args=(r, 2, port, files[r], steps2))
+             for r in range(2)]
+    for p in procs:
+        p.start()
+    try:
+        for p in procs:
+            p.join(timeout=600)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    if any(p.exitcode != 0 for p in procs):
+        raise AssertionError(f"runtime: a rank failed "
+                             f"{[p.exitcode for p in procs]}")
+    ranks = [torch.load(f, weights_only=False) for f in files]
+    one = build_trainer(sisr_config(mixed_precision=False))
+    ref = traced_steps(one, dp_batches(steps2))
+    del one
+    r0 = ranks[0]
+    if r0["losses"] != ranks[1]["losses"]:
+        raise AssertionError("runtime: the two ranks report other losses")
+    for step, (a, b) in enumerate(zip(r0["params"], ranks[1]["params"])):
+        for k, v in a.items():
+            check_exact(f"runtime rank 0 vs rank 1, step {step}, {k}",
+                        b[k], v)
+    rel = max(rel_err(a, b) for a, b in zip(r0["losses"], ref["losses"]))
+    per_step = [max_diff(a, b) for a, b in zip(r0["params"], ref["params"])]
+    g_err, g_name, g_max = max(
+        (float((r0["grads"][k] - v).abs().max()) / max(float(
+            v.abs().max()), 1e-30), k, float(v.abs().max()))
+        for k, v in ref["grads"].items())
+    for r in ranks:
+        for c in r["launches"]:
+            check_step_launches("runtime two ranks", c, BLUR_STEP, 1)
+    perr = per_step[-1][0]
+    # Adam's first update is lr * g / (|g| + eps) of the clipped gradient
+    # g: where |g| is within a hundred eps it depends on |g| itself, and
+    # float sums in another order (two half batches against one) move it
+    # by up to a tenth of a step.  Elsewhere the parameters must agree
+    # within 1e-5; there, within the steps' reach (2 lr a step).
+    eps_regime = 100 * ref["adam_eps"]
+    reach = 2 * ref["lr"] * len(ref["params"])
+    n_el = sum(v.numel() for v in ref["params"][0].values())
+    over, outside = [], []
+    for a, b in zip(r0["params"], ref["params"]):
+        past = {k: (a[k] - v).abs() > 1e-5 for k, v in b.items()}
+        over.append(sum(int(m.sum()) for m in past.values()))
+        for k, m in past.items():
+            if m.any():
+                g = ref["clipped"][k][m]
+                d = (a[k] - b[k]).abs()[m]
+                outside += [(k, float(x), float(y)) for x, y in zip(g, d)
+                            if x >= eps_regime or y > reach]
+    name = per_step[0][1]
+    worst = int((r0["params"][0][name] - ref["params"][0][name]).abs()
+                .argmax())
+    g_worst = (float(r0["grads"][name].flatten()[worst]),
+               float(ref["grads"][name].flatten()[worst]),
+               float(ref["clipped"][name].flatten()[worst]))
+    log(f"  elements past 1e-5 after each step {over} of {n_el}, every one "
+        f"with a first clipped gradient under 100 eps ({eps_regime:.3g}) and "
+        f"within 2 lr a step: {not outside}; the worst ({name} [{worst}]): "
+        f"first-step gradients {g_worst[0]:.6g} (two ranks), "
+        f"{g_worst[1]:.6g} (one process), clipped {g_worst[2]:.3g}")
+    out.update(elements_past_1e5=over, elements=n_el,
+               worst_element_grads=g_worst, outside_eps_regime=outside[:10])
+    log(f"  rows {[r['rows'] for r in ranks]}; losses {r0['losses']} (one "
+        f"process {ref['losses']}); max rel diff {rel:.3g} (rtol 1e-5); the "
+        f"ranks' parameters the same bits; first step's averaged gradients "
+        f"against one process: max abs diff / the tensor's max abs {g_err:.3g}"
+        f" ({g_name}, max abs {g_max:.3g}); parameters after each step: "
+        + "; ".join(f"{d:.3g} ({n}, max abs {m:.3g})"
+                    for d, n, m in per_step)
+        + " (atol 1e-5); K5 x2, K6, K7 a step a rank")
+    out.update(two_rank_losses=r0["losses"],
+               one_process_losses=ref["losses"], loss_rel=rel,
+               param_abs=perr, param_abs_per_step=per_step,
+               grad_rel=(g_err, g_name, g_max),
+               two_rank_launches=r0["launches"][0])
+    res["dp_train"] = out
+    if rel > 1e-5 or outside:
+        raise AssertionError(f"runtime: two ranks miss the one-process run "
+                             f"(loss rel {rel}; {outside[:5]})")
+
+
+def runtime_remat(res):
+    """The denoising syn and SISR steps at the configs' sizes (16 x 128^2,
+    16 x 192^2, bf16 autocast) with remat on against off: the loss and
+    every gradient the same bits; peak memory and ms of a forward and
+    backward, in turns."""
+    from virnet_tpu_torch.cli.train_sisr import build_trainer
+
+    out = {}
+    rng = np.random.default_rng(26)
+    for kind in ("syn", "sisr"):
+        log(f"[runtime] remat on against off, {kind} step")
+        if kind == "sisr":
+            trs = {r: build_trainer(sisr_config(remat=bool(r)))
+                   for r in (0, 1)}
+            batch = torch.from_numpy(smooth_batch(rng, 16, 192)).cuda()
+            noise = sisr_noise(16, 192, 4, 50.0, 27, "cuda")
+        else:
+            trs = {r: denoise_trainer("syn", remat=bool(r))
+                   for r in (0, 1)}
+            batch = torch.from_numpy(smooth_batch(rng, 16, 128)).cuda()
+            noise = denoise_draws("syn", 16, 128, 27, "cuda")
+        grads = {}
+        for r, tr in trs.items():
+            if tr.model.RNet.remat != bool(r):
+                raise AssertionError("runtime: remat not taken from the "
+                                     "config")
+            loss, _ = tr.loss_and_grads(batch, 0, noise)
+            grads[r] = (loss, {n: p.grad.clone() for n, p in
+                               tr.model.named_parameters()})
+        check_exact(f"remat {kind} loss", grads[1][0], grads[0][0])
+        for n, g in grads[0][1].items():
+            check_exact(f"remat {kind} gradient {n}", grads[1][1][n], g)
+        del grads
+        turns = []
+        for r in (0, 1, 1, 0):
+            peak, ms, _ = peak_ms(
+                lambda: trs[r].loss_and_grads(batch, 0, noise), 3)
+            turns.append(dict(remat=bool(r), ms=ms, peak_bytes=peak))
+        log("  loss and every gradient bitwise equal; in turns: " + ", ".join(
+            f"{'on' if t['remat'] else 'off'} {t['ms']:.2f} ms "
+            f"{t['peak_bytes'] / 2 ** 30:.2f} GiB" for t in turns))
+        out[kind] = turns
+        del trs
+        torch.cuda.empty_cache()
+    res["remat"] = out
+
+
+def runtime_determinism(res, steps=6):
+    """The trainers' contract is bitwise resume.  The synthetic denoising
+    and the SISR steps at full width, each run twice from the same seed
+    for ``steps`` steps, with the step's flag scope as it is
+    (precision.train_step_mode: cuDNN deterministic) and with TF32 off
+    alone (precision.parity_mode): the parameters of the two runs must be
+    the same bits in the first case, and are counted in the second; then
+    ms per step of the two scopes in turns."""
+    from virnet_tpu_torch import precision
+    from virnet_tpu_torch.cli.train_sisr import build_trainer
+    from virnet_tpu_torch.train import loop_denoise, loop_sisr
+
+    def scope(det):
+        mode = precision.train_step_mode if det else precision.parity_mode
+        loop_denoise.train_step_mode = loop_sisr.train_step_mode = mode
+
+    rng = np.random.default_rng(29)
+    out = {}
+    try:
+        for kind in ("syn", "sisr"):
+            size = 192 if kind == "sisr" else 128
+            pool = torch.from_numpy(smooth_batch(rng, 16, size)).cuda()
+
+            def build():
+                return (build_trainer(sisr_config()) if kind == "sisr"
+                        else denoise_trainer("syn"))
+            rec = {}
+            for det in (False, True):
+                scope(det)
+                states = []
+                for _ in range(2):
+                    tr = build()
+                    for i in range(steps):
+                        tr.run_step(pool.roll(i, 0), 0)
+                    states.append({k: v.clone() for k, v in
+                                   tr.model.state_dict().items()})
+                    del tr
+                rec[f"differ_{'det' if det else 'tf32_off_only'}"] = sum(
+                    not torch.equal(states[0][k], v)
+                    for k, v in states[1].items())
+            if rec["differ_det"]:
+                raise AssertionError(f"runtime: two runs of the {kind} step "
+                                     f"differ in {rec['differ_det']} "
+                                     f"tensors")
+            tr = build()
+            turns = []
+            for det in (False, True, True, False):
+                scope(det)
+                times, _ = timed_steps(lambda b: tr.run_step(b, 0),
+                                       lambda: pool, 6, kind)
+                turns.append(dict(deterministic=det,
+                                  ms=float(np.median(times[1:]))))
+            del tr
+            rec["ms_turns"] = turns
+            log(f"[runtime] determinism, {kind} step: two runs of {steps} "
+                f"steps differ in {rec['differ_tf32_off_only']} tensors with "
+                f"TF32 off alone, {rec['differ_det']} with cuDNN "
+                f"deterministic; ms per step in turns: " + ", ".join(
+                    f"{'det' if t['deterministic'] else 'tf32 off'} "
+                    f"{t['ms']:.2f}" for t in turns))
+            out[kind] = rec
+    finally:
+        scope(True)
+    res["determinism"] = out
+
+
+def runtime_resilience(res):
+    """cli/resilience_proof at full width: configs/denoising_syn.json on
+    16 seeded 256^2 PNGs, 2 epochs x 20 steps, SIGKILLed at epoch 2 step
+    10 and resumed; the final checkpoints must be the same bits."""
+    import cv2
+
+    from virnet_tpu_torch.cli import resilience_proof
+
+    log("[runtime] kill/resume proof, denoising syn at full width, 2 x 20 "
+        "steps, killed at epoch 2 step 10")
+    folder = RUNTIME_DIR / "images"
+    folder.mkdir(parents=True, exist_ok=True)
+    for i, im in enumerate(textured_records(np.random.default_rng(28), 16,
+                                            256)):
+        cv2.imwrite(str(folder / f"{i:02d}.png"), im[..., ::-1])
+    t0 = time.perf_counter()
+    out = resilience_proof.main([
+        "--config", str(DENOISE_CONFIGS["syn"]), "--epochs", "2",
+        "--steps_per_epoch", "20", "--kill_step", "10", "--work_dir",
+        str(RUNTIME_DIR / "proof"), "--timeout_s", "300",
+        "--override", f'train_data=[["{folder}", "*.png"]]',
+        "--override", "val_data=", "--override", "print_freq=1"])
+    out["wall_s"] = time.perf_counter() - t0
+    log(f"  {json.dumps(out)}")
+    res["resilience"] = out
+
+
+def runtime_endurance(res, minutes=0.5):
+    """cli/endurance --mode real for ``minutes``, through the pack and the
+    prefetcher, then with --device_data."""
+    from virnet_tpu_torch.cli import endurance
+
+    out = {}
+    for extra in ([], ["--device_data"]):
+        name = "device_data" if extra else "pack"
+        log(f"[runtime] endurance --minutes {minutes} --mode real ({name})")
+        out[name] = endurance.main([
+            "--minutes", str(minutes), "--mode", "real", "--pack_records",
+            "256", "--save_dir", str(RUNTIME_DIR / "endurance"),
+            "--sync_every", "100"] + extra)
+        if not out[name]["final_loss_finite"] or out[name]["steps"] < 1:
+            raise AssertionError(f"runtime endurance {name}: {out[name]}")
+    res["endurance"] = out
+
+
+def phase_runtime(report, launches):
+    """The multi-device and runtime modules on the card."""
+    res = {}
+    report["runtime"] = res
+    runtime_sharded(res, launches)
+    runtime_dp_restore(res, launches)
+    runtime_remat(res)
+    runtime_determinism(res)
+    runtime_resilience(res)
+    runtime_endurance(res)
+    runtime_dp_train(res, launches)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(ALL_PHASES),
@@ -2634,6 +3255,9 @@ def main(argv=None) -> int:
 
     if "eval_tables" in phases:
         phase_eval_tables(report, launches)
+
+    if "runtime" in phases:
+        phase_runtime(report, launches)
 
     report["launches"] = launches
     report["total_s"] = time.perf_counter() - t_all

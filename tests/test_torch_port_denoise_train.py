@@ -508,6 +508,10 @@ def test_real_cli_trains_and_resumes_from_paired_folders(tmp_path):
     assert np.isfinite(float(line[0].split("PSNR=")[1].split(",")[0]))
 
 
+class _Reached(Exception):
+    pass
+
+
 @pytest.mark.parametrize("key,value,where", [
     ("multihost", "true", "mesh.py"),
     ("coordinator_address", '"localhost:1234"', "mesh.py"),
@@ -515,15 +519,43 @@ def test_real_cli_trains_and_resumes_from_paired_folders(tmp_path):
     ("rss_limit_mb", "4096", "resilience.py"),
     ("num_processes", "2", "mesh.py"),
 ])
-def test_clis_refuse_what_is_not_ported(key, value, where, tmp_path):
-    """A config that asks for a module that is not ported yet raises and
-    names it, in all three trainer CLIs, before anything is built."""
+def test_clis_refuse_what_is_not_ported(key, value, where, tmp_path,
+                                        monkeypatch):
+    """Nothing of these keys is refused any more: in all three trainer
+    CLIs each one reaches its module, caught at a seam: the multi-host
+    keys train/mesh.init_multihost (through cli.common.
+    maybe_init_multihost, before anything is built), ``auto_resume``
+    train/resilience.run_with_auto_resume and ``rss_limit_mb`` the
+    watchdog's re-exec command (train/resilience.reexec_argv)."""
+    import cv2
+
     from virnet_tpu_torch.cli import (train_denoising_real,
                                       train_denoising_syn, train_sisr)
+    from virnet_tpu_torch.train import mesh, resilience
 
-    cfg = _tiny_cfg(tmp_path, '"sigma_chn": 1, "%s": %s,' % (key, value))
+    def reached(name):
+        def seam(*args, **kwargs):
+            raise _Reached(f"{name}.py {args} {kwargs}")
+        return seam
+
+    monkeypatch.setattr(mesh, "init_multihost", reached("mesh"))
+    monkeypatch.setattr(resilience, "run_with_auto_resume",
+                        reached("resilience"))
+    monkeypatch.setattr(resilience, "reexec_argv", reached("resilience"))
+    rng = np.random.default_rng(17)
+    im_dir = tmp_path / "images"
+    im_dir.mkdir()
+    for i in range(2):
+        cv2.imwrite(str(im_dir / f"{i}.png"),
+                    (rng.random((40, 48, 3)) * 255).astype(np.uint8))
+    cfg = _tiny_cfg(tmp_path, '"sigma_chn": 1, "%s": %s, "train_data": '
+                    '[["%s", "*.png"]], "train_pch_dir": "%s", '
+                    '"train_hr_patchs": "%s", "dep_K": 2, "sf": 2, '
+                    '"hr_size": 32,' % (key, value, im_dir,
+                                        _paired_folders(tmp_path, rng),
+                                        im_dir))
     for cli in (train_denoising_syn, train_denoising_real, train_sisr):
-        with pytest.raises(NotImplementedError, match=where):
+        with pytest.raises(_Reached, match=where):
             cli.main(["--config", str(cfg), "--save_dir",
                       str(tmp_path / "run"), "--device", "cpu"])
     off = _tiny_cfg(tmp_path, '"sigma_chn": 1, "device_data": "False", '
@@ -561,14 +593,19 @@ def test_logging_grid_writer_and_lazy_exports(tmp_path):
 
 def test_cli_messages_name_roadmap_items_by_title():
     """ROADMAP.md's queues are renumbered when they are re-anchored, so a
-    message that cites an item by number goes stale: the trainers' refusals
-    name the module and the queue item's title instead."""
+    message that cites an item by number goes stale: the one refusal left
+    in the command lines, ``--compute int8``, names the module and the
+    queue item's title instead."""
+    import argparse
     import re
 
     from virnet_tpu_torch.cli import common
 
-    for msg in common.UNPORTED.values():
-        assert not re.search(r"\bitems?\s+\d", msg), msg
-        assert "ROADMAP.md" in msg and ".py" in msg, msg
-    with pytest.raises(NotImplementedError, match="multi-device and runtime"):
-        common.refuse_unported({"auto_resume": True})
+    with pytest.raises(NotImplementedError, match="the remainder") as err:
+        common.refuse_unported_eval(argparse.Namespace(compute="int8",
+                                                       mesh=True))
+    msg = str(err.value)
+    assert not re.search(r"\bitems?\s+\d", msg), msg
+    assert "ROADMAP.md" in msg and "ops/qconv.py" in msg, msg
+    common.refuse_unported_eval(argparse.Namespace(compute="bf16",
+                                                   mesh=True))

@@ -182,7 +182,12 @@ def test_port_imports_no_jax():
         "        'virnet_tpu_torch.ops.degrade',\n"
         "        'virnet_tpu_torch.cli.bench_restore',\n"
         "        'virnet_tpu_torch.cli.train_denoising_syn',\n"
-        "        'virnet_tpu_torch.cli.train_denoising_real']\n"
+        "        'virnet_tpu_torch.cli.train_denoising_real',\n"
+        "        'virnet_tpu_torch.train.mesh',\n"
+        "        'virnet_tpu_torch.train.resilience',\n"
+        "        'virnet_tpu_torch.eval.spatial',\n"
+        "        'virnet_tpu_torch.cli.resilience_proof',\n"
+        "        'virnet_tpu_torch.cli.endurance']\n"
         "for m in mods: importlib.import_module(m)\n"
         # the demo's SISR path, driven on a tiny image on the CPU
         "import tempfile, cv2, numpy as np\n"

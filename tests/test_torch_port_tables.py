@@ -767,22 +767,118 @@ def test_eval_dnd_cli_writes_what_the_jax_cli_writes(dnd_folder, tmp_path):
     assert (tmp_path / "ours" / "dnd.log").exists()
 
 
+def _untimed(tree):
+    """``tree`` without its wall-clock readings (``seconds``)."""
+    if isinstance(tree, dict):
+        return {k: _untimed(v) for k, v in tree.items() if k != "seconds"}
+    if isinstance(tree, list):
+        return [_untimed(v) for v in tree]
+    return tree
+
+
+def _assert_close_tree(got, want, atol, path=""):
+    if isinstance(want, dict):
+        assert got.keys() == want.keys(), path
+        for k in want:
+            _assert_close_tree(got[k], want[k], atol, f"{path}/{k}")
+    elif isinstance(want, (list, tuple)):
+        assert len(got) == len(want), path
+        for i, (g, w) in enumerate(zip(got, want)):
+            _assert_close_tree(g, w, atol, f"{path}/{i}")
+    elif isinstance(want, str):
+        assert got == want, path
+    else:
+        np.testing.assert_allclose(got, want, atol=atol, err_msg=path)
+
+
+def _mesh_outputs(cli, out):
+    """What a run of ``cli`` wrote under ``out``, as arrays and numbers to
+    compare (no timings)."""
+    if cli == "eval_dnd":
+        return {p.name: sio.loadmat(str(p))["Idenoised_crop"]
+                for p in sorted(out.glob("*.mat"))}
+    if cli == "eval_sidd":
+        return sio.loadmat(str(out / "sidd_val_flip.mat"))["denoised_res"]
+    return _untimed(pickle.loads(next(out.glob("*.pkl")).read_bytes()))
+
+
 @pytest.mark.parametrize("cli", ["eval_denoising_syn", "eval_sidd",
                                  "eval_sisr", "eval_dnd"])
 @pytest.mark.parametrize("flag,title", [(["--mesh"], "multi-device and "
                                          "runtime"),
                                         (["--compute", "int8"],
                                          "the remainder")])
-def test_eval_clis_refuse_what_is_not_ported(cli, flag, title, tmp_path):
-    """--mesh and --compute int8 raise, naming ROADMAP's Queue 1 item by
-    its title, before anything is read."""
+def test_eval_clis_refuse_what_is_not_ported(cli, flag, title, tmp_path,
+                                             monkeypatch, request):
+    """--compute int8 raises, naming ROADMAP's Queue 1 item by its title,
+    before anything is read.  --mesh is no longer refused: on small seeded
+    data with the demo weights, a mesh of CPU devices (three; two for
+    DND's one-crop batches, its official 50 x 20 loop cut to 2 x 2 through
+    the module's ``range``: the whole loop is test_eval_dnd_cli_writes_
+    what_the_jax_cli_writes's) in place of every visible card writes what
+    the command line writes without it, with per-image convolutions, so
+    that a batch's make-up cannot move a denoised value.  The SISR
+    model's other reductions (KNet, the sigma pool) are summed in an
+    order that follows the batch's size, so there a few uint8 values may
+    differ: its scores within 1e-3."""
     import importlib
 
+    from virnet_tpu_torch.train import mesh
+
     main = importlib.import_module(f"virnet_tpu_torch.cli.{cli}").main
-    args = {"eval_denoising_syn": ["--data_root", str(tmp_path)],
-            "eval_sidd": ["--sidd_dir", str(tmp_path)],
-            "eval_sisr": ["--data_root", str(tmp_path)],
-            "eval_dnd": ["--dnd_dir", str(tmp_path), "--save_dir",
-                         str(tmp_path / "out")]}[cli]
-    with pytest.raises(NotImplementedError, match=title):
-        main(args + flag + ["--device", "cpu"])
+    if flag != ["--mesh"]:
+        args = {"eval_denoising_syn": ["--data_root", str(tmp_path)],
+                "eval_sidd": ["--sidd_dir", str(tmp_path)],
+                "eval_sisr": ["--data_root", str(tmp_path)],
+                "eval_dnd": ["--dnd_dir", str(tmp_path), "--save_dir",
+                             str(tmp_path / "out")]}[cli]
+        with pytest.raises(NotImplementedError, match=title):
+            main(args + flag + ["--device", "cpu"])
+        return
+    data = tmp_path / "data"
+    if cli == "eval_denoising_syn":
+        _pngs(data / "CBSD68", 81, [(24, 32), (24, 32), (32, 24)])
+        _pngs(data / "McMaster", 82, [(24, 24)], ext=".tif")
+        args = ["--data_root", str(data), "--noise_type", "iid",
+                "--ckpt_path", SYN]
+    elif cli == "eval_sidd":
+        args = ["--sidd_dir", str(_sidd_mats(data, 83, size=16)),
+                "--ckpt_path", REAL, "--batch", "3"]
+    elif cli == "eval_sisr":
+        _pngs(data / "Set14", 84, [(32, 40)], ext=".bmp")
+        _pngs(data / "CBSD68", 85, [(40, 32), (40, 32)])
+        args = ["--data_root", str(data), "--sf", "2", "--ckpt_path",
+                str(ZOO / "virnet_sisr_x2_demo.pth"), "--lpips", "off"]
+    else:
+        import builtins
+
+        from virnet_tpu_torch.eval import dnd
+
+        monkeypatch.setattr(dnd, "range",
+                            lambda n: builtins.range(min(n, 2)),
+                            raising=False)
+        args = ["--dnd_dir", str(request.getfixturevalue("dnd_folder")),
+                "--ckpt_path", REAL, "--no_flip"]
+    size = 2 if cli == "eval_dnd" else 3
+    monkeypatch.setattr(mesh, "make_mesh",
+                        lambda devices=None: mesh.Mesh(["cpu"] * size))
+    outs = []
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)      # the tier-1 run has six workers at once
+    try:
+        with _per_image_convs():
+            for mode in ([], ["--mesh"]):
+                out = tmp_path / f"out{len(outs)}"
+                main(args + mode + ["--save_dir", str(out), "--device",
+                                    "cpu"])
+                outs.append(_mesh_outputs(cli, out))
+    finally:
+        torch.set_num_threads(threads)
+    if cli == "eval_dnd":
+        assert len(outs[0]) == 4
+    if cli == "eval_sisr":
+        _assert_close_tree(outs[1], outs[0], 1e-3)
+    else:
+        np.testing.assert_equal(outs[1], outs[0])
+    log = next((tmp_path / "out1").glob("*.log")).read_text()
+    assert f"data-parallel eval over {size} devices" in log

@@ -23,12 +23,15 @@ losses/   the denoising and SISR ELBOs
 data/     on-device noise and SISR batch synthesis, MixUp, host patch
           sampling
 train/    optimizer stack, checkpoints, logging, the denoising and SISR
-          trainers
-eval/     Restorer (pad buckets, TTA, folder batches), tiled inference,
+          trainers, the process group and device mesh (data-parallel
+          training), auto-resume and the RSS watchdog
+eval/     Restorer (pad buckets, TTA, folder batches, data-parallel
+          batches), tiled and row-sharded inference,
           metrics, and the benchmark harnesses (tables, the device x8
           ensemble, device metrics, LPIPS, DND, analysis, profiling)
-cli/      the demo, the three trainers, the four eval harnesses and the
-          fused-prologue A/B (bench_fused_head)
+cli/      the demo, the three trainers, the four eval harnesses, the
+          fused-prologue A/B (bench_fused_head), the kill/resume proof
+          and the endurance run
 csrc/     the CUDA sources
 """
 

@@ -1,7 +1,8 @@
 """Shared plumbing of the command lines (counterpart of
 virnet_tpu/cli/common.py): the trainers' arguments and config, the
-refusals of what is not ported (config keys, the eval CLIs' options),
-resume, and per-epoch validation."""
+process group, the RSS watchdog, resume, per-epoch validation, the eval
+CLIs' options and the refusal of what is not ported (``--compute
+int8``)."""
 
 from __future__ import annotations
 
@@ -18,26 +19,14 @@ from ..eval.tiling import bucket_size
 from ..ops.pad import pad_bottom_right
 from ..precision import im2col_convs
 
-# config keys of the JAX trainers whose modules are not ported yet, with
-# where ROADMAP.md queues them: by the item's title, never its number,
-# which changes when the queue is renumbered
-_QUEUE = "in ROADMAP.md's Queue 1, modules still to port"
-_RUNTIME = f"multi-device and runtime, {_QUEUE}"
-_REMAINDER = f"the remainder, {_QUEUE}"
-UNPORTED = {
-    "auto_resume": f"train/resilience.py ({_RUNTIME})",
-    "rss_limit_mb": f"train/resilience.py ({_RUNTIME})",
-    "multihost": f"train/mesh.py ({_RUNTIME})",
-    "coordinator_address": f"train/mesh.py ({_RUNTIME})",
-    "num_processes": f"train/mesh.py ({_RUNTIME})",
-    "process_id": f"train/mesh.py ({_RUNTIME})",
-}
+# where ROADMAP.md queues what is not ported yet: by the item's title,
+# never its number, which changes when the queue is renumbered
+_REMAINDER = "the remainder, in ROADMAP.md's Queue 1, modules still to port"
 
 
 def add_eval_args(p: argparse.ArgumentParser) -> None:
-    """The device and compute options of the eval command lines, and the
-    JAX package's options that are not ported yet (refused by
-    ``refuse_unported_eval``)."""
+    """The device, compute and mesh options of the eval command lines
+    (``--compute int8`` is refused by ``refuse_unported_eval``)."""
     p.add_argument("--device", type=str, default="cuda",
                    help="cuda (default) runs the CUDA kernels; cpu runs "
                         "their plain PyTorch versions")
@@ -46,16 +35,26 @@ def add_eval_args(p: argparse.ArgumentParser) -> None:
                    help="fp32 (default) = checkpoint-faithful parity "
                         "eval; bf16 = fast path; int8 is not ported yet")
     p.add_argument("--mesh", action="store_true",
-                   help="data-parallel eval over devices (not ported yet)")
+                   help="data-parallel eval: each batch split over every "
+                        "visible card (outputs as without it)")
+
+
+def eval_mesh(args, logger):
+    """The mesh of ``--mesh`` (every visible card; the device of
+    ``--device`` alone when that is the CPU), or None."""
+    if not args.mesh:
+        return None
+    from ..train.mesh import make_mesh
+
+    mesh = (make_mesh([args.device])
+            if torch.device(args.device).type == "cpu" else make_mesh())
+    logger.info(f"data-parallel eval over {mesh.size} devices")
+    return mesh
 
 
 def refuse_unported_eval(args) -> None:
     """Raise when an eval command line asks for a module that is not
     ported yet, naming it."""
-    if args.mesh:
-        raise NotImplementedError(
-            f"--mesh needs train/mesh.py and eval/spatial.py ({_RUNTIME}), "
-            "which are not ported yet")
     if args.compute == "int8":
         raise NotImplementedError(
             f"--compute int8 needs ops/qconv.py ({_REMAINDER}), which is "
@@ -87,8 +86,92 @@ def trainer_argparser(default_config: str,
     p.add_argument("--steps_per_epoch", default=None, type=int)
     p.add_argument("--batch_size", default=None, type=int)
     p.add_argument("--device", default="cuda", type=str,
-                   help="cuda (default) or cpu")
+                   help="cuda (default) or cpu; a rank of a multi-process "
+                        "run takes cuda:LOCAL_RANK")
+    p.add_argument("--auto_resume", action="store_true", default=None,
+                   help="restart from the latest checkpoint after a crash "
+                        "(train/resilience.py)")
+    p.add_argument("--rss_limit_mb", default=None, type=float,
+                   help="re-exec with --resume latest after an epoch whose "
+                        "end finds the resident set at or above this many "
+                        "MB (0 or absent: off; single-process runs only)")
     return p
+
+
+def maybe_init_multihost(cfg: Dict, log_fn=print,
+                         backend: Optional[str] = None) -> int:
+    """Join the process group when the config asks for it (the
+    reference's DDP launcher variables, train_denoising_syn.py:35-39):
+    ``coordinator_address`` / ``num_processes`` / ``process_id`` from the
+    config, or, with ``multihost: true`` alone, torchrun's variables.  A
+    config with none of these keys runs single-process.  Returns the
+    number of processes."""
+    from ..train import mesh as mesh_mod
+
+    keys = ("coordinator_address", "num_processes", "process_id")
+    if not (as_bool(cfg.get("multihost", False))
+            or any(cfg.get(k) is not None for k in keys)):
+        return 1
+    n = mesh_mod.init_multihost(cfg.get("coordinator_address"),
+                                num_processes=cfg.get("num_processes"),
+                                process_id=cfg.get("process_id"),
+                                backend=backend)
+    log_fn(f"multi-host: {n} process(es)")
+    return n
+
+
+def trainer_mesh(cfg: Dict, device: str, log_fn=print):
+    """This process's mesh of one device, in the process group of the
+    config (``maybe_init_multihost``; gloo when ``device`` is the CPU).
+    A rank takes the card ``cuda:LOCAL_RANK`` (torchrun's variable), else
+    ``cuda:<process_id % cards>``, set before the group is joined."""
+    import os
+
+    from ..train.mesh import make_mesh
+
+    dev = torch.device(device)
+    local = os.environ.get("LOCAL_RANK", cfg.get("process_id"))
+    if dev.type == "cuda" and dev.index is None and local is not None:
+        dev = torch.device("cuda", int(local) % torch.cuda.device_count())
+        torch.cuda.set_device(dev)
+    maybe_init_multihost(cfg, log_fn, "gloo" if dev.type == "cpu" else None)
+    return make_mesh([dev])
+
+
+def epoch_rss_watchdog(cfg: Dict, module: str, argv, logger, writer,
+                       world: int = 1):
+    """The per-epoch RSS watchdog of a trainer CLI: call the returned
+    closure right after the epoch's checkpoint is written; it re-execs
+    the process (resume is bitwise) once RSS reaches ``rss_limit_mb``.  A
+    no-op when the limit is unset; raises at once with ``world`` > 1
+    (train/resilience.check_watchdog_world)."""
+    from ..train.resilience import (check_watchdog_world,
+                                    maybe_reexec_on_rss, reexec_argv)
+
+    limit = float(cfg.get("rss_limit_mb") or 0)
+    check_watchdog_world(limit, world)
+    if limit <= 0:
+        return lambda: None
+    cmd = reexec_argv(module, argv)
+    return lambda: maybe_reexec_on_rss(limit, cmd, log_fn=logger.info,
+                                       cleanup=writer.close)
+
+
+def run_epochs(cfg: Dict, trainer, epoch_fn, log_fn) -> None:
+    """``epoch_fn(epoch)`` from the resumed epoch to the config's last:
+    with ``auto_resume`` under train/resilience.run_with_auto_resume
+    (each attempt resumes from the latest checkpoint), else from
+    ``resume`` ('latest', a saved epoch number, or nothing)."""
+    def train(start: int) -> None:
+        for epoch in range(start, cfg["epochs"]):
+            epoch_fn(epoch)
+
+    if _asked(cfg.get("auto_resume")):
+        from ..train.resilience import run_with_auto_resume
+
+        run_with_auto_resume(train, trainer.restore, log_fn=log_fn)
+    else:
+        train(resume_epoch(trainer, cfg.get("resume"), log_fn))
 
 
 def load_trainer_config(args) -> Dict:
@@ -97,6 +180,14 @@ def load_trainer_config(args) -> Dict:
     return update_args(load_config(args.config),
                        {k: v for k, v in vars(args).items()
                         if k not in ("config", "device")})
+
+
+def train_log(save_dir, rank: int):
+    """The trainer's logger: console and ``<save_dir>/train.log`` on rank
+    0, the console alone on the other ranks."""
+    from ..train.logging import make_log
+
+    return make_log(save_dir / "train.log" if rank == 0 else None)
 
 
 def _asked(val) -> bool:
@@ -109,16 +200,6 @@ def _asked(val) -> bool:
         return as_bool(val)
     except ValueError:
         return bool(val)
-
-
-def refuse_unported(cfg: Dict) -> None:
-    """Raise when the config asks for a module of the JAX trainers that is
-    not ported yet, naming it: a run must not go on without what its
-    config asked for."""
-    for key, where in UNPORTED.items():
-        if _asked(cfg.get(key)):
-            raise NotImplementedError(
-                f"config key {key!r} needs {where}, which is not ported yet")
 
 
 def resume_epoch(trainer, resume, log_fn) -> int:

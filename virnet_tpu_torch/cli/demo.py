@@ -5,10 +5,14 @@ scripts/testing_demo.py:99-135):
         --task {denoising-syn,denoising-real,sisr} --in_path <file-or-dir>
         --out_path <dir> [--sf {2,3,4}] [--ckpt_path <pth>]
         [--prefix restored_] [--flip] [--compute fp32|bf16]
-        [--device cuda|cpu]
+        [--mesh [--batch_size 8] | --rows_shard] [--device cuda|cpu]
 
 ``sisr`` writes each image ``--sf`` times larger; its default weights are
-``model_zoo/virnet_sisr_x{sf}_demo.pth``.
+``model_zoo/virnet_sisr_x{sf}_demo.pth``.  ``--mesh`` restores a folder's
+same-shape images in batches split over every visible card (and the x8
+ensemble of ``--flip`` over them); ``--rows_shard`` splits each image's
+rows over every visible card (eval/spatial.py), for huge images.  Both
+give what the plain path gives, up to summation order.
 """
 
 from __future__ import annotations
@@ -17,6 +21,7 @@ import argparse
 from pathlib import Path
 
 import numpy as np
+import torch
 
 IMG_EXTS = (".png", ".jpg", ".jpeg", ".bmp", ".tif", ".tiff")
 DEFAULT_CKPTS = {
@@ -50,6 +55,17 @@ def main(argv=None):
                         choices=["fp32", "bf16"],
                         help="fp32 (default) = checkpoint-faithful; "
                              "bf16 = fast path")
+    parser.add_argument("--rows_shard", action="store_true",
+                        help="shard each image's rows over every visible "
+                             "card (huge images; matches the plain "
+                             "forward)")
+    parser.add_argument("--mesh", action="store_true",
+                        help="data-parallel inference over every visible "
+                             "card: folder batches and the x8 --flip "
+                             "ensemble split over them")
+    parser.add_argument("--batch_size", type=int, default=8,
+                        help="images per forward in folder mode with "
+                             "--mesh (same-shape images are grouped)")
     parser.add_argument("--device", type=str, default="cuda",
                         help="cuda (default) runs the CUDA kernels; cpu "
                              "runs their plain PyTorch versions")
@@ -59,21 +75,51 @@ def main(argv=None):
     from ..ops.color import imread, imwrite
     from ..ops.quant import img_as_ubyte
 
+    from ..train.mesh import make_mesh
+
+    if args.rows_shard and args.flip:
+        raise SystemExit("--rows_shard and --flip are mutually exclusive "
+                         "(run the x8 ensemble unsharded, or shard without "
+                         "the ensemble)")
+    if args.rows_shard and args.mesh:
+        raise SystemExit("--rows_shard already uses every card (the rows "
+                         "axis); --mesh is the data-parallel alternative")
     ckpt = args.ckpt_path or DEFAULT_CKPTS[args.task].format(sf=args.sf)
     if not Path(ckpt).exists():
         raise SystemExit(f"checkpoint not found: {ckpt}")
+    mesh = None
+    if args.mesh or args.rows_shard:
+        cpu = torch.device(args.device).type == "cpu"
+        mesh = make_mesh([args.device] if cpu else None)
     restorer = Restorer(args.task, ckpt_path=ckpt, sf=args.sf,
-                        compute=args.compute, device=args.device)
+                        compute=args.compute, device=args.device,
+                        mesh=mesh if args.mesh else None)
     out_dir = Path(args.out_path)
     out_dir.mkdir(parents=True, exist_ok=True)
-    for im_path in collect_images(Path(args.in_path)):
-        im = imread(im_path, chn="rgb", dtype="float32")
-        restored = (restorer.restore_image_tta(im) if args.flip
-                    else restorer.restore_image(im))
+    im_paths = collect_images(Path(args.in_path))
+
+    def write(im_path, restored):
         out_file = out_dir / f"{args.prefix}{im_path.stem}.png"
         imwrite(img_as_ubyte(np.clip(restored, 0.0, 1.0)), out_file,
                 chn="rgb")
         print(f"{im_path.name} -> {out_file}")
+
+    if args.mesh and not args.flip:
+        # folder mode: same-shape images batched and split over the mesh
+        ims = [imread(p, chn="rgb", dtype="float32") for p in im_paths]
+        for im_path, restored in zip(
+                im_paths, restorer.restore_images(ims, args.batch_size)):
+            write(im_path, restored)
+        return
+    for im_path in im_paths:
+        im = imread(im_path, chn="rgb", dtype="float32")
+        if args.rows_shard:
+            restored = restorer.restore_image_sharded(im, mesh)
+        elif args.flip:
+            restored = restorer.restore_image_tta(im)
+        else:
+            restored = restorer.restore_image(im)
+        write(im_path, restored)
 
 
 if __name__ == "__main__":

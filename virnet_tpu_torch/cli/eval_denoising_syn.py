@@ -4,7 +4,7 @@ reference scripts/denoising_virnet_syn.py).
     python -m virnet_tpu_torch.cli.eval_denoising_syn --noise_type niid \
         --data_root <dir with CBSD68/*.png, McMaster/*.tif> \
         --ckpt_path model_zoo/virnet_denoising_syn.pth --save_dir ./results \
-        [--compute fp32|bf16] [--device cuda|cpu]
+        [--compute fp32|bf16] [--mesh] [--device cuda|cpu]
 """
 
 from __future__ import annotations
@@ -16,7 +16,8 @@ from pathlib import Path
 from ..eval.engine import Restorer
 from ..eval.tables import eval_denoise_synthetic
 from ..train.logging import make_log
-from .common import add_eval_args, log_model_size, refuse_unported_eval
+from .common import (add_eval_args, eval_mesh, log_model_size,
+                     refuse_unported_eval)
 
 
 def main(argv=None):
@@ -41,7 +42,8 @@ def main(argv=None):
                       if args.save_dir else None)
     restorer = Restorer("denoising-syn", ckpt_path=args.ckpt_path,
                         pad_multiple=args.pad_multiple, compute=args.compute,
-                        device=args.device)
+                        device=args.device,
+                        mesh=eval_mesh(args, logger))
     log_model_size(logger, restorer)
 
     data_dirs = {

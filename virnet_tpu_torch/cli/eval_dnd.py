@@ -3,7 +3,8 @@ reference scripts/denoising_virnet_real_dnd.py:86-88).
 
     python -m virnet_tpu_torch.cli.eval_dnd --dnd_dir <dir> \
         --save_dir ./dnd_out --ckpt_path model_zoo/virnet_denoising_real.pth \
-        [--no_flip] [--compute fp32|bf16] [--device cuda|cpu]
+        [--no_flip] [--compute fp32|bf16] [--mesh]
+        [--device cuda|cpu]
 
 Reads info.mat and images_srgb/ with h5py, which must be installed.
 """
@@ -16,7 +17,7 @@ from pathlib import Path
 from ..eval.dnd import bundle_submissions_srgb, denoise_srgb, make_denoiser
 from ..eval.engine import Restorer
 from ..train.logging import make_log
-from .common import add_eval_args, refuse_unported_eval
+from .common import add_eval_args, eval_mesh, refuse_unported_eval
 
 
 def main(argv=None):
@@ -34,7 +35,8 @@ def main(argv=None):
     Path(args.save_dir).mkdir(parents=True, exist_ok=True)
     logger = make_log(Path(args.save_dir) / "dnd.log")
     restorer = Restorer("denoising-real", ckpt_path=args.ckpt_path,
-                        compute=args.compute, device=args.device)
+                        compute=args.compute, device=args.device,
+                        mesh=eval_mesh(args, logger))
     denoiser = make_denoiser(restorer, flip=not args.no_flip)
     denoise_srgb(denoiser, args.dnd_dir, args.save_dir, log_fn=logger.info)
     bundle_submissions_srgb(args.save_dir)

@@ -3,8 +3,8 @@ reference scripts/denoising_virnet_real_sidd.py).
 
     python -m virnet_tpu_torch.cli.eval_sidd --sidd_dir <dir> \
         [--test] [--no_flip] [--batch 16] [--device_metrics] \
-        [--compute fp32|bf16] [--device cuda|cpu] --ckpt_path ... \
-        --save_dir ./results
+        [--compute fp32|bf16] [--mesh] [--device cuda|cpu] \
+        --ckpt_path ... --save_dir ./results
 
 Validation mode scores PSNR/SSIM against the GT blocks; --test mode
 denoises the benchmark blocks for submission.  The x8 flip ensemble runs
@@ -20,7 +20,8 @@ from pathlib import Path
 from ..eval.engine import Restorer
 from ..eval.tables import load_sidd_blocks, sidd_table
 from ..train.logging import make_log
-from .common import add_eval_args, log_model_size, refuse_unported_eval
+from .common import (add_eval_args, eval_mesh, log_model_size,
+                     refuse_unported_eval)
 
 
 def main(argv=None):
@@ -51,7 +52,8 @@ def main(argv=None):
     logger = make_log(Path(args.save_dir) / f"sidd_{test_str}_{flip_str}.log"
                       if args.save_dir else None)
     restorer = Restorer("denoising-real", ckpt_path=args.ckpt_path,
-                        compute=args.compute, device=args.device)
+                        compute=args.compute, device=args.device,
+                        mesh=eval_mesh(args, logger))
     log_model_size(logger, restorer, sizes=(512,))
 
     sidd = Path(args.sidd_dir)

@@ -21,8 +21,9 @@ TensorBoard scalars (where tensorboardX is installed).  ``--resume
 latest`` (or a saved epoch number) continues from a checkpoint.  The
 trainer runs on the card unless ``--device cpu`` is given.
 
-Not ported yet, and refused when the config asks for them:
-``auto_resume``, the RSS watchdog and multi-host runs.
+Several processes, ``auto_resume`` and ``rss_limit_mb`` work as in
+cli/train_denoising_syn.py; with MixUp every rank moves the whole global
+batch to its card (train/loop_denoise.py).
 """
 
 from __future__ import annotations
@@ -35,13 +36,14 @@ from ..config import as_bool
 from ..data.device_data import DeviceDataset
 from ..data.packdb import PackDBSampler
 from ..data.sources import PairedPatchSampler
-from ..train.logging import TrainWriter, make_log
+from ..train.logging import TrainWriter
 from ..train.loop_denoise import DenoiseTrainConfig, DenoiseTrainer
-from .common import (eval_restore_fn, load_trainer_config, refuse_unported,
-                     resume_epoch, trainer_argparser, validate)
+from .common import (epoch_rss_watchdog, eval_restore_fn,
+                     load_trainer_config, run_epochs, train_log,
+                     trainer_argparser, trainer_mesh, validate)
 
 
-def build_trainer(cfg: dict, device="cuda") -> DenoiseTrainer:
+def build_trainer(cfg: dict, device="cuda", mesh=None) -> DenoiseTrainer:
     tcfg = DenoiseTrainConfig(
         im_chn=cfg["im_chn"], sigma_chn=cfg["sigma_chn"],
         dep_S=cfg["dep_S"], n_feat=tuple(cfg["n_feat"]),
@@ -60,7 +62,7 @@ def build_trainer(cfg: dict, device="cuda") -> DenoiseTrainer:
         mixed_precision=as_bool(cfg.get("mixed_precision", True)),
         remat=as_bool(cfg.get("remat", False)),
         save_dir=cfg["save_dir"], print_freq=cfg.get("print_freq", 100))
-    return DenoiseTrainer(tcfg, real=True, device=device)
+    return DenoiseTrainer(tcfg, real=True, device=device, mesh=mesh)
 
 
 def sidd_val_pairs(noisy_mat: str, gt_mat: str):
@@ -82,15 +84,19 @@ def main(argv=None) -> None:
     args = trainer_argparser("configs/denoising_real.json",
                              __doc__.splitlines()[0]).parse_args(argv)
     cfg = load_trainer_config(args)
-    refuse_unported(cfg)
     save_dir = Path(cfg["save_dir"])
     save_dir.mkdir(parents=True, exist_ok=True)
-    logger = make_log(save_dir / "train.log")
+    mesh = trainer_mesh(cfg, args.device)
+    rank0 = mesh.rank == 0
+    logger = train_log(save_dir, mesh.rank)
     for k, v in sorted(cfg.items()):
         logger.info(f"{k:<16s}: {v}")
 
-    trainer = build_trainer(cfg, device=args.device)
-    writer = TrainWriter(save_dir / "logs")
+    trainer = build_trainer(cfg, device=mesh.devices[0], mesh=mesh)
+    writer = TrainWriter(save_dir / "logs") if rank0 else None
+    rss_check = epoch_rss_watchdog(
+        cfg, "virnet_tpu_torch.cli.train_denoising_real", argv, logger,
+        writer, mesh.world)
 
     dataset = sampler = None
     if as_bool(cfg.get("device_data", False)):
@@ -118,26 +124,31 @@ def main(argv=None) -> None:
                    for k in ("test_noisy_path", "test_gt_path"))
     steps = cfg.get("steps_per_epoch", 10000)
 
-    for epoch in range(resume_epoch(trainer, cfg.get("resume"), logger.info),
-                       cfg["epochs"]):
+    def epoch_fn(epoch: int) -> None:
         if dataset is not None:
             stats = trainer.train_epoch_device(epoch, dataset, steps,
                                                log_fn=logger.info)
         else:
             sampler.reset_seed(epoch)
-            # uint8 pairs to the device; the trainer normalizes there
+            # every rank samples the global batch (uint8 pairs to the
+            # device; the trainer normalizes there)
             batches = (sampler.sample(cfg["batch_size"], raw=True)
                        for _ in range(steps))
             stats = trainer.train_epoch(epoch, batches, log_fn=logger.info)
-        writer.scalar("Loss_epoch", stats.get("loss", 0.0), epoch)
-        if have_val:
-            validate(eval_restore_fn(trainer.model, trainer.device),
-                     sidd_val_pairs(cfg["test_noisy_path"],
-                                    cfg["test_gt_path"]),
-                     epoch, logger, writer)
+        if rank0:
+            writer.scalar("Loss_epoch", stats.get("loss", 0.0), epoch)
+            if have_val:
+                validate(eval_restore_fn(trainer.model, trainer.device),
+                         sidd_val_pairs(cfg["test_noisy_path"],
+                                        cfg["test_gt_path"]),
+                         epoch, logger, writer)
         trainer.save(epoch)
         logger.info(f"epoch {epoch + 1} took {stats['epoch_time']:.2f}s")
-    writer.close()
+        rss_check()
+
+    run_epochs(cfg, trainer, epoch_fn, logger.info)
+    if writer is not None:
+        writer.close()
 
 
 if __name__ == "__main__":

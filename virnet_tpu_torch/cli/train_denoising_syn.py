@@ -19,8 +19,16 @@ the epoch's mean loss and the validation scores as TensorBoard scalars
 from a checkpoint.  The trainer runs on the card unless ``--device cpu``
 is given.
 
-Not ported yet, and refused when the config asks for them:
-``auto_resume``, the RSS watchdog and multi-host runs.
+Several processes (``torchrun --nproc_per_node N -m ...`` with
+``multihost: true`` in the config, or ``coordinator_address``,
+``num_processes`` and ``process_id`` in it) train one data-parallel run,
+a card each (train/mesh.py): every rank samples the global batch from the
+same seed and keeps its rows; rank 0 alone logs to the file, validates
+and writes checkpoints.  ``auto_resume`` (or ``--auto_resume``) restarts
+from the latest checkpoint after a crash; ``rss_limit_mb`` (or
+``--rss_limit_mb``) re-execs a single-process run with ``--resume latest``
+after an epoch that ends at or above that resident set
+(train/resilience.py).
 """
 
 from __future__ import annotations
@@ -31,13 +39,14 @@ from ..config import as_bool
 from ..data.device_data import DeviceDataset, records_from_images
 from ..data.eval_sets import DenoiseValSet
 from ..data.sources import ImageCache, PatchSampler, glob_images
-from ..train.logging import TrainWriter, make_log
+from ..train.logging import TrainWriter
 from ..train.loop_denoise import DenoiseTrainConfig, DenoiseTrainer
-from .common import (eval_restore_fn, load_trainer_config, refuse_unported,
-                     resume_epoch, trainer_argparser, validate)
+from .common import (epoch_rss_watchdog, eval_restore_fn,
+                     load_trainer_config, run_epochs, train_log,
+                     trainer_argparser, trainer_mesh, validate)
 
 
-def build_trainer(cfg: dict, device="cuda") -> DenoiseTrainer:
+def build_trainer(cfg: dict, device="cuda", mesh=None) -> DenoiseTrainer:
     tcfg = DenoiseTrainConfig(
         im_chn=cfg["im_chn"], sigma_chn=cfg["sigma_chn"],
         dep_S=cfg["dep_S"], n_feat=tuple(cfg["n_feat"]),
@@ -56,22 +65,26 @@ def build_trainer(cfg: dict, device="cuda") -> DenoiseTrainer:
         mixed_precision=as_bool(cfg.get("mixed_precision", True)),
         remat=as_bool(cfg.get("remat", False)),
         save_dir=cfg["save_dir"], print_freq=cfg.get("print_freq", 100))
-    return DenoiseTrainer(tcfg, device=device)
+    return DenoiseTrainer(tcfg, device=device, mesh=mesh)
 
 
 def main(argv=None) -> None:
     args = trainer_argparser("configs/denoising_syn.json",
                              __doc__.splitlines()[0]).parse_args(argv)
     cfg = load_trainer_config(args)
-    refuse_unported(cfg)
     save_dir = Path(cfg["save_dir"])
     save_dir.mkdir(parents=True, exist_ok=True)
-    logger = make_log(save_dir / "train.log")
+    mesh = trainer_mesh(cfg, args.device)
+    rank0 = mesh.rank == 0
+    logger = train_log(save_dir, mesh.rank)
     for k, v in sorted(cfg.items()):
         logger.info(f"{k:<16s}: {v}")
 
-    trainer = build_trainer(cfg, device=args.device)
-    writer = TrainWriter(save_dir / "logs")
+    trainer = build_trainer(cfg, device=mesh.devices[0], mesh=mesh)
+    writer = TrainWriter(save_dir / "logs") if rank0 else None
+    rss_check = epoch_rss_watchdog(
+        cfg, "virnet_tpu_torch.cli.train_denoising_syn", argv, logger,
+        writer, mesh.world)
 
     # training data: union of the configured (dir, glob) sources
     train_paths = glob_images(*[tuple(x) for x in cfg["train_data"]])
@@ -93,28 +106,33 @@ def main(argv=None) -> None:
     val_set = DenoiseValSet(val_paths) if val_paths else None
     steps = cfg.get("steps_per_epoch", 10000)
 
-    for epoch in range(resume_epoch(trainer, cfg.get("resume"), logger.info),
-                       cfg["epochs"]):
+    def epoch_fn(epoch: int) -> None:
         if dataset is not None:
             stats = trainer.train_epoch_device(epoch, dataset, steps,
                                                log_fn=logger.info)
         else:
             sampler.reset_seed(epoch)
-            # uint8 to the device; the trainer normalizes there
+            # every rank samples the global batch (uint8 to the device,
+            # this rank's rows only; the trainer normalizes there)
             batches = (sampler.sample(cfg["batch_size"], raw=True)
                        for _ in range(steps))
             stats = trainer.train_epoch(epoch, batches, log_fn=logger.info)
-        writer.scalar("Loss_epoch", stats.get("loss", 0.0), epoch)
         logger.info(f"train: Loss={stats.get('loss', 0):+.2e}, "
                     f"lh={stats.get('lh', 0):+.2e}, "
                     f"KLG={stats.get('kl_gauss', 0):+.2e}, "
                     f"KLIG={stats.get('kl_ig', 0):+.2e}")
-        if val_set is not None:
-            validate(eval_restore_fn(trainer.model, trainer.device),
-                     iter(val_set), epoch, logger, writer)
+        if rank0:
+            writer.scalar("Loss_epoch", stats.get("loss", 0.0), epoch)
+            if val_set is not None:
+                validate(eval_restore_fn(trainer.model, trainer.device),
+                         iter(val_set), epoch, logger, writer)
         trainer.save(epoch)
         logger.info(f"epoch {epoch + 1} took {stats['epoch_time']:.2f}s")
-    writer.close()
+        rss_check()
+
+    run_epochs(cfg, trainer, epoch_fn, logger.info)
+    if writer is not None:
+        writer.close()
 
 
 if __name__ == "__main__":

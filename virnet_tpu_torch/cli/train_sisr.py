@@ -24,9 +24,9 @@ installed); a checkpoint under ``<save_dir>/ckpts``.  The trainer runs on
 the card unless ``--device cpu`` is given.  ``--resume latest`` (or a
 saved epoch number) continues from a checkpoint.
 
-Not ported yet: the TensorBoard image and kernel summaries; ``auto_resume``,
-the RSS watchdog and multi-host runs are refused when the config asks for
-them.
+Several processes, ``auto_resume`` and ``rss_limit_mb`` work as in
+cli/train_denoising_syn.py.  Not ported yet: the TensorBoard image and
+kernel summaries.
 """
 
 from __future__ import annotations
@@ -38,13 +38,14 @@ from ..data.device_data import DeviceDataset, records_from_images
 from ..data.eval_sets import SISRValSet
 from ..data.sisr_host import HostSISRSampler
 from ..data.sources import ImageCache, PatchSampler
-from ..train.logging import TrainWriter, make_log
+from ..train.logging import TrainWriter
 from ..train.loop_sisr import SISRTrainConfig, SISRTrainer
-from .common import (eval_restore_fn, load_trainer_config, refuse_unported,
-                     resume_epoch, trainer_argparser, validate)
+from .common import (epoch_rss_watchdog, eval_restore_fn,
+                     load_trainer_config, run_epochs, train_log,
+                     trainer_argparser, trainer_mesh, validate)
 
 
-def build_trainer(cfg: dict, device="cuda") -> SISRTrainer:
+def build_trainer(cfg: dict, device="cuda", mesh=None) -> SISRTrainer:
     tcfg = SISRTrainConfig(
         im_chn=cfg["im_chn"], sigma_chn=cfg["sigma_chn"],
         dep_S=cfg["dep_S"], dep_K=cfg["dep_K"], n_feat=tuple(cfg["n_feat"]),
@@ -78,7 +79,8 @@ def build_trainer(cfg: dict, device="cuda") -> SISRTrainer:
     # host batches
     host_batches = (as_bool(cfg.get("add_jpeg", False))
                     and not as_bool(cfg.get("jpeg_in_graph", False)))
-    return SISRTrainer(tcfg, device=device, host_batches=host_batches)
+    return SISRTrainer(tcfg, device=device, host_batches=host_batches,
+                       mesh=mesh)
 
 
 def sisr_val_sets(cfg: dict) -> dict:
@@ -106,14 +108,15 @@ def main(argv=None) -> None:
     args = trainer_argparser("configs/sisr_x4.json",
                              __doc__.splitlines()[0]).parse_args(argv)
     cfg = load_trainer_config(args)
-    refuse_unported(cfg)
     save_dir = Path(cfg["save_dir"])
     save_dir.mkdir(parents=True, exist_ok=True)
-    logger = make_log(save_dir / "train.log")
+    mesh = trainer_mesh(cfg, args.device)
+    rank0 = mesh.rank == 0
+    logger = train_log(save_dir, mesh.rank)
     for k, v in sorted(cfg.items()):
         logger.info(f"{k:<16s}: {v}")
 
-    trainer = build_trainer(cfg, device=args.device)
+    trainer = build_trainer(cfg, device=mesh.devices[0], mesh=mesh)
     hr_paths = sorted(str(p) for p in
                       Path(cfg["train_hr_patchs"]).glob("*.png"))
     if not hr_paths:
@@ -143,25 +146,28 @@ def main(argv=None) -> None:
     else:
         sampler = PatchSampler(ImageCache(hr_paths), cfg["hr_size"])
     sf = cfg["sf"]
-    val_sets = sisr_val_sets(cfg)
-    writer = TrainWriter(save_dir / "logs")
+    val_sets = sisr_val_sets(cfg) if rank0 else {}
+    writer = TrainWriter(save_dir / "logs") if rank0 else None
+    rss_check = epoch_rss_watchdog(cfg, "virnet_tpu_torch.cli.train_sisr",
+                                   argv, logger, writer, mesh.world)
     steps = cfg.get("steps_per_epoch", 10000)
 
-    for epoch in range(resume_epoch(trainer, cfg.get("resume"), logger.info),
-                       cfg["epochs"]):
+    def epoch_fn(epoch: int) -> None:
         if dataset is not None:
             stats = trainer.train_epoch_device(epoch, dataset, steps,
                                                log_fn=logger.info)
         else:
             sampler.reset_seed(epoch * 1000)
-            # HR patches go as uint8 (normalized on the device); the host
-            # sampler's degraded batches are float
+            # every rank samples the global batch; HR patches go as uint8
+            # (normalized on the device), the host sampler's degraded
+            # batches as float
             batches = (sampler.sample(cfg["batch_size"])
                        if trainer.host_batches else
                        sampler.sample(cfg["batch_size"], raw=True)
                        for _ in range(steps))
             stats = trainer.train_epoch(epoch, batches, log_fn=logger.info)
-        writer.scalar("Loss_epoch", stats.get("loss", 0.0), epoch)
+        if rank0:
+            writer.scalar("Loss_epoch", stats.get("loss", 0.0), epoch)
         for nt, val_set in val_sets.items():
             validate(eval_restore_fn(trainer.model, trainer.device, sf=sf),
                      ((lr, hr) for hr, lr, _ in val_set), epoch, logger,
@@ -170,7 +176,11 @@ def main(argv=None) -> None:
         trainer.save(epoch)
         logger.info(f"epoch {epoch + 1} took {stats['epoch_time']:.2f}s, "
                     f"loss {stats.get('loss', 0.0):.4f}")
-    writer.close()
+        rss_check()
+
+    run_epochs(cfg, trainer, epoch_fn, logger.info)
+    if writer is not None:
+        writer.close()
 
 
 if __name__ == "__main__":

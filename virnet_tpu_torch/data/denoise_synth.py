@@ -37,6 +37,37 @@ def _exp(x: torch.Tensor) -> torch.Tensor:
     return torch.exp(x)
 
 
+def sigma_draws(batch: int, patch: int, mode: str = "niid",
+                generator: Optional[torch.Generator] = None,
+                device="cpu") -> dict:
+    """The draws of a batch's sigma maps, in the generator's order:
+    'niid' center (N, 2), scale (N, 1, 1) and updown (N, 2); 'iid' level
+    (N, 1, 1, 1)."""
+    if mode == "iid":
+        return dict(level=_uniform((batch, 1, 1, 1), 0.0, SIGMA_MAX,
+                                   generator, device))
+    if mode != "niid":
+        raise ValueError("mode must be 'niid' or 'iid'")
+    return dict(
+        center=_uniform((batch, 2), 0.0, float(patch), generator, device),
+        scale=_uniform((batch, 1, 1), patch / 4, patch / 4 * 3, generator,
+                       device),
+        updown=_uniform((batch, 2), 0.0, SIGMA_MAX, generator, device))
+
+
+def noisy_batch_draws(shape, mode: str = "niid",
+                      generator: Optional[torch.Generator] = None,
+                      device="cpu", dtype=torch.float32) -> dict:
+    """Every draw of ``synthesize_noisy_batch`` on a GT batch of ``shape``
+    (N, p, p, C), in the generator's order: ``sigma_draws`` and then
+    ``eps``.  A data-parallel rank draws the global batch's and keeps its
+    rows."""
+    draws = sigma_draws(shape[0], shape[1], mode, generator, device)
+    draws["eps"] = torch.randn(tuple(shape), generator=generator,
+                               dtype=dtype, device=device)
+    return draws
+
+
 def generate_sigma_niid(batch: int, patch: int,
                         generator: Optional[torch.Generator] = None,
                         draws: Optional[dict] = None,
@@ -45,11 +76,7 @@ def generate_sigma_niid(batch: int, patch: int,
     2) in [0, p), scale (N, 1, 1) in [p/4, 3p/4), updown (N, 2) in [0,
     75/255)) in place of the generator."""
     if draws is None:
-        draws = dict(
-            center=_uniform((batch, 2), 0.0, float(patch), generator, device),
-            scale=_uniform((batch, 1, 1), patch / 4, patch / 4 * 3, generator,
-                           device),
-            updown=_uniform((batch, 2), 0.0, SIGMA_MAX, generator, device))
+        draws = sigma_draws(batch, patch, "niid", generator, device)
     center, scale, ud = draws["center"], draws["scale"], draws["updown"]
     up = torch.maximum(ud[:, 0], ud[:, 1]) + 5.0 / 255.0
     down = torch.minimum(ud[:, 0], ud[:, 1])
@@ -75,8 +102,9 @@ def generate_sigma_iid(batch: int, patch: int,
                        device="cpu") -> torch.Tensor:
     """(N, p, p, 1) constant sigma maps.  ``draws``: dict(level (N, 1, 1,
     1) in [0, 75/255))."""
-    level = (draws["level"] if draws is not None else
-             _uniform((batch, 1, 1, 1), 0.0, SIGMA_MAX, generator, device))
+    if draws is None:
+        draws = sigma_draws(batch, patch, "iid", generator, device)
+    level = draws["level"]
     return level.expand(batch, patch, patch, 1)
 
 
@@ -91,6 +119,9 @@ def synthesize_noisy_batch(im_gt: torch.Tensor, mode: str = "niid",
     the sigma map (see ``generate_sigma_niid`` / ``generate_sigma_iid``)
     plus ``eps``, standard normals of im_gt's shape."""
     batch, patch = im_gt.shape[0], im_gt.shape[1]
+    if draws is None:
+        draws = noisy_batch_draws(im_gt.shape, mode, generator, im_gt.device,
+                                  im_gt.dtype)
     if mode == "niid":
         sigma = generate_sigma_niid(batch, patch, generator, draws,
                                     im_gt.device)
@@ -99,10 +130,7 @@ def synthesize_noisy_batch(im_gt: torch.Tensor, mode: str = "niid",
                                    im_gt.device)
     else:
         raise ValueError("mode must be 'niid' or 'iid'")
-    eps = (draws["eps"] if draws is not None else
-           torch.randn(im_gt.shape, generator=generator, dtype=im_gt.dtype,
-                       device=im_gt.device))
-    im_noisy = im_gt + eps * sigma
+    im_noisy = im_gt + draws["eps"] * sigma
     if clip:
         im_noisy = im_noisy.clamp(0.0, 1.0)
     return im_noisy, (sigma ** 2).clamp_min(1e-10)

@@ -13,9 +13,11 @@ gather.  Per step the host sends no input bytes.
 Sampling follows the reference's distribution (uniform record, uniform
 crop offset, uniform mode 0..7) without matching its host RNG; the draws
 come from the trainer's per-(epoch, step) generator, so runs are
-reproducible and resume exactly.  One copy lives on the one card; corpora
-larger than the card's memory swap chunks in with ``refresh`` between
-epochs.
+reproducible and resume exactly.  Each rank of a data-parallel run holds
+a whole copy on its card (as the JAX dataset is replicated over the
+mesh), draws the global batch's draws and gathers only its rows
+(``patch_draws``); corpora larger than the card's memory swap chunks in
+with ``refresh`` between epochs.
 """
 
 from __future__ import annotations
@@ -57,7 +59,16 @@ def dihedral_traced(x: torch.Tensor, mode: torch.Tensor) -> torch.Tensor:
     return x[torch.arange(n, device=x.device).view(n, 1, 1), si, sj]
 
 
-def _draws(n, h, w, batch, patch, augment, generator, device):
+def patch_draws(shape, batch: int, patch: int, augment: bool = True,
+                generator: Optional[torch.Generator] = None, device="cpu"
+                ) -> dict:
+    """The draws of ``sample_patches`` for records of ``shape`` (N, H, W,
+    C), in the generator's order: dihedral ``mode`` (zeros without
+    ``augment``), record ``idx``, crop offsets ``oh`` and ``ow``, each
+    (batch,) int64.  A data-parallel rank draws the global batch's and
+    gathers its rows."""
+    n, h, w = shape[:3]
+
     def randint(hi):
         return torch.randint(0, hi, (batch,), generator=generator,
                              device=device)
@@ -79,10 +90,9 @@ def sample_patches(records: torch.Tensor, batch: int, patch: int,
     given in ``draws``), assembled by one gather.  ``extra``: a second
     record array cropped and augmented with the same draws (paired noisy /
     gt).  uint8 in, uint8 out: the trainers normalize on the device."""
-    n, h, w, _ = records.shape
     if draws is None:
-        draws = _draws(n, h, w, batch, patch, augment, generator,
-                       records.device)
+        draws = patch_draws(records.shape, batch, patch, augment, generator,
+                            records.device)
     si, sj = _dihedral_index(draws["mode"], patch)
     rows = draws["oh"].view(-1, 1, 1) + si
     cols = draws["ow"].view(-1, 1, 1) + sj

@@ -14,7 +14,9 @@ Order: batches flow through a FIFO queue filled by exactly one worker, so
 the consumer sees them in the iterator's order; the trainers seed each
 step's generator from the step counter, so the batch-to-draws pairing is
 the same with and without the prefetcher.  A worker error reaches the
-consumer at the batch where it happened.
+consumer at the batch where it happened.  In a data-parallel run
+(train/mesh.py) the iterator yields global batches and ``rows`` picks
+this rank's rows: only they are pinned and copied.
 
 Usage::
 
@@ -52,14 +54,17 @@ def _map(fn, tree):
 class DevicePrefetcher:
     """Wraps a batch iterable; yields the same batches in the same order
     as tensors on ``device``, with up to ``depth`` batches in flight ahead
-    of the consumer.  ``stats``: the worker's seconds spent sampling
+    of the consumer; ``rows`` (a slice of the leading axis), when given,
+    keeps those rows of every array of a batch.  ``stats``: the worker's seconds spent sampling
     (``sample_s``), pinning and starting the copy (``put_s``) and waiting
     for room in the queue (``block_s``), and the batches it made."""
 
-    def __init__(self, batch_iter: Iterable, device, depth: int = 2):
+    def __init__(self, batch_iter: Iterable, device, depth: int = 2,
+                 rows: Optional[slice] = None):
         if depth < 1:
             raise ValueError(f"depth must be >= 1, got {depth}")
         self._iter = iter(batch_iter)
+        self._rows = rows
         self.device = torch.device(device)
         self._cuda = self.device.type == "cuda"
         self._stream = (torch.cuda.Stream(self.device) if self._cuda
@@ -86,6 +91,8 @@ class DevicePrefetcher:
         return t.to(self.device, non_blocking=True)
 
     def _transfer(self, batch):
+        if self._rows is not None:
+            batch = _map(lambda a: a[self._rows], batch)
         if not self._cuda:
             return _map(self._copy, batch), None
         with torch.cuda.stream(self._stream):

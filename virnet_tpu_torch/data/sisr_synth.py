@@ -52,6 +52,19 @@ def _uniform(shape, lo, hi, generator, device):
                                        device=device)
 
 
+def kernel_draws(batch: int, sf: int,
+                 generator: Optional[torch.Generator] = None,
+                 device="cpu") -> dict:
+    """The kernel draws of ``sample_kernel_params``, in the generator's
+    order: lam1 in [0.2, sf), lam2_u and iso_u in [0, 1), theta in [0,
+    pi), each (N,)."""
+    return dict(
+        lam1=_uniform((batch,), 0.2, float(sf), generator, device),
+        lam2_u=_uniform((batch,), 0.0, 1.0, generator, device),
+        iso_u=_uniform((batch,), 0.0, 1.0, generator, device),
+        theta=_uniform((batch,), 0.0, math.pi, generator, device))
+
+
 def sample_kernel_params(batch: int, sf: int,
                          generator: Optional[torch.Generator] = None,
                          draws: Optional[dict] = None, device="cpu"):
@@ -60,11 +73,7 @@ def sample_kernel_params(batch: int, sf: int,
     kinfo (N, 3) = (S00, S11, rho).  ``draws``: dict(lam1 in [0.2, sf),
     lam2_u and iso_u in [0, 1), theta in [0, pi)), each (N,)."""
     if draws is None:
-        draws = dict(
-            lam1=_uniform((batch,), 0.2, float(sf), generator, device),
-            lam2_u=_uniform((batch,), 0.0, 1.0, generator, device),
-            iso_u=_uniform((batch,), 0.0, 1.0, generator, device),
-            theta=_uniform((batch,), 0.0, math.pi, generator, device))
+        draws = kernel_draws(batch, sf, generator, device)
     lam1, theta = draws["lam1"], draws["theta"]
     lam2 = lam1 + draws["lam2_u"] * (float(sf) - lam1)    # U(lam1, sf)
     lam2 = torch.where(draws["iso_u"] >= 0.7, lam1, lam2)  # w.p. 0.3 isotropic
@@ -115,6 +124,36 @@ def random_qf_device(batch: int, device,
     return torch.minimum(lo + torch.floor(u * (hi - lo + 1.0)), hi)
 
 
+def sisr_batch_draws(hr_shape, sf: int, downsampler: str = "bicubic",
+                     noise_level=(0.1, 15.0), add_jpeg: bool = False,
+                     noise_jpeg=(0.1, 10.0),
+                     generator: Optional[torch.Generator] = None,
+                     device="cpu") -> dict:
+    """Every draw of ``synthesize_sisr_batch`` on an HR batch of
+    ``hr_shape`` (N, H, W, C), in the generator's order: the kernel
+    draws, ``nlevel``, ``noise`` at the LR shape and, with ``add_jpeg``,
+    ``is_jpeg``, ``nlevel_jpeg`` and ``qf``.  A data-parallel rank draws
+    the global batch's and keeps its rows."""
+    n, h, w, c = hr_shape
+    if downsampler.lower() == "direct":           # x[:, ::sf, ::sf]
+        lr_hw = (-(-h // sf), -(-w // sf))
+    else:                                         # ops/resize's out size
+        lr_hw = (math.ceil(1.0 / sf * h), math.ceil(1.0 / sf * w))
+    draws = kernel_draws(n, sf, generator, device)
+    draws["nlevel"] = _uniform((n,), noise_level[0] / 255.0,
+                               noise_level[1] / 255.0, generator, device)
+    draws["noise"] = torch.randn((n, *lr_hw, c), generator=generator,
+                                 device=device)
+    if add_jpeg:
+        draws["is_jpeg"] = torch.rand((n,), generator=generator,
+                                      device=device) < 0.5
+        draws["nlevel_jpeg"] = _uniform((n,), noise_jpeg[0] / 255.0,
+                                        noise_jpeg[1] / 255.0, generator,
+                                        device)
+        draws["qf"] = random_qf_device(n, device, generator)
+    return draws
+
+
 @torch.no_grad()
 def synthesize_sisr_batch(im_hr: torch.Tensor, sf: int, k_size: int = 21,
                           kernel_shift: bool = False,
@@ -138,6 +177,9 @@ def synthesize_sisr_batch(im_hr: torch.Tensor, sf: int, k_size: int = 21,
     The JPEG draws come after all the others, so a Gaussian-only run
     draws what it drew before the JPEG branch existed."""
     batch, dev = im_hr.shape[0], im_hr.device
+    if draws is None:
+        draws = sisr_batch_draws(im_hr.shape, sf, downsampler, noise_level,
+                                 add_jpeg, noise_jpeg, generator, dev)
     cov, kinfo = sample_kernel_params(batch, sf, generator, draws, dev)
     # torch-convention kernel transposed == numpy/data-convention kernel
     kernels = sigma2kernel(cov, k_size, sf, shift=kernel_shift).transpose(
@@ -146,22 +188,10 @@ def synthesize_sisr_batch(im_hr: torch.Tensor, sf: int, k_size: int = 21,
     im_blur = blur_symmetric_convolve(im_hr, kernels).clamp_(0.0, 1.0)
     im_blur_lr = downsample(im_blur, sf, downsampler)
 
-    if draws is None:
-        std = _uniform((batch,), noise_level[0] / 255.0,
-                       noise_level[1] / 255.0, generator, dev)
-        noise = torch.randn(im_blur_lr.shape, generator=generator, device=dev)
-    else:
-        std, noise = draws["nlevel"], draws["noise"]
+    std, noise = draws["nlevel"], draws["noise"]
     if add_jpeg:
-        if draws is None:
-            is_jpeg = torch.rand((batch,), generator=generator,
-                                 device=dev) < 0.5
-            std_j = _uniform((batch,), noise_jpeg[0] / 255.0,
-                             noise_jpeg[1] / 255.0, generator, dev)
-            qf = random_qf_device(batch, dev, generator)
-        else:
-            is_jpeg, std_j, qf = (draws["is_jpeg"], draws["nlevel_jpeg"],
-                                  draws["qf"])
+        is_jpeg, std_j, qf = (draws["is_jpeg"], draws["nlevel_jpeg"],
+                              draws["qf"])
         std = torch.where(is_jpeg, std_j, std)
     im_lr = torch.clamp(im_blur_lr + noise * std.view(batch, 1, 1, 1),
                         0.0, 1.0)

@@ -2,8 +2,10 @@
 
 The forward is the model's own.  Denoising: K3 + RNet + K4 on shapes that
 pass the fused-head gate, K2 + RNet + K4 on the others; SISR: K2 (SNet),
-KNet and RNet in torch, K4 (models/virnet.py).  The JAX engine's mesh,
-rows_shard and int8 paths are not ported yet.
+KNet and RNet in torch, K4 (models/virnet.py).  ``mesh`` (train/mesh.py)
+splits every batch over the mesh's devices, and
+``restore_image_sharded`` splits one image's rows over them
+(eval/spatial.py).  The JAX engine's int8 path is not ported yet.
 """
 
 from __future__ import annotations
@@ -17,6 +19,8 @@ from ..ops.augment import dihedral_inverse_np, dihedral_np
 from ..ops.pad import pad_bottom_right
 from ..precision import (compute_dtype, im2col_convs, resolve_device,
                          set_parity_mode)
+from .spatial import (replicas, restore_rows_sharded,
+                      sr_restore_rows_sharded)
 from .tiling import bucket_size, forward_chop
 
 CHOP_THRESHOLD = 160000   # pixels; above this, quadrant tiling kicks in
@@ -38,13 +42,18 @@ class Restorer:
     reference's semantics); > 0 reflect-pads to size buckets first.
     ``gray_mean=True`` averages a gray input's 3-channel restoration back
     to one channel.  ``device`` defaults to the card; the CPU runs the
-    kernels' plain versions and must be asked for.  Extra keyword
+    kernels' plain versions and must be asked for.  ``mesh``
+    (train/mesh.py) turns on data-parallel inference: one replica of the
+    weights per distinct device, and every ``restore_batch`` repeat-pads
+    its batch to a multiple of the mesh's size, runs one chunk per mesh
+    device and crops the result (per-image outputs as without the mesh,
+    up to the summation order of another batch size).  Extra keyword
     arguments go to ``build_model`` (e.g. ``conv_impl='ops'``)."""
 
     def __init__(self, task: str, ckpt_path=None, sf: int = 2,
                  pad_multiple: int = 0, gray_mean: bool = False,
                  compute: str = "fp32", device="cuda", state_dict=None,
-                 **model_overrides):
+                 mesh=None, **model_overrides):
         if task not in ARCH_PRESETS:
             raise ValueError(f"task must be one of {sorted(ARCH_PRESETS)}, "
                              f"got {task!r}")
@@ -67,17 +76,66 @@ class Restorer:
         model.load_state_dict(state_dict, strict=True)
         self.model = model.to(self.device, dtype).eval()
         self.im2col = compute == "fp32" and self.device.type == "cuda"
+        self.mesh = mesh
+        self.replicas = {self.device: self.model}
+        if mesh is not None:
+            self.replicas = replicas(self.model, mesh, self.replicas)
+
+    def _forward(self, x: torch.Tensor, device) -> torch.Tensor:
+        """mu of the replica on ``device`` for an NHWC float32 batch."""
+        x = x.to(device).contiguous()
+        with torch.inference_mode(), im2col_convs(self.im2col):
+            if self.sisr:
+                mu, _, _ = self.replicas[device](x, self.sf)
+            else:
+                mu, _ = self.replicas[device](x)
+        return mu
 
     def restore_batch(self, x) -> torch.Tensor:
         """NHWC float32 batch (numpy or tensor) -> restored NHWC float32
-        tensor on the engine's device, clamped to [0, 1]."""
+        tensor on the engine's device, clamped to [0, 1]; with a mesh,
+        repeat-padded to a multiple of its size and run one chunk per mesh
+        device."""
         x = torch.as_tensor(x, dtype=torch.float32).to(self.device)
-        with torch.inference_mode(), im2col_convs(self.im2col):
-            if self.sisr:
-                mu, _, _ = self.model(x.contiguous(), self.sf)
-            else:
-                mu, _ = self.model(x.contiguous())
+        if self.mesh is None:
+            mu = self._forward(x, self.device)
+        else:
+            n, size = x.shape[0], self.mesh.size
+            rem = (-n) % size
+            if rem:
+                x = torch.cat([x, x[-1:].expand(rem, *x.shape[1:])])
+            chunks = [self._forward(c, dev) for c, dev in
+                      zip(x.chunk(size), self.mesh.devices)]
+            mu = torch.cat([c.to(self.device) for c in chunks])[:n]
         return torch.clamp(mu.float(), 0.0, 1.0)
+
+    def restore_image_sharded(self, im: np.ndarray, mesh=None,
+                              halo: int = 160) -> np.ndarray:
+        """Restore one huge image with its rows sharded over ``mesh``
+        (default: the engine's, else every visible card, or the engine's
+        device alone on the CPU; eval/spatial.py): restore_image's raw
+        whole-image forward up to summation order (the SISR sigma pool is
+        summed over the stitched map), clamped to [0, 1]."""
+        from ..train.mesh import make_mesh
+
+        squeeze_gray = im.ndim == 2
+        if squeeze_gray:
+            im = np.stack([im] * 3, axis=2)
+        mesh = mesh or self.mesh or (make_mesh() if self.device.type ==
+                                     "cuda" else make_mesh([self.device]))
+        self.replicas = replicas(self.model, mesh, self.replicas)
+        with im2col_convs(self.im2col):
+            if self.sisr:
+                out = sr_restore_rows_sharded(self.model, im, self.sf, mesh,
+                                              halo=halo,
+                                              models=self.replicas)
+            else:
+                out = restore_rows_sharded(self.model, im, mesh, halo=halo,
+                                           models=self.replicas)
+        out = np.clip(out, 0.0, 1.0)
+        if squeeze_gray and self.gray_mean:
+            out = out.mean(axis=2)
+        return out
 
     def _restore_padded(self, batch: np.ndarray) -> np.ndarray:
         """Restore an NHWC numpy batch at its bucket size, cropped back."""

@@ -149,6 +149,37 @@ def likelihood_sisr(x_lr: torch.Tensor, kernels: torch.Tensor, sf: int,
     return out.mean()
 
 
+def sisr_elbo_draws(n: int, mu_shape, kappa0: float, n_mu: int = 1,
+                    generator: Optional[torch.Generator] = None,
+                    device="cpu", dtype=torch.float32,
+                    mu_dtype=torch.float32,
+                    given: Optional[dict] = None) -> dict:
+    """Every draw of ``elbo_sisr`` for ``n`` samples and ``n_mu`` estimates
+    of ``mu_shape``, in the generator's order: ``gamma_draw`` (n, 2)
+    Standard-Gamma(kappa0 - 1), ``rho_eps`` (n,) and ``z_eps`` (one
+    standard normal tensor per estimate); a draw in ``given`` is taken as
+    it is and not drawn.  A data-parallel rank draws the global batch's
+    and keeps its rows."""
+    given = given or {}
+    out = {}
+    out["gamma_draw"] = given.get("gamma_draw")
+    if out["gamma_draw"] is None:
+        with torch.no_grad():
+            out["gamma_draw"] = torch._standard_gamma(
+                torch.full((n, 2), kappa0 - 1.0, dtype=dtype, device=device),
+                generator=generator)
+    out["rho_eps"] = given.get("rho_eps")
+    if out["rho_eps"] is None:
+        out["rho_eps"] = torch.randn((n,), generator=generator, dtype=dtype,
+                                     device=device)
+    out["z_eps"] = given.get("z_eps")
+    if out["z_eps"] is None:
+        out["z_eps"] = [torch.randn(tuple(mu_shape), generator=generator,
+                                    dtype=mu_dtype, device=device)
+                        for _ in range(n_mu)]
+    return out
+
+
 def elbo_sisr(mu: MuLike, sigma_est: torch.Tensor, kinfo_est: torch.Tensor,
               im_hr: torch.Tensor, im_lr: torch.Tensor,
               sigma_prior: torch.Tensor, alpha0: float,
@@ -163,8 +194,10 @@ def elbo_sisr(mu: MuLike, sigma_est: torch.Tensor, kinfo_est: torch.Tensor,
     mu's shape per mu) in place of the generator.  Returns (loss, aux)
     with aux = dict(lh, kl_rnet, kl_snet, kl_knet, kl_knet0, kl_knet1,
     kl_knet2, kernel)."""
-    noise = noise or {}
     mus = _as_list(mu)
+    noise = sisr_elbo_draws(kinfo_est.shape[0], mus[0].shape, kappa0,
+                            len(mus), generator, kinfo_est.device,
+                            kinfo_est.dtype, mus[0].dtype, noise)
     kl_rnet = sum(kl_gauss(m, im_hr, eps2) for m in mus) / len(mus)
 
     beta0 = sigma_prior * alpha0
@@ -179,11 +212,10 @@ def elbo_sisr(mu: MuLike, sigma_est: torch.Tensor, kinfo_est: torch.Tensor,
     kl_knet = (kl_knet0 + kl_knet1 + kl_knet2) / 3 * penalty_K[1]
 
     k_cov = reparam_cov_mat(kinfo_est, kappa0, r2, generator,
-                            noise.get("gamma_draw"), noise.get("rho_eps"))
+                            noise["gamma_draw"], noise["rho_eps"])
     kernels = sigma2kernel(k_cov, k_size, sf, shift)           # N x k x k
 
-    z_eps = noise.get("z_eps")
-    z_eps = [None] * len(mus) if z_eps is None else _as_list(z_eps)
+    z_eps = _as_list(noise["z_eps"])
     lh = sum(likelihood_sisr(im_lr, kernels, sf, m, eps2, alpha0 - 1, beta,
                              downsampler, generator, z)
              for m, z in zip(mus, z_eps)) / len(mus)

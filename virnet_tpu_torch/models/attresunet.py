@@ -9,7 +9,11 @@ AttResBlocks and a stride-2 conv per scale; the up path a 2x2-stride-2
 ConvTranspose, an additive skip and unconditioned AttResBlocks.  The tail
 conv and the residual run as one K4 launch on the card (``tail_impl=
 'fused'``, forward-only) or through ``F.conv2d`` with autograd
-(``tail_impl='torch'``, the training route).
+(``tail_impl='torch'``, the training route).  ``remat`` recomputes each
+AttResBlock in the backward instead of keeping its activations
+(``torch.utils.checkpoint``, non-reentrant; the values and the gradients
+are the same bits), an AttResBlock's ``remat_gates`` its SFT gates; both
+act only while autograd records.
 
 Parameter names are the reference torch keys (``head``,
 ``down_path.{i}.body.{j}.conv{1,2}``, ``down_path.{i}.downsampler``,
@@ -31,6 +35,7 @@ from typing import Optional, Sequence
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.fused_conv import conv3x3_tail_residual
 from ..ops.pad import pad_to_multiple
@@ -39,6 +44,14 @@ from .common import (conv, conv_hwio, lrelu, make_conv, to_nchw, to_nhwc,
                      torch_default_init_)
 
 MODES = ("null", "input", "down", "both")
+
+
+def _call(module, remat: bool, *args):
+    """``module(*args)``, recomputed in the backward when ``remat`` and
+    autograd records."""
+    if remat and torch.is_grad_enabled():
+        return checkpoint(module, *args, use_reentrant=False)
+    return module(*args)
 
 
 class AttLayer(nn.Module):
@@ -62,23 +75,25 @@ class AttLayer(nn.Module):
 class AttResBlock(nn.Module):
     """``extra_chn`` > 0 makes the block conditioned (sft1/sft2)."""
 
-    def __init__(self, nf: int, extra_chn: int = 0):
+    def __init__(self, nf: int, extra_chn: int = 0,
+                 remat_gates: bool = False):
         super().__init__()
         if extra_chn > 0:
             self.sft1 = AttLayer(nf, extra_chn)
             self.sft2 = AttLayer(nf, extra_chn)
         self.conditioned = extra_chn > 0
+        self.remat_gates = remat_gates
         self.conv1 = make_conv(nf, nf, 3)
         self.conv2 = make_conv(nf, nf, 3)
 
     def forward(self, x, extra):
         t = x
         if self.conditioned:
-            mul, add = self.sft1(extra)
+            mul, add = _call(self.sft1, self.remat_gates, extra)
             t = x * mul + add
         f = conv(self.conv1, lrelu(t, 0.2))
         if self.conditioned:
-            mul, add = self.sft2(extra)
+            mul, add = _call(self.sft2, self.remat_gates, extra)
             f = f * mul + add
         f = conv(self.conv2, lrelu(f, 0.2))
         return x + f
@@ -103,12 +118,14 @@ class UpBlock(nn.Module):
                             4 * in_chn)
         self.body = nn.ModuleList(
             [AttResBlock(out_chn, 0) for _ in range(n_resblocks)])
+        self.remat = False
 
     def forward(self, x, bridge):
         x_up = conv_transpose_2x2(x, self.upsampler.weight,
                                   self.upsampler.bias)
         for ii, blk in enumerate(self.body):
-            x_up = blk(x_up + bridge if ii == 0 else x_up, None)
+            x_up = _call(blk, self.remat, x_up + bridge if ii == 0 else x_up,
+                         None)
         return x_up
 
 
@@ -116,7 +133,7 @@ class AttResUNet(nn.Module):
     def __init__(self, in_chn: int = 3, extra_chn: int = 1, out_chn: int = 3,
                  n_feat: Sequence[int] = (64, 128, 196, 256),
                  n_resblocks: int = 2, extra_mode: str = "input",
-                 tail_impl: str = "fused"):
+                 tail_impl: str = "fused", remat: bool = False):
         super().__init__()
         mode = extra_mode.lower()
         if mode not in MODES:
@@ -126,6 +143,7 @@ class AttResUNet(nn.Module):
                              f"{tail_impl!r}")
         self.extra_mode = mode
         self.tail_impl = tail_impl
+        self.remat = remat
         self.n_feat = tuple(n_feat)
         depth = len(n_feat)
         head_in = in_chn + (extra_chn if mode in ("input", "both") else 0)
@@ -138,6 +156,8 @@ class AttResUNet(nn.Module):
         self.up_path = nn.ModuleList(
             [UpBlock(n_feat[jj + 1], n_feat[jj], n_resblocks)
              for jj in reversed(range(depth - 1))])
+        for up in self.up_path:
+            up.remat = remat
         self.tail = make_conv(n_feat[0], out_chn, 3)
 
     def forward(self, x_in: torch.Tensor, extra_in: Optional[torch.Tensor],
@@ -179,7 +199,8 @@ class AttResUNet(nn.Module):
         bridges = []
         for ii, down in enumerate(self.down_path):
             for blk in down.body:
-                x = blk(x, extra_cur if cond_down else None)
+                x = _call(blk, self.remat, x,
+                          extra_cur if cond_down else None)
             if ii + 1 < depth:
                 bridges.append(x)
                 x = conv(down.downsampler, x)

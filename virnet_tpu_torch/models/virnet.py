@@ -11,7 +11,8 @@ reference networks/VIRNet.py).
 ``conv_impl`` chooses how SNet's stack and RNet's tail run: 'fused' (K2 /
 K3 and K4) and 'ops' (K1) are the forward-only serving routes, 'torch'
 runs them through ``F.conv2d`` with autograd and is what the trainers
-build.
+build; ``remat`` (RNet's blocks recomputed in the backward,
+models/attresunet.py) needs it.
 
 In the denoising model, on shapes that pass ``models/fused.fused_head_supported`` the forward runs
 SNet, the sigma epilogue and RNet's head conv through K3 (one launch in
@@ -42,8 +43,10 @@ class VIRNet(nn.Module):
     def __init__(self, im_chn: int = 3, sigma_chn: int = 3,
                  n_feat: Sequence[int] = (64, 128, 192), dep_S: int = 5,
                  n_resblocks: int = 2, noise_cond: bool = True,
-                 extra_mode: str = "input", conv_impl: str = "fused"):
+                 extra_mode: str = "input", conv_impl: str = "fused",
+                 remat: bool = False):
         super().__init__()
+        _check_remat(remat, conv_impl)
         self.n_feat = tuple(n_feat)
         self.dep_S = dep_S
         self.noise_cond = noise_cond
@@ -52,7 +55,7 @@ class VIRNet(nn.Module):
         self.SNet = DnCNN(im_chn, sigma_chn, dep_S, conv_impl=conv_impl)
         self.RNet = AttResUNet(im_chn, sigma_chn, im_chn, n_feat,
                                n_resblocks, self.extra_mode,
-                               tail_impl=_tail_impl(conv_impl))
+                               tail_impl=_tail_impl(conv_impl), remat=remat)
 
     @property
     def dtype(self) -> torch.dtype:
@@ -80,6 +83,12 @@ def _tail_impl(conv_impl: str) -> str:
     return "torch" if conv_impl == "torch" else "fused"
 
 
+def _check_remat(remat: bool, conv_impl: str) -> None:
+    if remat and conv_impl != "torch":
+        raise ValueError("remat recomputes blocks in the backward: it needs "
+                         "conv_impl='torch' (the kernels are forward-only)")
+
+
 def nearest_upsample(x: torch.Tensor, sf: int) -> torch.Tensor:
     """NHWC nearest-neighbour upsample by an integer factor."""
     return x.repeat_interleave(sf, dim=1).repeat_interleave(sf, dim=2)
@@ -93,8 +102,9 @@ class VIRNetSR(nn.Module):
                  dep_S: int = 5, dep_K: int = 8, noise_cond: bool = True,
                  kernel_cond: bool = True, n_resblocks: int = 1,
                  extra_mode: str = "down", noise_avg: bool = True,
-                 conv_impl: str = "fused"):
+                 conv_impl: str = "fused", remat: bool = False):
         super().__init__()
+        _check_remat(remat, conv_impl)
         self.n_feat = tuple(n_feat)
         self.dep_S = dep_S
         self.dep_K = dep_K
@@ -111,7 +121,7 @@ class VIRNetSR(nn.Module):
                      + (sigma_chn if noise_cond else 0))
         self.RNet = AttResUNet(im_chn, extra_chn, im_chn, n_feat,
                                n_resblocks, self.extra_mode,
-                               tail_impl=_tail_impl(conv_impl))
+                               tail_impl=_tail_impl(conv_impl), remat=remat)
 
     @property
     def dtype(self) -> torch.dtype:

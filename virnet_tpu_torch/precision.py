@@ -59,6 +59,25 @@ def parity_mode():
          torch.backends.cuda.matmul.allow_tf32) = saved
 
 
+@contextlib.contextmanager
+def train_step_mode():
+    """The trainers' flag scope: TF32 off (``parity_mode``), and cuDNN on
+    deterministic algorithms with autotuning off, so that the same steps
+    give the same bits on every run (the trainers' contract is bitwise
+    resume, train/checkpoint.py); the process-wide flags are put back as
+    they were on the way out."""
+    saved = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    try:
+        with parity_mode():
+            yield
+    finally:
+        (torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.benchmark) = saved
+
+
 _IM2COL = contextvars.ContextVar("virnet_tpu_torch_im2col_convs",
                                  default=False)
 

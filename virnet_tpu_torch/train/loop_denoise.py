@@ -20,9 +20,16 @@ data/prefetch.py when ``cfg.prefetch > 0``) or records resident on the
 device (``run_step_device`` / ``train_epoch_device``, data/device_data.py:
 GT records for synthetic mode, paired records for real mode, whose noisy
 and GT crops share their record, offsets and dihedral mode); the patch
-draws come from the step's generator before the synthesis draws.  Not
-ported yet: the data mesh and RNet rematerialization (``remat`` is
-accepted and does nothing).
+draws come from the step's generator before the synthesis draws.
+
+Data parallelism (``mesh``) works as in train/loop_sisr.py: each rank
+draws every random tensor of the step at the global batch's shape and
+keeps its rows, and the gradients, the loss and the ELBO's terms are
+averaged over the ranks after the backward.  MixUp pairs each row with
+another row of the whole global batch, so with MixUp each rank takes the
+whole global batch (the prefetcher moves all of it), mixes it and keeps
+its rows.  ``remat`` recomputes RNet's blocks in the backward
+(models/attresunet.py).
 """
 
 from __future__ import annotations
@@ -33,16 +40,17 @@ from typing import Callable, Dict, Optional
 
 import torch
 
-from ..data.denoise_synth import synthesize_noisy_batch
-from ..data.device_data import DeviceDataset, sample_patches
-from ..data.mixup import mixup_pairs
+from ..data.denoise_synth import noisy_batch_draws, synthesize_noisy_batch
+from ..data.device_data import DeviceDataset, patch_draws, sample_patches
+from ..data.mixup import mixup_draws, mixup_pairs
 from ..data.prefetch import DevicePrefetcher
 from ..losses.elbo import elbo_denoising
 from ..models.virnet import VIRNet
 from ..ops.degrade import noise_estimate
-from ..precision import parity_mode, resolve_device
+from ..precision import resolve_device, train_step_mode
 from .checkpoint import CheckpointManager
 from .loop_sisr import step_seed
+from .mesh import Mesh, map_rows
 from .optim import SubnetAdam
 
 
@@ -73,7 +81,8 @@ class DenoiseTrainConfig:
                                 # (data/prefetch.py; 0 switches it off)
     mixed_precision: bool = True  # bf16 autocast around the model forward
                                   # (parameters and Adam state stay fp32)
-    remat: bool = False         # accepted for config compatibility; a no-op
+    remat: bool = False         # recompute RNet's blocks in the backward
+                                # (torch.utils.checkpoint)
     use_mixup: bool = True      # real-data mode only (reference
                                 # train_denoising_real.py:163)
     seed: int = 1234
@@ -86,13 +95,17 @@ class DenoiseTrainer:
     ``real=True`` and feed (noisy, gt) batches; the sigma^2 prior is then
     estimated from the residual inside the step (reference
     train_denoising_real.py:164).  ``device`` defaults to the card; pass
-    ``device="cpu"`` to run on the CPU."""
+    ``device="cpu"`` to run on the CPU.  ``mesh`` (train/mesh.py) makes
+    the trainer one rank of a data-parallel run; the batch size must
+    divide by its world size."""
 
     def __init__(self, cfg: DenoiseTrainConfig, real: bool = False,
-                 device="cuda"):
+                 device="cuda", mesh: Optional[Mesh] = None):
         self.cfg = cfg
         self.real = real
         self.device = resolve_device(device)
+        self.mesh = mesh if mesh is not None else Mesh([self.device])
+        self.mesh.rows(cfg.batch_size)          # divisibility
 
         with torch.random.fork_rng(devices=[]):
             torch.manual_seed(cfg.seed)
@@ -100,8 +113,9 @@ class DenoiseTrainer:
                 im_chn=cfg.im_chn, sigma_chn=cfg.sigma_chn, n_feat=cfg.n_feat,
                 dep_S=cfg.dep_S, n_resblocks=cfg.n_resblocks,
                 noise_cond=cfg.noise_cond, extra_mode=cfg.extra_mode,
-                conv_impl="torch")
+                conv_impl="torch", remat=cfg.remat)
         self.model = model.to(self.device).train()
+        self.mesh.replicate(self.model.parameters())
         self.subnets = {"rnet": self.model.RNet, "snet": self.model.SNet}
         self.optim = SubnetAdam(
             self.subnets, cfg.lr, cfg.lr_min, cfg.epochs, cfg.warmup_epochs,
@@ -122,60 +136,98 @@ class DenoiseTrainer:
             return t.float() / 255.0
         return t.float()
 
-    @torch.no_grad()
-    def _batch(self, data, noise: Optional[dict]):
-        """(im_noisy, im_gt, sigma_gt) on the device."""
-        cfg = self.cfg
-        noise = noise or {}
+    @property
+    def mixes_rows(self) -> bool:
+        """Whether a step mixes rows across the batch (MixUp): a rank then
+        takes the whole global batch."""
+        return self.real and self.cfg.use_mixup
+
+    def _gt_shape(self, data, local: bool) -> tuple:
+        """The global batch's shape (N, p, p, C)."""
         if isinstance(data, DeviceDataset):
-            data = self._sample(data, noise.get("sample"))
+            p = self.cfg.patch_size
+            return (self.cfg.batch_size, p, p, data.rec_shape[-1])
+        n, *rest = (data[1] if self.real else data).shape
+        return (n * (self.mesh.world if local else 1), *rest)
+
+    def _draws(self, data, noise: dict, shape: tuple) -> dict:
+        """Every draw of the step at the global batch's ``shape``, in the
+        generator's order (sample, then mixup or synth); a part that
+        ``noise`` holds is taken as it is and not drawn."""
+        cfg, g, dev = self.cfg, self.generator, self.device
+        out = dict(noise)
+        if isinstance(data, DeviceDataset) and out.get("sample") is None:
+            out["sample"] = patch_draws(data.arrays[0].shape, shape[0],
+                                        cfg.patch_size, True, g, dev)
+        if self.mixes_rows and out.get("mixup") is None:
+            out["mixup"] = mixup_draws(shape[0], generator=g, device=dev)
+        elif not self.real and out.get("synth") is None:
+            out["synth"] = noisy_batch_draws(shape, cfg.noise_mode, g, dev)
+        return out
+
+    @torch.no_grad()
+    def _batch(self, data, noise: dict, rows: slice, local: bool):
+        """This rank's (im_noisy, im_gt, sigma_gt) on the device."""
+        cfg = self.cfg
+        whole = self.mixes_rows      # MixUp needs the global batch
+        if isinstance(data, DeviceDataset):
+            data = self._sample(data, noise["sample"] if whole
+                                else map_rows(noise["sample"], rows))
+        elif not (local or whole):
+            data = map_rows(data, rows)
         if self.real:
             im_noisy, im_gt = (self._to_device(t) for t in data)
-            if cfg.use_mixup:
-                im_gt, im_noisy = mixup_pairs(
-                    im_gt, im_noisy, generator=self.generator,
-                    draws=noise.get("mixup"))
+            if whole:
+                im_gt, im_noisy = mixup_pairs(im_gt, im_noisy,
+                                              draws=noise["mixup"])
+                im_gt, im_noisy = im_gt[rows], im_noisy[rows]
             return im_noisy, im_gt, noise_estimate(im_noisy, im_gt,
                                                    cfg.var_window)
         im_gt = self._to_device(data)
         im_noisy, sigma_gt = synthesize_noisy_batch(
-            im_gt, mode=cfg.noise_mode, generator=self.generator,
-            draws=noise.get("synth"))
+            im_gt, mode=cfg.noise_mode, draws=map_rows(noise["synth"], rows))
         return im_noisy, im_gt, sigma_gt
 
-    def _sample(self, dataset: DeviceDataset, draws: Optional[dict]):
-        """A uint8 batch drawn on the device from ``dataset``'s records: GT
-        patches (synthetic) or (noisy, gt) pairs with shared draws
-        (real)."""
+    def _sample(self, dataset: DeviceDataset, draws: dict):
+        """A uint8 batch gathered on the device from ``dataset``'s records
+        by ``draws``: GT patches (synthetic) or (noisy, gt) pairs with
+        shared draws (real)."""
         if dataset.paired != self.real:
             raise ValueError(
                 "real-noise training needs paired (noisy, gt) records and "
                 "synthetic training GT records alone; got "
                 f"{'paired' if dataset.paired else 'unpaired'} records")
         arrays = dataset.arrays
-        return sample_patches(arrays[0], self.cfg.batch_size,
+        return sample_patches(arrays[0], draws["idx"].shape[0],
                               self.cfg.patch_size,
                               extra=arrays[1] if self.real else None,
-                              generator=self.generator, draws=draws)
+                              draws=draws)
 
-    def loss_and_grads(self, batch, epoch: int, noise: Optional[dict] = None):
+    def loss_and_grads(self, batch, epoch: int, noise: Optional[dict] = None,
+                       local: bool = False):
         """Forward and backward of one step; the gradients are left in the
-        parameters' ``.grad``.  ``batch``: GT NHWC (synthetic) or a (noisy,
-        gt) pair (real), float in [0, 1] or uint8, or a DeviceDataset to
-        sample from.  ``noise``: dict(synth=the draws of
-        synthesize_noisy_batch, mixup=(indices, lam), sample=the draws of
-        data/device_data.sample_patches), each optional, in place of the
-        per-step generator.  Returns (loss, aux scalars).  TF32 is off from
-        the synthesis to the end of the backward (the convolutions run in
-        bf16 under autocast when ``mixed_precision``), and the process-wide
-        flags are put back afterwards."""
-        with parity_mode():
-            return self._loss_and_grads(batch, epoch, noise)
+        parameters' ``.grad`` (averaged over the ranks of a mesh).
+        ``batch``: the global batch, GT NHWC (synthetic) or a (noisy, gt)
+        pair (real), float in [0, 1] or uint8 (this rank's rows of it
+        with ``local``), or a DeviceDataset to sample from.  ``noise``:
+        dict(synth=the draws of synthesize_noisy_batch, mixup=(indices,
+        lam), sample=the draws of data/device_data.sample_patches) at the
+        global batch's shape, each optional, in place of the per-step
+        generator.  Returns (loss, aux scalars), averaged over the ranks.
+        Inside ``precision.train_step_mode``: TF32 off from the synthesis
+        to the end of the backward (the convolutions run in bf16 under
+        autocast when ``mixed_precision``) and cuDNN deterministic; the
+        process-wide flags are put back afterwards."""
+        with train_step_mode():
+            return self._loss_and_grads(batch, epoch, noise or {}, local)
 
-    def _loss_and_grads(self, batch, epoch: int, noise: Optional[dict]):
+    def _loss_and_grads(self, batch, epoch: int, noise: dict, local: bool):
         cfg = self.cfg
         self.generator.manual_seed(step_seed(cfg.seed, epoch, self.step))
-        im_noisy, im_gt, sigma_gt = self._batch(batch, noise)
+        shape = self._gt_shape(batch, local)
+        rows = self.mesh.rows(shape[0])
+        im_noisy, im_gt, sigma_gt = self._batch(
+            batch, self._draws(batch, noise, shape), rows, local)
         beta0 = self.alpha0 * sigma_gt
         self.optim.zero_grad()
         with torch.autocast(self.device.type, torch.bfloat16,
@@ -185,15 +237,21 @@ class DenoiseTrainer:
             mu.float(), sigma.float(), im_noisy, im_gt, cfg.eps2,
             self.alpha0, beta0)
         loss.backward()
-        return loss.detach(), dict(lh=lh.detach(), kl_gauss=klg.detach(),
-                                   kl_ig=klig.detach())
+        loss = loss.detach()
+        aux = dict(lh=lh.detach(), kl_gauss=klg.detach(),
+                   kl_ig=klig.detach())
+        self.mesh.all_reduce_mean_(
+            [p.grad for p in self.optim.params if p.grad is not None]
+            + [loss, *aux.values()])
+        return loss, aux
 
-    def run_step(self, batch, epoch: int,
-                 noise: Optional[dict] = None) -> Dict[str, torch.Tensor]:
-        """One optimization step.  Returns the loss, the ELBO's terms and
-        the pre-clip gradient norms as 0-d tensors on the device (no host
+    def run_step(self, batch, epoch: int, noise: Optional[dict] = None,
+                 local: bool = False) -> Dict[str, torch.Tensor]:
+        """One optimization step on a global batch (this rank's rows of it
+        with ``local``).  Returns the loss, the ELBO's terms and the
+        pre-clip gradient norms as 0-d tensors on the device (no host
         synchronisation)."""
-        loss, aux = self.loss_and_grads(batch, epoch, noise)
+        loss, aux = self.loss_and_grads(batch, epoch, noise, local)
         norms = self.optim.step()
         self.step += 1
         aux.update(loss=loss, gnorm_r=norms["rnet"], gnorm_s=norms["snet"])
@@ -210,15 +268,19 @@ class DenoiseTrainer:
 
     def train_epoch(self, epoch: int, batch_iter,
                     log_fn: Optional[Callable] = None) -> Dict[str, float]:
-        """One epoch over host batches, through the prefetcher when
-        ``cfg.prefetch > 0``; its stats come back as ``prefetch_*``."""
+        """One epoch over global host batches, through the prefetcher
+        when ``cfg.prefetch > 0`` (which moves this rank's rows only, or
+        the whole batch when the step mixes rows); its stats come back as
+        ``prefetch_*``."""
         if self.cfg.prefetch <= 0:
             return self._epoch(epoch, batch_iter, self.cfg.steps_per_epoch,
                                log_fn)
-        with DevicePrefetcher(batch_iter, self.device,
-                              self.cfg.prefetch) as batches:
+        rows = (None if self.mixes_rows
+                else self.mesh.rows(self.cfg.batch_size))
+        with DevicePrefetcher(batch_iter, self.device, self.cfg.prefetch,
+                              rows) as batches:
             out = self._epoch(epoch, batches, self.cfg.steps_per_epoch,
-                              log_fn)
+                              log_fn, local=rows is not None)
         out.update({f"prefetch_{k}": v for k, v in batches.stats.items()})
         return out
 
@@ -230,13 +292,14 @@ class DenoiseTrainer:
                            log_fn)
 
     def _epoch(self, epoch: int, batches, steps: int,
-               log_fn: Optional[Callable]) -> Dict[str, float]:
+               log_fn: Optional[Callable],
+               local: bool = False) -> Dict[str, float]:
         cfg = self.cfg
         tic = time.time()
         sums: Dict[str, float] = {}
         count = 0
         for ii, batch in enumerate(batches):
-            aux = self.run_step(batch, epoch)
+            aux = self.run_step(batch, epoch, local=local)
             if (ii + 1) % cfg.print_freq == 0 or ii == 0:
                 vals = {k: float(v) for k, v in aux.items()}
                 lr = self.schedule(self.step)
@@ -257,10 +320,13 @@ class DenoiseTrainer:
     # ----------------------------------------------------------- checkpoints
 
     def save(self, epoch: int) -> None:
-        self.ckpt.save(epoch + 1, dict(
-            params=self.model.state_dict(), opt_state=self.optim.state_dict(),
-            step=self.step, epoch=epoch + 1,
-            generator=self.generator.get_state()))
+        """Rank 0 writes the checkpoint; every rank waits for it."""
+        if self.mesh.rank == 0:
+            self.ckpt.save(epoch + 1, dict(
+                params=self.model.state_dict(),
+                opt_state=self.optim.state_dict(), step=self.step,
+                epoch=epoch + 1, generator=self.generator.get_state()))
+        self.mesh.barrier()
 
     def restore(self, step: Optional[int] = None) -> int:
         """Load the given (default: latest) checkpoint; returns the epoch
@@ -269,6 +335,7 @@ class DenoiseTrainer:
         if state is None:
             return 0
         self.model.load_state_dict(state["params"], strict=True)
+        self.mesh.replicate(self.model.parameters())
         self.optim.load_state_dict(state["opt_state"])
         self.step = int(state["step"])
         self.generator.set_state(state["generator"].cpu())

@@ -82,8 +82,10 @@ class SubnetAdam:
         self.clip_map = dict(clip_map or {})
         self.schedule = warmup_cosine_epoch_schedule(
             base_lr, lr_min, epochs, warmup_epochs, steps_per_epoch)
-        params = [p for m in subnets.values() for p in m.parameters()]
-        self.adam = torch.optim.Adam(params, lr=base_lr, betas=(0.9, 0.999),
+        # the parameters in a fixed order (subnets, then each one's own)
+        self.params = [p for m in subnets.values() for p in m.parameters()]
+        self.adam = torch.optim.Adam(self.params, lr=base_lr,
+                                     betas=(0.9, 0.999),
                                      eps=1e-8)
         self.count = 0
 
