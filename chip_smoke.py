@@ -5,7 +5,7 @@
                            ops,real,fp32,psnr,probe,sisr_fwd,serve_sisr,
                            train_fp32,
                            train_sisr,train_pipeline,train_denoise_fp32,
-                           train_denoise,eval_tables,runtime]
+                           train_denoise,eval_tables,runtime,int8]
                           [--report PATH]
 
 Phases (all by default; any failure raises and the exit code is not 0):
@@ -156,15 +156,30 @@ Phases (all by default; any failure raises and the exit code is not 0):
              steps, killed at epoch 2 step 10: bitwise); cli/endurance
              --minutes 0.5 --mode real through the pack and with
              --device_data
+  int8       int8 (W8A8) serving with the demo weights: Restorer(compute=
+             'int8') on the flagship 32x256^2 batch of denoising-syn and
+             denoising-real and on serve_sisr's 125x171 x4 image, exactly
+             one K9 launch per gated convolution; K9 against its plain
+             version on the arguments of every gated (Ci, Co, k) those
+             forwards hand it (the dequantized output bit for bit, and the
+             int32 sums bit for bit on small-range integers of the same
+             shapes), each timed cold beside its bound (int8 tensor-core
+             peak and memory), its plain version and torch._int_mm behind
+             an im2col (library_ms); ms per batch of int8 and bf16 in
+             turns (bf16, int8, int8, bf16) and the device time of one
+             int8 forward by kernel; PSNR of int8 and of bf16 against fp32
+             (and each against the clean image) on the psnr phase's image;
+             a trainer checkpoint through cli/export_torch, load_pth and a
+             Restorer, the same bits as the demo weights
 
 Every main-path phase (serve, serve_odd, ops, real, fp32, probe,
-serve_sisr, train_sisr, train_pipeline, eval_tables, runtime) zeroes the
+serve_sisr, train_sisr, train_pipeline, eval_tables, runtime, int8) zeroes the
 launch counters, drives its path once and reads them; it fails if a kernel
 of its path did not launch.  The line before the card's line is one JSON
 object with the kernels' numbers: times and errors from the syn weights
 in bf16 (K1-K4, K8 on 32-row slabs) or at the training shape in f32
-(K5-K7), and each kernel's
-launches in the one run of the path it serves
+(K5-K7) or at RNet's 96-wide body conv of the int8 flagship batch (K9),
+and each kernel's launches in the one run of the path it serves
 (``launches_path``; every path's count is in ``launches_by_path``).  K1-K4
 and K8, their plain versions and library calls are timed with L2 flushed
 before each launch (``ms``; the back-to-back time is ``warm_ms``), K5-K7
@@ -196,7 +211,7 @@ ALL_PHASES = ("build", "kernels", "serve", "profile", "serve_odd", "ops",
               "real", "fp32", "psnr", "probe", "sisr_fwd", "serve_sisr",
               "train_fp32",
               "train_sisr", "train_pipeline", "train_denoise_fp32",
-              "train_denoise", "eval_tables", "runtime")
+              "train_denoise", "eval_tables", "runtime", "int8")
 SYN_CKPT = ROOT / "model_zoo" / "virnet_denoising_syn_demo.pth"
 REAL_CKPT = ROOT / "model_zoo" / "virnet_denoising_real_demo.pth"
 SISR_CKPT = ROOT / "model_zoo" / "virnet_sisr_x4_demo.pth"
@@ -205,12 +220,12 @@ DENOISE_CONFIGS = {"syn": ROOT / "configs" / "denoising_syn.json",
                    "real": ROOT / "configs" / "denoising_real.json"}
 
 # card peaks (NVIDIA data sheets, dense): bf16 tensor-core FLOP/s, fp32
-# CUDA-core FLOP/s (the kernels run f32 on CUDA cores with TF32 off), and
-# memory bytes/s
+# CUDA-core FLOP/s (the kernels run f32 on CUDA cores with TF32 off), int8
+# tensor-core OP/s, and memory bytes/s
 PEAKS = {
-    "H100 SXM": dict(bf16=989e12, fp32=67e12, bytes=3.35e12),
-    "H100 PCIe": dict(bf16=756e12, fp32=51e12, bytes=2.0e12),
-    "H100 NVL": dict(bf16=835e12, fp32=60e12, bytes=3.9e12),
+    "H100 SXM": dict(bf16=989e12, fp32=67e12, int8=1979e12, bytes=3.35e12),
+    "H100 PCIe": dict(bf16=756e12, fp32=51e12, int8=1513e12, bytes=2.0e12),
+    "H100 NVL": dict(bf16=835e12, fp32=60e12, int8=1671e12, bytes=3.9e12),
 }
 
 KERNELS = {
@@ -255,12 +270,19 @@ KERNELS = {
         path="train_sisr", source="virnet_tpu_torch/csrc/blur.cu",
         replaces="virnet_tpu/ops/pallas_blur.py:180 (_blur_mxu_dw), "
                  ":374 (_blur_pallas_dw)"),
+    "conv_w8a8": dict(
+        path="int8", source="virnet_tpu_torch/csrc/conv_w8a8.cu",
+        replaces="not a Pallas kernel: virnet_tpu/ops/qconv.py:44 "
+                 "(conv_w8a8), whose int8 product XLA computes"),
 }
 # the measurement a kernel's row of the last-but-two line is taken from:
 # (results key, tag)
 ROW_TAG = {name: (name, "train f32" if name.startswith("blur")
                   else "syn bf16") for name in KERNELS}
 ROW_TAG["dncnn_head_fused_fp32"] = ("dncnn_head_fused", "syn fp32")
+# K9's row: RNet's 96-wide 3x3 body conv of the int8 flagship batch, the
+# shape that most of its launches take
+ROW_TAG["conv_w8a8"] = ("conv_w8a8", "syn 32x256x256x96 k3 96")
 
 
 def log(msg: str) -> None:
@@ -3008,6 +3030,266 @@ def phase_runtime(report, launches):
     runtime_dp_train(res, launches)
 
 
+INT8_DIR = ROOT / "build" / "chip_smoke_int8"
+# the convolutions that the int8 gate takes in one forward of each preset
+# (tests/test_torch_port_int8.py FULL), one K9 launch each
+INT8_GATED = {"denoising-syn": 33, "denoising-real": 48, "sisr": 71}
+
+
+@contextlib.contextmanager
+def recording_s8(calls):
+    """Inside the block ops/qconv.conv_s8 (K9's wrapper) keeps in
+    ``calls`` the arguments of the first call of each (input, weight)
+    shape pair and how many calls had that pair, and computes as before."""
+    from virnet_tpu_torch.ops import qconv
+
+    fn = qconv.conv_s8
+
+    def rec(xq, kq, sw, bias=None, out_dtype=torch.float32):
+        key = (tuple(xq.shape), tuple(kq.shape))
+        if key not in calls:
+            calls[key] = [(xq, kq, sw, bias, out_dtype), 0]
+        calls[key][1] += 1
+        return fn(xq, kq, sw, bias, out_dtype)
+
+    qconv.conv_s8 = rec
+    try:
+        yield
+    finally:
+        qconv.conv_s8 = fn
+
+
+def int_mm_route(xq, kq, sw, bias, out_dtype):
+    """K9's function through torch._int_mm behind an im2col (the library
+    yardstick, used nowhere in the port): the k*k shifted views of the
+    zero-padded int8 input side by side, (N*H*W, k*k*Ci), zero-padded to
+    _int_mm's multiples, times the (k*k*Ci, Co) weights, then the
+    dequantizing epilogue of the plain version."""
+    import torch.nn.functional as F
+
+    n, h, w, ci = xq.shape
+    k, co = kq.shape[0], kq.shape[3]
+    p = k // 2
+    xp = F.pad(xq, (0, 0, p, p, p, p))
+    cols = torch.cat([xp[:, dy:dy + h, dx:dx + w] for dy in range(k)
+                      for dx in range(k)], dim=3).reshape(n * h * w,
+                                                         k * k * ci)
+    wm = kq.reshape(k * k * ci, co)
+    m, kk = cols.shape
+    mp, kp, cp = max(-(-m // 8) * 8, 24), -(-kk // 8) * 8, -(-co // 8) * 8
+    cols = F.pad(cols, (0, kp - kk, 0, mp - m))
+    wm = F.pad(wm, (0, cp - co, 0, kp - kk)).t().contiguous().t()
+    acc = torch._int_mm(cols, wm)[:m, :co]
+    y = acc.float() * sw
+    if bias is not None:
+        y = y + bias
+    return y.to(out_dtype).reshape(n, h, w, co)
+
+
+def int8_kernel_checks(calls, res, peaks):
+    """K9 against its plain version and the library route on each
+    recorded (tag, input, weight) shape: the dequantized output bit for
+    bit on the recorded arguments, the int32 sums bit for bit on
+    integers in [-8, 8] of the same shapes (|acc| <= 64 k^2 Ci < 2^24, so
+    float32 holds them exactly), then cold ms of each beside the bound
+    (int8 tensor-core peak; each input read once, the output written
+    once)."""
+    from virnet_tpu_torch.ops import qconv
+
+    gen = torch.Generator(device="cuda").manual_seed(41)
+    for (tag, xs, ks), ((xq, kq, sw, bias, dt), count) in calls.items():
+        n, h, w, ci = xs
+        k, co = ks[0], ks[3]
+        name = f"{tag} {'x'.join(map(str, xs))} k{k} {co}"
+        got = qconv.conv_s8(xq, kq, sw, bias, dt)
+        want = qconv.conv_s8_plain(xq, kq, sw, bias, dt)
+        lib = int_mm_route(xq, kq, sw, bias, dt)
+        xs8 = torch.randint(-8, 9, xs, generator=gen, device="cuda",
+                            dtype=torch.int8)
+        ks8 = torch.randint(-8, 9, ks, generator=gen, device="cuda",
+                            dtype=torch.int8)
+        ones = torch.ones(co, device="cuda")
+        sums = qconv.conv_s8(xs8, ks8, ones, None, torch.float32)
+        sums_want = qconv.int32_sums(xs8, ks8, k // 2).float()
+        torch.cuda.synchronize()
+        ok = (torch.equal(got, want) and torch.equal(sums, sums_want)
+              and torch.equal(lib, want))
+        log(f"  K9 {name} (x{count}): output, int32 sums and the library "
+            f"route {'bit for bit' if ok else 'DIFFER'}")
+        if not ok:
+            raise AssertionError(f"int8: K9 disagrees with its plain "
+                                 f"version at {name}: output max diff "
+                                 f"{max_err(got, want)}, sums "
+                                 f"{max_err(sums, sums_want)}, library "
+                                 f"{max_err(lib, want)}")
+        del xs8, ks8, sums, sums_want, lib
+        ms = time_cold_ms(lambda: qconv.conv_s8(xq, kq, sw, bias, dt), 5)
+        plain_ms = time_cold_ms(
+            lambda: qconv.conv_s8_plain(xq, kq, sw, bias, dt), 2, warmup=1)
+        library_ms = time_cold_ms(
+            lambda: int_mm_route(xq, kq, sw, bias, dt), 3, warmup=1)
+        flops = 2.0 * n * h * w * k * k * ci * co
+        nbytes = (n * h * w * (ci + co * got.element_size())
+                  + k * k * ci * co + 8 * co)
+        b_ms, by = bound_ms(flops, nbytes, peaks["int8"], peaks)
+        check_bound(name, "K9", ms, b_ms)
+        res[name] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
+                         bound_ms=b_ms, bound_by=by, library_ms=library_ms,
+                         library="im2col + torch._int_mm + the epilogue",
+                         timing="cold, L2 flushed", launches_per_forward=count)
+        log(f"    {ms:.4f} ms (bound {b_ms:.4f}, {by}; plain {plain_ms:.3f}; "
+            f"im2col + _int_mm {library_ms:.4f})")
+
+
+def int8_psnr(res):
+    """PSNR of int8 and of bf16 against fp32, and of each against the
+    clean image, on the psnr phase's image (sigma 25/255 on a smooth
+    256^2 image) with the demo weights of both denoising presets."""
+    from virnet_tpu_torch.eval.engine import Restorer
+
+    clean = smooth_image(np.random.default_rng(1), 256, 256)
+    noisy = (clean + np.random.default_rng(2).normal(
+        0, 25 / 255, clean.shape)).astype(np.float32)
+    out = {}
+    for task, ckpt in (("denoising-syn", SYN_CKPT),
+                       ("denoising-real", REAL_CKPT)):
+        ims = {c: Restorer(task, ckpt_path=ckpt, compute=c).restore_image(
+            noisy) for c in ("fp32", "bf16", "int8")}
+        row = {f"{c}_vs_clean": psnr(im, clean) for c, im in ims.items()}
+        row.update({f"{c}_vs_fp32": psnr(ims[c], ims["fp32"])
+                    for c in ("bf16", "int8")})
+        row["noisy_vs_clean"] = psnr(np.clip(noisy, 0, 1), clean)
+        out[task] = row
+        log(f"  psnr {task}: " + ", ".join(f"{k} {v:.2f} dB"
+                                          for k, v in row.items()))
+        if not row["int8_vs_clean"] > row["noisy_vs_clean"]:
+            raise AssertionError(f"int8 {task}: restoration did not raise "
+                                 f"the PSNR")
+    res["psnr"] = out
+
+
+def int8_export_round_trip(res, x):
+    """A trainer checkpoint of the syn demo weights through
+    cli/export_torch, load_pth and a Restorer on the card: the same
+    tensors, and the same restored bits as the demo file itself; the
+    state dict through to_jax_params and back, the same bits."""
+    import shutil
+
+    from virnet_tpu_torch.cli import export_torch
+    from virnet_tpu_torch.convert import (from_jax_params, load_pth,
+                                          to_jax_params)
+    from virnet_tpu_torch.eval.engine import Restorer
+    from virnet_tpu_torch.train.checkpoint import CheckpointManager
+
+    sd = load_pth(SYN_CKPT)
+    run = INT8_DIR / "run"
+    shutil.rmtree(run, ignore_errors=True)
+    CheckpointManager(run).save(1, dict(params=sd, epoch=1))
+    path = INT8_DIR / "exported.pth"
+    export_torch.main(["--task", "denoising-syn", "--run_dir", str(run),
+                       "--out", str(path)])
+    back = load_pth(path)
+    rt = from_jax_params(to_jax_params(sd))
+    same = (back.keys() == sd.keys() == rt.keys()
+            and all(torch.equal(back[k], sd[k]) and torch.equal(rt[k], sd[k])
+                    for k in sd))
+    a = Restorer("denoising-syn", ckpt_path=path, compute="bf16")
+    b = Restorer("denoising-syn", ckpt_path=SYN_CKPT, compute="bf16")
+    same_out = torch.equal(a.restore_batch(x), b.restore_batch(x))
+    log(f"  export -> load_pth -> Restorer: tensors "
+        f"{'equal' if same else 'DIFFER'}, restored batch "
+        f"{'equal' if same_out else 'DIFFERS'}")
+    if not (same and same_out):
+        raise AssertionError("int8: the export round trip changed weights")
+    res["export_round_trip"] = dict(tensors_equal=same, outputs_equal=same_out)
+
+
+def phase_int8(report, launches, peaks, batch=32, size=256):
+    """int8 (W8A8) serving on the card (see the module docstring)."""
+    from virnet_tpu_torch.cli.bench_restore import profile_calls
+    from virnet_tpu_torch.eval.engine import Restorer
+
+    res: dict = {"kernels": {}}
+    report["int8"] = res
+    x = torch.as_tensor(np.random.default_rng(40).random(
+        (batch, size, size, 3), dtype=np.float32), device="cuda")
+    calls: dict = {}
+    for task, ckpt, tag in (("denoising-syn", SYN_CKPT, "syn"),
+                            ("denoising-real", REAL_CKPT, "real")):
+        log(f"[int8] {task} Restorer(compute='int8'), restore_batch "
+            f"{batch}x{size}x{size}")
+        r8 = Restorer(task, ckpt_path=ckpt, compute="int8")
+        key = "int8" if tag == "syn" else f"int8_{tag}"
+        out, launches[key] = run_path(key, lambda: r8.restore_batch(x),
+                                      ("conv_w8a8",))
+        check_image(key, out.cpu(), (batch, size, size, 3))
+        other = {k: v for k, v in launches[key].items()
+                 if v and k != "conv_w8a8"}
+        if launches[key]["conv_w8a8"] != INT8_GATED[task] or other:
+            raise AssertionError(f"{key}: one forward launched "
+                                 f"{launches[key]}, expected K9 x "
+                                 f"{INT8_GATED[task]} and nothing else")
+        shapes: dict = {}
+        with recording_s8(shapes):
+            r8.restore_batch(x)
+        calls.update({(tag,) + k: v for k, v in shapes.items()})
+        r16 = Restorer(task, ckpt_path=ckpt, compute="bf16")
+        turns = {"bf16": [], "int8": []}
+        for c in ("bf16", "int8", "int8", "bf16"):
+            fn = (r16 if c == "bf16" else r8).restore_batch
+            turns[c].append(wall_ms(lambda: fn(x), reps=3)[0])
+        res[f"{tag}_ms_per_batch"] = turns
+        log(f"  ms per batch in turns (bf16, int8, int8, bf16): bf16 "
+            f"{[round(v, 2) for v in turns['bf16']]}, int8 "
+            f"{[round(v, 2) for v in turns['int8']]}")
+        if tag == "syn":
+            prof = profile_calls(lambda: r8.restore_batch(x))
+            kern = prof["kernels"]
+            total = sum(v[0] for v in kern.values())
+            k9 = sum(v[0] for name, v in kern.items() if "w8a8" in name)
+            top = sorted(kern.items(), key=lambda kv: -kv[1][0])[:8]
+            res["profile"] = dict(device_ms=total, k9_ms=k9,
+                                  wall_ms=prof["wall_ms"],
+                                  top=[(n, v[0], v[1]) for n, v in top],
+                                  torch_ops=prof["torch_ops"][:10])
+            log(f"  one int8 forward: device {total:.2f} ms, K9 {k9:.2f} "
+                f"ms; top kernels " + "; ".join(
+                    f"{n[:60]} {v[0]:.2f} ms x{v[1]}" for n, v in top[:5]))
+            log("  top ops: " + "; ".join(
+                f"{o[0]} {o[1]:.2f} ms x{o[2]}"
+                for o in prof["torch_ops"][:6]))
+        del r8, r16
+    lr = np.random.default_rng(4).random((125, 171, 3), dtype=np.float32)
+    log("[int8] sisr x4 Restorer(compute='int8'), restore_image 125x171")
+    sr = Restorer("sisr", ckpt_path=SISR_CKPT, sf=4, compute="int8")
+    out, launches["int8_sisr"] = run_path(
+        "int8_sisr", lambda: sr.restore_image(lr), ("conv_w8a8",))
+    check_image("int8_sisr", out, (500, 684, 3))
+    if launches["int8_sisr"]["conv_w8a8"] != INT8_GATED["sisr"]:
+        raise AssertionError(f"int8_sisr: {launches['int8_sisr']}")
+    shapes = {}
+    with recording_s8(shapes):
+        sr.restore_image(lr)
+    calls.update({("sisr",) + k: v for k, v in shapes.items()})
+    del sr
+    log(f"[int8] K9 against its plain version on {len(calls)} gated "
+        f"shapes")
+    int8_kernel_checks(calls, res["kernels"], peaks)
+    del calls
+    syn_rows = [v for k, v in res["kernels"].items() if k.startswith("syn ")]
+    res["syn_k9_ms_per_forward"] = sum(v["ms"] * v["launches_per_forward"]
+                                       for v in syn_rows)
+    res["syn_k9_bound_ms_per_forward"] = sum(
+        v["bound_ms"] * v["launches_per_forward"] for v in syn_rows)
+    log(f"  syn: K9 {res['syn_k9_ms_per_forward']:.2f} ms per forward cold "
+        f"(bound {res['syn_k9_bound_ms_per_forward']:.2f})")
+    report.setdefault("kernels", {})["conv_w8a8"] = res["kernels"]
+    log("[int8] PSNR against fp32 and the clean image")
+    int8_psnr(res)
+    log("[int8] export round trip on the card")
+    int8_export_round_trip(res, x[:4])
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(ALL_PHASES),
@@ -3258,6 +3540,9 @@ def main(argv=None) -> int:
 
     if "runtime" in phases:
         phase_runtime(report, launches)
+
+    if "int8" in phases:
+        phase_int8(report, launches, peaks)
 
     report["launches"] = launches
     report["total_s"] = time.perf_counter() - t_all

@@ -16,6 +16,7 @@ from virnet_tpu.ops import kernels as jker
 from virnet_tpu.ops import pallas_blur
 from virnet_tpu.ops import resize as jres
 from virnet_tpu_torch.ops import blur, degrade, kernels, resize
+from test_torch_port_shared import _one_thread  # noqa: F401 (autouse)
 
 
 def _t(a, grad=False):

@@ -522,3 +522,71 @@ def test_level_chain_raises_on_what_it_does_not_take(dtype):
     with pytest.raises(ValueError, match="1-3 outputs"):
         fc.dncnn_head_fused(x, *a4)
     assert sum(fc.LAUNCHES.values()) == 0
+
+
+# ---------------------------------------------------------------------------
+# K9, the s8 tensor-core convolution of the int8 serving mode
+# ---------------------------------------------------------------------------
+
+def _s8_args(rng, n, h, w, ci, co, k):
+    xq = torch.from_numpy(rng.integers(-127, 128, (n, h, w, ci),
+                                       dtype=np.int8)).cuda()
+    kq = torch.from_numpy(rng.integers(-127, 128, (k, k, ci, co),
+                                       dtype=np.int8)).cuda()
+    sw = torch.from_numpy(rng.uniform(1e-6, 1e-4, co).astype(
+        np.float32)).cuda()
+    bias = torch.from_numpy(rng.normal(0, 0.1, co).astype(np.float32)).cuda()
+    return xq, kq, sw, bias
+
+
+@pytest.mark.parametrize("k,ci,co,nhw", [
+    (3, 64, 64, (2, 37, 45)), (3, 96, 96, (1, 16, 16)),
+    (3, 288, 288, (1, 9, 23)), (3, 20, 40, (1, 8, 17)),
+    (3, 160, 224, (2, 3, 5)), (1, 24, 96, (3, 1, 1)),
+    (1, 40, 160, (2, 5, 7)), (1, 16, 13, (1, 3, 3))])
+@pytest.mark.parametrize("out", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_conv_w8a8_kernel_matches_plain_on_card(k, ci, co, nhw, out):
+    """K9 against its plain version (the float64 product, exact) on the
+    card and on the CPU: the int32 sums and the two-rounding epilogue
+    give the same bits, with and without a bias, one launch a call."""
+    _need_card()
+    from virnet_tpu_torch.ops import qconv
+
+    rng = np.random.default_rng(k + ci + co)
+    xq, kq, sw, bias = _s8_args(rng, *nhw, ci, co, k)
+    fc.reset_launches()
+    for b in (bias, None):
+        got = qconv.conv_s8(xq, kq, sw, b, out)
+        torch.cuda.synchronize()
+        assert got.dtype == out and got.shape == (*nhw, co)
+        assert torch.equal(got, qconv.conv_s8_plain(xq, kq, sw, b, out))
+        assert torch.equal(got.cpu(), qconv.conv_s8_plain(
+            xq.cpu(), kq.cpu(), sw.cpu(), None if b is None else b.cpu(),
+            out))
+    assert fc.LAUNCHES["conv_w8a8"] == 2
+
+
+def test_conv_w8a8_kernel_raises_on_what_it_does_not_take():
+    """A 5x5 kernel, float activations, a bias of another dtype, widths
+    that disagree, a non-contiguous input: raised before any launch."""
+    _need_card()
+    from virnet_tpu_torch.ops import qconv
+
+    rng = np.random.default_rng(30)
+    xq, kq, sw, bias = _s8_args(rng, 1, 8, 8, 32, 32, 3)
+    fc.reset_launches()
+    k5 = torch.zeros(5, 5, 32, 32, dtype=torch.int8, device="cuda")
+    with pytest.raises(ValueError, match="1x1 and 3x3"):
+        qconv.conv_s8(xq, k5, sw, bias)
+    with pytest.raises(TypeError):
+        qconv.conv_s8(xq.float(), kq, sw, bias)
+    with pytest.raises(TypeError):
+        qconv.conv_s8(xq, kq, sw, bias.double())
+    with pytest.raises(ValueError, match="input channels"):
+        qconv.conv_s8(xq[..., :16].contiguous(), kq, sw, bias)
+    with pytest.raises(ValueError, match="contiguous"):
+        qconv.conv_s8(xq.transpose(1, 2), kq, sw, bias)
+    with pytest.raises(TypeError):
+        qconv.conv_s8(xq, kq, sw, bias, torch.float16)
+    assert fc.LAUNCHES["conv_w8a8"] == 0

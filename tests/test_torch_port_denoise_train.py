@@ -4,6 +4,8 @@ filter, on-device noise synthesis and MixUp given the JAX package's own
 draws, the paired patch sampler, one whole training step (synthetic and
 real), bitwise checkpoint resume, and the two trainer CLIs."""
 
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -25,6 +27,7 @@ from virnet_tpu_torch.ops.degrade import blur_shared, noise_estimate
 from virnet_tpu_torch.train.checkpoint import CheckpointManager
 from virnet_tpu_torch.train.loop_denoise import (DenoiseTrainConfig,
                                                  DenoiseTrainer)
+from test_torch_port_shared import _one_thread  # noqa: F401 (autouse)
 
 SMALL = dict(n_feat=(16, 24, 32), dep_S=3, n_resblocks=1, batch_size=2,
              patch_size=32, mixed_precision=False)
@@ -593,19 +596,26 @@ def test_logging_grid_writer_and_lazy_exports(tmp_path):
 
 def test_cli_messages_name_roadmap_items_by_title():
     """ROADMAP.md's queues are renumbered when they are re-anchored, so a
-    message that cites an item by number goes stale: the one refusal left
-    in the command lines, ``--compute int8``, names the module and the
-    queue item's title instead."""
+    message that cited an item by number would go stale.  The last such
+    refusal, ``--compute int8``, is gone: the eval options take int8 and
+    their help no longer calls it unported, and no string in the port's
+    sources cites a ROADMAP item by number."""
     import argparse
+    import ast
     import re
 
     from virnet_tpu_torch.cli import common
 
-    with pytest.raises(NotImplementedError, match="the remainder") as err:
-        common.refuse_unported_eval(argparse.Namespace(compute="int8",
-                                                       mesh=True))
-    msg = str(err.value)
-    assert not re.search(r"\bitems?\s+\d", msg), msg
-    assert "ROADMAP.md" in msg and "ops/qconv.py" in msg, msg
-    common.refuse_unported_eval(argparse.Namespace(compute="bf16",
-                                                   mesh=True))
+    p = argparse.ArgumentParser()
+    common.add_eval_args(p)
+    assert p.parse_args(["--compute", "int8"]).compute == "int8"
+    assert "not ported" not in p.format_help()
+    assert not hasattr(common, "refuse_unported_eval")
+    root = Path(__file__).resolve().parents[1] / "virnet_tpu_torch"
+    for f in sorted(root.rglob("*.py")):
+        for node in ast.walk(ast.parse(f.read_text())):
+            if isinstance(node, ast.Constant) and isinstance(node.value,
+                                                             str):
+                msg = node.value
+                if "ROADMAP" in msg:
+                    assert not re.search(r"\bitems?\s+\d", msg), (f, msg)

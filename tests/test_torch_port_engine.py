@@ -20,6 +20,7 @@ from virnet_tpu.ops.augment import dihedral_np as jax_d
 from virnet_tpu_torch.eval.engine import Restorer
 from virnet_tpu_torch.eval.tiling import bucket_size, forward_chop
 from virnet_tpu_torch.ops.augment import dihedral_inverse_np, dihedral_np
+from test_torch_port_shared import _one_thread  # noqa: F401 (autouse)
 
 ROOT = Path(__file__).resolve().parents[1]
 SYN = str(ROOT / "model_zoo" / "virnet_denoising_syn_demo.pth")
@@ -108,6 +109,30 @@ def test_demo_cli_writes_restored_png(tmp_path):
                                   want)
 
 
+def test_demo_cli_serves_int8(tmp_path):
+    """--compute int8 writes what Restorer(compute='int8') restores (the
+    demo weights, the plain versions on the CPU); --rows_shard refuses
+    it, naming the reason."""
+    from virnet_tpu_torch.cli.demo import main
+
+    im = (_im(10, 20, 24) * 255).round().astype(np.uint8)
+    src = tmp_path / "noisy.png"
+    cv2.imwrite(str(src), im)
+    args = ["--task", "denoising-syn", "--in_path", str(src), "--out_path",
+            str(tmp_path / "out"), "--ckpt_path", SYN, "--device", "cpu",
+            "--compute", "int8"]
+    main(args)
+    out = cv2.imread(str(tmp_path / "out" / "restored_noisy.png"))
+    rgb = cv2.cvtColor(im, cv2.COLOR_BGR2RGB).astype(np.float32) / 255
+    want = Restorer("denoising-syn", ckpt_path=SYN, device="cpu",
+                    compute="int8").restore_image(rgb)
+    want = np.rint(np.clip(want, 0, 1) * 255).astype(np.uint8)
+    np.testing.assert_array_equal(cv2.cvtColor(out, cv2.COLOR_BGR2RGB),
+                                  want)
+    with pytest.raises(SystemExit, match="scales"):
+        main(args + ["--rows_shard"])
+
+
 def test_entry_points_need_cuda_unless_cpu_is_asked():
     sisr = Restorer("sisr", ckpt_path=ROOT / "model_zoo" /
                     "virnet_sisr_x4_demo.pth", sf=4, device="cpu")
@@ -187,7 +212,10 @@ def test_port_imports_no_jax():
         "        'virnet_tpu_torch.train.resilience',\n"
         "        'virnet_tpu_torch.eval.spatial',\n"
         "        'virnet_tpu_torch.cli.resilience_proof',\n"
-        "        'virnet_tpu_torch.cli.endurance']\n"
+        "        'virnet_tpu_torch.cli.endurance',\n"
+        "        'virnet_tpu_torch.ops.qconv',\n"
+        "        'virnet_tpu_torch.cli.export_torch',\n"
+        "        'virnet_tpu_torch.cli.parity']\n"
         "for m in mods: importlib.import_module(m)\n"
         # the demo's SISR path, driven on a tiny image on the CPU
         "import tempfile, cv2, numpy as np\n"

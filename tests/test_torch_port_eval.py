@@ -24,6 +24,7 @@ from virnet_tpu.ops import sigma_fields as jfields
 from virnet_tpu_torch.data import eval_sets
 from virnet_tpu_torch.eval import metrics
 from virnet_tpu_torch.ops import color, degrade, pad, sigma_fields
+from test_torch_port_shared import _one_thread  # noqa: F401 (autouse)
 
 ROOT = Path(__file__).resolve().parents[1]
 

@@ -19,6 +19,7 @@ from virnet_tpu_torch.convert import from_jax_params, load_pth
 from virnet_tpu_torch.models import VIRNet, build_model
 from virnet_tpu_torch.models.common import conv_hwio, hwio
 from virnet_tpu_torch.models.fused import fused_head_supported
+from test_torch_port_shared import _one_thread  # noqa: F401 (autouse)
 
 SMALL = dict(sigma_chn=1, n_feat=(16, 24, 32), dep_S=4, n_resblocks=2)
 CKPTS = {"denoising-syn": "model_zoo/virnet_denoising_syn_demo.pth",

@@ -15,6 +15,7 @@ import torch
 
 from virnet_tpu.ops import pallas_conv as pc
 from virnet_tpu_torch.ops import fused_conv as fc
+from test_torch_port_shared import _one_thread  # noqa: F401 (autouse)
 
 LMIN, LMAX = float(np.log(1e-10)), float(np.log(1e2))
 TOL = 5e-6   # fp32 bar of tests/test_fused_head.py:58

@@ -39,6 +39,7 @@ from virnet_tpu_torch.data.prefetch import DevicePrefetcher
 from virnet_tpu_torch.data.sources import ImageCache
 from virnet_tpu_torch.ops import jpeg
 from virnet_tpu_torch.ops.color import jpeg_compress
+from test_torch_port_shared import _one_thread  # noqa: F401 (autouse)
 
 SISR_SMALL = dict(n_feat=(16, 24, 32), dep_S=3, dep_K=2, n_resblocks=1,
                   batch_size=2, hr_size=32, sf=2, k_size=5,

@@ -20,6 +20,7 @@ from virnet_tpu_torch.convert import from_jax_params
 from virnet_tpu_torch.models import VIRNet, build_model
 from virnet_tpu_torch.models.fused import denoise_forward_fused
 from virnet_tpu_torch.ops import fused_conv as fc
+from test_torch_port_shared import _one_thread  # noqa: F401 (autouse)
 
 
 def _t(a):

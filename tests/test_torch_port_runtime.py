@@ -13,6 +13,8 @@ import subprocess
 import sys
 from pathlib import Path
 
+import logging
+
 import numpy as np
 import pytest
 import torch
@@ -73,6 +75,11 @@ def test_init_multihost_failure_raises_for_several_processes(monkeypatch,
         raise RuntimeError("connection refused")
 
     monkeypatch.setattr(torch.distributed, "init_process_group", fail)
+    # train/logging.make_log, run by an earlier test in this process,
+    # turns the package logger's propagation off, and caplog listens at
+    # the root: let the warning reach it whatever ran before
+    monkeypatch.setattr(logging.getLogger("virnet_tpu_torch"), "propagate",
+                        True)
     with pytest.raises(RuntimeError, match="multi-process init failed"):
         mesh_mod.init_multihost("badhost:1", 2, 1, backend="gloo")
     assert seen[0]["init_method"] == "tcp://badhost:1"
@@ -364,8 +371,21 @@ def test_rss_mb_and_reexec_argv():
     argv = resilience.reexec_argv("pkg.mod", ["--config", "c.json"])
     assert argv == [sys.executable, "-m", "pkg.mod", "--config", "c.json",
                     "--resume", "latest"]
+    # a --resume already on the command line gives way to --resume
+    # latest, in either form and wherever it stands, so that a re-exec
+    # restores the checkpoint just written and not the epoch it started at
     assert resilience.reexec_argv("pkg.mod", ["--resume", "7"])[3:] == [
-        "--resume", "7"]
+        "--resume", "latest"]
+    for args in (["--resume", "3", "--x", "1"], ["--resume=3", "--x", "1"],
+                 ["--x", "1", "--resume", "3"],
+                 ["--resume", "2", "--x", "1", "--resume=3"]):
+        assert resilience.reexec_argv("pkg.mod", args)[3:] == [
+            "--x", "1", "--resume", "latest"], args
+    mid = resilience.reexec_argv("pkg.mod", ["--config", "c.json",
+                                             "--resume", "3", "--epochs",
+                                             "9"])
+    assert mid[3:] == ["--config", "c.json", "--epochs", "9", "--resume",
+                       "latest"]
 
 
 def test_watchdog_below_the_limit_disabled_and_firing(monkeypatch):

@@ -24,6 +24,7 @@ from virnet_tpu_torch.convert import from_jax_params, load_pth
 from virnet_tpu_torch.data import sisr_synth
 from virnet_tpu_torch.losses import elbo
 from virnet_tpu_torch.models import DnCNN, KernelNet, VIRNetSR, build_model
+from test_torch_port_shared import _one_thread  # noqa: F401 (autouse)
 
 SMALL = dict(n_feat=(16, 24, 32), dep_S=3, dep_K=2, n_resblocks=1)
 

@@ -14,6 +14,7 @@ from virnet_tpu.eval.engine import Restorer as JaxRestorer
 from virnet_tpu.eval.tiling import forward_chop as jax_forward_chop
 from virnet_tpu_torch.eval.engine import CHOP_THRESHOLD, Restorer
 from virnet_tpu_torch.eval.tiling import forward_chop
+from test_torch_port_shared import _one_thread  # noqa: F401 (autouse)
 
 ROOT = Path(__file__).resolve().parents[1]
 

@@ -38,6 +38,7 @@ from virnet_tpu_torch.eval.metrics_device import (batch_psnr_device,
                                                   batch_ssim_device)
 from virnet_tpu_torch.eval.tta import tta_x8
 from virnet_tpu_torch.ops import augment, color
+from test_torch_port_shared import _one_thread  # noqa: F401 (autouse)
 
 ROOT = Path(__file__).resolve().parents[1]
 ZOO = ROOT / "model_zoo"
@@ -802,6 +803,36 @@ def _mesh_outputs(cli, out):
     return _untimed(pickle.loads(next(out.glob("*.pkl")).read_bytes()))
 
 
+def _assert_served_alike(cli, got, want):
+    """``got`` (an int8 run's outputs, ``_mesh_outputs``) has the form of
+    ``want`` (the fp32 run's): the same DND crops in [0, 1], the same SIDD
+    block array, or the same table with finite scores."""
+    if cli == "eval_dnd":
+        assert got.keys() == want.keys() and len(got) == 4
+        for k in want:
+            assert got[k].shape == want[k].shape
+            assert np.isfinite(got[k]).all()
+            assert 0.0 <= got[k].min() and got[k].max() <= 1.0
+        return
+    if cli == "eval_sidd":
+        assert got.shape == want.shape and got.dtype == want.dtype
+        return
+
+    def leaves(tree, out):
+        if isinstance(tree, dict):
+            for k in sorted(tree):
+                leaves(tree[k], out)
+        elif isinstance(tree, (list, tuple)):
+            for v in tree:
+                leaves(v, out)
+        elif not isinstance(tree, str):
+            out.append(float(tree))
+        return out
+    flat_got, flat_want = leaves(got, []), leaves(want, [])
+    assert len(flat_got) == len(flat_want) > 0
+    assert np.isfinite(flat_got).all()
+
+
 @pytest.mark.parametrize("cli", ["eval_denoising_syn", "eval_sidd",
                                  "eval_sisr", "eval_dnd"])
 @pytest.mark.parametrize("flag,title", [(["--mesh"], "multi-device and "
@@ -810,31 +841,26 @@ def _mesh_outputs(cli, out):
                                          "the remainder")])
 def test_eval_clis_refuse_what_is_not_ported(cli, flag, title, tmp_path,
                                              monkeypatch, request):
-    """--compute int8 raises, naming ROADMAP's Queue 1 item by its title,
-    before anything is read.  --mesh is no longer refused: on small seeded
-    data with the demo weights, a mesh of CPU devices (three; two for
-    DND's one-crop batches, its official 50 x 20 loop cut to 2 x 2 through
-    the module's ``range``: the whole loop is test_eval_dnd_cli_writes_
-    what_the_jax_cli_writes's) in place of every visible card writes what
-    the command line writes without it, with per-image convolutions, so
-    that a batch's make-up cannot move a denoised value.  The SISR
-    model's other reductions (KNet, the sigma pool) are summed in an
-    order that follows the batch's size, so there a few uint8 values may
-    differ: its scores within 1e-3."""
+    """Nothing is refused any more: the two flags that were (their cases
+    keep their ids, ``title`` naming the ROADMAP item each came from) are
+    served on small seeded data with the demo weights.  --compute int8:
+    each command line writes what it writes in fp32, from W8A8
+    convolutions (models/common.conv's int8 gate, counted), its scores
+    finite and its images in range.  --mesh: a mesh of CPU devices
+    (three; two for DND's one-crop batches, its official 50 x 20 loop cut
+    to 2 x 2 through the module's ``range``: the whole loop is
+    test_eval_dnd_cli_writes_what_the_jax_cli_writes's) in place of every
+    visible card writes what the command line writes without it, with
+    per-image convolutions, so that a batch's make-up cannot move a
+    denoised value.  The SISR model's other reductions (KNet, the sigma
+    pool) are summed in an order that follows the batch's size, so there
+    a few uint8 values may differ: its scores within 1e-3."""
     import importlib
 
+    from virnet_tpu_torch.models import common as tcommon
     from virnet_tpu_torch.train import mesh
 
     main = importlib.import_module(f"virnet_tpu_torch.cli.{cli}").main
-    if flag != ["--mesh"]:
-        args = {"eval_denoising_syn": ["--data_root", str(tmp_path)],
-                "eval_sidd": ["--sidd_dir", str(tmp_path)],
-                "eval_sisr": ["--data_root", str(tmp_path)],
-                "eval_dnd": ["--dnd_dir", str(tmp_path), "--save_dir",
-                             str(tmp_path / "out")]}[cli]
-        with pytest.raises(NotImplementedError, match=title):
-            main(args + flag + ["--device", "cpu"])
-        return
     data = tmp_path / "data"
     if cli == "eval_denoising_syn":
         _pngs(data / "CBSD68", 81, [(24, 32), (24, 32), (32, 24)])
@@ -862,18 +888,27 @@ def test_eval_clis_refuse_what_is_not_ported(cli, flag, title, tmp_path,
     size = 2 if cli == "eval_dnd" else 3
     monkeypatch.setattr(mesh, "make_mesh",
                         lambda devices=None: mesh.Mesh(["cpu"] * size))
+    quantized = []
+    w8a8 = tcommon.conv_w8a8
+    monkeypatch.setattr(tcommon, "conv_w8a8", lambda *a, **k: (
+        quantized.append(1), w8a8(*a, **k))[1])
     outs = []
     threads = torch.get_num_threads()
     torch.set_num_threads(1)      # the tier-1 run has six workers at once
     try:
         with _per_image_convs():
-            for mode in ([], ["--mesh"]):
+            for mode in ([], flag):
                 out = tmp_path / f"out{len(outs)}"
                 main(args + mode + ["--save_dir", str(out), "--device",
                                     "cpu"])
                 outs.append(_mesh_outputs(cli, out))
     finally:
         torch.set_num_threads(threads)
+    if flag != ["--mesh"]:
+        assert quantized, "no convolution ran W8A8"
+        _assert_served_alike(cli, outs[1], outs[0])
+        return
+    assert not quantized
     if cli == "eval_dnd":
         assert len(outs[0]) == 4
     if cli == "eval_sisr":

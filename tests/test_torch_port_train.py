@@ -23,6 +23,7 @@ from virnet_tpu_torch.train.checkpoint import CheckpointManager
 from virnet_tpu_torch.train.loop_sisr import SISRTrainConfig, SISRTrainer
 from virnet_tpu_torch.train.optim import (SubnetAdam,
                                           warmup_cosine_epoch_schedule)
+from test_torch_port_shared import _one_thread  # noqa: F401 (autouse)
 
 SMALL = dict(n_feat=(16, 24, 32), dep_S=3, dep_K=2, n_resblocks=1,
              batch_size=2, hr_size=32, mixed_precision=False)

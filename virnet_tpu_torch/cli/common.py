@@ -1,8 +1,7 @@
 """Shared plumbing of the command lines (counterpart of
 virnet_tpu/cli/common.py): the trainers' arguments and config, the
-process group, the RSS watchdog, resume, per-epoch validation, the eval
-CLIs' options and the refusal of what is not ported (``--compute
-int8``)."""
+process group, the RSS watchdog, resume, per-epoch validation and the
+eval CLIs' options."""
 
 from __future__ import annotations
 
@@ -19,21 +18,17 @@ from ..eval.tiling import bucket_size
 from ..ops.pad import pad_bottom_right
 from ..precision import im2col_convs
 
-# where ROADMAP.md queues what is not ported yet: by the item's title,
-# never its number, which changes when the queue is renumbered
-_REMAINDER = "the remainder, in ROADMAP.md's Queue 1, modules still to port"
-
 
 def add_eval_args(p: argparse.ArgumentParser) -> None:
-    """The device, compute and mesh options of the eval command lines
-    (``--compute int8`` is refused by ``refuse_unported_eval``)."""
+    """The device, compute and mesh options of the eval command lines."""
     p.add_argument("--device", type=str, default="cuda",
                    help="cuda (default) runs the CUDA kernels; cpu runs "
                         "their plain PyTorch versions")
     p.add_argument("--compute", type=str, default="fp32",
                    choices=["fp32", "bf16", "int8"],
                    help="fp32 (default) = checkpoint-faithful parity "
-                        "eval; bf16 = fast path; int8 is not ported yet")
+                        "eval; bf16 = fast path; int8 = W8A8 serving (not "
+                        "checkpoint-faithful)")
     p.add_argument("--mesh", action="store_true",
                    help="data-parallel eval: each batch split over every "
                         "visible card (outputs as without it)")
@@ -50,15 +45,6 @@ def eval_mesh(args, logger):
             if torch.device(args.device).type == "cpu" else make_mesh())
     logger.info(f"data-parallel eval over {mesh.size} devices")
     return mesh
-
-
-def refuse_unported_eval(args) -> None:
-    """Raise when an eval command line asks for a module that is not
-    ported yet, naming it."""
-    if args.compute == "int8":
-        raise NotImplementedError(
-            f"--compute int8 needs ops/qconv.py ({_REMAINDER}), which is "
-            "not ported yet")
 
 
 def log_model_size(logger, restorer, sizes=(256, 512)) -> None:

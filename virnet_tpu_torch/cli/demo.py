@@ -4,7 +4,7 @@ scripts/testing_demo.py:99-135):
     python -m virnet_tpu_torch.cli.demo
         --task {denoising-syn,denoising-real,sisr} --in_path <file-or-dir>
         --out_path <dir> [--sf {2,3,4}] [--ckpt_path <pth>]
-        [--prefix restored_] [--flip] [--compute fp32|bf16]
+        [--prefix restored_] [--flip] [--compute fp32|bf16|int8]
         [--mesh [--batch_size 8] | --rows_shard] [--device cuda|cpu]
 
 ``sisr`` writes each image ``--sf`` times larger; its default weights are
@@ -52,9 +52,10 @@ def main(argv=None):
     parser.add_argument("--flip", action="store_true",
                         help="x8 flip/rotation self-ensemble")
     parser.add_argument("--compute", type=str, default="fp32",
-                        choices=["fp32", "bf16"],
+                        choices=["fp32", "bf16", "int8"],
                         help="fp32 (default) = checkpoint-faithful; "
-                             "bf16 = fast path")
+                             "bf16 = fast path; int8 = W8A8 serving (not "
+                             "checkpoint-faithful)")
     parser.add_argument("--rows_shard", action="store_true",
                         help="shard each image's rows over every visible "
                              "card (huge images; matches the plain "
@@ -84,6 +85,10 @@ def main(argv=None):
     if args.rows_shard and args.mesh:
         raise SystemExit("--rows_shard already uses every card (the rows "
                          "axis); --mesh is the data-parallel alternative")
+    if args.rows_shard and args.compute == "int8":
+        raise SystemExit("--rows_shard does not serve --compute int8: the "
+                         "strips' activation scales would not be the whole "
+                         "image's (Restorer.restore_image_sharded)")
     ckpt = args.ckpt_path or DEFAULT_CKPTS[args.task].format(sf=args.sf)
     if not Path(ckpt).exists():
         raise SystemExit(f"checkpoint not found: {ckpt}")

@@ -4,7 +4,7 @@ reference scripts/denoising_virnet_syn.py).
     python -m virnet_tpu_torch.cli.eval_denoising_syn --noise_type niid \
         --data_root <dir with CBSD68/*.png, McMaster/*.tif> \
         --ckpt_path model_zoo/virnet_denoising_syn.pth --save_dir ./results \
-        [--compute fp32|bf16] [--mesh] [--device cuda|cpu]
+        [--compute fp32|bf16|int8] [--mesh] [--device cuda|cpu]
 """
 
 from __future__ import annotations
@@ -16,8 +16,7 @@ from pathlib import Path
 from ..eval.engine import Restorer
 from ..eval.tables import eval_denoise_synthetic
 from ..train.logging import make_log
-from .common import (add_eval_args, eval_mesh, log_model_size,
-                     refuse_unported_eval)
+from .common import add_eval_args, eval_mesh, log_model_size
 
 
 def main(argv=None):
@@ -34,7 +33,6 @@ def main(argv=None):
                         "reflect-pads to size buckets (small edge drift)")
     add_eval_args(p)
     args = p.parse_args(argv)
-    refuse_unported_eval(args)
 
     if args.save_dir:
         Path(args.save_dir).mkdir(parents=True, exist_ok=True)

@@ -3,7 +3,7 @@ reference scripts/denoising_virnet_real_dnd.py:86-88).
 
     python -m virnet_tpu_torch.cli.eval_dnd --dnd_dir <dir> \
         --save_dir ./dnd_out --ckpt_path model_zoo/virnet_denoising_real.pth \
-        [--no_flip] [--compute fp32|bf16] [--mesh]
+        [--no_flip] [--compute fp32|bf16|int8] [--mesh]
         [--device cuda|cpu]
 
 Reads info.mat and images_srgb/ with h5py, which must be installed.
@@ -17,7 +17,7 @@ from pathlib import Path
 from ..eval.dnd import bundle_submissions_srgb, denoise_srgb, make_denoiser
 from ..eval.engine import Restorer
 from ..train.logging import make_log
-from .common import add_eval_args, eval_mesh, refuse_unported_eval
+from .common import add_eval_args, eval_mesh
 
 
 def main(argv=None):
@@ -30,7 +30,6 @@ def main(argv=None):
     p.add_argument("--no_flip", action="store_true")
     add_eval_args(p)
     args = p.parse_args(argv)
-    refuse_unported_eval(args)
 
     Path(args.save_dir).mkdir(parents=True, exist_ok=True)
     logger = make_log(Path(args.save_dir) / "dnd.log")

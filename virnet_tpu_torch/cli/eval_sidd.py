@@ -3,7 +3,7 @@ reference scripts/denoising_virnet_real_sidd.py).
 
     python -m virnet_tpu_torch.cli.eval_sidd --sidd_dir <dir> \
         [--test] [--no_flip] [--batch 16] [--device_metrics] \
-        [--compute fp32|bf16] [--mesh] [--device cuda|cpu] \
+        [--compute fp32|bf16|int8] [--mesh] [--device cuda|cpu] \
         --ckpt_path ... --save_dir ./results
 
 Validation mode scores PSNR/SSIM against the GT blocks; --test mode
@@ -20,8 +20,7 @@ from pathlib import Path
 from ..eval.engine import Restorer
 from ..eval.tables import load_sidd_blocks, sidd_table
 from ..train.logging import make_log
-from .common import (add_eval_args, eval_mesh, log_model_size,
-                     refuse_unported_eval)
+from .common import add_eval_args, eval_mesh, log_model_size
 
 
 def main(argv=None):
@@ -40,7 +39,6 @@ def main(argv=None):
     p.add_argument("--save_dir", type=str, default="")
     add_eval_args(p)
     args = p.parse_args(argv)
-    refuse_unported_eval(args)
 
     import scipy.io as sio
 

@@ -4,7 +4,7 @@ reference scripts/sisr_virnet_syn.py).
     python -m virnet_tpu_torch.cli.eval_sisr --sf 4 --nlevel 2.55 \
         --data_root <dir with Set14/*.bmp, CBSD68/*.png> \
         --ckpt_path model_zoo/virnet_sisr_x4.pth --save_dir ./results \
-        [--compute fp32|bf16] [--mesh] [--device cuda|cpu]
+        [--compute fp32|bf16|int8] [--mesh] [--device cuda|cpu]
 
 LPIPS (eval/lpips.py) needs the pretrained weights file: set
 VIRNET_LPIPS_WEIGHTS (or drop model_zoo/lpips_alex.pth), or pass
@@ -22,8 +22,7 @@ from ..eval import lpips as lpips_mod
 from ..eval.engine import Restorer
 from ..eval.tables import eval_sisr_synthetic
 from ..train.logging import make_log
-from .common import (add_eval_args, eval_mesh, log_model_size,
-                     refuse_unported_eval)
+from .common import add_eval_args, eval_mesh, log_model_size
 
 
 def main(argv=None):
@@ -49,7 +48,6 @@ def main(argv=None):
                    help="images per forward within an LR-shape group")
     add_eval_args(p)
     args = p.parse_args(argv)
-    refuse_unported_eval(args)
 
     ckpt = args.ckpt_path or str(Path("model_zoo")
                                  / f"virnet_sisr_x{args.sf}.pth")

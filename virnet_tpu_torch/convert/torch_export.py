@@ -1,11 +1,11 @@
-"""Checkpoints for the port.
+"""Export to the reference's checkpoint format (counterpart of
+virnet_tpu/convert/torch_export.py).
 
-The port's parameter names are the reference torch keys, so a released
-``.pth`` loads with ``load_state_dict(strict=True)`` once ``module.`` is
-stripped and fp16 is cast to fp32 (``load_pth``).  ``from_jax_params``
-carries a virnet_tpu (flax) parameter tree, given as numpy arrays, across
-to a state dict: the counterpart of
-virnet_tpu/convert/torch_export.py:export_state_dict.
+``from_jax_params`` carries a virnet_tpu (flax) parameter tree, given as
+numpy arrays, across to the port's state dict (the reference's keys): the
+JAX package's ``export_state_dict``, inverse of
+``torch_import.to_jax_params``.  ``save_torch_checkpoint`` writes a state
+dict as the reference-loadable ``.pth`` (the trainer's wrapper format).
 """
 
 from __future__ import annotations
@@ -14,15 +14,6 @@ from typing import Any, Dict
 
 import numpy as np
 import torch
-
-
-def load_pth(path) -> Dict[str, torch.Tensor]:
-    """A reference ``.pth`` (a bare state dict or the trainer's
-    {'model_state_dict': ...} wrapper) as an fp32 state dict."""
-    ckpt = torch.load(path, map_location="cpu", weights_only=True)
-    if isinstance(ckpt, dict) and "model_state_dict" in ckpt:
-        ckpt = ckpt["model_state_dict"]
-    return {k.removeprefix("module."): v.float() for k, v in ckpt.items()}
 
 
 def _conv(sd: Dict, name: str, tree: Dict) -> None:
@@ -85,3 +76,14 @@ def from_jax_params(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
             _conv(sd, f"{bp}.3.body.2", rb["ca"]["excite"])
     return {k: torch.tensor(np.asarray(v, dtype=np.float32))
             for k, v in sd.items()}
+
+
+def save_torch_checkpoint(path, state_dict: Dict[str, torch.Tensor],
+                          epoch: int = 0) -> None:
+    """Write ``state_dict`` as the reference-loadable ``.pth``:
+    {'epoch': epoch, 'model_state_dict': the fp32 tensors on the CPU}, the
+    file virnet_tpu.convert.torch_export.save_torch_checkpoint writes for
+    the same weights."""
+    sd = {k.removeprefix("module."): v.detach().cpu().float().contiguous()
+          for k, v in state_dict.items()}
+    torch.save({"epoch": int(epoch), "model_state_dict": sd}, str(path))

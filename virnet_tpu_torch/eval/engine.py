@@ -5,7 +5,11 @@ pass the fused-head gate, K2 + RNet + K4 on the others; SISR: K2 (SNet),
 KNet and RNet in torch, K4 (models/virnet.py).  ``mesh`` (train/mesh.py)
 splits every batch over the mesh's devices, and
 ``restore_image_sharded`` splits one image's rows over them
-(eval/spatial.py).  The JAX engine's int8 path is not ported yet.
+(eval/spatial.py).  ``compute='int8'`` builds ``conv_impl='torch'``, so
+that every convolution goes through ``models/common.conv`` and the int8
+gate: no K2, K3 or K4 runs in that mode (SNet's first and last convs and
+RNet's head, strided, transposed and tail convs are bf16 library
+convolutions), and the gated ones are W8A8 on K9.
 """
 
 from __future__ import annotations
@@ -15,10 +19,12 @@ import torch
 
 from ..convert import load_pth
 from ..models import ARCH_PRESETS, build_model
+from ..models.common import cast_for_int8
 from ..ops.augment import dihedral_inverse_np, dihedral_np
 from ..ops.pad import pad_bottom_right
-from ..precision import (compute_dtype, im2col_convs, resolve_device,
-                         set_parity_mode)
+from ..ops.qconv import run_lockstep
+from ..precision import (compute_dtype, im2col_convs, int8_convs,
+                         resolve_device, set_parity_mode)
 from .spatial import (replicas, restore_rows_sharded,
                       sr_restore_rows_sharded)
 from .tiling import bucket_size, forward_chop
@@ -38,7 +44,16 @@ class Restorer:
     instead of cuDNN, ``precision.im2col_convs``; ``self.im2col`` holds
     that choice);
     ``'bf16'`` runs bf16 weights and activations with an fp32 image in and
-    out.  ``pad_multiple=0`` feeds the model the raw image (the
+    out; ``'int8'`` is quantized serving (the JAX engine's): the
+    convolutions that the int8 gate takes (``models/common.int8_gated``:
+    SNet's mids, RNet's body convs, the wide SFT 1x1 convs, KNet's body)
+    run W8A8 from their fp32 weights with scales over the whole batch
+    (ops/qconv.py, K9 on the card), everything else as in bf16; the model
+    is built with ``conv_impl='torch'`` (module docstring), so K4 does not
+    take the tail in this mode.  Not checkpoint-faithful.  With a
+    ``mesh`` the chunks of a batch run in lockstep, one thread each, and
+    take every scale over the whole batch, as the JAX engine's jit over a
+    sharded batch does.  ``pad_multiple=0`` feeds the model the raw image (the
     reference's semantics); > 0 reflect-pads to size buckets first.
     ``gray_mean=True`` averages a gray input's 3-channel restoration back
     to one channel.  ``device`` defaults to the card; the CPU runs the
@@ -60,7 +75,15 @@ class Restorer:
         self.sisr = ARCH_PRESETS[task].get("cls") == "VIRNetSR"
         self.sf = sf if self.sisr else 1
         self.device = resolve_device(device)
-        dtype = compute_dtype(compute)
+        self.int8 = compute == "int8"
+        dtype = compute_dtype("bf16" if self.int8 else compute)
+        if self.int8:
+            if model_overrides.get("conv_impl", "torch") != "torch":
+                raise ValueError("compute='int8' runs every convolution "
+                                 "through the int8 gate: it builds "
+                                 "conv_impl='torch', not "
+                                 f"{model_overrides['conv_impl']!r}")
+            model_overrides = dict(model_overrides, conv_impl="torch")
         if self.device.type == "cuda":
             set_parity_mode()
         self.task = task
@@ -74,7 +97,9 @@ class Restorer:
         self.model_overrides = model_overrides
         model = build_model(task, **model_overrides)
         model.load_state_dict(state_dict, strict=True)
-        self.model = model.to(self.device, dtype).eval()
+        self.model = (cast_for_int8(model.to(self.device), dtype)
+                      if self.int8 else model.to(self.device, dtype)).eval()
+        self.int8_dtype = dtype if self.int8 else None
         self.im2col = compute == "fp32" and self.device.type == "cuda"
         self.mesh = mesh
         self.replicas = {self.device: self.model}
@@ -84,7 +109,8 @@ class Restorer:
     def _forward(self, x: torch.Tensor, device) -> torch.Tensor:
         """mu of the replica on ``device`` for an NHWC float32 batch."""
         x = x.to(device).contiguous()
-        with torch.inference_mode(), im2col_convs(self.im2col):
+        with torch.inference_mode(), im2col_convs(self.im2col), \
+                int8_convs(self.int8_dtype):
             if self.sisr:
                 mu, _, _ = self.replicas[device](x, self.sf)
             else:
@@ -95,7 +121,8 @@ class Restorer:
         """NHWC float32 batch (numpy or tensor) -> restored NHWC float32
         tensor on the engine's device, clamped to [0, 1]; with a mesh,
         repeat-padded to a multiple of its size and run one chunk per mesh
-        device."""
+        device (in int8, in lockstep threads sharing the batch's
+        scales)."""
         x = torch.as_tensor(x, dtype=torch.float32).to(self.device)
         if self.mesh is None:
             mu = self._forward(x, self.device)
@@ -104,8 +131,10 @@ class Restorer:
             rem = (-n) % size
             if rem:
                 x = torch.cat([x, x[-1:].expand(rem, *x.shape[1:])])
-            chunks = [self._forward(c, dev) for c, dev in
-                      zip(x.chunk(size), self.mesh.devices)]
+            calls = [lambda c=c, dev=dev: self._forward(c, dev)
+                     for c, dev in zip(x.chunk(size), self.mesh.devices)]
+            chunks = (run_lockstep(calls) if self.int8
+                      else [call() for call in calls])
             mu = torch.cat([c.to(self.device) for c in chunks])[:n]
         return torch.clamp(mu.float(), 0.0, 1.0)
 
@@ -115,8 +144,17 @@ class Restorer:
         (default: the engine's, else every visible card, or the engine's
         device alone on the CPU; eval/spatial.py): restore_image's raw
         whole-image forward up to summation order (the SISR sigma pool is
-        summed over the stitched map), clamped to [0, 1]."""
+        summed over the stitched map), clamped to [0, 1].  Not in int8: the
+        JAX engine's sharded stages run in fp32 whatever its compute, and
+        per-window scales would differ from the whole image's."""
         from ..train.mesh import make_mesh
+
+        if self.int8:
+            raise NotImplementedError(
+                "restore_image_sharded does not serve compute='int8': the "
+                "JAX engine's row-sharded stages run unquantized fp32 "
+                "(virnet_tpu/eval/spatial.py), and the strips' scales would "
+                "not be the whole image's; use restore_image, or fp32/bf16")
 
         squeeze_gray = im.ndim == 2
         if squeeze_gray:

@@ -16,7 +16,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..precision import im2col_on
+from ..ops.qconv import conv_w8a8
+from ..precision import im2col_on, int8_dtype
 
 
 def torch_default_init_(weight: torch.Tensor, bias: torch.Tensor | None,
@@ -51,9 +52,44 @@ def make_conv(in_chn: int, out_chn: int, kernel: int,
     return m
 
 
+def int8_gated(m: nn.Module) -> bool:
+    """Whether the int8 mode quantizes ``m``: a Conv2d of stride 1 and
+    padding k // 2 whose input and output widths are both at least 16 (the
+    JAX package's gate, virnet_tpu/models/common.py:conv).  The narrow
+    convs (the sigma heads on [x | sqrt(sigma)], the 3-channel tails, the
+    channel-attention squeeze) and the strided ones stay in float."""
+    if type(m) is not nn.Conv2d:
+        return False
+    k = m.kernel_size[0]
+    return (m.kernel_size == (k, k) and m.stride == (1, 1)
+            and m.padding == (k // 2, k // 2) and m.groups == 1
+            and m.dilation == (1, 1)
+            and min(m.in_channels, m.out_channels) >= 16)
+
+
+def cast_for_int8(model: nn.Module, dtype=torch.bfloat16) -> nn.Module:
+    """Cast ``model``'s parameters to ``dtype`` in place, except those of
+    the convs that the int8 gate takes: they stay float32, the weights the
+    JAX package quantizes (its QuantConv reads the float32 parameters)."""
+    for m in model.modules():
+        if int8_gated(m):
+            continue
+        for p in m.parameters(recurse=False):
+            p.data = p.data.to(dtype)
+    return model
+
+
 def conv(m: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
     """Apply ``m`` to ``x`` in the weights' dtype (the compute dtype), on
-    the im2col route inside ``precision.im2col_convs``."""
+    the im2col route inside ``precision.im2col_convs``; inside
+    ``precision.int8_convs`` a conv that the int8 gate takes runs W8A8
+    (ops/qconv.conv_w8a8: K9 on the card) on ``x`` as it comes, from its
+    float32 weights, and writes the mode's dtype."""
+    out_dtype = int8_dtype()
+    if out_dtype is not None and int8_gated(m):
+        y = conv_w8a8(to_nhwc(x), conv_hwio(m), m.bias,
+                      out_dtype=out_dtype)
+        return to_nchw(y)
     x = x.to(m.weight.dtype)
     if im2col_on():
         return torch.ops.aten.thnn_conv2d(x, m.weight, m.kernel_size, m.bias,

@@ -5,6 +5,10 @@
   ``Precision.HIGHEST`` means on the TPU side.
 * ``'bf16'`` — the fast path: bf16 weights and activations, fp32 image in
   and out (the RNet residual and the restored image stay fp32).
+* ``'int8'`` — quantized serving: the convolutions that the int8 gate takes
+  (``models/common.int8_gated``) run W8A8 (ops/qconv.py, K9 on the card)
+  from their fp32 weights, everything else as in ``'bf16'``
+  (``int8_convs``).  Not checkpoint-faithful: its cost is measured.
 
 Serving in fp32 on the card runs the library convolutions on PyTorch's
 im2col route (im2col and a cuBLAS sgemm, TF32 off) instead of cuDNN
@@ -97,6 +101,28 @@ def im2col_convs(on: bool = True):
 def im2col_on() -> bool:
     """Whether the current block asks for the im2col route."""
     return _IM2COL.get()
+
+
+_INT8 = contextvars.ContextVar("virnet_tpu_torch_int8_convs", default=None)
+
+
+@contextlib.contextmanager
+def int8_convs(dtype=torch.bfloat16):
+    """Inside the block the convolutions that the int8 gate takes run W8A8
+    and write ``dtype``, the compute dtype (``models/common.conv``); None
+    switches the mode off.  A context variable like ``im2col_convs``:
+    nests, and other threads do not see it."""
+    token = _INT8.set(dtype)
+    try:
+        yield
+    finally:
+        _INT8.reset(token)
+
+
+def int8_dtype():
+    """The output dtype of the int8 mode of the current block, or None when
+    the mode is off."""
+    return _INT8.get()
 
 
 def resolve_device(device) -> torch.device:

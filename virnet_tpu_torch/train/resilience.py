@@ -51,12 +51,21 @@ def rss_restart_count() -> int:
 def reexec_argv(module: str, argv: Optional[Sequence[str]] = None
                 ) -> List[str]:
     """The ``os.execv`` argv that relaunches a trainer CLI: this
-    interpreter, ``-m module`` and the CLI's arguments with ``--resume
-    latest`` added (kept as it is when ``--resume`` is already there)."""
+    interpreter, ``-m module`` and the CLI's arguments with every
+    ``--resume N`` and ``--resume=N`` taken out and ``--resume latest``
+    appended, so that the new process restores the checkpoint the old one
+    just wrote and not the epoch it was started from."""
     args = list(sys.argv[1:] if argv is None else argv)
-    if "--resume" not in args:
-        args += ["--resume", "latest"]
-    return [sys.executable, "-m", module, *args]
+    kept: List[str] = []
+    i = 0
+    while i < len(args):
+        if args[i] == "--resume":
+            i += 2
+            continue
+        if not args[i].startswith("--resume="):
+            kept.append(args[i])
+        i += 1
+    return [sys.executable, "-m", module, *kept, "--resume", "latest"]
 
 
 def check_watchdog_world(limit_mb: float, world: int) -> None:
