@@ -136,12 +136,14 @@ Phases (all by default; any failure raises and the exit code is not 0):
              demo weights.  Row-sharded restores (eval/spatial.py) on
              mesh = [cuda:0] x 4: denoising syn and real on a seeded
              smooth 2048x1536 image (halo 160) and SISR x4 384x512 ->
-             1536x2048 (halo 64, noise_avg), fp32 and bf16, against the
-             raw whole-image forward on the card (fp32 max abs 1e-5; bf16
-             PSNR against the clean image within 0.01 dB), exactly one K2
-             chain and one K4 per run, each held against its plain version
-             on the run's own arguments, peak memory and ms of both
-             routes; Restorer(bf16, mesh=[cuda:0] x 2) on 33 x 256^2
+             1536x2048 (halo 64, noise_avg), fp32 against the raw
+             whole-image forward on the card (max abs 1e-5), exactly one
+             K2 chain and one K4 per run, each held against its plain
+             version on the run's own arguments, peak memory and ms of
+             both routes; bf16 and int8 Restorers, whose strips run fp32
+             (as the JAX engine's): the fp32 route's launches and the fp32
+             Restorer's sharded bits, ms; Restorer(bf16, mesh=[cuda:0] x
+             2) on 33 x 256^2
              against no mesh, K3 + K4 once per chunk, held on a chunk's
              arguments; the SISR step of configs/sisr_x4.json, world 1 on
              NCCL against the plain trainer (10 steps, the same bits; K5
@@ -159,17 +161,27 @@ Phases (all by default; any failure raises and the exit code is not 0):
   int8       int8 (W8A8) serving with the demo weights: Restorer(compute=
              'int8') on the flagship 32x256^2 batch of denoising-syn and
              denoising-real and on serve_sisr's 125x171 x4 image, exactly
-             one K9 launch per gated convolution; K9 against its plain
-             version on the arguments of every gated (Ci, Co, k) those
-             forwards hand it (the dequantized output bit for bit, and the
-             int32 sums bit for bit on small-range integers of the same
-             shapes), each timed cold beside its bound (int8 tensor-core
-             peak and memory), its plain version and torch._int_mm behind
-             an im2col (library_ms); ms per batch of int8 and bf16 in
-             turns (bf16, int8, int8, bf16) and the device time of one
-             int8 forward by kernel; PSNR of int8 and of bf16 against fp32
-             (and each against the clean image) on the psnr phase's image;
-             a trainer checkpoint through cli/export_torch, load_pth and a
+             one K10 (absmax) and one K9 launch per gated convolution and
+             nothing else of ours; K9 against its plain version (the
+             float input quantized with the recorded scales, then the
+             int8 product) on the arguments of every gated (Ci, Co, k)
+             those forwards hand it (the dequantized output bit for bit,
+             and the int32 sums bit for bit on small-range integers of the
+             same shapes fed as float with scale 1), K10 against its plain
+             version bit for bit on every gated input, each timed cold
+             beside its bound (K9: int8 tensor-core peak and memory; K10:
+             memory), its plain version and a library route (K9: the same
+             quantize then torch._int_mm behind an im2col; K10:
+             torch.linalg.vector_norm(x, inf)); ms per batch of int8 and
+             bf16 in turns (bf16, int8, int8, bf16), the device time of
+             one int8 forward by kernel, no quantize op (abs, max, divide,
+             round, clamp) over a gated conv's input in any int8 forward
+             (syn, real, SISR), and the quantize
+             + product alone (the forward's conv_w8a8 calls replayed);
+             the sisr image's profile (aten::copy_: the NCHW inputs that
+             to_nhwc copies); PSNR of int8 and of bf16 against fp32 (and
+             each against the clean image) on the psnr phase's image; a
+             trainer checkpoint through cli/export_torch, load_pth and a
              Restorer, the same bits as the demo weights
 
 Every main-path phase (serve, serve_odd, ops, real, fp32, probe,
@@ -178,7 +190,8 @@ launch counters, drives its path once and reads them; it fails if a kernel
 of its path did not launch.  The line before the card's line is one JSON
 object with the kernels' numbers: times and errors from the syn weights
 in bf16 (K1-K4, K8 on 32-row slabs) or at the training shape in f32
-(K5-K7) or at RNet's 96-wide body conv of the int8 flagship batch (K9),
+(K5-K7) or at RNet's 96-wide body conv of the int8 flagship batch (K9,
+K10),
 and each kernel's launches in the one run of the path it serves
 (``launches_path``; every path's count is in ``launches_by_path``).  K1-K4
 and K8, their plain versions and library calls are timed with L2 flushed
@@ -273,16 +286,23 @@ KERNELS = {
     "conv_w8a8": dict(
         path="int8", source="virnet_tpu_torch/csrc/conv_w8a8.cu",
         replaces="not a Pallas kernel: virnet_tpu/ops/qconv.py:44 "
-                 "(conv_w8a8), whose int8 product XLA computes"),
+                 "(conv_w8a8), whose activation quantize and int8 product "
+                 "XLA computes"),
+    "absmax_nhwc": dict(
+        path="int8", source="virnet_tpu_torch/csrc/conv_w8a8.cu",
+        replaces="not a Pallas kernel: virnet_tpu/ops/qconv.py:38 "
+                 "(quantize_symmetric's absmax over (N, H, W), an XLA "
+                 "reduction)"),
 }
 # the measurement a kernel's row of the last-but-two line is taken from:
 # (results key, tag)
 ROW_TAG = {name: (name, "train f32" if name.startswith("blur")
                   else "syn bf16") for name in KERNELS}
 ROW_TAG["dncnn_head_fused_fp32"] = ("dncnn_head_fused", "syn fp32")
-# K9's row: RNet's 96-wide 3x3 body conv of the int8 flagship batch, the
-# shape that most of its launches take
+# K9's and K10's rows: RNet's 96-wide 3x3 body conv of the int8 flagship
+# batch, the shape that most of their launches take
 ROW_TAG["conv_w8a8"] = ("conv_w8a8", "syn 32x256x256x96 k3 96")
+ROW_TAG["absmax_nhwc"] = ("absmax_nhwc", "syn 32x256x256x96")
 
 
 def log(msg: str) -> None:
@@ -2469,14 +2489,14 @@ def check_exact(name, got, want):
                              f"the same bits")
 
 
-def shard_case(key, launches, restorer, im, ref_clean, mesh, halo, out_hw):
-    """restore_image_sharded of ``im`` on ``mesh`` against the raw
-    whole-image forward (restore_batch) on the same card: launches of the
-    sharded run (exactly one K2 chain and one K4: one stage batch on one
-    card), K2, its K1 levels and K4 against their plain versions on the
-    sharded run's own arguments, the max abs difference (fp32: 1e-5) and,
-    in bf16, the PSNR against ``ref_clean`` of both routes (within 0.01
-    dB), and the peak memory and ms of each route."""
+def shard_case(key, launches, restorer, im, mesh, halo, out_hw):
+    """restore_image_sharded of ``im`` on ``mesh`` by an fp32 Restorer
+    against the raw whole-image forward (restore_batch) on the same card:
+    launches of the sharded run (exactly one K2 chain and one K4: one
+    stage batch on one card), K2, its K1 levels and K4 against their plain
+    versions on the sharded run's own arguments, the max abs difference
+    (bar 1e-5), and the peak memory and ms of each route.  Returns (the
+    results, the sharded image, the whole image)."""
     from virnet_tpu_torch.models import attresunet
     from virnet_tpu_torch.ops import fused_conv as fc
 
@@ -2489,12 +2509,7 @@ def shard_case(key, launches, restorer, im, ref_clean, mesh, halo, out_hw):
     out, counts = run_path(key, sharded, tuple(SHARD_PATH))
     launches[key] = counts
     check_image(key, out, out_hw)
-    extra = {k: n for k, n in counts.items()
-             if k not in ("conv3x3_mid",) and n != SHARD_PATH.get(k, 0)}
-    if extra:
-        raise AssertionError(f"{key}: the sharded restore launched {extra}, "
-                             f"expected exactly {SHARD_PATH} (one stage "
-                             f"batch each on one card)")
+    check_shard_launches(key, counts)
     snet, tail = [], []
     with recording(fc, "dncnn_fused", snet), \
             recording(attresunet, "conv3x3_tail_residual", tail):
@@ -2507,31 +2522,53 @@ def shard_case(key, launches, restorer, im, ref_clean, mesh, halo, out_hw):
     res = dict(max_abs=err, whole_ms=ms_w, sharded_ms=ms_s,
                whole_peak_bytes=p_w, sharded_peak_bytes=p_s,
                launches=counts, kernels_max_abs_err=errs)
-    line = (f"  {key}: sharded vs whole max abs {err:.3g}; whole "
-            f"{ms_w:.1f} ms, peak {p_w / 2 ** 30:.2f} GiB; sharded "
-            f"{ms_s:.1f} ms, peak {p_s / 2 ** 30:.2f} GiB")
-    if restorer.compute == "fp32":
-        log(line + " (bar 1e-5)")
-        if err > 1e-5:
-            raise AssertionError(f"{key}: sharded restore misses the whole "
-                                 f"image by {err} (bar 1e-5)")
-    else:
-        res.update(psnr_whole=psnr(w, ref_clean),
-                   psnr_sharded=psnr(s, ref_clean))
-        d = abs(res["psnr_sharded"] - res["psnr_whole"])
-        log(line + f"; PSNR against the clean image {res['psnr_whole']:.4f} "
-            f"whole, {res['psnr_sharded']:.4f} sharded (bar 0.01 dB)")
-        if d > 0.01:
-            raise AssertionError(f"{key}: PSNR of the sharded restore moved "
-                                 f"{d} dB")
-    return res
+    log(f"  {key}: sharded vs whole max abs {err:.3g} (bar 1e-5); whole "
+        f"{ms_w:.1f} ms, peak {p_w / 2 ** 30:.2f} GiB; sharded "
+        f"{ms_s:.1f} ms, peak {p_s / 2 ** 30:.2f} GiB")
+    if err > 1e-5:
+        raise AssertionError(f"{key}: sharded restore misses the whole "
+                             f"image by {err} (bar 1e-5)")
+    return res, s, w
+
+
+def check_shard_launches(key, counts):
+    extra = {k: n for k, n in counts.items()
+             if k not in ("conv3x3_mid",) and n != SHARD_PATH.get(k, 0)}
+    if extra:
+        raise AssertionError(f"{key}: the sharded restore launched {extra}, "
+                             f"expected exactly {SHARD_PATH} (one stage "
+                             f"batch each on one card)")
+
+
+def shard_as_fp32(key, launches, restorer, im, mesh, halo, fp32_sharded,
+                  fp32_whole):
+    """restore_image_sharded of a bf16 or int8 Restorer: the strips run
+    fp32 whatever the compute, so the fp32 route's launches (one K2 chain,
+    one K4) and the fp32 Restorer's sharded bits, within 1e-5 of the fp32
+    whole image; its ms."""
+    out, counts = run_path(key, lambda: restorer.restore_image_sharded(
+        im, mesh, halo=halo), tuple(SHARD_PATH))
+    launches[key] = counts
+    check_shard_launches(key, counts)
+    check_exact(f"{key} against the fp32 Restorer's sharded restore",
+                torch.from_numpy(out), torch.from_numpy(fp32_sharded))
+    err = float(np.abs(out - fp32_whole).max())
+    ms, _ = wall_ms(lambda: restorer.restore_image_sharded(im, mesh,
+                                                           halo=halo))
+    log(f"  {key}: the fp32 Restorer's sharded bits; against the fp32 "
+        f"whole image max abs {err:.3g} (bar 1e-5); {ms:.1f} ms")
+    if err > 1e-5:
+        raise AssertionError(f"{key}: misses the fp32 whole image by {err}")
+    return dict(max_abs=err, equal_to_fp32_sharded=True, sharded_ms=ms,
+                launches=counts)
 
 
 def runtime_sharded(res, launches):
     """Row-sharded restores on mesh = [cuda:0] * 4 at full width with the
     demo weights: denoising syn and real on a seeded smooth 2048x1536
     image with sigma=15/255 noise (halo 160), SISR x4 on a 384x512 LR
-    image to 1536x2048 (halo 64, noise_avg), fp32 and bf16."""
+    image to 1536x2048 (halo 64, noise_avg); fp32, then bf16 and int8,
+    whose strips run fp32 (``shard_as_fp32``)."""
     from virnet_tpu_torch.eval.engine import Restorer
     from virnet_tpu_torch.train.mesh import Mesh
 
@@ -2539,28 +2576,30 @@ def runtime_sharded(res, launches):
     clean = smooth_image(np.random.default_rng(20), 2048, 1536)
     noisy = (clean + np.random.default_rng(21).normal(
         0, 15 / 255, clean.shape)).astype(np.float32)
-    out = {}
-    for task, ckpt in (("denoising-syn", SYN_CKPT),
-                       ("denoising-real", REAL_CKPT)):
-        for compute in ("fp32", "bf16"):
-            log(f"[runtime] row-sharded {task} {compute} 2048x1536 on "
-                f"[cuda:0] x 4, halo 160")
-            r = Restorer(task, ckpt_path=ckpt, compute=compute)
-            key = f"runtime_shard_{task.split('-')[1]}_{compute}"
-            out[key] = shard_case(key, launches, r, noisy, clean, mesh, 160,
-                                  noisy.shape)
-            del r
     hr = smooth_image(np.random.default_rng(22), 1536, 2048)
     lr = np.ascontiguousarray(hr[1::4, 1::4] + np.random.default_rng(
         23).normal(0, 5 / 255, (384, 512, 3))).astype(np.float32)
-    for compute in ("fp32", "bf16"):
-        log(f"[runtime] row-sharded SISR x4 {compute} 384x512 -> 1536x2048 "
-            f"on [cuda:0] x 4, halo 64")
-        r = Restorer("sisr", ckpt_path=SISR_CKPT, sf=4, compute=compute)
-        key = f"runtime_shard_sisr_{compute}"
-        out[key] = shard_case(key, launches, r, lr, hr, mesh, 64,
-                              (1536, 2048, 3))
+    out = {}
+    for task, ckpt, im, halo, out_hw, sf in (
+            ("denoising-syn", SYN_CKPT, noisy, 160, noisy.shape, 2),
+            ("denoising-real", REAL_CKPT, noisy, 160, noisy.shape, 2),
+            ("sisr", SISR_CKPT, lr, 64, (1536, 2048, 3), 4)):
+        tag = task.split("-")[-1]
+        size = "x".join(map(str, im.shape[:2]))
+        log(f"[runtime] row-sharded {task} fp32 {size} on [cuda:0] x 4, "
+            f"halo {halo}")
+        r = Restorer(task, ckpt_path=ckpt, sf=sf, compute="fp32")
+        key = f"runtime_shard_{tag}_fp32"
+        out[key], s32, w32 = shard_case(key, launches, r, im, mesh, halo,
+                                        out_hw)
         del r
+        for compute in ("bf16", "int8"):
+            log(f"[runtime] row-sharded {task} {compute} (fp32 strips)")
+            r = Restorer(task, ckpt_path=ckpt, sf=sf, compute=compute)
+            key = f"runtime_shard_{tag}_{compute}"
+            out[key] = shard_as_fp32(key, launches, r, im, mesh, halo, s32,
+                                     w32)
+            del r
     res["sharded"] = out
 
 
@@ -3032,35 +3071,43 @@ def phase_runtime(report, launches):
 
 INT8_DIR = ROOT / "build" / "chip_smoke_int8"
 # the convolutions that the int8 gate takes in one forward of each preset
-# (tests/test_torch_port_int8.py FULL), one K9 launch each
+# (tests/test_torch_port_int8.py FULL), one K10 and one K9 launch each
 INT8_GATED = {"denoising-syn": 33, "denoising-real": 48, "sisr": 71}
 
 
 @contextlib.contextmanager
-def recording_s8(calls):
-    """Inside the block ops/qconv.conv_s8 (K9's wrapper) keeps in
-    ``calls`` the arguments of the first call of each (input, weight)
-    shape pair and how many calls had that pair, and computes as before."""
+def recording_q8(calls, absmax_calls):
+    """Inside the block ops/qconv.conv_q8 (K9's wrapper) and absmax_nhwc
+    (K10's) keep the arguments of their first call of each shape (K9: the
+    input and weight shapes; K10: the input shape) and how many calls had
+    it, and compute as before."""
     from virnet_tpu_torch.ops import qconv
 
-    fn = qconv.conv_s8
+    q8, am = qconv.conv_q8, qconv.absmax_nhwc
 
-    def rec(xq, kq, sw, bias=None, out_dtype=torch.float32):
-        key = (tuple(xq.shape), tuple(kq.shape))
+    def rec_q8(x, sx, kq, sw, bias=None, out_dtype=torch.float32):
+        key = (tuple(x.shape), tuple(kq.shape))
         if key not in calls:
-            calls[key] = [(xq, kq, sw, bias, out_dtype), 0]
+            calls[key] = [(x, sx, kq, sw, bias, out_dtype), 0]
         calls[key][1] += 1
-        return fn(xq, kq, sw, bias, out_dtype)
+        return q8(x, sx, kq, sw, bias, out_dtype)
 
-    qconv.conv_s8 = rec
+    def rec_am(x):
+        key = tuple(x.shape)
+        if key not in absmax_calls:
+            absmax_calls[key] = [x, 0]
+        absmax_calls[key][1] += 1
+        return am(x)
+
+    qconv.conv_q8, qconv.absmax_nhwc = rec_q8, rec_am
     try:
         yield
     finally:
-        qconv.conv_s8 = fn
+        qconv.conv_q8, qconv.absmax_nhwc = q8, am
 
 
 def int_mm_route(xq, kq, sw, bias, out_dtype):
-    """K9's function through torch._int_mm behind an im2col (the library
+    """The int8 product through torch._int_mm behind an im2col (the library
     yardstick, used nowhere in the port): the k*k shifted views of the
     zero-padded int8 input side by side, (N*H*W, k*k*Ci), zero-padded to
     _int_mm's multiples, times the (k*k*Ci, Co) weights, then the
@@ -3086,36 +3133,46 @@ def int_mm_route(xq, kq, sw, bias, out_dtype):
     return y.to(out_dtype).reshape(n, h, w, co)
 
 
-def int8_kernel_checks(calls, res, peaks):
-    """K9 against its plain version and the library route on each
-    recorded (tag, input, weight) shape: the dequantized output bit for
-    bit on the recorded arguments, the int32 sums bit for bit on
-    integers in [-8, 8] of the same shapes (|acc| <= 64 k^2 Ci < 2^24, so
-    float32 holds them exactly), then cold ms of each beside the bound
-    (int8 tensor-core peak; each input read once, the output written
-    once)."""
+def int8_kernel_checks(calls, absmax_calls, res, peaks):
+    """K9 against its plain version (quantize_with then the int8 product)
+    and the library route (the same quantize, then im2col + _int_mm) on
+    each recorded (tag, input, weight) shape: the dequantized output bit
+    for bit on the recorded arguments, the int32 sums bit for bit on
+    integers in [-8, 8] of the same shapes fed as float with scale 1 (q =
+    x; |acc| <= 64 k^2 Ci < 2^24, so float32 holds them exactly); then
+    cold ms of each beside the bound (int8 tensor-core peak; each input
+    read once, the output written once).  K10 against its plain version
+    bit for bit on each recorded input, cold ms beside its bound (bytes)
+    and torch.linalg.vector_norm(x, inf) (library_ms)."""
     from virnet_tpu_torch.ops import qconv
 
     gen = torch.Generator(device="cuda").manual_seed(41)
-    for (tag, xs, ks), ((xq, kq, sw, bias, dt), count) in calls.items():
+    k9, k10 = res.setdefault("conv_w8a8", {}), res.setdefault(
+        "absmax_nhwc", {})
+    for (tag, xs, ks), ((x, sx, kq, sw, bias, dt), count) in calls.items():
         n, h, w, ci = xs
         k, co = ks[0], ks[3]
         name = f"{tag} {'x'.join(map(str, xs))} k{k} {co}"
-        got = qconv.conv_s8(xq, kq, sw, bias, dt)
-        want = qconv.conv_s8_plain(xq, kq, sw, bias, dt)
-        lib = int_mm_route(xq, kq, sw, bias, dt)
-        xs8 = torch.randint(-8, 9, xs, generator=gen, device="cuda",
-                            dtype=torch.int8)
+        plan = qconv.conv_q8_plan(k, ci, co, dt)
+        got = qconv.conv_q8(x, sx, kq, sw, bias, dt)
+        want = qconv.conv_q8_plain(x, sx, kq, sw, bias, dt)
+        lib = int_mm_route(qconv.quantize_with(x, sx), kq, sw, bias, dt)
+        xs8 = torch.randint(-8, 9, xs, generator=gen, device="cuda").to(
+            x.dtype)
         ks8 = torch.randint(-8, 9, ks, generator=gen, device="cuda",
                             dtype=torch.int8)
         ones = torch.ones(co, device="cuda")
-        sums = qconv.conv_s8(xs8, ks8, ones, None, torch.float32)
-        sums_want = qconv.int32_sums(xs8, ks8, k // 2).float()
+        sums = qconv.conv_q8(xs8, torch.ones(ci, device="cuda"), ks8, ones,
+                             None, torch.float32)
+        sums_want = qconv.int32_sums(xs8.to(torch.int8), ks8,
+                                     k // 2).float()
         torch.cuda.synchronize()
         ok = (torch.equal(got, want) and torch.equal(sums, sums_want)
               and torch.equal(lib, want))
-        log(f"  K9 {name} (x{count}): output, int32 sums and the library "
-            f"route {'bit for bit' if ok else 'DIFFER'}")
+        log(f"  K9 {name} (x{count}, co_blk {plan['co_blk']} x "
+            f"{plan['splits']}, last {plan['tail']}, "
+            f"{plan['smem_bytes']} B): output, int32 sums "
+            f"and the library route {'bit for bit' if ok else 'DIFFER'}")
         if not ok:
             raise AssertionError(f"int8: K9 disagrees with its plain "
                                  f"version at {name}: output max diff "
@@ -3123,22 +3180,127 @@ def int8_kernel_checks(calls, res, peaks):
                                  f"{max_err(sums, sums_want)}, library "
                                  f"{max_err(lib, want)}")
         del xs8, ks8, sums, sums_want, lib
-        ms = time_cold_ms(lambda: qconv.conv_s8(xq, kq, sw, bias, dt), 5)
+        ms = time_cold_ms(lambda: qconv.conv_q8(x, sx, kq, sw, bias, dt), 5)
         plain_ms = time_cold_ms(
-            lambda: qconv.conv_s8_plain(xq, kq, sw, bias, dt), 2, warmup=1)
+            lambda: qconv.conv_q8_plain(x, sx, kq, sw, bias, dt), 2,
+            warmup=1)
         library_ms = time_cold_ms(
-            lambda: int_mm_route(xq, kq, sw, bias, dt), 3, warmup=1)
+            lambda: int_mm_route(qconv.quantize_with(x, sx), kq, sw, bias,
+                                 dt), 3, warmup=1)
         flops = 2.0 * n * h * w * k * k * ci * co
-        nbytes = (n * h * w * (ci + co * got.element_size())
-                  + k * k * ci * co + 8 * co)
+        nbytes = (n * h * w * (ci * x.element_size()
+                               + co * got.element_size())
+                  + k * k * ci * co + 4 * ci + 8 * co)
         b_ms, by = bound_ms(flops, nbytes, peaks["int8"], peaks)
         check_bound(name, "K9", ms, b_ms)
-        res[name] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
-                         bound_ms=b_ms, bound_by=by, library_ms=library_ms,
-                         library="im2col + torch._int_mm + the epilogue",
-                         timing="cold, L2 flushed", launches_per_forward=count)
+        k9[name] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
+                        bound_ms=b_ms, bound_by=by, library_ms=library_ms,
+                        library="quantize_with + im2col + torch._int_mm + "
+                                "the epilogue",
+                        timing="cold, L2 flushed", launches_per_forward=count,
+                        plan=plan)
         log(f"    {ms:.4f} ms (bound {b_ms:.4f}, {by}; plain {plain_ms:.3f}; "
-            f"im2col + _int_mm {library_ms:.4f})")
+            f"quantize + im2col + _int_mm {library_ms:.4f})")
+    for (tag, xs), (x, count) in absmax_calls.items():
+        name = f"{tag} {'x'.join(map(str, xs))}"
+        got = qconv.absmax_nhwc(x)
+        want = qconv.absmax_plain(x)
+        torch.cuda.synchronize()
+        log(f"  K10 {name} (x{count}): "
+            f"{'bit for bit' if torch.equal(got, want) else 'DIFFERS'}")
+        if not torch.equal(got, want):
+            raise AssertionError(f"int8: K10 disagrees with its plain "
+                                 f"version at {name}: {max_err(got, want)}")
+        ms = time_cold_ms(lambda: qconv.absmax_nhwc(x), 5)
+        plain_ms = time_cold_ms(lambda: qconv.absmax_plain(x), 3, warmup=1)
+        library_ms = time_cold_ms(lambda: torch.linalg.vector_norm(
+            x, float("inf"), dim=(0, 1, 2)), 3, warmup=1)
+        numel = x.numel()
+        b_ms, by = bound_ms(float(numel), numel * x.element_size()
+                            + 4 * xs[3], peaks["fp32"], peaks)
+        check_bound(name, "K10", ms, b_ms)
+        k10[name] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
+                         bound_ms=b_ms, bound_by=by, library_ms=library_ms,
+                         library="torch.linalg.vector_norm(x, inf, dims)",
+                         timing="cold, L2 flushed",
+                         launches_per_forward=count)
+        log(f"    {ms:.4f} ms (bound {b_ms:.4f}, {by}; plain {plain_ms:.4f}; "
+            f"vector_norm {library_ms:.4f})")
+
+
+QUANTIZE_OPS = ("aten::abs", "aten::amax", "aten::max", "aten::div",
+                "aten::round", "aten::clamp")
+
+
+def activation_quantize_ops(fn, gated) -> list:
+    """The quantize ops (abs, max, divide, round, clamp) of one ``fn()``
+    that take an input of the size of a gated conv's input (``gated``, the
+    NHWC shapes K10 was handed in that forward; any order of the same
+    sizes, so that an NCHW pass counts too): the plain PyTorch passes over
+    activations that K10 and K9 replaced.  Inputs of one pixel (SISR's
+    condition vectors, 20-56 values) are left out: they are the size of
+    the per-channel scale vectors whose arithmetic stays PyTorch, and a
+    weight's scale (1, 1, 1, Co) would match them."""
+    from torch.profiler import ProfilerActivity, profile
+
+    sizes = {tuple(sorted(g)) for g in gated if math.prod(g[:3]) > 1}
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU],
+                 record_shapes=True) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [(e.key, shape, e.count)
+            for e in prof.key_averages(group_by_input_shape=True)
+            if e.key in QUANTIZE_OPS for shape in e.input_shapes
+            if shape and tuple(sorted(shape)) in sizes]
+
+
+def check_no_quantize_pass(res, key, fn, gated):
+    """No plain-PyTorch quantize op over a gated conv's input in one
+    ``fn()``; ``gated`` holds that forward's K10 input shapes."""
+    bad = activation_quantize_ops(fn, gated)
+    res[f"{key}_activation_quantize_ops"] = bad
+    multi = [g for g in gated if math.prod(g[:3]) > 1]
+    log(f"  quantize ops over the {len(multi)} gated input shapes of more "
+        f"than one pixel in one forward (of {len(gated)}): {bad or 'none'}")
+    if bad:
+        raise AssertionError(f"{key}: a plain-PyTorch quantize pass over "
+                             f"activations remains: {bad}")
+
+
+def quantize_product_ms(r8, x) -> dict:
+    """The quantize + product of one int8 forward alone: each gated conv's
+    conv_w8a8 call (K10, the group reduce, the scales, the weights' fold
+    and quantize, K9) recorded from one forward and replayed in order;
+    device time by the profiler, ms by events (warm)."""
+    from virnet_tpu_torch.cli.bench_restore import profile_calls
+    from virnet_tpu_torch.models import common
+    from virnet_tpu_torch.ops import qconv
+
+    calls = []
+    fn = common.conv_w8a8
+
+    def rec(xi, kernel, bias=None, **kw):
+        calls.append((xi, kernel, bias, kw))
+        return fn(xi, kernel, bias, **kw)
+
+    common.conv_w8a8 = rec
+    try:
+        r8.restore_batch(x)
+    finally:
+        common.conv_w8a8 = fn
+
+    def replay():
+        with torch.inference_mode():
+            for xi, kernel, bias, kw in calls:
+                qconv.conv_w8a8(xi, kernel, bias, **kw)
+
+    prof = profile_calls(replay)
+    device = sum(v[0] for v in prof["kernels"].values())
+    return dict(calls=len(calls), device_ms=device,
+                event_ms=time_ms(replay, 3),
+                kernels={k[:60]: v for k, v in sorted(
+                    prof["kernels"].items(), key=lambda kv: -kv[1][0])[:6]})
 
 
 def int8_psnr(res):
@@ -3204,35 +3366,43 @@ def int8_export_round_trip(res, x):
     res["export_round_trip"] = dict(tensors_equal=same, outputs_equal=same_out)
 
 
+def check_int8_launches(key, counts, task):
+    """Exactly one K10 and one K9 per gated convolution, nothing else of
+    ours."""
+    want = {"absmax_nhwc": INT8_GATED[task], "conv_w8a8": INT8_GATED[task]}
+    if {k: v for k, v in counts.items() if v} != want:
+        raise AssertionError(f"{key}: one forward launched {counts}, "
+                             f"expected {want} and nothing else")
+
+
 def phase_int8(report, launches, peaks, batch=32, size=256):
     """int8 (W8A8) serving on the card (see the module docstring)."""
     from virnet_tpu_torch.cli.bench_restore import profile_calls
     from virnet_tpu_torch.eval.engine import Restorer
 
-    res: dict = {"kernels": {}}
+    res: dict = {}
     report["int8"] = res
     x = torch.as_tensor(np.random.default_rng(40).random(
         (batch, size, size, 3), dtype=np.float32), device="cuda")
     calls: dict = {}
+    absmax_calls: dict = {}
+    path = ("conv_w8a8", "absmax_nhwc")
     for task, ckpt, tag in (("denoising-syn", SYN_CKPT, "syn"),
                             ("denoising-real", REAL_CKPT, "real")):
         log(f"[int8] {task} Restorer(compute='int8'), restore_batch "
             f"{batch}x{size}x{size}")
         r8 = Restorer(task, ckpt_path=ckpt, compute="int8")
         key = "int8" if tag == "syn" else f"int8_{tag}"
-        out, launches[key] = run_path(key, lambda: r8.restore_batch(x),
-                                      ("conv_w8a8",))
+        out, launches[key] = run_path(key, lambda: r8.restore_batch(x), path)
         check_image(key, out.cpu(), (batch, size, size, 3))
-        other = {k: v for k, v in launches[key].items()
-                 if v and k != "conv_w8a8"}
-        if launches[key]["conv_w8a8"] != INT8_GATED[task] or other:
-            raise AssertionError(f"{key}: one forward launched "
-                                 f"{launches[key]}, expected K9 x "
-                                 f"{INT8_GATED[task]} and nothing else")
+        check_int8_launches(key, launches[key], task)
         shapes: dict = {}
-        with recording_s8(shapes):
+        amax: dict = {}
+        with recording_q8(shapes, amax):
             r8.restore_batch(x)
         calls.update({(tag,) + k: v for k, v in shapes.items()})
+        absmax_calls.update({(tag, k): v for k, v in amax.items()})
+        check_no_quantize_pass(res, key, lambda: r8.restore_batch(x), amax)
         r16 = Restorer(task, ckpt_path=ckpt, compute="bf16")
         turns = {"bf16": [], "int8": []}
         for c in ("bf16", "int8", "int8", "bf16"):
@@ -3246,44 +3416,64 @@ def phase_int8(report, launches, peaks, batch=32, size=256):
             prof = profile_calls(lambda: r8.restore_batch(x))
             kern = prof["kernels"]
             total = sum(v[0] for v in kern.values())
-            k9 = sum(v[0] for name, v in kern.items() if "w8a8" in name)
+            k9 = sum(v[0] for name, v in kern.items() if "q8" in name)
+            k10 = sum(v[0] for name, v in kern.items() if "absmax" in name)
             top = sorted(kern.items(), key=lambda kv: -kv[1][0])[:8]
-            res["profile"] = dict(device_ms=total, k9_ms=k9,
+            res["profile"] = dict(device_ms=total, k9_ms=k9, k10_ms=k10,
                                   wall_ms=prof["wall_ms"],
                                   top=[(n, v[0], v[1]) for n, v in top],
                                   torch_ops=prof["torch_ops"][:10])
             log(f"  one int8 forward: device {total:.2f} ms, K9 {k9:.2f} "
-                f"ms; top kernels " + "; ".join(
+                f"ms, K10 {k10:.2f} ms; top kernels " + "; ".join(
                     f"{n[:60]} {v[0]:.2f} ms x{v[1]}" for n, v in top[:5]))
             log("  top ops: " + "; ".join(
                 f"{o[0]} {o[1]:.2f} ms x{o[2]}"
                 for o in prof["torch_ops"][:6]))
+            qp = quantize_product_ms(r8, x)
+            res["quantize_product"] = qp
+            log(f"  quantize + product of one forward ({qp['calls']} "
+                f"conv_w8a8 calls replayed): device {qp['device_ms']:.2f} "
+                f"ms, events {qp['event_ms']:.2f} ms")
         del r8, r16
     lr = np.random.default_rng(4).random((125, 171, 3), dtype=np.float32)
     log("[int8] sisr x4 Restorer(compute='int8'), restore_image 125x171")
     sr = Restorer("sisr", ckpt_path=SISR_CKPT, sf=4, compute="int8")
     out, launches["int8_sisr"] = run_path(
-        "int8_sisr", lambda: sr.restore_image(lr), ("conv_w8a8",))
+        "int8_sisr", lambda: sr.restore_image(lr), path)
     check_image("int8_sisr", out, (500, 684, 3))
-    if launches["int8_sisr"]["conv_w8a8"] != INT8_GATED["sisr"]:
-        raise AssertionError(f"int8_sisr: {launches['int8_sisr']}")
-    shapes = {}
-    with recording_s8(shapes):
+    check_int8_launches("int8_sisr", launches["int8_sisr"], "sisr")
+    shapes, amax = {}, {}
+    with recording_q8(shapes, amax):
         sr.restore_image(lr)
     calls.update({("sisr",) + k: v for k, v in shapes.items()})
+    absmax_calls.update({("sisr", k): v for k, v in amax.items()})
+    check_no_quantize_pass(res, "int8_sisr", lambda: sr.restore_image(lr),
+                           amax)
+    prof = profile_calls(lambda: sr.restore_image(lr))
+    copies = [o for o in prof["torch_ops"] if o[0] == "aten::copy_"]
+    res["sisr_profile"] = dict(
+        device_ms=sum(v[0] for v in prof["kernels"].values()),
+        wall_ms=prof["wall_ms"], copy_=copies,
+        torch_ops=prof["torch_ops"][:10])
+    log(f"  one sisr int8 image: device "
+        f"{res['sisr_profile']['device_ms']:.2f} ms, aten::copy_ {copies}")
     del sr
     log(f"[int8] K9 against its plain version on {len(calls)} gated "
-        f"shapes")
-    int8_kernel_checks(calls, res["kernels"], peaks)
-    del calls
-    syn_rows = [v for k, v in res["kernels"].items() if k.startswith("syn ")]
-    res["syn_k9_ms_per_forward"] = sum(v["ms"] * v["launches_per_forward"]
-                                       for v in syn_rows)
-    res["syn_k9_bound_ms_per_forward"] = sum(
-        v["bound_ms"] * v["launches_per_forward"] for v in syn_rows)
-    log(f"  syn: K9 {res['syn_k9_ms_per_forward']:.2f} ms per forward cold "
-        f"(bound {res['syn_k9_bound_ms_per_forward']:.2f})")
-    report.setdefault("kernels", {})["conv_w8a8"] = res["kernels"]
+        f"shapes, K10 on {len(absmax_calls)} inputs")
+    int8_kernel_checks(calls, absmax_calls, res, peaks)
+    del calls, absmax_calls
+    for kern in ("conv_w8a8", "absmax_nhwc"):
+        rows = [v for k, v in res[kern].items() if k.startswith("syn ")]
+        res[f"syn_{kern}_ms_per_forward"] = sum(
+            v["ms"] * v["launches_per_forward"] for v in rows)
+        res[f"syn_{kern}_bound_ms_per_forward"] = sum(
+            v["bound_ms"] * v["launches_per_forward"] for v in rows)
+        log(f"  syn: {kern} {res[f'syn_{kern}_ms_per_forward']:.2f} ms per "
+            f"forward cold (bound "
+            f"{res[f'syn_{kern}_bound_ms_per_forward']:.2f})")
+    kernels = report.setdefault("kernels", {})
+    kernels["conv_w8a8"] = res["conv_w8a8"]
+    kernels["absmax_nhwc"] = res["absmax_nhwc"]
     log("[int8] PSNR against fp32 and the clean image")
     int8_psnr(res)
     log("[int8] export round trip on the card")

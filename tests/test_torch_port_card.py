@@ -525,68 +525,189 @@ def test_level_chain_raises_on_what_it_does_not_take(dtype):
 
 
 # ---------------------------------------------------------------------------
-# K9, the s8 tensor-core convolution of the int8 serving mode
+# K9 and K10, the int8 serving mode's convolution and absmax
 # ---------------------------------------------------------------------------
 
-def _s8_args(rng, n, h, w, ci, co, k):
-    xq = torch.from_numpy(rng.integers(-127, 128, (n, h, w, ci),
-                                       dtype=np.int8)).cuda()
+def _fast_path_misses(v, s):
+    """Where K9's quantize leaves its fast path for the IEEE quotient:
+    float32 ``v`` against scale ``s``, y = v * (1 / s) rounded twice, off
+    the path where y lies within 2^-14 of a half-integer or |y| >= 127.25
+    (csrc/conv_w8a8.cu, quantize_px).  Returns that mask and the one of
+    the values whose rint(y) is not rint(v / s), which only the quotient
+    rounds right."""
+    f32 = np.float32
+    y = v * (f32(1) / s)
+    magic = f32(12582912.0)
+    miss = ~((np.abs(((y + magic) - magic) - y) < f32(0.5 - 2.0 ** -14))
+             & (np.abs(y) < f32(127.25)))
+    return miss, np.rint(y) != np.rint(v / s)
+
+
+def _q8_args(rng, n, h, w, ci, co, k, device="cuda"):
+    """bf16 activations whose channels span a factor of 100 in range,
+    their per-channel scales (K10's plain version under scale_of, channel
+    0's a power of two), int8 weights, scales and a bias, on the card.
+    The first pixels carry values that leave K9's fast quantize for the
+    IEEE quotient: exact rounding ties of their scale (channel 0, clamped
+    ones at +-127.5 and beyond among them) and, in every channel, values
+    whose product by the scale's reciprocal lies within 2^-14 of a
+    half-integer, those that it would round otherwise first."""
+    from virnet_tpu_torch.ops import qconv
+
+    x = (rng.standard_normal((n, h, w, ci))
+         * rng.uniform(0.05, 5.0, ci)).astype(np.float32)
+    x = torch.from_numpy(x).to(torch.bfloat16)
+    sx = qconv.scale_of(qconv.absmax_plain(x))
+    sx[0] = 2.0 ** -5
+    flat = x.view(-1, ci)
+    m = flat.shape[0]
+    ties = np.array([-127.5, -2.5, -1.5, -0.5, 0.5, 1.5, 2.5, 127.5, 200.5],
+                    np.float32) * np.float32(2.0 ** -5)
+    flat[:min(m, ties.size), 0] = torch.from_numpy(ties[:m])
+    # every bf16 value as float32, those in a channel's range kept
+    every = (np.arange(1 << 16, dtype=np.uint32) << 16).view(np.float32)
+    amax = qconv.absmax_plain(x).numpy()
+    s = sx.numpy()
+    n_miss = n_odd = 0
+    for c in range(1, ci):
+        v = every[np.isfinite(every) & (np.abs(every) <= amax[c])]
+        miss, odd = _fast_path_misses(v, s[c])
+        pick = np.concatenate([amax[c:c + 1], v[odd],
+                               v[miss & ~odd]])[:m]   # the max stays
+        flat[:pick.size, c] = torch.from_numpy(pick)
+        n_miss += pick.size - 1
+        n_odd += min(int(odd.sum()), m - 1)
+    assert qconv.absmax_plain(x)[1:].equal(torch.from_numpy(amax[1:]))
+    got_miss, got_odd = _fast_path_misses(
+        flat.float().numpy()[:, 1:], s[1:])
+    assert got_miss.sum() >= n_miss and got_odd.sum() >= n_odd
+    assert n_miss > 0 and (m < 8 or n_odd > 0)
+    assert _fast_path_misses(flat.float().numpy()[:ties.size, 0],
+                             s[0])[0].all()
     kq = torch.from_numpy(rng.integers(-127, 128, (k, k, ci, co),
-                                       dtype=np.int8)).cuda()
-    sw = torch.from_numpy(rng.uniform(1e-6, 1e-4, co).astype(
-        np.float32)).cuda()
-    bias = torch.from_numpy(rng.normal(0, 0.1, co).astype(np.float32)).cuda()
-    return xq, kq, sw, bias
+                                       dtype=np.int8))
+    sw = torch.from_numpy(rng.uniform(1e-6, 1e-4, co).astype(np.float32))
+    bias = torch.from_numpy(rng.normal(0, 0.1, co).astype(np.float32))
+    return tuple(t.to(device) for t in (x, sx, kq, sw, bias))
 
 
 @pytest.mark.parametrize("k,ci,co,nhw", [
     (3, 64, 64, (2, 37, 45)), (3, 96, 96, (1, 16, 16)),
     (3, 288, 288, (1, 9, 23)), (3, 20, 40, (1, 8, 17)),
     (3, 160, 224, (2, 3, 5)), (1, 24, 96, (3, 1, 1)),
-    (1, 40, 160, (2, 5, 7)), (1, 16, 13, (1, 3, 3))])
-@pytest.mark.parametrize("out", [torch.float32, torch.bfloat16],
-                         ids=["f32", "bf16"])
+    (1, 40, 160, (2, 5, 7)), (1, 16, 13, (1, 3, 3)),
+    (3, 192, 192, (1, 33, 19)), (1, 28, 56, (1, 17, 18)),
+    (3, 224, 224, (1, 11, 13)), (1, 56, 224, (2, 4, 9))])
+@pytest.mark.parametrize("out", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
 def test_conv_w8a8_kernel_matches_plain_on_card(k, ci, co, nhw, out):
-    """K9 against its plain version (the float64 product, exact) on the
-    card and on the CPU: the int32 sums and the two-rounding epilogue
-    give the same bits, with and without a bias, one launch a call."""
+    """K9 (float activations quantized in the kernel, the s8 product and
+    the two-rounding epilogue) against its plain version on the card and
+    on the CPU: the same bits, with and without a bias, one launch a
+    call; and the int32 sums on small integers fed as float with scale 1
+    (so that q = x)."""
     _need_card()
     from virnet_tpu_torch.ops import qconv
 
     rng = np.random.default_rng(k + ci + co)
-    xq, kq, sw, bias = _s8_args(rng, *nhw, ci, co, k)
+    x, sx, kq, sw, bias = _q8_args(rng, *nhw, ci, co, k)
     fc.reset_launches()
     for b in (bias, None):
-        got = qconv.conv_s8(xq, kq, sw, b, out)
+        got = qconv.conv_q8(x, sx, kq, sw, b, out)
         torch.cuda.synchronize()
         assert got.dtype == out and got.shape == (*nhw, co)
-        assert torch.equal(got, qconv.conv_s8_plain(xq, kq, sw, b, out))
-        assert torch.equal(got.cpu(), qconv.conv_s8_plain(
-            xq.cpu(), kq.cpu(), sw.cpu(), None if b is None else b.cpu(),
-            out))
+        assert torch.equal(got, qconv.conv_q8_plain(x, sx, kq, sw, b, out))
+        assert torch.equal(got.cpu(), qconv.conv_q8_plain(
+            x.cpu(), sx.cpu(), kq.cpu(), sw.cpu(),
+            None if b is None else b.cpu(), out))
     assert fc.LAUNCHES["conv_w8a8"] == 2
+    small = torch.from_numpy(rng.integers(-8, 9, (*nhw, ci))).to(
+        torch.bfloat16).cuda()
+    sums = qconv.conv_q8(small, torch.ones(ci, device="cuda"), kq,
+                         torch.ones(co, device="cuda"), None, torch.float32)
+    want = qconv.int32_sums(small.to(torch.int8), kq, k // 2).float()
+    assert torch.equal(sums, want)
+
+
+@pytest.mark.parametrize("shape", [(32, 16, 16, 96), (1, 37, 45, 64),
+                                   (2, 9, 23, 288), (3, 1, 1, 24),
+                                   (1, 5, 7, 20), (2, 3, 3, 13),
+                                   (1, 300, 301, 160)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+def test_absmax_kernel_matches_plain_on_card(shape, dtype):
+    """K10 against its plain version: the same bits (a max is exact), on
+    the 16-byte path and on the one for any width, with a dead channel, a
+    channel whose largest magnitude is negative, and a NaN that the
+    channel's max keeps; one launch a call."""
+    _need_card()
+    from virnet_tpu_torch.ops import qconv
+
+    rng = np.random.default_rng(sum(shape))
+    x = (rng.standard_normal(shape) * rng.uniform(0.01, 100, shape[-1]))
+    x[..., 0] = 0.0
+    x[(0,) * 3 + (1,)] = -1e4
+    x = torch.from_numpy(x.astype(np.float32)).to(dtype).cuda()
+    fc.reset_launches()
+    got = qconv.absmax_nhwc(x)
+    torch.cuda.synchronize()
+    assert torch.equal(got, qconv.absmax_plain(x))
+    assert torch.equal(got.cpu(), qconv.absmax_plain(x.cpu()))
+    assert got[0] == 0 and got[1] == 1e4 if dtype == torch.float32 else True
+    x.view(-1)[-1] = float("nan")
+    nan = qconv.absmax_nhwc(x)
+    assert torch.isnan(nan[-1]) and torch.equal(nan[:-1], got[:-1])
+    assert fc.LAUNCHES["absmax_nhwc"] == 2
 
 
 def test_conv_w8a8_kernel_raises_on_what_it_does_not_take():
-    """A 5x5 kernel, float activations, a bias of another dtype, widths
-    that disagree, a non-contiguous input: raised before any launch."""
+    """A 5x5 kernel, int8 or float32 activations, a bias of another
+    dtype, widths that disagree, a non-contiguous input, a float16 output;
+    K10 on float16: raised before any launch."""
     _need_card()
     from virnet_tpu_torch.ops import qconv
 
     rng = np.random.default_rng(30)
-    xq, kq, sw, bias = _s8_args(rng, 1, 8, 8, 32, 32, 3)
+    x, sx, kq, sw, bias = _q8_args(rng, 1, 8, 8, 32, 32, 3)
     fc.reset_launches()
     k5 = torch.zeros(5, 5, 32, 32, dtype=torch.int8, device="cuda")
     with pytest.raises(ValueError, match="1x1 and 3x3"):
-        qconv.conv_s8(xq, k5, sw, bias)
+        qconv.conv_q8(x, sx, k5, sw, bias)
+    for bad in (torch.int8, torch.float32):
+        with pytest.raises(TypeError):
+            qconv.conv_q8(x.to(bad), sx, kq, sw, bias)
     with pytest.raises(TypeError):
-        qconv.conv_s8(xq.float(), kq, sw, bias)
-    with pytest.raises(TypeError):
-        qconv.conv_s8(xq, kq, sw, bias.double())
+        qconv.conv_q8(x, sx, kq, sw, bias.double())
     with pytest.raises(ValueError, match="input channels"):
-        qconv.conv_s8(xq[..., :16].contiguous(), kq, sw, bias)
+        qconv.conv_q8(x[..., :16].contiguous(), sx, kq, sw, bias)
     with pytest.raises(ValueError, match="contiguous"):
-        qconv.conv_s8(xq.transpose(1, 2), kq, sw, bias)
+        qconv.conv_q8(x.transpose(1, 2), sx, kq, sw, bias)
     with pytest.raises(TypeError):
-        qconv.conv_s8(xq, kq, sw, bias, torch.float16)
-    assert fc.LAUNCHES["conv_w8a8"] == 0
+        qconv.conv_q8(x, sx, kq, sw, bias, torch.float16)
+    with pytest.raises(TypeError):
+        qconv.absmax_nhwc(x.half())
+    assert fc.LAUNCHES["conv_w8a8"] == 0 and fc.LAUNCHES["absmax_nhwc"] == 0
+
+
+def test_conv_w8a8_plan_splits_without_padding():
+    """K9's split of Co at the gated widths: one block of all channels up
+    to 96, else splits of a width wgmma takes (32-96), the last of them
+    32 wide where 32 are left, that add up to Co exactly (no padded
+    n-tile), every block inside the 227 KB a block may have, for both
+    output dtypes."""
+    _need_card()
+    from virnet_tpu_torch.ops import qconv
+
+    for k, ci, co in [(3, 64, 64), (3, 96, 96), (3, 160, 160),
+                      (3, 192, 192), (3, 224, 224), (3, 288, 288),
+                      (1, 24, 96), (1, 40, 160), (1, 56, 224)]:
+        for out in (torch.bfloat16, torch.float32):
+            p = qconv.conv_q8_plan(k, ci, co, out)
+            assert p["co_blk"] in (32, 48, 64, 80, 96)
+            assert p["tail"] in (32, p["co_blk"])
+            assert p["co_blk"] * (p["splits"] - 1) + p["tail"] == co, p
+            assert p["smem_bytes"] <= 232448
+            if co <= 96:
+                assert p["splits"] == 1
+    p = qconv.conv_q8_plan(3, 224, 224)
+    assert (p["co_blk"], p["splits"], p["tail"]) == (64, 4, 32)

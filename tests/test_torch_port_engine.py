@@ -111,17 +111,23 @@ def test_demo_cli_writes_restored_png(tmp_path):
 
 def test_demo_cli_serves_int8(tmp_path):
     """--compute int8 writes what Restorer(compute='int8') restores (the
-    demo weights, the plain versions on the CPU); --rows_shard refuses
-    it, naming the reason."""
+    demo weights, the plain versions on the CPU); with --rows_shard it
+    writes what --rows_shard in fp32 writes, since the strips run fp32 in
+    every compute, and the port's int8 engine restores sharded within
+    1e-5 of the JAX int8 engine's (here one CPU device: the whole-image
+    fp32 forward on both sides)."""
+    import jax
+
+    from virnet_tpu.train.mesh import make_mesh as jax_make_mesh
     from virnet_tpu_torch.cli.demo import main
+    from virnet_tpu_torch.train.mesh import make_mesh
 
     im = (_im(10, 20, 24) * 255).round().astype(np.uint8)
     src = tmp_path / "noisy.png"
     cv2.imwrite(str(src), im)
-    args = ["--task", "denoising-syn", "--in_path", str(src), "--out_path",
-            str(tmp_path / "out"), "--ckpt_path", SYN, "--device", "cpu",
-            "--compute", "int8"]
-    main(args)
+    args = ["--task", "denoising-syn", "--in_path", str(src), "--ckpt_path",
+            SYN, "--device", "cpu"]
+    main(args + ["--out_path", str(tmp_path / "out"), "--compute", "int8"])
     out = cv2.imread(str(tmp_path / "out" / "restored_noisy.png"))
     rgb = cv2.cvtColor(im, cv2.COLOR_BGR2RGB).astype(np.float32) / 255
     want = Restorer("denoising-syn", ckpt_path=SYN, device="cpu",
@@ -129,8 +135,19 @@ def test_demo_cli_serves_int8(tmp_path):
     want = np.rint(np.clip(want, 0, 1) * 255).astype(np.uint8)
     np.testing.assert_array_equal(cv2.cvtColor(out, cv2.COLOR_BGR2RGB),
                                   want)
-    with pytest.raises(SystemExit, match="scales"):
-        main(args + ["--rows_shard"])
+    main(args + ["--out_path", str(tmp_path / "rows8"), "--compute", "int8",
+                 "--rows_shard"])
+    main(args + ["--out_path", str(tmp_path / "rows32"), "--rows_shard"])
+    rows8 = cv2.imread(str(tmp_path / "rows8" / "restored_noisy.png"))
+    np.testing.assert_array_equal(
+        rows8, cv2.imread(str(tmp_path / "rows32" / "restored_noisy.png")))
+    assert not np.array_equal(rows8, out)
+    got = Restorer("denoising-syn", ckpt_path=SYN, device="cpu",
+                   compute="int8").restore_image_sharded(
+        rgb, make_mesh(["cpu"]))
+    jax_want = JaxRestorer("denoising-syn", ckpt_path=SYN, compute="int8") \
+        .restore_image_sharded(rgb, jax_make_mesh(jax.devices()[:1]))
+    np.testing.assert_allclose(got, jax_want, atol=1e-5)
 
 
 def test_entry_points_need_cuda_unless_cpu_is_asked():

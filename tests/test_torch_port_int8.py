@@ -3,10 +3,11 @@ ops/qconv.py bit for bit (the int8 activations, the scales, the int32
 sums and the float32 output), the gate (the same convolutions quantized,
 by count, widths and kernel size), the forward with float32 activations
 at a tight bar, ``Restorer(compute='int8')`` at a stated one, its mesh
-(scales over the whole batch), and K9's operand layout.  Small seeded
-models of the presets, seeded in torch and carried to the JAX package by
-``convert.to_jax_params``; K9 itself runs only on the card
-(tests/test_torch_port_card.py)."""
+(scales over the whole batch) and its row-sharded restores (fp32, as the
+JAX engine's), K10's and K9's plain versions and K9's weight layout.
+Small seeded models of the presets, seeded in torch and carried to the JAX
+package by ``convert.to_jax_params``; K9 and K10 themselves run only on
+the card (tests/test_torch_port_card.py)."""
 
 import jax
 import jax.numpy as jnp
@@ -65,7 +66,10 @@ def test_conv_w8a8_is_the_jax_function_bit_for_bit(k, ci, co, dtype):
     """The int8 activations and their scales, the folded weight's int8
     values and scales, the int32 sums (the plain float64 product) and the
     float32 output equal the JAX package's, on inputs whose channels span
-    a factor of 30 in range."""
+    a factor of 30 in range; so do the parts the card path takes apart:
+    K10's plain version (the absmax) under ``scale_of``, and K9's plain
+    version (the float input quantized with those scales, then the int8
+    product), which ``conv_q8`` runs on the CPU."""
     rng = np.random.default_rng(k * 1000 + ci + co)
     x = (rng.standard_normal((2, 9, 11, ci))
          * rng.uniform(0.1, 3.0, ci)).astype(np.float32)
@@ -77,6 +81,10 @@ def test_conv_w8a8_is_the_jax_function_bit_for_bit(k, ci, co, dtype):
     xqt, sxt = qconv.quantize_symmetric(xt, (0, 1, 2))
     np.testing.assert_array_equal(xqt.numpy(), np.asarray(xqj))
     np.testing.assert_array_equal(sxt.numpy(), np.asarray(sxj))
+    sx = qconv.scale_of(qconv.absmax_plain(xt))
+    np.testing.assert_array_equal(sx.numpy(), np.asarray(sxj).reshape(-1))
+    np.testing.assert_array_equal(qconv.quantize_with(xt, sx).numpy(),
+                                  np.asarray(xqj))
     kqj, swj = jqconv.quantize_symmetric(
         jnp.asarray(w) * sxj.reshape(1, 1, -1, 1), axes=(0, 1, 2))
     kqt, swt = qconv.quantize_symmetric(
@@ -89,11 +97,14 @@ def test_conv_w8a8_is_the_jax_function_bit_for_bit(k, ci, co, dtype):
         preferred_element_type=jnp.int32)
     np.testing.assert_array_equal(qconv.int32_sums(xqt, kqt, k // 2).numpy(),
                                   np.asarray(acc))
+    want = np.asarray(jqconv.conv_w8a8(xj, jnp.asarray(w), jnp.asarray(b)))
     got = qconv.conv_w8a8(xt, torch.from_numpy(w), torch.from_numpy(b))
     assert got.dtype == torch.float32
-    np.testing.assert_array_equal(
-        got.numpy(), np.asarray(jqconv.conv_w8a8(xj, jnp.asarray(w),
-                                                 jnp.asarray(b))))
+    np.testing.assert_array_equal(got.numpy(), want)
+    args = (xt, sx, kqt, swt.reshape(-1), torch.from_numpy(b))
+    fused = qconv.conv_q8_plain(*args)
+    np.testing.assert_array_equal(fused.numpy(), want)
+    assert torch.equal(qconv.conv_q8(*args), fused)
 
 
 def test_quantize_guards_dead_channels_and_ties():
@@ -112,33 +123,64 @@ def test_quantize_guards_dead_channels_and_ties():
     assert not q[..., 0].any() and torch.isfinite(s).all()
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_absmax_plain_is_the_scale_source(dtype):
+    """K10's plain version (``absmax_plain``, per channel over N, H, W) is
+    the absmax that ``quantize_symmetric`` and the JAX package scale by,
+    bit for bit: a dead channel (zeros), a channel whose largest magnitude
+    is negative, ties of +-m, a subnormal channel and channels over a wide
+    range, in float32 and bfloat16; ``absmax_nhwc`` on the CPU is it."""
+    rng = np.random.default_rng(12)
+    x = (rng.standard_normal((2, 5, 7, 6))
+         * np.array([1.0, 0.0, 3.0, 1e-3, 250.0, 1.0])).astype(np.float32)
+    x[1, 2, 3, 0] = -9.5                   # the largest magnitude negative
+    x[0, 0, 0, 2], x[1, 4, 6, 2] = 7.25, -7.25            # a tie of +-m
+    x[..., 5] = np.float32(1e-40) * rng.integers(-3, 4, x.shape[:3])
+    xt = torch.from_numpy(x).to(getattr(torch, dtype))
+    got = qconv.absmax_plain(xt)
+    assert got.dtype == torch.float32 and got.shape == (6,)
+    _, s = qconv.quantize_symmetric(xt, (0, 1, 2))
+    assert torch.equal(qconv.scale_of(got), s.reshape(-1))
+    _, sj = jqconv.quantize_symmetric(jnp.asarray(x).astype(dtype),
+                                      axes=(0, 1, 2))
+    np.testing.assert_array_equal(qconv.scale_of(got).numpy(),
+                                  np.asarray(sj).reshape(-1))
+    assert torch.equal(got, xt.float().abs().amax((0, 1, 2)))
+    assert got[0] == 9.5 and got[1] == 0 and got[2] == 7.25
+    assert torch.equal(qconv.absmax_nhwc(xt), got)
+
+
 @pytest.mark.parametrize("k,ci,co", [(3, 24, 20), (3, 64, 96), (1, 40, 13)])
 def test_k9_operands_hold_the_product(k, ci, co):
-    """What K9 reads (ops/qconv.kernel_operands: channels zero-padded to a
-    multiple of 32, weights (k*k, Co8, Ci32)) and its decomposition (the
-    int32 sums of each 32-channel chunk, added) give the plain product bit
-    for bit; dequantizing in bf16 is one rounding of the float32 output."""
+    """What K9 reads of the weights (ops/qconv.kernel_weights: (Ci32 / 32,
+    k*k, Co, 32), the input channels zero-padded to a multiple of 32, each
+    output channel's 32 channels of a chunk contiguous) and its
+    decomposition (the int32 sums of each 32-channel chunk, added) give
+    the plain product bit for bit; K9's function on the CPU is the plain
+    one, and dequantizing in bf16 is one rounding of the float32 output."""
     rng = np.random.default_rng(ci + co)
     xq = torch.from_numpy(rng.integers(-127, 128, (2, 5, 7, ci),
                                        dtype=np.int8))
     kq = torch.from_numpy(rng.integers(-127, 128, (k, k, ci, co),
                                        dtype=np.int8))
-    xk, wk = qconv.kernel_operands(xq, kq)
-    assert xk.shape[3] % 32 == 0 and wk.shape[1] % 8 == 0
-    assert wk.shape == (k * k, wk.shape[1], xk.shape[3])
-    assert not xk[..., ci:].any() and not wk[:, co:].any()
-    assert not wk[..., ci:].any()
-    khwio = wk.reshape(k, k, wk.shape[1], wk.shape[2]).permute(0, 1, 3, 2)
+    wk = qconv.kernel_weights(kq)
+    cip = -(-ci // 32) * 32
+    assert wk.shape == (cip // 32, k * k, co, 32) and wk.is_contiguous()
+    khwio = wk.permute(1, 0, 3, 2).reshape(k, k, cip, co)
+    assert torch.equal(khwio[:, :, :ci], kq) and not khwio[:, :, ci:].any()
+    xk = torch.nn.functional.pad(xq, (0, cip - ci))
     chunks = sum(qconv.int32_sums(xk[..., c:c + 32], khwio[:, :, c:c + 32],
                                   k // 2)
-                 for c in range(0, xk.shape[3], 32))
+                 for c in range(0, cip, 32))
     want = qconv.int32_sums(xq, kq, k // 2)
-    assert torch.equal(chunks[..., :co], want)
+    assert torch.equal(chunks, want)
     sw = torch.from_numpy(rng.uniform(1e-5, 1e-3, co).astype(np.float32))
     bias = torch.from_numpy(rng.normal(0, 0.1, co).astype(np.float32))
-    f32 = qconv.conv_s8(xq, kq, sw, bias)
+    ones = torch.ones(ci)
+    f32 = qconv.conv_q8(xq.float(), ones, kq, sw, bias)
     assert torch.equal(f32, qconv.conv_s8_plain(xq, kq, sw, bias))
-    assert torch.equal(qconv.conv_s8(xq, kq, sw, bias, torch.bfloat16),
+    assert torch.equal(qconv.conv_q8(xq.to(torch.bfloat16), ones, kq, sw,
+                                     bias, torch.bfloat16),
                        f32.to(torch.bfloat16))
 
 
@@ -304,8 +346,9 @@ def test_restorer_int8_mesh_takes_the_whole_batchs_scales():
     share every activation scale, so restore_batch of 7 images equals the
     engine without a mesh bit for bit (per-image float convolutions), and
     the JAX Restorer on three devices within the bar above; chunk-local
-    scales would differ.  restore_image_sharded refuses int8, naming the
-    reason."""
+    scales would differ.  restore_image_sharded runs the strips in fp32,
+    as the JAX engine's does: within 1e-5 of the JAX int8 Restorer's
+    sharded restore on three devices, and the fp32 engine's bits."""
     task = "denoising-syn"
     _, params, _, sd = _pair(task, seed=9)
     kw = SMALL[task]
@@ -326,23 +369,39 @@ def test_restorer_int8_mesh_takes_the_whole_batchs_scales():
                      mesh=jax_make_mesh(jax.devices()[:3]), **kw)
     d = np.abs(np.asarray(jr.restore_batch(jnp.asarray(x))) - got)
     assert d.max() <= 2e-2 and d.mean() <= 2e-3, (d.max(), d.mean())
-    with pytest.raises(NotImplementedError, match="unquantized fp32"):
-        meshed.restore_image_sharded(_img(11, 64, 20, 3))
+    tall = _img(11, 160, 20, 3)
+    got = meshed.restore_image_sharded(tall, halo=48)
+    want = jr.restore_image_sharded(tall, jax_make_mesh(jax.devices()[:3]),
+                                    halo=48)
+    assert got.shape == tall.shape
+    np.testing.assert_allclose(got, want, atol=1e-5)
+    fp32 = Restorer(task, state_dict=sd, device="cpu", **kw)
+    np.testing.assert_array_equal(
+        got, fp32.restore_image_sharded(tall, Mesh(["cpu"] * 3), halo=48))
 
 
 def test_lockstep_aborts_instead_of_waiting():
-    """A chunk that fails releases the others: its error is raised."""
+    """A chunk that fails releases the others: its error is raised.  Chunks
+    of ``conv_w8a8`` that all finish share the whole batch's activation
+    scales, so each equals its slice of the call on the whole batch (the
+    int32 sums are exact and the epilogue is per pixel)."""
+    rng = np.random.default_rng(12)
+    x = torch.from_numpy((rng.standard_normal((3, 5, 6, 8))
+                          * rng.uniform(0.1, 3.0, 8)).astype(np.float32))
+    x[2] *= 0.25                 # the last chunk's own ranges are smaller
+    w = torch.from_numpy((rng.standard_normal((3, 3, 8, 4))
+                          * 0.1).astype(np.float32))
+
+    def chunk(i):
+        return lambda: qconv.conv_w8a8(x[i:i + 1], w)
+
     def bad():
         raise KeyError("chunk 1")
 
-    def good():
-        return qconv.quantize_symmetric(torch.ones(1, 2, 2, 3), (0, 1, 2),
-                                        shared=True)[1]
-
     with pytest.raises(KeyError, match="chunk 1"):
-        qconv.run_lockstep([good, bad, good])
-    out = qconv.run_lockstep([good, lambda: qconv.quantize_symmetric(
-        torch.full((1, 2, 2, 3), 4.0), (0, 1, 2), shared=True)[1]])
-    assert torch.equal(out[0], out[1])
-    assert torch.equal(out[0], qconv.quantize_symmetric(
-        torch.full((1, 2, 2, 3), 4.0), (0, 1, 2))[1])
+        qconv.run_lockstep([chunk(0), bad, chunk(2)])
+    whole = qconv.conv_w8a8(x, w)
+    out = qconv.run_lockstep([chunk(i) for i in range(3)])
+    for i in range(3):
+        assert torch.equal(out[i], whole[i:i + 1])
+    assert not torch.equal(chunk(2)(), whole[2:])

@@ -138,6 +138,27 @@ def test_restorer_on_a_mesh_matches_no_mesh(task):
         np.testing.assert_allclose(got, want, atol=1e-5)
 
 
+@pytest.mark.parametrize("compute", ["bf16", "int8"])
+@pytest.mark.parametrize("task", ["denoising-syn", "sisr"])
+def test_restorer_sharded_runs_fp32_in_every_compute(task, compute):
+    """Restorer(compute=c).restore_image_sharded on four CPU devices (201 x
+    23, halo 48) runs the strips in fp32, as the JAX engine's sharded
+    stages do whatever its compute: within 1e-5 of the JAX
+    Restorer(compute=c)'s, and the fp32 engine's bits."""
+    jm, params, _, sd = small_pair(task, seed=8)
+    kw = small_kwargs(task)
+    big = _img(10, 201, 23, 3)
+    got = Restorer(task, state_dict=sd, sf=2, device="cpu", compute=compute,
+                   **kw).restore_image_sharded(big, CPU4, halo=48)
+    want = JaxRestorer(task, params=params, sf=2, compute=compute,
+                       **kw).restore_image_sharded(big, _jax_mesh(), halo=48)
+    assert got.shape == want.shape
+    np.testing.assert_allclose(got, want, atol=1e-5)
+    fp32 = Restorer(task, state_dict=sd, sf=2, device="cpu", **kw)
+    np.testing.assert_array_equal(
+        got, fp32.restore_image_sharded(big, CPU4, halo=48))
+
+
 def _demo_pngs(folder, n=3, shape=(24, 28)):
     import cv2
 

@@ -11,7 +11,8 @@ scripts/testing_demo.py:99-135):
 ``model_zoo/virnet_sisr_x{sf}_demo.pth``.  ``--mesh`` restores a folder's
 same-shape images in batches split over every visible card (and the x8
 ensemble of ``--flip`` over them); ``--rows_shard`` splits each image's
-rows over every visible card (eval/spatial.py), for huge images.  Both
+rows over every visible card (eval/spatial.py), for huge images, in fp32
+whatever ``--compute`` is (as the JAX demo's sharded stages run).  Both
 give what the plain path gives, up to summation order.
 """
 
@@ -58,8 +59,8 @@ def main(argv=None):
                              "checkpoint-faithful)")
     parser.add_argument("--rows_shard", action="store_true",
                         help="shard each image's rows over every visible "
-                             "card (huge images; matches the plain "
-                             "forward)")
+                             "card (huge images; matches the plain fp32 "
+                             "forward, in every --compute)")
     parser.add_argument("--mesh", action="store_true",
                         help="data-parallel inference over every visible "
                              "card: folder batches and the x8 --flip "
@@ -85,10 +86,6 @@ def main(argv=None):
     if args.rows_shard and args.mesh:
         raise SystemExit("--rows_shard already uses every card (the rows "
                          "axis); --mesh is the data-parallel alternative")
-    if args.rows_shard and args.compute == "int8":
-        raise SystemExit("--rows_shard does not serve --compute int8: the "
-                         "strips' activation scales would not be the whole "
-                         "image's (Restorer.restore_image_sharded)")
     ckpt = args.ckpt_path or DEFAULT_CKPTS[args.task].format(sf=args.sf)
     if not Path(ckpt).exists():
         raise SystemExit(f"checkpoint not found: {ckpt}")

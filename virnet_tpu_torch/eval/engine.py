@@ -5,11 +5,12 @@ pass the fused-head gate, K2 + RNet + K4 on the others; SISR: K2 (SNet),
 KNet and RNet in torch, K4 (models/virnet.py).  ``mesh`` (train/mesh.py)
 splits every batch over the mesh's devices, and
 ``restore_image_sharded`` splits one image's rows over them
-(eval/spatial.py).  ``compute='int8'`` builds ``conv_impl='torch'``, so
-that every convolution goes through ``models/common.conv`` and the int8
-gate: no K2, K3 or K4 runs in that mode (SNet's first and last convs and
-RNet's head, strided, transposed and tail convs are bf16 library
-convolutions), and the gated ones are W8A8 on K9.
+(eval/spatial.py) in fp32 whatever the compute, as the JAX engine's
+stages do.  ``compute='int8'`` builds ``conv_impl='torch'``, so that every
+convolution goes through ``models/common.conv`` and the int8 gate: no K2,
+K3 or K4 runs in that mode (SNet's first and last convs and RNet's head,
+strided, transposed and tail convs are bf16 library convolutions), and
+the gated ones are W8A8 on K10 + K9.
 """
 
 from __future__ import annotations
@@ -48,9 +49,10 @@ class Restorer:
     convolutions that the int8 gate takes (``models/common.int8_gated``:
     SNet's mids, RNet's body convs, the wide SFT 1x1 convs, KNet's body)
     run W8A8 from their fp32 weights with scales over the whole batch
-    (ops/qconv.py, K9 on the card), everything else as in bf16; the model
-    is built with ``conv_impl='torch'`` (module docstring), so K4 does not
-    take the tail in this mode.  Not checkpoint-faithful.  With a
+    (ops/qconv.py, K10 + K9 on the card), everything else as in bf16; the
+    model is built with ``conv_impl='torch'`` (module docstring), so K4
+    does not take the tail in this mode.  Not checkpoint-faithful.
+    ``restore_image_sharded`` runs fp32 in every compute.  With a
     ``mesh`` the chunks of a batch run in lockstep, one thread each, and
     take every scale over the whole batch, as the JAX engine's jit over a
     sharded batch does.  ``pad_multiple=0`` feeds the model the raw image (the
@@ -73,6 +75,7 @@ class Restorer:
             raise ValueError(f"task must be one of {sorted(ARCH_PRESETS)}, "
                              f"got {task!r}")
         self.sisr = ARCH_PRESETS[task].get("cls") == "VIRNetSR"
+        self._fp32_overrides = dict(model_overrides)
         self.sf = sf if self.sisr else 1
         self.device = resolve_device(device)
         self.int8 = compute == "int8"
@@ -101,6 +104,10 @@ class Restorer:
                       if self.int8 else model.to(self.device, dtype)).eval()
         self.int8_dtype = dtype if self.int8 else None
         self.im2col = compute == "fp32" and self.device.type == "cuda"
+        # row-sharded restores run the fp32 model of these weights: kept
+        # here, built at the first such restore (``_fp32_model``)
+        self._state_dict = None if compute == "fp32" else state_dict
+        self._fp32 = None
         self.mesh = mesh
         self.replicas = {self.device: self.model}
         if mesh is not None:
@@ -138,38 +145,50 @@ class Restorer:
             mu = torch.cat([c.to(self.device) for c in chunks])[:n]
         return torch.clamp(mu.float(), 0.0, 1.0)
 
+    def _fp32_model(self, mesh):
+        """(model, its replicas on ``mesh``) that row-sharded restores run:
+        ``Restorer(compute='fp32')``'s, with the float32 weights of the
+        state dict this engine was built from (a bf16 model cast back would
+        have lost their low bits) and the same ``conv_impl``."""
+        if self.compute == "fp32":
+            self.replicas = replicas(self.model, mesh, self.replicas)
+            return self.model, self.replicas
+        if self._fp32 is None:
+            model = build_model(self.task, **self._fp32_overrides)
+            model.load_state_dict(self._state_dict, strict=True)
+            model = model.to(self.device).eval()
+            self._fp32 = (model, {self.device: model})
+        model, have = self._fp32
+        self._fp32 = (model, replicas(model, mesh, have))
+        return self._fp32
+
     def restore_image_sharded(self, im: np.ndarray, mesh=None,
                               halo: int = 160) -> np.ndarray:
         """Restore one huge image with its rows sharded over ``mesh``
         (default: the engine's, else every visible card, or the engine's
         device alone on the CPU; eval/spatial.py): restore_image's raw
-        whole-image forward up to summation order (the SISR sigma pool is
-        summed over the stitched map), clamped to [0, 1].  Not in int8: the
-        JAX engine's sharded stages run in fp32 whatever its compute, and
-        per-window scales would differ from the whole image's."""
+        whole-image forward in fp32 up to summation order (the SISR sigma
+        pool is summed over the stitched map), clamped to [0, 1].  The
+        strips run fp32 whatever ``compute`` is, as the JAX engine's
+        sharded stages do: the model ``Restorer(compute='fp32')`` would
+        run (``_fp32_model``), on the card on the im2col route."""
         from ..train.mesh import make_mesh
-
-        if self.int8:
-            raise NotImplementedError(
-                "restore_image_sharded does not serve compute='int8': the "
-                "JAX engine's row-sharded stages run unquantized fp32 "
-                "(virnet_tpu/eval/spatial.py), and the strips' scales would "
-                "not be the whole image's; use restore_image, or fp32/bf16")
 
         squeeze_gray = im.ndim == 2
         if squeeze_gray:
             im = np.stack([im] * 3, axis=2)
         mesh = mesh or self.mesh or (make_mesh() if self.device.type ==
                                      "cuda" else make_mesh([self.device]))
-        self.replicas = replicas(self.model, mesh, self.replicas)
-        with im2col_convs(self.im2col):
+        model, reps = self._fp32_model(mesh)
+        im2col = (self.im2col if self.compute == "fp32"
+                  else self.device.type == "cuda")
+        with im2col_convs(im2col):
             if self.sisr:
-                out = sr_restore_rows_sharded(self.model, im, self.sf, mesh,
-                                              halo=halo,
-                                              models=self.replicas)
+                out = sr_restore_rows_sharded(model, im, self.sf, mesh,
+                                              halo=halo, models=reps)
             else:
-                out = restore_rows_sharded(self.model, im, mesh, halo=halo,
-                                           models=self.replicas)
+                out = restore_rows_sharded(model, im, mesh, halo=halo,
+                                           models=reps)
         out = np.clip(out, 0.0, 1.0)
         if squeeze_gray and self.gray_mean:
             out = out.mean(axis=2)

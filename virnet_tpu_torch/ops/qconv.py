@@ -1,10 +1,17 @@
 """W8A8 integer convolution, the int8 serving path (counterpart of
-virnet_tpu/ops/qconv.py), with K9 beside its plain PyTorch version.
+virnet_tpu/ops/qconv.py), with K9 and K10 beside their plain PyTorch
+versions.
 
-  K9 ``conv_s8`` <- no Pallas kernel: the JAX package leaves its int8
-                    product to XLA (``lax.conv_general_dilated`` with
-                    ``preferred_element_type=int32``); K9 is the hand-written
-                    s8 tensor-core convolution of csrc/conv_w8a8.cu
+  K10 ``absmax_nhwc`` <- no Pallas kernel: the per-channel absmax of the
+                         activations (XLA's reduction in the JAX package);
+                         csrc/conv_w8a8.cu, one read of x
+  K9 ``conv_q8``      <- no Pallas kernel: the JAX package leaves its
+                         quantize and its int8 product to XLA
+                         (``lax.conv_general_dilated`` with
+                         ``preferred_element_type=int32``); K9 is the
+                         hand-written s8 tensor-core convolution of
+                         csrc/conv_w8a8.cu, which quantizes the float
+                         activations as it stages them
 
 The scheme is the JAX package's, with no calibration state:
 
@@ -21,36 +28,41 @@ Rounding is half to even (``torch.round``, as ``jnp.round``), clipped to
 +-127; a scale is at least 1e-12 / 127, so a dead channel quantizes to
 zeros.  Every quotient is a division of two tensors: on the card PyTorch
 computes ``t / 127.0`` as ``t * (1 / 127.0)``, an ulp away at times, and
-one ulp moves an int8 level at every tie.  Quantization is plain PyTorch on
-every device, as the JAX package leaves it to XLA; the product and its
-dequantizing epilogue are K9 on the card.
+one ulp moves an int8 level at every tie; K9 divides with the IEEE
+quotient too.
 
-Tensors are NHWC with HWIO weights, as in the JAX package.  ``conv_s8``
-given CPU tensors runs the plain version: ``F.conv2d`` in float64 of the
-int8 values, exact because |acc| <= k^2 * Ci * 127^2 (4.2e7 at RNet's widest
-288 channels) < 2^53, rounded to int32; given CUDA tensors it launches K9
-or raises.  ``LAUNCHES['conv_w8a8']`` counts K9's launches.
+On the card ``conv_w8a8`` is K10 (the absmax), the lockstep group's
+reduce, the scales on (Ci,), the weights' fold and quantize (a small
+tensor, PyTorch), then K9 on the float activations: no PyTorch pass over
+an activation-sized tensor.  On the CPU it is the plain route,
+``quantize_symmetric`` and ``conv_s8_plain``: ``F.conv2d`` in float64 of
+the int8 values, exact because |acc| <= k^2 * Ci * 127^2 (4.2e7 at RNet's
+widest 288 channels) < 2^53, rounded to int32.  Given CUDA tensors a
+wrapper launches its kernel or raises.  Tensors are NHWC with HWIO
+weights, as in the JAX package.  ``LAUNCHES['absmax_nhwc']`` and
+``LAUNCHES['conv_w8a8']`` count the launches.
 """
 
 from __future__ import annotations
 
 import contextvars
+import ctypes
 import threading
 
 import torch
 import torch.nn.functional as F
 
-from .fused_conv import (LAUNCHES, _aligned, _check, _fn, _forward_only,
-                         _on_cpu, _ret, _stream)
+from .fused_conv import (_DTYPES, LAUNCHES, _aligned, _check, _dtype_code,
+                         _fn, _forward_only, _on_cpu, _ret, _stream)
 from .jpeg import _divide
 
 QMAX = 127.0
 EPS = 1e-12
 KC = 32        # K9 takes its input channels 32 at a time
-CO_ALIGN = 8   # and its output channels 8 at a time (one mma n-tile)
 
-__all__ = ["quantize_symmetric", "conv_w8a8", "conv_s8", "conv_s8_plain",
-           "int32_sums", "AbsmaxGroup", "run_lockstep"]
+__all__ = ["quantize_symmetric", "quantize_with", "scale_of", "conv_w8a8",
+           "conv_q8", "conv_q8_plain", "conv_s8_plain", "absmax_nhwc",
+           "absmax_plain", "int32_sums", "AbsmaxGroup", "run_lockstep"]
 
 # ---------------------------------------------------------------------------
 # scales shared by the replicas of one batch
@@ -122,26 +134,46 @@ def run_lockstep(calls):
     return results
 
 
+def _batch_absmax(absmax: torch.Tensor) -> torch.Tensor:
+    """``absmax``, one chunk's, as the maximum over the chunks of the
+    enclosing ``run_lockstep`` (the whole batch's); unchanged outside it."""
+    grp = _GROUP.get()
+    return absmax if grp is None else grp[0].reduce(grp[1], absmax)
+
+
 # ---------------------------------------------------------------------------
-# quantization (plain PyTorch on every device)
+# quantization
 # ---------------------------------------------------------------------------
 
-def quantize_symmetric(x: torch.Tensor, dims, shared: bool = False):
+def scale_of(absmax: torch.Tensor) -> torch.Tensor:
+    """The symmetric int8 scale of an absmax: max(absmax, 1e-12) / 127, a
+    division of two tensors."""
+    return _divide(torch.clamp_min(absmax, EPS), QMAX)
+
+
+def quantize_with(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """clamp(round(x / scale), -127, 127) as int8, ``scale`` broadcast
+    against float32 ``x``."""
+    return torch.clamp(torch.round(_divide(x.float(), scale)), -QMAX,
+                       QMAX).to(torch.int8)
+
+
+def quantize_symmetric(x: torch.Tensor, dims):
     """Symmetric absmax int8 quantization over ``dims`` (kept as size 1).
-    Returns (q int8, scale float32) with x ~ q * scale.  ``shared`` takes
-    the absmax over the whole batch of the enclosing ``run_lockstep``."""
-    s = x.abs().amax(dim=dims, keepdim=True).float()
-    grp = _GROUP.get() if shared else None
-    if grp is not None:
-        s = grp[0].reduce(grp[1], s)
-    s = _divide(torch.clamp_min(s, EPS), QMAX)
-    q = torch.clamp(torch.round(_divide(x.float(), s)), -QMAX, QMAX)
-    return q.to(torch.int8), s
+    Returns (q int8, scale float32) with x ~ q * scale."""
+    s = scale_of(x.abs().amax(dim=dims, keepdim=True).float())
+    return quantize_with(x, s), s
 
 
 # ---------------------------------------------------------------------------
 # plain versions
 # ---------------------------------------------------------------------------
+
+def absmax_plain(x: torch.Tensor) -> torch.Tensor:
+    """K10's function: the per-channel max |x| over (N, H, W) of NHWC
+    ``x``, float32 (Ci,)."""
+    return x.abs().amax(dim=(0, 1, 2)).float()
+
 
 def int32_sums(xq: torch.Tensor, kq: torch.Tensor,
                padding: int) -> torch.Tensor:
@@ -165,7 +197,7 @@ def dequantize(acc: torch.Tensor, sw: torch.Tensor, bias,
 
 
 def conv_s8_plain(xq, kq, sw, bias=None, out_dtype=torch.float32):
-    """K9's function: int8 NHWC ``xq`` (N, H, W, Ci) by int8 HWIO ``kq``
+    """The int8 product: int8 NHWC ``xq`` (N, H, W, Ci) by int8 HWIO ``kq``
     (k, k, Ci, Co), zero 'same' padding k // 2, int32 sums, dequantized by
     the per-output-channel ``sw`` (Co,) and ``bias`` (Co,) or None ->
     (N, H, W, Co) in ``out_dtype``."""
@@ -173,61 +205,91 @@ def conv_s8_plain(xq, kq, sw, bias=None, out_dtype=torch.float32):
     return dequantize(acc, sw, bias, out_dtype).contiguous()
 
 
+def conv_q8_plain(x, sx, kq, sw, bias=None, out_dtype=torch.float32):
+    """K9's function: float NHWC ``x`` quantized with the per-channel
+    scales ``sx`` (Ci,) (``quantize_with``), then ``conv_s8_plain``."""
+    return conv_s8_plain(quantize_with(x, sx), kq, sw, bias, out_dtype)
+
+
 # ---------------------------------------------------------------------------
-# K9
+# K10 and K9
 # ---------------------------------------------------------------------------
 
-_OUT = {torch.float32: 0, torch.bfloat16: 1}
+def absmax_nhwc(x: torch.Tensor) -> torch.Tensor:
+    """K10: ``absmax_plain``'s function, bit for bit (a max does not depend
+    on order).  On the card ``x`` is contiguous float32 or bfloat16."""
+    if _on_cpu(x):
+        return absmax_plain(x)
+    n, h, w, c = x.shape
+    code = _dtype_code(x)
+    _check(x, "x", x.dtype, (n, h, w, c))
+    out = torch.empty(c, dtype=torch.float32, device=x.device)
+    _ret(_fn("vt_absmax_nhwc")(x.data_ptr(), out.data_ptr(), n * h * w, c,
+                               code, _stream(x)), "vt_absmax_nhwc")
+    LAUNCHES["absmax_nhwc"] += 1
+    return out
 
 
 def _round_up(v: int, m: int) -> int:
     return -(-v // m) * m
 
 
-def kernel_operands(xq: torch.Tensor, kq: torch.Tensor):
-    """What K9 reads: ``xq`` with its channels zero-padded to a multiple of
-    32 (exact: zero channels add zero products), and ``kq`` as (k*k, Co8,
-    Ci32) int8, each output channel's input channels contiguous (the B
-    operand of mma.sync's row.col layout), zero-padded likewise to Co8 a
-    multiple of 8.  The padding is a copy only where a width is not
-    already a multiple."""
-    ci = xq.shape[3]
-    k, _, _, co = kq.shape
-    cip, cop = _round_up(ci, KC), _round_up(co, CO_ALIGN)
-    if cip != ci:
-        xq = F.pad(xq, (0, cip - ci))
-    wk = kq.permute(0, 1, 3, 2).reshape(k * k, co, ci)
-    wk = F.pad(wk, (0, cip - ci, 0, cop - co)).contiguous()
-    return xq.contiguous(), wk
+def kernel_weights(kq: torch.Tensor) -> torch.Tensor:
+    """What K9 reads of HWIO int8 ``kq`` (k, k, Ci, Co): (Cip / 32, k*k,
+    Co, 32) int8 with Cip = Ci rounded up to 32 and zeros past Ci, each
+    output channel's 32 input channels of a chunk contiguous (the B
+    operand of mma.sync's row.col layout): a weight-sized copy."""
+    k, _, ci, co = kq.shape
+    cip = _round_up(ci, KC)
+    wk = F.pad(kq.reshape(k * k, ci, co), (0, 0, 0, cip - ci))
+    return wk.reshape(k * k, cip // KC, KC, co).permute(1, 0, 3, 2) \
+        .contiguous()
 
 
-def conv_s8(xq, kq, sw, bias=None, out_dtype=torch.float32) -> torch.Tensor:
-    """K9: ``conv_s8_plain``'s function.  On the card k is 1 or 3, Co at
-    least 1, ``out_dtype`` float32 or bfloat16, ``sw`` and ``bias`` float32
-    (Co,); the operands are padded and laid out by ``kernel_operands``."""
-    ts = [xq, kq, sw] + ([] if bias is None else [bias])
+def conv_q8_plan(k: int, ci: int, co: int,
+                 out_dtype=torch.bfloat16) -> dict:
+    """How K9 splits Co on the card: co_blk output channels a block (a
+    width wgmma takes), the number of splits, the last split's channels
+    (co_blk, or 32), and the shared memory a block takes (card only)."""
+    out = (ctypes.c_int * 4)()
+    _ret(_fn("vt_conv_w8a8_plan")(k, ci, co, _DTYPES[out_dtype], out),
+         "vt_conv_w8a8_plan")
+    return dict(co_blk=out[0], splits=out[1], tail=out[2],
+                smem_bytes=out[3])
+
+
+def conv_q8(x, sx, kq, sw, bias=None, out_dtype=torch.float32):
+    """K9: ``conv_q8_plain``'s function, bit for bit.  On the card ``x``
+    is contiguous bfloat16 (the int8 mode's activations), k is 1 or 3,
+    ``out_dtype`` float32 or bfloat16, ``sx`` float32 (Ci,), ``sw`` and
+    ``bias`` float32 (Co,); the weights are laid out by
+    ``kernel_weights``."""
+    ts = [x, sx, kq, sw] + ([] if bias is None else [bias])
     if _on_cpu(*ts):
-        return conv_s8_plain(xq, kq, sw, bias, out_dtype)
-    n, h, w, ci = xq.shape
+        return conv_q8_plain(x, sx, kq, sw, bias, out_dtype)
+    n, h, w, ci = x.shape
     k, k2, ci_k, co = kq.shape
     if k not in (1, 3) or k2 != k:
         raise ValueError(f"K9 takes 1x1 and 3x3 kernels, got {k}x{k2}")
     if ci_k != ci:
         raise ValueError(f"kernel has {ci_k} input channels, x has {ci}")
-    if out_dtype not in _OUT:
+    if x.dtype != torch.bfloat16:
+        raise TypeError(f"K9 reads bfloat16, got {x.dtype}")
+    if out_dtype not in _DTYPES:
         raise TypeError(f"K9 writes float32 or bfloat16, got {out_dtype}")
-    _check(xq, "xq", torch.int8, (n, h, w, ci))
+    _check(x, "x", x.dtype, (n, h, w, ci))
+    _check(sx, "sx", torch.float32, (ci,))
     _check(kq, "kq", torch.int8, (k, k, ci, co))
     _check(sw, "sw", torch.float32, (co,))
     if bias is not None:
         _check(bias, "bias", torch.float32, (co,))
-    xk, wk = kernel_operands(xq, kq)
-    y = torch.empty((n, h, w, co), dtype=out_dtype, device=xq.device)
-    _aligned(xq=xk, kq=wk)
+    wk = kernel_weights(kq)
+    y = torch.empty((n, h, w, co), dtype=out_dtype, device=x.device)
+    _aligned(sx=sx, kq=wk)
     _ret(_fn("vt_conv_w8a8")(
-        xk.data_ptr(), wk.data_ptr(), sw.data_ptr(),
+        x.data_ptr(), sx.data_ptr(), wk.data_ptr(), sw.data_ptr(),
         None if bias is None else bias.data_ptr(), y.data_ptr(), n, h, w,
-        xk.shape[3], co, wk.shape[1], k, _OUT[out_dtype], _stream(xq)),
+        ci, co, k, _DTYPES[out_dtype], _stream(x)),
         "vt_conv_w8a8")
     LAUNCHES["conv_w8a8"] += 1
     return y
@@ -237,17 +299,18 @@ def conv_w8a8(x: torch.Tensor, kernel: torch.Tensor, bias=None, *,
               out_dtype=torch.float32, stride: int = 1,
               padding=None) -> torch.Tensor:
     """int8 x int8 -> int32 convolution of float NHWC ``x`` (N, H, W, Ci)
-    by float HWIO ``kernel`` (k, k, Ci, Co), both quantized here as the
-    module docstring says; (N, H, W, Co) in ``out_dtype`` (float32 is the
-    JAX function's output).  Stride 1 and 'same' padding only: the convs
-    the int8 gate takes (models/common.int8_gated)."""
+    by float HWIO ``kernel`` (k, k, Ci, Co), both quantized as the module
+    docstring says; (N, H, W, Co) in ``out_dtype`` (float32 is the JAX
+    function's output).  Stride 1 and 'same' padding only: the convs the
+    int8 gate takes (models/common.int8_gated).  Inside ``run_lockstep``
+    the activation absmax is the whole batch's."""
     _forward_only("conv_w8a8", x, kernel,
                   *([] if bias is None else [bias]))
     k = kernel.shape[0]
     if stride != 1 or (padding is not None and padding != k // 2):
         raise ValueError("conv_w8a8 takes stride 1 and padding k // 2")
-    xq, sx = quantize_symmetric(x, (0, 1, 2), shared=True)
+    sx = scale_of(_batch_absmax(absmax_nhwc(x)))
     folded = kernel.float() * sx.reshape(1, 1, -1, 1)
     kq, sw = quantize_symmetric(folded, (0, 1, 2))
     b = None if bias is None else bias.float()
-    return conv_s8(xq, kq, sw.reshape(-1), b, out_dtype)
+    return conv_q8(x, sx, kq, sw.reshape(-1), b, out_dtype)
