@@ -5,7 +5,8 @@
                            ops,real,fp32,psnr,probe,sisr_fwd,serve_sisr,
                            train_fp32,
                            train_sisr,train_pipeline,train_denoise_fp32,
-                           train_denoise,eval_tables,runtime,int8]
+                           train_denoise,eval_tables,runtime,int8,grids,
+                           prepare]
                           [--report PATH]
 
 Phases (all by default; any failure raises and the exit code is not 0):
@@ -183,11 +184,35 @@ Phases (all by default; any failure raises and the exit code is not 0):
              each against the clean image) on the psnr phase's image; a
              trainer checkpoint through cli/export_torch, load_pth and a
              Restorer, the same bits as the demo weights
+  grids      the trainers' per-epoch validation with the TensorBoard image
+             and kernel grids, full width: train_sisr.validate_epoch with
+             the trainer of configs/sisr_x4.json on a SISRValSet of two
+             seeded 128^2 HR images, and train_denoising_syn.validate_epoch
+             with that of configs/denoising_syn.json on a DenoiseValSet of
+             two seeded 128^2 images, into a recording writer (tensorboardX
+             is absent here); exactly the JAX trainers' tags (four per SISR
+             set: restored, GT, input, kernels est|gt; three for
+             denoising), every array finite and in [0, 1], each kernel
+             summing to 1 within 1e-5, the restored grids and kernel images
+             within atol 1e-4 of the same weights on the CPU and the GT and
+             input grids the same bits; ms of the block and of the grid
+             calls alone; no kernel of the package launches (the
+             trainers' conv_impl='torch' model on the im2col route)
+  prepare    offline data preparation on this machine's host: three
+             seeded 600x600 PNGs through crop_hr_patches (12 crops of
+             512^2), isp_process_patches in a spawned pool of 2,
+             make_kernel_bank, synth_camera_pairs and verify_corpus, twice:
+             the same bytes (a .mat's past its header, which holds the
+             creation time) and results, and the layouts of
+             tests/test_prepare.py and tests/test_isp.py;
+             write_noise_benchmark_h5 raises an ImportError naming h5py
+             where h5py is absent, else its files read back through
+             H5BenchmarkReader; seconds
 
 Every main-path phase (serve, serve_odd, ops, real, fp32, probe,
-serve_sisr, train_sisr, train_pipeline, eval_tables, runtime, int8) zeroes the
-launch counters, drives its path once and reads them; it fails if a kernel
-of its path did not launch.  The line before the card's line is one JSON
+serve_sisr, train_sisr, train_pipeline, eval_tables, runtime, int8, grids)
+zeroes the launch counters, drives its path once and reads them; it fails
+if a kernel of its path did not launch (grids: if any launched).  The line before the card's line is one JSON
 object with the kernels' numbers: times and errors from the syn weights
 in bf16 (K1-K4, K8 on 32-row slabs) or at the training shape in f32
 (K5-K7) or at RNet's 96-wide body conv of the int8 flagship batch (K9,
@@ -208,6 +233,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import copy
 import json
 import math
 import subprocess
@@ -224,7 +250,8 @@ ALL_PHASES = ("build", "kernels", "serve", "profile", "serve_odd", "ops",
               "real", "fp32", "psnr", "probe", "sisr_fwd", "serve_sisr",
               "train_fp32",
               "train_sisr", "train_pipeline", "train_denoise_fp32",
-              "train_denoise", "eval_tables", "runtime", "int8")
+              "train_denoise", "eval_tables", "runtime", "int8", "grids",
+              "prepare")
 SYN_CKPT = ROOT / "model_zoo" / "virnet_denoising_syn_demo.pth"
 REAL_CKPT = ROOT / "model_zoo" / "virnet_denoising_real_demo.pth"
 SISR_CKPT = ROOT / "model_zoo" / "virnet_sisr_x4_demo.pth"
@@ -3480,6 +3507,373 @@ def phase_int8(report, launches, peaks, batch=32, size=256):
     int8_export_round_trip(res, x[:4])
 
 
+GRID_TAGS = ("Restored images", "GroundTruth", "Input")
+
+
+class RecordingWriter:
+    """TrainWriter's methods with a backend (``enabled``), keeping every
+    scalar and image batch it is given, in place of tensorboardX (absent
+    on the card's machine)."""
+
+    enabled = True
+
+    def __init__(self):
+        self.scalars, self.images = {}, {}
+
+    def scalar(self, tag, value, step):
+        self.scalars[tag] = float(value)
+
+    def image_grid(self, tag, batch, step, normalize=True):
+        if tag in self.images:
+            raise AssertionError(f"grids: {tag} written twice")
+        self.images[tag] = np.array(batch)
+
+    def close(self):
+        pass
+
+
+def seeded_pngs(folder, seed, n=2, size=128) -> list:
+    """``n`` seeded smooth size^2 images written as PNGs."""
+    import cv2
+
+    folder.mkdir(parents=True, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    paths = []
+    for i in range(n):
+        im = smooth_image(rng, size, size)
+        paths.append(str(folder / f"val{i}.png"))
+        cv2.imwrite(paths[-1], np.rint(im * 255).astype(np.uint8))
+    return paths
+
+
+def check_grids(name, card, cpu, tags, errs):
+    """The card's image batches against the CPU's: exactly ``tags``,
+    finite, in [0, 1] (grids) or each k x k summing to 1 within 1e-5
+    (kernels), the restored grid and the kernel image within atol 1e-4 of
+    the CPU's, the GT and input grids the same bits."""
+    if sorted(card.images) != sorted(tags) or sorted(cpu.images) != sorted(
+            tags):
+        raise AssertionError(f"grids {name}: tags {sorted(card.images)} "
+                             f"(CPU {sorted(cpu.images)}), want {tags}")
+    for tag in tags:
+        got, want = card.images[tag], cpu.images[tag]
+        if got.shape != want.shape or not np.isfinite(got).all():
+            raise AssertionError(f"grids {name}: {tag} {got.shape} against "
+                                 f"{want.shape}, or not finite")
+        if tag.endswith("Kernel est|gt"):
+            sums = np.abs(got.sum(axis=(1, 2, 3)) - 1.0).max()
+            if got.shape[1:] != (21, 21, 1) or sums > 1e-5:
+                raise AssertionError(f"grids {name}: kernels {got.shape}, "
+                                     f"sums off 1 by {sums:.3g}")
+        elif got.min() < 0 or got.max() > 1:
+            raise AssertionError(f"grids {name}: {tag} outside [0, 1]")
+        err = max_err(torch.from_numpy(got), torch.from_numpy(want))
+        bar = 1e-4 if tag.endswith(("Restored images", "Kernel est|gt")) \
+            else 0.0
+        errs[f"{name} {tag}"] = err
+        log(f"  {tag}: {tuple(got.shape)}, card vs CPU max diff {err:.3g} "
+            f"(atol {bar:g})")
+        if err > bar:
+            raise AssertionError(f"grids {name}: {tag} disagrees with the "
+                                 f"CPU by {err}")
+
+
+def grid_case(name, trainer, block, tags, grids_alone, res, errs):
+    """One trainer's per-epoch validation ``block(trainer, writer)`` on
+    the card with the launch counters zeroed, then on a CPU twin (the
+    model copied), both into RecordingWriters held by check_grids;
+    ``grids_alone()`` timed after, warm.  Returns the card's launches."""
+    from virnet_tpu_torch.ops import fused_conv as fc
+
+    twin = types.SimpleNamespace(model=copy.deepcopy(trainer.model).cpu(),
+                                 device=torch.device("cpu"))
+    card, cpu = RecordingWriter(), RecordingWriter()
+    fc.reset_launches()
+    t0 = time.perf_counter()
+    block(trainer, card)
+    torch.cuda.synchronize()
+    res[f"{name}_validate_ms"] = (time.perf_counter() - t0) * 1e3
+    counts = dict(fc.LAUNCHES)
+    t0 = time.perf_counter()
+    block(twin, cpu)
+    res[f"{name}_cpu_s"] = time.perf_counter() - t0
+    check_grids(name, card, cpu, tags, errs)
+    t0 = time.perf_counter()
+    grids_alone()
+    torch.cuda.synchronize()
+    res[f"{name}_grids_ms"] = (time.perf_counter() - t0) * 1e3
+    return counts
+
+
+def phase_grids(report, launches):
+    """The trainers' per-epoch validation with its TensorBoard image and
+    kernel grids, at full width: the SISR trainer of configs/sisr_x4.json
+    (train_sisr.validate_epoch on a SISRValSet of two seeded 128^2 HR
+    images) and the denoising trainer of configs/denoising_syn.json
+    (train_denoising_syn.validate_epoch on a DenoiseValSet of two seeded
+    128^2 images), each on the card into a RecordingWriter and with the
+    same weights on the CPU; then the grid calls alone, timed on the card.
+    The validation forward is the trainers' conv_impl='torch' model on
+    the im2col route: no kernel of the package launches."""
+    import tempfile
+
+    from virnet_tpu_torch.cli import train_denoising_syn, train_sisr
+    from virnet_tpu_torch.cli.common import (eval_restore_fn,
+                                             log_val_image_grids)
+    from virnet_tpu_torch.data.eval_sets import DenoiseValSet
+    from virnet_tpu_torch.train.logging import make_log
+
+    t_all = time.perf_counter()
+    logger = make_log(None, name="chip_smoke_grids")
+    res, errs, counts = {}, {}, {}
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        hr_dir = Path(tmp) / "hr"
+        seeded_pngs(hr_dir, 12)
+        cfg = sisr_config(val_hr_path=str(hr_dir))
+        t0 = time.perf_counter()
+        trainer = train_sisr.build_trainer(cfg)
+        res["sisr_build_s"] = time.perf_counter() - t0
+        tc = trainer.cfg
+        log(f"[grids] SISR: n_feat {tc.n_feat}, dep_S {tc.dep_S}, dep_K "
+            f"{tc.dep_K}, sf {tc.sf}, k {tc.k_size}, val set 2 x 128^2 "
+            f"HR, device {trainer.device}")
+        if (tuple(tc.n_feat), tc.sf, tc.k_size) != ((96, 160, 224), 4, 21):
+            raise AssertionError("grids: not the full-width configuration")
+        val_sets = train_sisr.sisr_val_sets(cfg)
+        val_set = val_sets["Gaussian"]
+
+        def sisr_alone():
+            log_val_image_grids(RecordingWriter(), eval_restore_fn(
+                trainer.model, "cuda", sf=tc.sf),
+                ((lr, hr) for hr, lr, _ in val_set), 1, tag="test_Gaussian")
+            train_sisr.log_kernel_image(RecordingWriter(), trainer.model,
+                                        "cuda", val_set, 1, "test_Gaussian",
+                                        tc.k_size, tc.sf)
+
+        counts["sisr"] = grid_case(
+            "sisr", trainer,
+            lambda t, w: train_sisr.validate_epoch(t, val_sets, cfg, 0,
+                                                   logger, w),
+            [f"test_{nt} {t}" for nt in val_sets
+             for t in GRID_TAGS + ("Kernel est|gt",)], sisr_alone, res, errs)
+        del trainer
+
+        trainer = denoise_trainer("syn")
+        tc = trainer.cfg
+        log(f"[grids] denoising syn: n_feat {tc.n_feat}, dep_S {tc.dep_S}, "
+            f"val set 2 x 128^2, device {trainer.device}")
+        if (tuple(tc.n_feat), tc.dep_S) != ((96, 192, 288), 5):
+            raise AssertionError("grids: not the full-width configuration")
+        clean = DenoiseValSet(seeded_pngs(Path(tmp) / "clean", 13))
+        counts["syn"] = grid_case(
+            "syn", trainer,
+            lambda t, w: train_denoising_syn.validate_epoch(t, clean, 0,
+                                                            logger, w),
+            [f"test {t}" for t in GRID_TAGS],
+            lambda: log_val_image_grids(RecordingWriter(), eval_restore_fn(
+                trainer.model, "cuda"), iter(clean), 1), res, errs)
+        del trainer
+    launches["grids"] = {k: counts["sisr"][k] + counts["syn"][k]
+                         for k in counts["sisr"]}
+    log(f"  launches {launches['grids']}")
+    if any(launches["grids"].values()):
+        raise AssertionError("grids: the validation forward is built on "
+                             "plain convolutions and launches no kernel of "
+                             "the package")
+    res["phase_s"] = time.perf_counter() - t_all
+    log(f"  SISR: validation block {res['sisr_validate_ms']:.1f} ms on the "
+        f"card (2 images: scores, grids, kernel image), the grid calls "
+        f"alone {res['sisr_grids_ms']:.1f} ms, the CPU's block "
+        f"{res['sisr_cpu_s']:.2f} s, the trainer's build "
+        f"{res['sisr_build_s']:.2f} s; denoising syn: "
+        f"{res['syn_validate_ms']:.1f} ms, {res['syn_grids_ms']:.1f} ms, "
+        f"{res['syn_cpu_s']:.2f} s (host clock, card synchronized); phase "
+        f"{res['phase_s']:.2f} s")
+    report["grids"] = dict(errs=errs, **res)
+
+
+def tree_bytes(root: Path) -> dict:
+    """Each file under ``root`` by relative name: its bytes, a .mat's
+    past its 116-byte text header (which holds the creation time)."""
+    out = {}
+    for p in sorted(root.rglob("*")):
+        if p.is_file():
+            data = p.read_bytes()
+            out[str(p.relative_to(root))] = (data[116:] if p.suffix == ".mat"
+                                             else data)
+    return out
+
+
+@contextlib.contextmanager
+def main_script_hidden():
+    """Spawned workers of isp_process_patches without this script: spawn
+    runs the parent's main file in each worker unless it has none, and
+    this one imports torch (~7 s on the card's host) where the workers
+    need only virnet_tpu_torch.data.isp, which imports numpy."""
+    main = sys.modules["__main__"]
+    path = main.__dict__.pop("__file__", None)
+    try:
+        yield
+    finally:
+        if path is not None:
+            main.__file__ = path
+
+
+def prepare_run(src: list, out: Path, workers: list) -> dict:
+    """One run of the offline preparation into ``out``: HR crops, their
+    ISP re-render in a spawned pool of 2 (``workers`` receives the number
+    of processes it started), the kernel bank, camera-noise pairs and the
+    corpus check; returns what each step returned and the seconds of
+    each."""
+    import concurrent.futures as cf
+
+    from virnet_tpu_torch.data import isp, prepare
+
+    class CountingPool(cf.ProcessPoolExecutor):
+        def shutdown(self, *args, **kwargs):
+            workers.append(len(self._processes or {}))
+            super().shutdown(*args, **kwargs)
+
+    marks = [time.perf_counter()]
+    res = {"crops": prepare.crop_hr_patches(src, out / "hr")}
+    marks.append(time.perf_counter())
+    saved = isp.cf
+    isp.cf = types.SimpleNamespace(ProcessPoolExecutor=CountingPool)
+    try:
+        with main_script_hidden():
+            res["isp"] = isp.isp_process_patches(out / "hr", out / "isp",
+                                                 max_workers=2)
+    finally:
+        isp.cf = saved
+    marks.append(time.perf_counter())
+    bank = prepare.make_kernel_bank(out / "kernels.mat")
+    res["bank"] = {k: v.shape for k, v in bank.items()}
+    res["bank_sums"] = max(float(np.abs(bank[f"kernels_sf{sf}"].sum(
+        axis=(1, 2)) - 1).max()) for sf in (2, 3, 4))
+    marks.append(time.perf_counter())
+    res["pairs"] = prepare.synth_camera_pairs(src, out / "pairs")
+    res["pairs"].pop("out_dir")
+    res["corpus"] = prepare.verify_corpus(out / "hr", "DIV2K_train_HR")
+    marks.append(time.perf_counter())
+    secs = dict(zip(("crops", "isp", "bank", "pairs"), np.diff(marks)))
+    return res, secs
+
+
+def phase_prepare(report):
+    """The offline data preparation on the card's machine (host numpy,
+    cv2 and scipy): three seeded 600x600 PNGs through prepare_run twice,
+    the same bytes and results both times, the layouts that
+    tests/test_prepare.py and tests/test_isp.py check; the noise-benchmark
+    HDF5 raises ImportError naming h5py where h5py is absent, and is read
+    back through H5BenchmarkReader where it is present."""
+    import tempfile
+
+    import cv2
+    from scipy.io import loadmat
+
+    from virnet_tpu_torch.data import prepare
+
+    t_all = time.perf_counter()
+    out, workers = {}, []
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        tmp = Path(tmp)
+        rng = np.random.default_rng(14)
+        src = []
+        for i in range(3):
+            src.append(str(tmp / "src" / f"scene{i}.png"))
+            im = smooth_image(rng, 600, 600) + rng.normal(
+                0, 0.02, (600, 600, 3))
+            (tmp / "src").mkdir(exist_ok=True)
+            cv2.imwrite(src[-1], np.clip(np.rint(im * 255), 0, 255).astype(
+                np.uint8))
+        runs, trees, secs = [], [], []
+        for k in range(2):
+            res, step_s = prepare_run(src, tmp / f"run{k}", workers)
+            runs.append(res)
+            secs.append(step_s)
+            trees.append(tree_bytes(tmp / f"run{k}"))
+        log(f"[prepare] two runs: {len(trees[0])} files each; ISP pool "
+            f"processes {workers}; seconds "
+            + "; ".join(", ".join(f"{k} {v:.2f}" for k, v in s.items())
+                        for s in secs))
+        if runs[0] != runs[1] or trees[0] != trees[1]:
+            differ = [n for n in trees[0] if trees[0][n] != trees[1].get(n)]
+            raise AssertionError(f"prepare: the two runs differ: "
+                                 f"{differ[:5]}, {runs}")
+        if not all(workers):
+            raise AssertionError("prepare: the ISP pool started no process")
+        res, root = runs[0], tmp / "run0"
+        crops = sorted((root / "hr").glob("*.png"))
+        metas = sorted((root / "isp" / "meta").glob("*.json"))
+        isp_ims = sorted((root / "isp" / "images").glob("*.png"))
+        meta = json.loads(metas[0].read_text())
+        pairs = res["pairs"]
+        noisy = sorted((root / "pairs" / "patches256" / "noisy").glob("*"))
+        gt = sorted((root / "pairs" / "patches256" / "gt").glob("*"))
+        vn = loadmat(root / "pairs" / "ValidationNoisyBlocksSrgb.mat")[
+            "ValidationNoisyBlocksSrgb"]
+        bank = loadmat(root / "kernels.mat")
+        checks = {
+            "12 crops of 512^2": res["crops"] == len(crops) == 12
+            and cv2.imread(str(crops[0])).shape == (512, 512, 3),
+            "an image and a config per patch": res["isp"] == len(isp_ims)
+            == len(metas) == 12 and set(meta) >= {"wb_gains", "ccm",
+                                                  "tone_m", "tone_s"},
+            "ISP images 512^2 uint8":
+            cv2.imread(str(isp_ims[0])).shape == (512, 512, 3),
+            "7 kernels of 21^2 per sf, sums 1 within 1e-5":
+            all(bank[f"kernels_sf{sf}"].shape == (7, 21, 21)
+                for sf in (2, 3, 4)) and res["bank_sums"] <= 1e-5,
+            "camera pairs": pairs["n_train"] == len(noisy) == len(gt) == 24
+            and pairs["val_shape"] == (1, 4, 256, 256, 3)
+            and vn.shape == (1, 4, 256, 256, 3) and vn.dtype == np.uint8,
+            "verify_corpus": res["corpus"] == dict(
+                name="DIV2K_train_HR", found=12, expected=800, ok=False),
+        }
+        for what, ok in checks.items():
+            log(f"  {what}: {'ok' if ok else 'FAILED'}")
+        if not all(checks.values()):
+            raise AssertionError(f"prepare: layout checks failed: {checks}")
+        try:
+            import h5py  # noqa: F401
+        except ImportError:
+            h5_case = "h5py absent"
+        else:
+            h5_case = "h5py present"
+        if h5_case == "h5py absent":
+            try:
+                prepare.write_noise_benchmark_h5(tmp / "src", tmp / "h5")
+            except ImportError as exc:
+                if "h5py" not in str(exc):
+                    raise AssertionError(f"prepare: the ImportError does "
+                                         f"not name h5py: {exc}")
+                log(f"  write_noise_benchmark_h5 without h5py: "
+                    f"ImportError: {exc}")
+            else:
+                raise AssertionError("prepare: write_noise_benchmark_h5 "
+                                     "ran without h5py")
+        else:
+            from virnet_tpu_torch.data.h5_bench import H5BenchmarkReader
+
+            files = prepare.write_noise_benchmark_h5(tmp / "src", tmp / "h5")
+            for f in files:
+                with H5BenchmarkReader(f) as r:
+                    rows = list(r)
+                if [x[0] for x in rows] != ["scene0", "scene1", "scene2"] \
+                        or any(x[1].shape != (600, 600, 3)
+                               or x[3].shape != (600, 600)
+                               or not np.isfinite(x[1]).all() for x in rows):
+                    raise AssertionError(f"prepare: {f} reads back wrong")
+            log(f"  write_noise_benchmark_h5: {len(files)} files read back "
+                f"through H5BenchmarkReader")
+    secs_all = time.perf_counter() - t_all
+    log(f"  prepare phase {secs_all:.2f} s ({h5_case})")
+    report["prepare"] = dict(run_s=secs, total_s=secs_all, h5=h5_case,
+                             isp_processes=workers, files=len(trees[0]))
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(ALL_PHASES),
@@ -3733,6 +4127,12 @@ def main(argv=None) -> int:
 
     if "int8" in phases:
         phase_int8(report, launches, peaks)
+
+    if "grids" in phases:
+        phase_grids(report, launches)
+
+    if "prepare" in phases:
+        phase_prepare(report)
 
     report["launches"] = launches
     report["total_s"] = time.perf_counter() - t_all

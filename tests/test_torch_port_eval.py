@@ -372,3 +372,223 @@ def test_validation_forward_leaves_cudnn_as_it_was():
     out = restore(_rand(3, 12, 14, 3).astype(np.float32))
     assert out.shape == (12, 14, 3) and not im2col_on()
     assert torch.backends.cudnn.enabled == saved
+
+
+# ---------------------------------------------------------------------------
+# the trainers' TensorBoard image and kernel grids
+# ---------------------------------------------------------------------------
+
+class _Recorder:
+    """A writer with TrainWriter's methods and a backend, keeping every
+    scalar and image batch it is given."""
+
+    enabled = True
+
+    def __init__(self, *args):
+        self.scalars, self.images = [], []
+
+    def scalar(self, tag, value, step):
+        self.scalars.append((tag, float(value), step))
+
+    def image_grid(self, tag, batch, step, normalize=True):
+        self.images.append((tag, np.array(batch), step))
+
+    def close(self):
+        pass
+
+
+def _recording(monkeypatch, module):
+    """Make ``module``'s TrainWriter a _Recorder; returns the list that
+    receives each one built."""
+    made = []
+
+    def make(*args):
+        made.append(_Recorder(*args))
+        return made[-1]
+
+    monkeypatch.setattr(module, "TrainWriter", make)
+    return made
+
+
+@pytest.mark.parametrize("sf,max_images,crop", [(None, 4, 256),
+                                                (None, 2, 20), (2, 4, 30)])
+def test_log_val_image_grids_is_the_jax_packages(sf, max_images, crop):
+    """One numpy restore and the same pairs (of three sizes, one over the
+    crop): the same tags, steps and arrays, bit for bit, with the common
+    h x w cut of the three lists."""
+    from virnet_tpu.cli.common import log_val_image_grids as jax_grids
+    from virnet_tpu_torch.cli.common import log_val_image_grids
+
+    pairs = [(_rand(30 + i, h, w, 3).astype(np.float32) * 1.2 - 0.1,
+              _rand(40 + i, h * (sf or 1), w * (sf or 1), 3).astype(
+                  np.float32))
+             for i, (h, w) in enumerate([(26, 31), (300, 270), (22, 40),
+                                         (33, 33), (40, 28)])]
+
+    def restore(im):
+        out = im * 0.9 + 0.05
+        return out if sf is None else out.repeat(sf, 0).repeat(sf, 1)
+
+    got, want = _Recorder(), _Recorder()
+    log_val_image_grids(got, restore, iter(pairs), 3, tag="test_x",
+                        max_images=max_images, crop=crop)
+    jax_grids(want, restore, iter(pairs), 3, tag="test_x",
+              max_images=max_images, crop=crop)
+    assert [(t, s) for t, _, s in got.images] == [
+        (t, s) for t, _, s in want.images] == [
+        ("test_x Restored images", 3), ("test_x GroundTruth", 3),
+        ("test_x Input", 3)]
+    for (_, a, _), (_, b, _) in zip(got.images, want.images):
+        assert a.dtype == b.dtype and a.shape[0] == max_images
+        np.testing.assert_array_equal(a, b)
+    h = min(22, crop)
+    assert got.images[0][1].shape[1] == h
+    assert got.images[2][1].min() >= 0 and got.images[2][1].max() <= 1
+
+
+def test_grids_without_a_writer_backend_do_no_work(monkeypatch, tmp_path):
+    """Without tensorboardX the writer has no backend: neither the grids
+    nor the kernel image restores, reads a pair or runs the model."""
+    import sys
+
+    from virnet_tpu_torch.cli.common import log_val_image_grids
+    from virnet_tpu_torch.cli.train_sisr import log_kernel_image
+    from virnet_tpu_torch.train.logging import TrainWriter
+
+    monkeypatch.setitem(sys.modules, "tensorboardX", None)
+    writer = TrainWriter(tmp_path / "logs")
+    assert writer.writer is None and not writer.enabled
+    calls = []
+
+    def pairs():
+        calls.append("pairs")
+        yield _rand(0, 8, 8, 3), _rand(1, 8, 8, 3)
+
+    log_val_image_grids(writer, lambda im: calls.append("restore"), pairs(),
+                        0)
+
+    class _Model(torch.nn.Module):
+        def forward(self, *args):
+            calls.append("model")
+
+    log_kernel_image(writer, _Model(), "cpu", pairs(), 0, "test_Gaussian",
+                     k_size=5, sf=2)
+    writer.image_grid("t", np.zeros((1, 4, 4, 3)), 0)
+    assert calls == []
+
+
+def test_sisr_cli_writes_image_and_kernel_grids(monkeypatch, tmp_path):
+    """One tiny SISR epoch on the CPU: the JAX trainer's four image tags
+    for the val set; the kernel image (2, k, k, 1) sums to 1 per kernel
+    and is the JAX kinfo2kernel of the trained model's kinfo and of the
+    GT kinfo (atol 1e-7, as tests/test_torch_port_blur.py holds the two
+    functions); the LR grid is the val set's LR images cut to the common
+    h x w."""
+    import virnet_tpu.ops.kernels as jker
+    import jax.numpy as jnp
+    from virnet_tpu_torch.cli import train_sisr
+    from virnet_tpu_torch.cli.common import eval_forward
+    from virnet_tpu_torch.config import load_config
+
+    made = _recording(monkeypatch, train_sisr)
+    hr = _pngs(tmp_path / "hr", 18, [(40, 48)] * 2)
+    val = _pngs(tmp_path / "set14", 19, [(42, 46), (36, 50)])
+    cfg = tmp_path / "cfg.json"
+    cfg.write_text("""{
+        "im_chn": 3, "sigma_chn": 1, "hr_size": 32, "batch_size": 2,
+        "epochs": 1, "steps_per_epoch": 1, "lr": 2e-4, "print_freq": 1,
+        "save_dir": "unused", "dep_S": 3, "dep_K": 2,
+        "n_feat": [16, 24, 32], "n_resblocks": 1, "extra_mode": "Both",
+        "train_hr_patchs": "%s", "sf": 2, "k_size": 5,
+        "mixed_precision": "False", "downsampler": "Bicubic",
+        "val_hr_path": "%s"
+    }""" % (Path(hr[0]).parent, Path(val[0]).parent))
+    save = tmp_path / "run"
+    train_sisr.main(["--config", str(cfg), "--save_dir", str(save),
+                     "--device", "cpu"])
+    images = {tag: (arr, step) for tag, arr, step in made[0].images}
+    assert sorted(images) == sorted(
+        f"test_Gaussian {t}" for t in ("Restored images", "GroundTruth",
+                                       "Input", "Kernel est|gt"))
+    assert {step for _, step in images.values()} == {0}
+    kers = images["test_Gaussian Kernel est|gt"][0]
+    assert kers.shape == (2, 5, 5, 1) and kers.dtype == np.float32
+    np.testing.assert_allclose(kers.sum(axis=(1, 2, 3)), 1.0, atol=1e-6)
+
+    c = load_config(str(cfg))
+    c["save_dir"] = str(save)
+    trainer = train_sisr.build_trainer(c, device="cpu")
+    trainer.restore(1)
+    val_set = train_sisr.sisr_val_sets(c)["Gaussian"]
+    _, lr0, kinfo_gt = next(iter(val_set))
+    with eval_forward(trainer.model, "cpu"):
+        kinfo_est = trainer.model(torch.from_numpy(lr0[None]), 2)[1].numpy()
+    want = np.asarray(jker.kinfo2kernel(
+        jnp.asarray(np.concatenate([kinfo_est, kinfo_gt[None]])), 5, 2))
+    np.testing.assert_allclose(kers[..., 0], want, atol=1e-7)
+    lrs = [np.clip(lr, 0, 1) for _, lr, _ in val_set]
+    h, w = min(x.shape[0] for x in lrs), min(x.shape[1] for x in lrs)
+    np.testing.assert_array_equal(images["test_Gaussian Input"][0],
+                                  np.stack([x[:h, :w] for x in lrs]))
+    for tag in ("Restored images", "GroundTruth"):
+        grid = images[f"test_Gaussian {tag}"][0]
+        assert grid.shape == (2, h, w, 3) and np.isfinite(grid).all()
+        assert grid.min() >= 0 and grid.max() <= 1
+
+
+@pytest.mark.parametrize("kind", ["syn", "real"])
+def test_denoising_clis_write_image_grids(monkeypatch, tmp_path, kind):
+    """One tiny epoch of each denoising trainer on the CPU: the JAX
+    trainer's three image tags under ``test``, the GT and input grids the
+    val pairs cut to their common h x w, the restored grid in [0, 1]."""
+    from scipy.io import savemat
+
+    from virnet_tpu_torch.cli import train_denoising_real, train_denoising_syn
+
+    train = _pngs(tmp_path / "train", 20, [(40, 48)] * 2)
+    common = """
+        "im_chn": 3, "patch_size": 32, "batch_size": 2, "epochs": 1,
+        "steps_per_epoch": 1, "lr": 1e-4, "print_freq": 1,
+        "save_dir": "unused", "dep_S": 3, "n_feat": [16, 24, 32],
+        "n_resblocks": 1, "extra_mode": "Input", "noise_cond": true,
+        "mixed_precision": "False", "var_window": 7"""
+    if kind == "syn":
+        cli = train_denoising_syn
+        val = _pngs(tmp_path / "val", 21, [(33, 37), (40, 29)])
+        body = ('"sigma_chn": 1, "train_data": [["%s", "*.png"]], '
+                '"val_data": "%s"' % (Path(train[0]).parent,
+                                      Path(val[0]).parent))
+        pairs = list(eval_sets.DenoiseValSet(val))
+    else:
+        cli = train_denoising_real
+        for sub in ("noisy", "gt"):
+            _pngs(tmp_path / "pairs" / sub, 22, [(40, 48)] * 2)
+        rng = np.random.default_rng(23)
+        gt = (rng.random((1, 2, 24, 20, 3)) * 255).astype(np.uint8)
+        noisy = np.clip(gt + rng.normal(0, 12, gt.shape), 0,
+                        255).astype(np.uint8)
+        savemat(str(tmp_path / "n.mat"), {"ValidationNoisyBlocksSrgb": noisy})
+        savemat(str(tmp_path / "g.mat"), {"ValidationGtBlocksSrgb": gt})
+        body = ('"sigma_chn": 3, "train_pch_dir": "%s", '
+                '"test_noisy_path": "%s", "test_gt_path": "%s"'
+                % (tmp_path / "pairs" / "noisy", tmp_path / "n.mat",
+                   tmp_path / "g.mat"))
+        pairs = list(cli.sidd_val_pairs(str(tmp_path / "n.mat"),
+                                        str(tmp_path / "g.mat")))
+    cfg = tmp_path / "cfg.json"
+    cfg.write_text("{%s, %s}" % (common, body))
+    made = _recording(monkeypatch, cli)
+    cli.main(["--config", str(cfg), "--save_dir", str(tmp_path / "run"),
+              "--device", "cpu"])
+    images = {tag: arr for tag, arr, _ in made[0].images}
+    assert sorted(images) == ["test GroundTruth", "test Input",
+                              "test Restored images"]
+    h = min(x.shape[0] for p in pairs for x in p)
+    w = min(x.shape[1] for p in pairs for x in p)
+    for tag, j in (("test Input", 0), ("test GroundTruth", 1)):
+        np.testing.assert_array_equal(
+            images[tag], np.stack([np.clip(p[j], 0, 1)[:h, :w]
+                                   for p in pairs]))
+    out = images["test Restored images"]
+    assert out.shape == (len(pairs), h, w, 3)
+    assert np.isfinite(out).all() and out.min() >= 0 and out.max() <= 1

@@ -1,7 +1,9 @@
 """virnet_tpu_torch — the PyTorch/CUDA port of virnet_tpu for NVIDIA Hopper.
 
-Three paths so far: the denoising VIRNet forward (SNet -> sigma epilogue
--> RNet) served by ``Restorer``, the demo CLI and the benchmark harnesses; the blind-SISR training
+It has a counterpart of every module of the JAX package but the Pallas
+files and the TPU-only conv VJP.  Its three paths: the denoising VIRNet
+forward (SNet -> sigma epilogue -> RNet) served by ``Restorer``, the demo
+CLI and the benchmark harnesses; the blind-SISR training
 step (``SISRTrainer``: on-device degradation synthesis, VIRNetSR, the SISR
 ELBO through the per-sample blur, clipped Adam); and the denoising training
 step (``DenoiseTrainer``: on-device noise synthesis, or real pairs with
@@ -21,7 +23,9 @@ ops/      the kernel wrappers, padding, blur/downsample degradation, blur
 models/   torch.nn modules under the reference torch state-dict keys
 losses/   the denoising and SISR ELBOs
 data/     on-device noise and SISR batch synthesis, MixUp, host patch
-          sampling
+          sampling, and offline preparation (patch crops, the kernel
+          bank, noise-benchmark HDF5 and its reader, download lists,
+          camera-noise pairs, the camera-ISP re-rendering)
 train/    optimizer stack, checkpoints, logging, the denoising and SISR
           trainers, the process group and device mesh (data-parallel
           training), auto-resume and the RSS watchdog
@@ -29,7 +33,8 @@ eval/     Restorer (pad buckets, TTA, folder batches, data-parallel
           batches), tiled and row-sharded inference,
           metrics, and the benchmark harnesses (tables, the device x8
           ensemble, device metrics, LPIPS, DND, analysis, profiling)
-cli/      the demo, the three trainers, the four eval harnesses, the
+cli/      the demo, the three trainers (with their TensorBoard image and
+          kernel grids), the four eval harnesses, the
           fused-prologue A/B (bench_fused_head), the kill/resume proof
           and the endurance run
 csrc/     the CUDA sources

@@ -1,11 +1,12 @@
 """Shared plumbing of the command lines (counterpart of
 virnet_tpu/cli/common.py): the trainers' arguments and config, the
-process group, the RSS watchdog, resume, per-epoch validation and the
-eval CLIs' options."""
+process group, the RSS watchdog, resume, per-epoch validation with its
+TensorBoard image grids, and the eval CLIs' options."""
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 from typing import Dict, Optional
 
 import numpy as np
@@ -215,18 +216,27 @@ def eval_restore_fn(model: torch.nn.Module, device, sf: Optional[int] = None):
         x = torch.as_tensor(im_hwc[None], dtype=torch.float32).to(device)
         x = pad_bottom_right(x, bucket_size(h, VAL_PAD_MULTIPLE),
                              bucket_size(w, VAL_PAD_MULTIPLE))
-        was_training = model.training
-        model.eval()
-        try:
-            with torch.inference_mode(), im2col_convs(
-                    torch.device(device).type == "cuda"):
-                out = model(x)[0] if sf is None else model(x, sf)[0]
-        finally:
-            model.train(was_training)
+        with eval_forward(model, device):
+            out = model(x)[0] if sf is None else model(x, sf)[0]
         out = out[0, :h * scale, :w * scale].float().clamp(0.0, 1.0)
         return out.cpu().numpy()
 
     return restore
+
+
+@contextlib.contextmanager
+def eval_forward(model: torch.nn.Module, device):
+    """The block of one validation forward: the model in eval mode under
+    ``inference_mode``, and on the card the library convolutions on the
+    im2col route; the model's mode is put back after."""
+    was_training = model.training
+    model.eval()
+    try:
+        with torch.inference_mode(), im2col_convs(
+                torch.device(device).type == "cuda"):
+            yield
+    finally:
+        model.train(was_training)
 
 
 def eval_on_pairs(restore, pairs, border: int = 0,
@@ -253,3 +263,34 @@ def validate(restore, pairs, epoch: int, logger, writer, label: str = "test",
     writer.scalar(f"PSNR_epoch_{tag}", metrics["psnr"], epoch)
     writer.scalar(f"SSIM_epoch_{tag}", metrics["ssim"], epoch)
     return metrics
+
+
+def log_val_image_grids(writer, restore, pairs, epoch: int, tag: str = "test",
+                        max_images: int = 4, crop: int = 256) -> None:
+    """TensorBoard image grids of (restored, GT, input) for the first
+    ``max_images`` of ``pairs`` (the reference's vutils.make_grid
+    summaries, train_denoising_syn.py:199-211): each image clipped to
+    [0, 1] and cut to its top-left ``crop`` x ``crop``, then all three
+    lists to their common h x w, written as ``"<tag> Restored images"``,
+    ``"<tag> GroundTruth"`` and ``"<tag> Input"``.  Without a writer
+    backend (``writer.enabled`` false) nothing is restored."""
+    if not writer.enabled:
+        return
+    ins, outs, gts = [], [], []
+    for inp, gt in pairs:
+        if len(ins) >= max_images:
+            break
+        ins.append(np.clip(inp[:crop, :crop], 0, 1))
+        outs.append(np.clip(restore(inp)[:crop, :crop], 0, 1))
+        gts.append(np.clip(gt[:crop, :crop], 0, 1))
+    if not outs:
+        return
+    h = min(x.shape[0] for x in ins + outs + gts)
+    w = min(x.shape[1] for x in ins + outs + gts)
+
+    def stack(xs):
+        return np.stack([x[:h, :w] for x in xs])
+
+    writer.image_grid(f"{tag} Restored images", stack(outs), epoch)
+    writer.image_grid(f"{tag} GroundTruth", stack(gts), epoch)
+    writer.image_grid(f"{tag} Input", stack(ins), epoch)

@@ -17,7 +17,8 @@ the device inside the train step.  Per epoch: validation on the SIDD
 validation .mat pair (``test_noisy_path``, ``test_gt_path``; skipped when
 either is missing), PSNR and SSIM logged; a checkpoint under
 ``<save_dir>/ckpts``; the epoch's mean loss and the validation scores as
-TensorBoard scalars (where tensorboardX is installed).  ``--resume
+TensorBoard scalars, and image grids of the first four restored, GT and
+noisy blocks (where tensorboardX is installed).  ``--resume
 latest`` (or a saved epoch number) continues from a checkpoint.  The
 trainer runs on the card unless ``--device cpu`` is given.
 
@@ -39,8 +40,8 @@ from ..data.sources import PairedPatchSampler
 from ..train.logging import TrainWriter
 from ..train.loop_denoise import DenoiseTrainConfig, DenoiseTrainer
 from .common import (epoch_rss_watchdog, eval_restore_fn,
-                     load_trainer_config, run_epochs, train_log,
-                     trainer_argparser, trainer_mesh, validate)
+                     load_trainer_config, log_val_image_grids, run_epochs,
+                     train_log, trainer_argparser, trainer_mesh, validate)
 
 
 def build_trainer(cfg: dict, device="cuda", mesh=None) -> DenoiseTrainer:
@@ -138,10 +139,14 @@ def main(argv=None) -> None:
         if rank0:
             writer.scalar("Loss_epoch", stats.get("loss", 0.0), epoch)
             if have_val:
-                validate(eval_restore_fn(trainer.model, trainer.device),
-                         sidd_val_pairs(cfg["test_noisy_path"],
-                                        cfg["test_gt_path"]),
+                restore = eval_restore_fn(trainer.model, trainer.device)
+                validate(restore, sidd_val_pairs(cfg["test_noisy_path"],
+                                                 cfg["test_gt_path"]),
                          epoch, logger, writer)
+                log_val_image_grids(
+                    writer, restore,
+                    sidd_val_pairs(cfg["test_noisy_path"],
+                                   cfg["test_gt_path"]), epoch)
         trainer.save(epoch)
         logger.info(f"epoch {epoch + 1} took {stats['epoch_time']:.2f}s")
         rss_check()

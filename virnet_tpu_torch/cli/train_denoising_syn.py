@@ -14,8 +14,9 @@ each image once, keeps them on the device, and every batch is sampled
 there.  Per epoch: validation on the PNGs under ``val_data`` with the
 fixed-seed noise of ``data/eval_sets.DenoiseValSet`` (skipped when there
 are none), PSNR and SSIM logged; a checkpoint under ``<save_dir>/ckpts``;
-the epoch's mean loss and the validation scores as TensorBoard scalars
-(where tensorboardX is installed).  ``--resume latest`` (or a saved epoch number) continues
+the epoch's mean loss and the validation scores as TensorBoard scalars,
+and image grids of the first four restored, GT and noisy images (where
+tensorboardX is installed).  ``--resume latest`` (or a saved epoch number) continues
 from a checkpoint.  The trainer runs on the card unless ``--device cpu``
 is given.
 
@@ -42,8 +43,8 @@ from ..data.sources import ImageCache, PatchSampler, glob_images
 from ..train.logging import TrainWriter
 from ..train.loop_denoise import DenoiseTrainConfig, DenoiseTrainer
 from .common import (epoch_rss_watchdog, eval_restore_fn,
-                     load_trainer_config, run_epochs, train_log,
-                     trainer_argparser, trainer_mesh, validate)
+                     load_trainer_config, log_val_image_grids, run_epochs,
+                     train_log, trainer_argparser, trainer_mesh, validate)
 
 
 def build_trainer(cfg: dict, device="cuda", mesh=None) -> DenoiseTrainer:
@@ -66,6 +67,17 @@ def build_trainer(cfg: dict, device="cuda", mesh=None) -> DenoiseTrainer:
         remat=as_bool(cfg.get("remat", False)),
         save_dir=cfg["save_dir"], print_freq=cfg.get("print_freq", 100))
     return DenoiseTrainer(tcfg, device=device, mesh=mesh)
+
+
+def validate_epoch(trainer: DenoiseTrainer, val_set, epoch: int, logger,
+                   writer) -> dict:
+    """The per-epoch validation on a ``DenoiseValSet``: PSNR and SSIM, then
+    the image grids, under the JAX trainer's tag ``test``.  Returns the
+    scores."""
+    restore = eval_restore_fn(trainer.model, trainer.device)
+    scores = validate(restore, iter(val_set), epoch, logger, writer)
+    log_val_image_grids(writer, restore, iter(val_set), epoch)
+    return scores
 
 
 def main(argv=None) -> None:
@@ -124,8 +136,7 @@ def main(argv=None) -> None:
         if rank0:
             writer.scalar("Loss_epoch", stats.get("loss", 0.0), epoch)
             if val_set is not None:
-                validate(eval_restore_fn(trainer.model, trainer.device),
-                         iter(val_set), epoch, logger, writer)
+                validate_epoch(trainer, val_set, epoch, logger, writer)
         trainer.save(epoch)
         logger.info(f"epoch {epoch + 1} took {stats['epoch_time']:.2f}s")
         rss_check()

@@ -19,30 +19,34 @@ validation on the images under ``val_hr_path`` (Set14 in the configs;
 skipped when there are none), one
 ``data/eval_sets.SISRValSet`` per noise type (Gaussian; JPEG too with
 ``add_jpeg``), PSNR and SSIM on the Y channel with a border of sf^2
-logged and written as TensorBoard scalars (where tensorboardX is
-installed); a checkpoint under ``<save_dir>/ckpts``.  The trainer runs on
+logged and written as TensorBoard scalars, with image grids of the first
+four restored, GT and LR images and the estimated beside the true kernel
+of the first image (where tensorboardX is installed); a checkpoint under
+``<save_dir>/ckpts``.  The trainer runs on
 the card unless ``--device cpu`` is given.  ``--resume latest`` (or a
 saved epoch number) continues from a checkpoint.
 
 Several processes, ``auto_resume`` and ``rss_limit_mb`` work as in
-cli/train_denoising_syn.py.  Not ported yet: the TensorBoard image and
-kernel summaries.
+cli/train_denoising_syn.py.
 """
 
 from __future__ import annotations
 
 from pathlib import Path
 
+import torch
+
 from ..config import as_bool
 from ..data.device_data import DeviceDataset, records_from_images
 from ..data.eval_sets import SISRValSet
 from ..data.sisr_host import HostSISRSampler
 from ..data.sources import ImageCache, PatchSampler
+from ..ops.kernels import kinfo2kernel
 from ..train.logging import TrainWriter
 from ..train.loop_sisr import SISRTrainConfig, SISRTrainer
-from .common import (epoch_rss_watchdog, eval_restore_fn,
-                     load_trainer_config, run_epochs, train_log,
-                     trainer_argparser, trainer_mesh, validate)
+from .common import (epoch_rss_watchdog, eval_forward, eval_restore_fn,
+                     load_trainer_config, log_val_image_grids, run_epochs,
+                     train_log, trainer_argparser, trainer_mesh, validate)
 
 
 def build_trainer(cfg: dict, device="cuda", mesh=None) -> SISRTrainer:
@@ -104,6 +108,47 @@ def sisr_val_sets(cfg: dict) -> dict:
         noise_type=nt) for nt in noise_types}
 
 
+def log_kernel_image(writer, model, device, val_set, epoch: int, tag: str,
+                     k_size: int, sf: int) -> None:
+    """The estimated beside the true blur kernel of the set's first image
+    as the TensorBoard image ``"<tag> Kernel est|gt"`` (reference
+    train_SISR.py:251-263): the model's kinfo of the LR image (one fp32
+    validation forward on ``device``) and the GT kinfo, both through
+    ``kinfo2kernel``, written as (2, k, k, 1).  Without a writer backend
+    nothing runs."""
+    if not writer.enabled:
+        return
+    _, lr0, kinfo_gt0 = next(iter(val_set))
+    x = torch.as_tensor(lr0[None], dtype=torch.float32).to(device)
+    with eval_forward(model, device):
+        kinfo_est = model(x, sf)[1].float().cpu()
+    kinfo = torch.cat([kinfo_est, torch.as_tensor(kinfo_gt0[None],
+                                                  dtype=torch.float32)])
+    kers = kinfo2kernel(kinfo, k_size=k_size, sf=sf).numpy()
+    writer.image_grid(f"{tag} Kernel est|gt", kers[..., None], epoch)
+
+
+def validate_epoch(trainer: SISRTrainer, val_sets: dict, cfg: dict,
+                   epoch: int, logger, writer) -> dict:
+    """The per-epoch validation of every set of ``sisr_val_sets``: PSNR
+    and SSIM on the Y channel with a border of sf^2, the image grids and
+    the kernel image, under the JAX trainer's tags (``test_<noise
+    type>``).  Returns the scores by noise type."""
+    sf = cfg["sf"]
+    scores = {}
+    for nt, val_set in val_sets.items():
+        restore = eval_restore_fn(trainer.model, trainer.device, sf=sf)
+        scores[nt] = validate(restore, ((lr, hr) for hr, lr, _ in val_set),
+                              epoch, logger, writer, label=f"test[{nt}]",
+                              tag=f"test_{nt}", border=sf ** 2, ycbcr=True)
+        log_val_image_grids(writer, restore,
+                            ((lr, hr) for hr, lr, _ in val_set), epoch,
+                            tag=f"test_{nt}")
+        log_kernel_image(writer, trainer.model, trainer.device, val_set,
+                         epoch, f"test_{nt}", cfg.get("k_size", 21), sf)
+    return scores
+
+
 def main(argv=None) -> None:
     args = trainer_argparser("configs/sisr_x4.json",
                              __doc__.splitlines()[0]).parse_args(argv)
@@ -145,7 +190,6 @@ def main(argv=None) -> None:
             add_jpeg=True)
     else:
         sampler = PatchSampler(ImageCache(hr_paths), cfg["hr_size"])
-    sf = cfg["sf"]
     val_sets = sisr_val_sets(cfg) if rank0 else {}
     writer = TrainWriter(save_dir / "logs") if rank0 else None
     rss_check = epoch_rss_watchdog(cfg, "virnet_tpu_torch.cli.train_sisr",
@@ -168,11 +212,7 @@ def main(argv=None) -> None:
             stats = trainer.train_epoch(epoch, batches, log_fn=logger.info)
         if rank0:
             writer.scalar("Loss_epoch", stats.get("loss", 0.0), epoch)
-        for nt, val_set in val_sets.items():
-            validate(eval_restore_fn(trainer.model, trainer.device, sf=sf),
-                     ((lr, hr) for hr, lr, _ in val_set), epoch, logger,
-                     writer, label=f"test[{nt}]", tag=f"test_{nt}",
-                     border=sf ** 2, ycbcr=True)
+        validate_epoch(trainer, val_sets, cfg, epoch, logger, writer)
         trainer.save(epoch)
         logger.info(f"epoch {epoch + 1} took {stats['epoch_time']:.2f}s, "
                     f"loss {stats.get('loss', 0.0):.4f}")

@@ -2,7 +2,8 @@
 virnet_tpu/ops/color.py; reference utils/util_image.py:129-257): the host's
 numpy conversion and its tensor form for the device metrics.  cv2 is
 imported only where files are read or written (and JPEG round trips), so
-serving and scoring run without it.
+serving and scoring run without it; torch only by the tensor form, so the
+worker processes of data/isp.py start on numpy alone.
 
 The YCbCr conversion has MATLAB's coefficients: the SISR metrics' Y
 channel is part of the Table-5 protocol.
@@ -11,9 +12,12 @@ channel is part of the Table-5 protocol.
 from __future__ import annotations
 
 from pathlib import Path
+from typing import TYPE_CHECKING
 
 import numpy as np
-import torch
+
+if TYPE_CHECKING:
+    import torch
 
 _YCBCR_VEC = np.array([65.481, 128.553, 24.966]) / 255.0
 _YCBCR_MAT = np.array([[65.481, -37.797, 112.0],
@@ -45,6 +49,8 @@ def rgb2ycbcr_np(im: np.ndarray, only_y: bool = True) -> np.ndarray:
 def rgb2ycbcr(x: torch.Tensor, only_y: bool = True) -> torch.Tensor:
     """MATLAB rgb2ycbcr for NHWC float [0, 1] tensors, clamped to [0, 1]
     (reference utils/util_image.py:155-176)."""
+    import torch
+
     xt = x * 255.0
     if only_y:
         vec = torch.as_tensor(_YCBCR_VEC, dtype=x.dtype, device=x.device)

@@ -71,6 +71,11 @@ class TrainWriter:
         except ImportError:
             self.writer = None
 
+    @property
+    def enabled(self) -> bool:
+        """Whether anything is written (tensorboardX is installed)."""
+        return self.writer is not None
+
     def scalar(self, tag: str, value: float, step: int):
         if self.writer is not None:
             self.writer.add_scalar(tag, float(value), step)
