@@ -1,13 +1,14 @@
 #!/usr/bin/env python3
 """Smoke run of the virnet_tpu_torch port on one NVIDIA GPU (H100).
 
-    python3 chip_smoke.py [--phases build,kernels,serve,profile,serve_odd,
+    python3 chip_smoke.py [--phases build,kernels,blur,serve,profile,
+                           serve_odd,
                            ops,real,fp32,psnr,probe,sisr_fwd,serve_sisr,
                            train_fp32,
                            train_sisr,train_pipeline,train_denoise_fp32,
                            train_denoise,eval_tables,runtime,int8,grids,
                            prepare]
-                          [--report PATH]
+                          [--report PATH] [--parent DIR]
 
 Phases (all by default; any failure raises and the exit code is not 0):
   build      nvcc-builds the CUDA kernels from virnet_tpu_torch/csrc/
@@ -25,14 +26,19 @@ Phases (all by default; any failure raises and the exit code is not 0):
              bf16, the level chain in fp32) on 8-, 16- and 32-row slabs,
              its rows far from slab edges also against K3's output one row
              up (the largest difference printed), timed at 8, 16, 32 and
-             beside its library route on the shifted slab view;
-             then the blur kernels (K5 forward, K6 dX, K7 dW) in f32 at the
-             training shape (16x192^2x3, k=21; also through the public op
-             in both pad modes with autograd), one eval shape (1x512^2x3)
-             and one awkward shape (2x13x17x2, k=5), K6 and K7 run twice
-             for equal bits; K5 and K6 at the training shape also through
-             a second build of blur.cu whose images take the any-C build
-             (same bits required; its time is any_c_ms)
+             beside its library route on the shifted slab view
+  blur       builds csrc/blur.cu alone (without the phase build; ptxas's
+             registers and spills of each K7 build printed) and holds the
+             blur kernels (K5 forward, K6 dX, K7 dW) against their plain
+             versions in f32 at the training shape (16x192^2x3, k=21; also
+             through the public op in both pad modes with autograd), one
+             eval shape (1x512^2x3) and one awkward shape (2x13x17x2, k=5),
+             K6 and K7 run twice for equal bits; at the training shape K5,
+             K6 and K7 also through a second build of blur.cu whose images
+             take the any-C build (same bits required; its time is
+             any_c_ms) and, with --parent DIR, each beside the same
+             function of DIR's csrc/blur.cu (a checkout of another tree,
+             built beside this one) in turns: parent, this, this, parent
   serve      Restorer('denoising-syn', bf16) on the flagship 32x256^2 batch
              (K3 + K4), MP/s
   profile    torch.profiler device-time breakdown of that forward by kernel
@@ -72,9 +78,12 @@ Phases (all by default; any failure raises and the exit code is not 0):
              injected noise, card vs CPU: loss, ELBO terms, gradient norms
   train_sisr the SISR trainer built from configs/sisr_x4.json (full width,
              batch 16, 192^2, bf16 autocast) for 30 steps on seeded smooth
-             HR batches: launches of one step (K5 x2, K6, K7), ms per step,
-             peak memory, a device-time breakdown of one step, and the
-             ELBO on a fixed batch with fixed noise before and after
+             HR batches: launches of one step (K5 x2, K6, K7), each
+             kernel held against its plain version on the first step's own
+             arguments (the blur phase's bars scaled by the input's
+             range), ms per step, peak memory, a device-time breakdown of
+             one step, and the ELBO on a fixed batch with fixed noise
+             before and after
   train_pipeline  the input pipeline under the trainers, full width (and
              the host cost of one tiny launch, beside the one taken
              before any phase: an earlier profiler session raises it):
@@ -82,7 +91,7 @@ Phases (all by default; any failure raises and the exit code is not 0):
              steps of SISRTrainer.run_step_device on 64 seeded uint8
              records of 256^2 (DeviceDataset): exactly K5 x2, K6, K7 a
              step, each held against its plain version on the first
-             step's own arguments (the kernels phase's bars scaled by the
+             step's own arguments (the blur phase's bars scaled by the
              input's range), the ELBO on a fixed batch with fixed draws
              before and after, ms per step beside train_sisr's host-fed
              step and, in turns, beside host-fed steps and device-data
@@ -246,8 +255,8 @@ import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent
-ALL_PHASES = ("build", "kernels", "serve", "profile", "serve_odd", "ops",
-              "real", "fp32", "psnr", "probe", "sisr_fwd", "serve_sisr",
+ALL_PHASES = ("build", "kernels", "blur", "serve", "profile", "serve_odd",
+              "ops", "real", "fp32", "psnr", "probe", "sisr_fwd", "serve_sisr",
               "train_fp32",
               "train_sisr", "train_pipeline", "train_denoise_fp32",
               "train_denoise", "eval_tables", "runtime", "int8", "grids",
@@ -480,7 +489,7 @@ def phase_kernels(report, peaks):
     for label, ckpt, batch in (("syn", SYN_CKPT, 32), ("real", REAL_CKPT, 4)):
         mod = 2 ** (len(ARCH_PRESETS[f"denoising-{label}"]["n_feat"]) - 1)
         check_kernels(load_pth(ckpt), label, batch, mod, peaks, results)
-    report["kernels"] = results
+    report.setdefault("kernels", {}).update(results)
 
 
 def check_kernels(sd, label, batch, mod, peaks, results):
@@ -855,64 +864,194 @@ def check_abs(name, got, want, atol):
     return err
 
 
-def any_c_blur_build():
-    """Start nvcc on a copy of csrc/blur.cu whose images (C = 3) take the
-    any-C build of K5/K6 instead of the C = 3 builds; returns the process
-    and a function that waits for it and gives its vt_blur_valid and
-    vt_blur_dx."""
+def blur_copy_build(name, src, include):
+    """Start nvcc on `src`, the text of a blur.cu, into its own library in
+    the build directory (headers from `include`); returns the process and
+    a function that waits for it and gives the library's four blur
+    entries, bound as ops/fused_conv binds them."""
     import ctypes
 
     from virnet_tpu_torch.ops import _build
     from virnet_tpu_torch.ops import fused_conv as fc
 
-    src = (_build.CSRC / "blur.cu").read_text()
-    pat = "(C != 3 ? 0 :"
-    if src.count(pat) != 1:
-        raise RuntimeError(f"blur.cu: {pat!r} occurs {src.count(pat)} "
-                           f"times, expected once")
-    d = _build.build_dir() / "blur_any_c"
+    d = _build.build_dir() / name
     d.mkdir(parents=True, exist_ok=True)
-    (d / "blur.cu").write_text(src.replace(pat, "(true ? 0 :"))
+    (d / "blur.cu").write_text(src)
     proc = subprocess.Popen(
-        [_build.nvcc_path(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC),
+        [_build.nvcc_path(), *_build.NVCC_FLAGS, "-I", str(include),
          "-o", str(d / "libblur.so"), str(d / "blur.cu")],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
 
     def fns():
         out, _ = proc.communicate()
         if proc.returncode:
-            raise RuntimeError(f"nvcc failed for the any-C blur.cu:\n{out}")
+            raise RuntimeError(f"nvcc failed for {name}/blur.cu:\n{out}")
         lib = ctypes.CDLL(str(d / "libblur.so"))
         got = {}
-        for sym in ("vt_blur_valid", "vt_blur_dx"):
+        for sym in ("vt_blur_valid", "vt_blur_dx", "vt_blur_dw",
+                    "vt_blur_dw_scratch_elems"):
             f = getattr(lib, sym)
-            f.argtypes, f.restype = fc._SIGNATURES[sym][1], ctypes.c_int
+            f.argtypes = fc._SIGNATURES[sym][1]
+            f.restype = (ctypes.c_longlong if sym.endswith("_scratch_elems")
+                         else ctypes.c_int)
             got[sym] = f
         return got
     return proc, fns
 
 
-def phase_blur_kernels(report, peaks):
-    proc, any_c = any_c_blur_build()
+def any_c_blur_build():
+    """A copy of csrc/blur.cu whose images (C = 3) take the any-C builds
+    of K5/K6 and K7 instead of the C = 3 builds."""
+    from virnet_tpu_torch.ops import _build
+
+    src = (_build.CSRC / "blur.cu").read_text()
+    pat = "constexpr bool IMAGE_BUILDS = true;"
+    if src.count(pat) != 1:
+        raise RuntimeError(f"blur.cu: {pat!r} occurs {src.count(pat)} "
+                           f"times, expected once")
+    return blur_copy_build(
+        "blur_any_c", src.replace(pat, pat.replace("true", "false")),
+        _build.CSRC)
+
+
+@contextlib.contextmanager
+def blur_fns(fns):
+    """The blur wrappers of ops/blur.py on another library's entries."""
+    from virnet_tpu_torch.ops import fused_conv as fc
+
+    saved = {sym: fc._fn(sym) for sym in fns}
+    fc._FNS.update(fns)
     try:
-        blur_kernels(report, peaks, any_c)
+        yield
     finally:
-        if proc.poll() is None:
-            proc.kill()
-            proc.wait()
+        fc._FNS.update(saved)
 
 
-def blur_kernels(report, peaks, any_c):
+def ptxas_k7(log_text) -> dict:
+    """Registers and spill bytes of each K7 build in a ptxas -v log:
+    {"blur_dw_kernel<K, C3>": dict(registers=, spill_stores=,
+    spill_loads=)}."""
+    import re
+
+    out: dict = {}
+    entry = None
+    for line in log_text.splitlines():
+        m = re.search(r"entry function '([^']+)'", line)
+        if m:
+            k = re.search(r"blur_dw_kernelILi(\d+)ELi(\d+)E", m.group(1))
+            entry = f"blur_dw_kernel<{k.group(1)}, {k.group(2)}>" if k \
+                else None
+            if entry:
+                out[entry] = {}
+            continue
+        if entry is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            out[entry].update(spill_stores=int(m.group(1)),
+                              spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[entry]["registers"] = int(m.group(1))
+    return out
+
+
+def sass_mix(lib_path, pattern) -> dict:
+    """Static opcode counts ({"FFMA": n, "LDS": n, ...}, modifiers cut)
+    of each function of the library whose mangled name matches `pattern`,
+    from the toolkit's cuobjdump -sass ({} where there is none)."""
+    import collections
+    import re
+
+    from virnet_tpu_torch.ops import _build
+
+    tool = Path(_build.nvcc_path()).with_name("cuobjdump")
+    if not tool.exists():
+        return {}
+    out = subprocess.run([str(tool), "-sass", str(lib_path)],
+                         capture_output=True, text=True, timeout=300).stdout
+    mixes: dict = {}
+    cur = None
+    for line in out.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            cur = m.group(1) if re.search(pattern, m.group(1)) else None
+            if cur:
+                mixes[cur] = collections.Counter()
+            continue
+        m = re.match(r"\s*/\*[0-9a-f]+\*/\s+(?:@!?U?P\w+\s+)?"
+                     r"([A-Z][A-Z0-9_]*)", line)
+        if cur and m:
+            mixes[cur][m.group(1)] += 1
+    return {k: dict(v) for k, v in mixes.items()}
+
+
+def short_kernel(full: str) -> str:
+    """`blur_dw_kernel<21, 3>` of a profiler's `void (anonymous
+    namespace)::blur_dw_kernel<21, 3>(float const*, ...)`."""
+    import re
+
+    m = re.search(r"::(\w+(?:<[^<>]*>)?)\(", full)
+    return m.group(1) if m else full[:40]
+
+
+def phase_blur(report, peaks, parent=None):
+    """Builds csrc/blur.cu (alone where the phase build did not run), its
+    any-C copy and, with `parent`, the parent tree's blur.cu, the three
+    nvcc at once; then the checks and times of blur_kernels."""
+    from virnet_tpu_torch.ops import _build
+
+    procs = []
+    proc, any_c = any_c_blur_build()
+    procs.append(proc)
+    other = None
+    if parent is not None:
+        csrc = Path(parent) / "virnet_tpu_torch" / "csrc"
+        proc, other = blur_copy_build("blur_parent",
+                                      (csrc / "blur.cu").read_text(), csrc)
+        procs.append(proc)
+    try:
+        t0 = time.perf_counter()
+        _build.load("blur")
+        secs = time.perf_counter() - t0
+        log_path = _build._lib_path("blur").with_suffix(".log")
+        k7 = ptxas_k7(log_path.read_text()) if log_path.exists() else {}
+        log(f"[blur] csrc/blur.cu ready in {secs:.1f} s; K7 builds: "
+            + ", ".join(f"{k} {v.get('registers')} registers, spills "
+                        f"{v.get('spill_stores')}/{v.get('spill_loads')} B"
+                        for k, v in sorted(k7.items())))
+        # K7's image build: FFMAs against shared loads (LDS) and the rest
+        sass = sass_mix(_build._lib_path("blur"),
+                        r"blur_dw_kernelILi21ELi3E")
+        for fn, mix in sass.items():
+            log(f"  SASS of blur_dw_kernel<21, 3>: {sum(mix.values())} "
+                f"instructions, " + ", ".join(
+                    f"{op} {mix.get(op, 0)}" for op in
+                    ("FFMA", "LDS", "LDGSTS", "BAR", "SHFL", "STG")))
+        report["blur_build"] = dict(seconds=secs, ptxas_k7=k7,
+                                    sass_k7=sass)
+        blur_kernels(report, peaks, any_c, other)
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
+
+def blur_kernels(report, peaks, any_c, parent=None):
     """K5-K7 against their plain versions on the card in f32.  Bounds:
     forward and dX atol 2e-5 on inputs in [0, 1) with taps summing to 1
     (the same k*k products summed in another order), dW 1e-5 of max|dW| (a
     sum of H*W*C products per tap).  K6 and K7 run twice: equal bits.  At
-    the training shape K5 and K6 are also timed through the any-C build
-    (`any_c_ms`), which must give the same bits as the C = 3 build."""
+    the training shape K5-K7 are also timed through the any-C build
+    (`any_c_ms`), K5/K6 with the same bits as the C = 3 build, and,
+    where `parent` gives another build's entries, in turns with them
+    (`turns`: parent, this, this, parent; the parent's K7 held to the same
+    bar)."""
     import torch.nn.functional as F
 
     from virnet_tpu_torch.ops import blur
-    from virnet_tpu_torch.ops import fused_conv as fc
     from virnet_tpu_torch.ops.degrade import blur_per_sample
 
     dev = torch.device("cuda")
@@ -998,23 +1137,38 @@ def blur_kernels(report, peaks, any_c):
 
         if label != "train":
             continue
+        train = (xp, g, kern)
         # the any-C build on the same inputs: the same sums in the same
         # order, so the same bits; what the C = 3 builds' constant shared
-        # row is worth
-        saved = {sym: fc._fn(sym) for sym in ("vt_blur_valid", "vt_blur_dx")}
-        try:
-            fc._FNS.update(any_c())
+        # rows are worth
+        with blur_fns(any_c()):
             if not (torch.equal(blur.blur_valid(xp, kern), out)
                     and torch.equal(blur.blur_dx(g, kern), dxp)):
                 raise AssertionError("the any-C build of K5/K6 gave other "
                                      "bits than the C = 3 build")
-            for name in ("blur_valid", "blur_dx"):
+            # K7's partials follow its grid, which follows each build's
+            # occupancy: the bar, not the bits
+            check_abs("blur_dw any-C build", blur.blur_dw(xp, g), dw_ref,
+                      1e-5 * float(dw_ref.abs().max()))
+            for name in ("blur_valid", "blur_dx", "blur_dw"):
                 ms = time_ms(kerns[name], 20)
                 results[name][tag]["any_c_ms"] = ms
                 log(f"  {name}: any-C build {ms:.4f} ms (C = 3 build "
                     f"{results[name][tag]['ms']:.4f} ms)")
-        finally:
-            fc._FNS.update(saved)
+        if parent is not None:
+            fns = parent()
+            with blur_fns(fns):
+                check_abs("parent's blur_dw", blur.blur_dw(xp, g), dw_ref,
+                          1e-5 * float(dw_ref.abs().max()))
+            for name in ("blur_valid", "blur_dx", "blur_dw"):
+                turns = []
+                for who in ("parent", "this", "this", "parent"):
+                    with blur_fns(fns) if who == "parent" else \
+                            contextlib.nullcontext():
+                        turns.append((who, time_ms(kerns[name], 20)))
+                results[name][tag]["turns"] = turns
+                log(f"  {name} in turns: " + ", ".join(
+                    f"{who} {ms:.4f}" for who, ms in turns) + " ms")
 
         # the public op: both pad modes, correlation and convolution, value
         # and gradients (K5 forward, K6 + K7 backward) against autograd of
@@ -1038,6 +1192,30 @@ def blur_kernels(report, peaks, any_c):
             check_abs(what + " dW", d_got[1], d_want[1],
                       1e-5 * float(d_want[1].abs().max()))
 
+    # at the training shape: each kernel's device time a call
+    # (torch.profiler) beside the host time a call of its wrapper takes to
+    # enqueue (50 calls, well inside the launch queue, then one sync);
+    # last, as a profiler session leaves later launches dearer (PR 14)
+    from virnet_tpu_torch.cli.bench_restore import profile_calls
+
+    xp, g, kern = train
+    for name, fn in (("blur_valid", lambda: blur.blur_valid(xp, kern)),
+                     ("blur_dx", lambda: blur.blur_dx(g, kern)),
+                     ("blur_dw", lambda: blur.blur_dw(xp, g))):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(50):
+            fn()
+        host_us = (time.perf_counter() - t0) / 50 * 1e6
+        torch.cuda.synchronize()
+        dev = {k: v[0] for k, v in profile_calls(fn, 20)["kernels"].items()}
+        results[name]["train f32"].update(device_ms=dev, host_us=host_us)
+        log(f"  {name} at the training shape: host {host_us:.1f} us a call "
+            f"to enqueue; device " + (", ".join(
+                f"{short_kernel(k)} {ms * 1e3:.2f} us"
+                for k, ms in dev.items()) or "not measured (the profiler "
+                                             "saw no kernels)"))
+
 
 # kernel-name keys of each group, the first match wins
 GROUPS = (("K3/K8 bf16 dncnn_head.cu", ("dncnn_head_",)),
@@ -1050,7 +1228,7 @@ GROUPS = (("K3/K8 bf16 dncnn_head.cu", ("dncnn_head_",)),
 TRAIN_GROUPS = (
     ("K5 blur_valid", ("blur_valid_kernel",)),
     ("K6 blur_dx", ("blur_dx_kernel",)),
-    ("K7 blur_dw", ("blur_dw_partial", "blur_dw_reduce")),
+    ("K7 blur_dw", ("blur_dw_kernel", "blur_dw_reduce")),
     ("optimizer", ("multi_tensor", "adam", "foreach", "lpnorm")),
     ("cuDNN layout transposes", ("nchwtonhwc", "nhwctonchw")),
     ("cuDNN backward", ("dgrad", "wgrad", "bwd", "backward", "bprop")),
@@ -1610,6 +1788,7 @@ def phase_train_sisr(report, launches, steps=30):
     192^2, bf16 autocast) through cli.train_sisr.build_trainer and
     SISRTrainer.run_step."""
     from virnet_tpu_torch.cli.train_sisr import build_trainer
+    from virnet_tpu_torch.ops import blur
     from virnet_tpu_torch.ops import fused_conv as fc
 
     cfg = sisr_config()
@@ -1640,8 +1819,12 @@ def phase_train_sisr(report, launches, steps=30):
     before = fixed_elbo()
     torch.cuda.reset_peak_memory_stats()
 
+    calls = {k: [] for k in BLUR_STEP}
     fc.reset_launches()
-    out = trainer.run_step(batch(), 0)
+    with recording(blur, "blur_valid", calls["blur_valid"]), \
+            recording(blur, "blur_dx", calls["blur_dx"]), \
+            recording(blur, "blur_dw", calls["blur_dw"]):
+        out = trainer.run_step(batch(), 0)
     torch.cuda.synchronize()
     counts = dict(fc.LAUNCHES)
     launches["train_sisr"] = counts
@@ -1650,6 +1833,7 @@ def phase_train_sisr(report, launches, steps=30):
             2, 1, 1):
         raise AssertionError("train_sisr: one step must launch blur_valid "
                              "twice and blur_dx, blur_dw once each")
+    errs = hold_blur_calls(calls)
 
     times, last = timed_steps(lambda x: trainer.run_step(x, 0), batch,
                               steps - 1, "train_sisr")
@@ -1670,7 +1854,8 @@ def phase_train_sisr(report, launches, steps=30):
     report["train_sisr"] = dict(
         ms_per_step=ms, steps_per_s=1e3 / ms, peak_bytes=peak,
         step_ms=times, elbo_before=before, elbo_after=after, last=last,
-        launches=counts, copies=dict(fc.COPIES), idle_share=idle)
+        launches=counts, copies=dict(fc.COPIES), idle_share=idle,
+        kernels_max_abs_err=errs)
     if not (math.isfinite(after) and after < before):
         raise AssertionError("train_sisr: the ELBO on the fixed batch did "
                              "not go down")
@@ -1690,7 +1875,7 @@ def textured_records(rng, n, size) -> np.ndarray:
 
 
 def blur_bar(name, args) -> float:
-    """The kernels phase's bars (forward and dX atol 2e-5 on inputs in
+    """The blur phase's bars (forward and dX atol 2e-5 on inputs in
     [0, 1) with taps summing to 1) scaled by the range of this call's
     input times the largest kernel's tap sum; dW 1e-5 of max |dW|."""
     from virnet_tpu_torch.ops import blur
@@ -3880,6 +4065,10 @@ def main(argv=None) -> int:
                     help="comma-separated subset of " + ",".join(ALL_PHASES))
     ap.add_argument("--report", type=Path, default=None,
                     help="also write the full results as JSON here")
+    ap.add_argument("--parent", type=Path, default=None,
+                    help="a checkout of another tree (the parent commit): "
+                         "phase blur times its csrc/blur.cu beside this "
+                         "one's in turns")
     args = ap.parse_args(argv)
     phases = args.phases.split(",")
     bad = [p for p in phases if p not in ALL_PHASES]
@@ -3925,7 +4114,9 @@ def main(argv=None) -> int:
 
     if "kernels" in phases:
         phase_kernels(report, peaks)
-        phase_blur_kernels(report, peaks)
+
+    if "blur" in phases:
+        phase_blur(report, peaks, args.parent)
 
     launches: dict = {}       # path -> the counts of its one run
     rng = np.random.default_rng(0)

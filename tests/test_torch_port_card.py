@@ -167,6 +167,13 @@ def test_slabzero_kernel_raises_on_what_it_does_not_take():
     # group of 8 channels (C = 9, 16, 20)
     (2, 26, 192, 3, 21), (1, 30, 25, 3, 21), (1, 14, 45, 1, 5),
     (1, 12, 30, 9, 5), (2, 9, 20, 16, 3), (1, 10, 70, 20, 7),
+    # K7's tiling (strips of 8 rows, ranges of 96 pixels, runs of 3, tap
+    # blocks of A dy x 3 dx, channel groups of up to 8, a skew for even
+    # groups): H not a multiple of 8, W*C not a multiple of 288, every k,
+    # C = 1, 2, 3, 9 and 45 at k = 21
+    (2, 9, 97, 3, 21), (1, 17, 95, 2, 15), (1, 1, 1, 1, 3),
+    (3, 8, 96, 3, 5), (1, 23, 101, 9, 7), (1, 5, 33, 45, 21),
+    (2, 11, 7, 1, 21), (1, 16, 193, 3, 21), (1, 12, 9, 2, 3),
 ])
 def test_blur_kernels_match_plain_on_card(n, h, w, c, k):
     """K5, K6, K7 against their plain versions on the card (f32 sums in
@@ -239,6 +246,13 @@ def test_blur_kernels_raise_on_what_they_do_not_take():
                         torch.rand(1, 27, 27, device="cuda"))
     with pytest.raises(ValueError):
         blur.blur_valid(xp.cpu(), kern)
+    # K7: a k it is not built for, and more samples than it takes
+    with pytest.raises(ValueError):
+        blur.blur_dw(torch.rand(1, 30, 30, 3, device="cuda"),
+                     torch.rand(1, 22, 22, 3, device="cuda"))
+    with pytest.raises(ValueError, match="do not fit"):
+        blur.blur_dw(torch.rand(65536, 3, 3, 1, device="cuda"),
+                     torch.rand(65536, 1, 1, 1, device="cuda"))
 
 
 _DTYPES = pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],

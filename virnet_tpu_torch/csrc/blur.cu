@@ -17,8 +17,8 @@
 //
 // A row of an NHWC image is W*C contiguous floats, and the tap (dy, dx)
 // reads the same row layout shifted by dy rows and dx*C floats, so the
-// kernels work on "flat columns" X = x*C + c.  K5 and K6 take any C >= 1;
-// K7 any C whose chunk fits shared memory (up to 45 at k = 21).
+// kernels work on "flat columns" X = x*C + c.  K5, K6 and K7 take any C
+// >= 1: a block takes a group of up to 8 channels.
 //
 // Bound on an H100: k*k FMAs per output float against 8 bytes moved per
 // output float; at k = 21 that is 110 FLOP/B, operations bound on the f32
@@ -72,17 +72,38 @@
 // is refused.  K6 is the same device code with the taps flipped and the
 // tile loaded at an offset of k-1 with zeros outside the cotangent.
 //
-// K7 reduces H*W*C products into each of k*k taps per sample.  A block
-// owns a 32-row x 64-flat-column chunk of the cotangent (and its halo
-// tile of the input) in shared memory.  A thread owns one dx, a group of
-// 8 consecutive dy and one of LW column lanes; per column it holds 8 rows
-// of the cotangent in registers and slides them along the input column,
-// 64 FMAs per 23 shared-memory reads.  The result is deterministic: a
-// thread sums its columns (ascending, stride LW) and rows (ascending) in
-// order, the LW lanes of a tap are summed in ascending order by one
-// thread into a per-chunk partial in a scratch buffer, and a second small
-// kernel sums the chunks of a sample in ascending (row-major) order.  No
-// atomics anywhere.
+// Design of K7 (blur_dw_kernel), K5's register block with the roles
+// swapped: each of the k*k taps of a sample sums H*W*C products, so a
+// thread owns taps and slides over positions.
+//  - a work item is (sample, dy group, group of up to 8 channels, strip of
+//    8 cotangent rows, range of 96 pixels); its cotangent tile and its
+//    input tile (8 + A - 1 rows from the group's first dy, 96 + 3 NW - 1
+//    pixels) sit in shared memory;
+//  - warp w of a block's NW owns a tap block of A dy x 3 dx (dx 3w ..
+//    3w + 2; k = 21: A = 7, 7 warps, no tap padded; k = 15: A = 5; k <= 7:
+//    A = k, and k = 5, 7 pad their dx to 6, 9), lane l the pixels 3l ..
+//    3l + 2 of the range in all 8 rows.  Per pixel and channel a lane
+//    loads one new window column of 8 + A - 1 inputs (the other two it
+//    kept: a ring of three, as K5's) and 8 cotangent values, and does 8 A
+//    3 FMAs on them: 168 per 22 shared-memory loads at k = 21, against 64
+//    per 23 in the first design (a thread per 8 dy of one dx);
+//  - the lanes' runs of 3 pixels are 3 CG floats apart: for odd CG
+//    (images: 9) the 32 lanes of a load hit 32 banks; for even CG a float
+//    of skew after every 3 pixels makes it 3 CG + 1 (a run is as wide as
+//    a dx block, so each column's skew is known at compile time);
+//  - the blocks are persistent, as many as fit (3 an SM at k = 21, C =
+//    3), and each takes a contiguous range of items; the next item's
+//    tiles arrive by cp.async (16-byte copies where a tile row is one
+//    aligned run, else 4-byte ones, index math by FastDiv) into a second
+//    stage under this one's FMAs;
+//  - the sums are fixed in order, with no atomics: a lane sums its items
+//    in order while they share a key (sample, dy group); then the warp
+//    sums its lanes by a butterfly (every lane the same bits) into slot
+//    key + block of a scratch buffer (unique: keys and blocks grow
+//    together), and a second small kernel, blur_dw_reduce, sums a tap's
+//    slots in ascending block, so item, order.  The grid, and with it the
+//    bits, is what the card's occupancy gives: a second run on the card
+//    gives the same.
 #include <cuda_runtime.h>
 
 #include "tile_async.cuh"
@@ -90,6 +111,9 @@
 namespace {
 
 constexpr int MAX_SMEM = 227 * 1024;
+// images (C = 3) take builds whose shared rows are constants; false in the
+// copy that chip_smoke.py times as the any-C build
+constexpr bool IMAGE_BUILDS = true;
 
 // ---------------------------------------------------------------------------
 // K5 / K6
@@ -405,8 +429,10 @@ int launch_blur(bool full, const float* in, const float* taps, float* out,
       blur_valid_kernel<K, 16>, blur_valid_kernel<K, 8>,
       blur_dx_kernel<K, 0>,     blur_dx_kernel<K, 32>,
       blur_dx_kernel<K, 16>,    blur_dx_kernel<K, 8>};
-  const int v = (full ? 4 : 0) +
-                (C != 3 ? 0 : s.lx == 32 ? 1 : s.lx == 16 ? 2 : 3);
+  const int v = (full ? 4 : 0) + (!IMAGE_BUILDS || C != 3 ? 0
+                                  : s.lx == 32             ? 1
+                                  : s.lx == 16             ? 2
+                                                           : 3);
   const Kern kernel = kernels[v];
   // the cap on dynamic shared memory, raised once per kernel and device
   // (a host call that costs microseconds)
@@ -450,115 +476,310 @@ int dispatch_blur(int k, bool full, const float* in, const float* taps,
 // K7
 // ---------------------------------------------------------------------------
 
-constexpr int DW_D = 8;         // taps (consecutive dy) per thread
-constexpr int DW_R = 8;         // cotangent rows held in registers
-constexpr int DW_TH = 32;       // cotangent rows per chunk
-constexpr int DW_TX = 64;       // cotangent flat columns per chunk
+constexpr int DW_R = 8;       // cotangent rows of a tile, all in each lane
+constexpr int DW_B = 3;       // dx taps of a tap block
+constexpr int DW_L = 3;       // pixels of a lane's run (= DW_B: see dw_lane)
+constexpr int DW_PX = 32 * DW_L;  // pixels of a tile: one run per lane
+constexpr int DW_MAX_CG = 8;  // channels of a group
 
-// part[n, chunk, dy, dx] = sum over the chunk's (y, X) of
-//   g[n, y, X] * xp[n, y + dy, X + dx*C]
-__global__ void blur_dw_partial(const float* __restrict__ xp,
-                                const float* __restrict__ g,
-                                float* __restrict__ part, int H, int WC,
-                                int Hp, int WCp, int C, int k, int ng,
-                                int LW) {
-  extern __shared__ float sm[];
-  const int SW = DW_TX + (k - 1) * C;
-  const int SH = DW_TH + ng * DW_D - 1;
-  float* sg = sm;                        // DW_TH x DW_TX
-  float* sx = sg + DW_TH * DW_TX;        // SH x SW
-  float* sred = sx + SH * SW;            // (ng*k*LW) x DW_D
+// dy taps of a tap block: all K up to 7, else a third (15: 5, 21: 7); a
+// block's warps take the dx blocks of 3 (K = 5 and 7 pad theirs to 6, 9)
+__host__ __device__ constexpr int dw_a(int K) { return K <= 7 ? K : K / 3; }
+__host__ __device__ constexpr int dw_warps(int K) {
+  return (K + DW_B - 1) / DW_B;
+}
+__host__ __device__ constexpr int round4(int n) { return (n + 3) / 4 * 4; }
+// pixels of the input tile; floats of a shared row of the input tile and
+// of the cotangent tile, with `sk` floats of skew after every run of
+// DW_L pixels (1 where CG is even: see dw_lane)
+__host__ __device__ constexpr int dw_xpix(int K) {
+  return DW_PX + DW_B * dw_warps(K) - 1;
+}
+__host__ __device__ constexpr int dw_xw(int K, int CG, int sk) {
+  return round4(dw_xpix(K) * CG + (dw_xpix(K) - 1) / DW_L * sk);
+}
+__host__ __device__ constexpr int dw_gw(int CG, int sk) {
+  return round4(DW_PX * CG + (DW_PX - 1) / DW_L * sk);
+}
 
-  const int n = blockIdx.z;
-  const int y0 = blockIdx.y * DW_TH, X0 = blockIdx.x * DW_TX;
-  const int tid = threadIdx.x, nthr = blockDim.x;
+// The shapes of a launch.  A work item is (sample n, dy group, channel
+// group, strip of DW_R cotangent rows, range of DW_PX pixels), numbered in
+// that order; a key is (n, dy group), whose items are consecutive.
+struct DwShape {
+  int N, H, W, C;
+  int CG, ngc, sk;       // channels of a group, groups, skew
+  int xw, gw;            // floats of a shared row (input, cotangent)
+  int strips, ranges;    // tiles down and across a sample
+  int per_key, count;    // items of a key, items
+  int grid;              // persistent blocks
+};
 
-  const float* gn = g + (size_t)n * H * WC;
-  for (int idx = tid; idx < DW_TH * DW_TX; idx += nthr) {
-    const int gy = y0 + idx / DW_TX, gx = X0 + idx % DW_TX;
-    sg[idx] = (gy < H && gx < WC) ? gn[(size_t)gy * WC + gx] : 0.f;
-  }
-  const float* xn = xp + (size_t)n * Hp * WCp;
-  for (int idx = tid; idx < SH * SW; idx += nthr) {
-    const int r = idx / SW, j = idx - r * SW;
-    const int gy = y0 + r, gx = X0 + j;
-    sx[idx] = (gy < Hp && gx < WCp) ? xn[(size_t)gy * WCp + gx] : 0.f;
-  }
-  __syncthreads();
+// the block that takes item t: block b takes [b count / grid, (b + 1)
+// count / grid)
+__host__ __device__ inline int dw_block_of(const DwShape& s, long long t) {
+  return (int)(((t + 1) * s.grid - 1) / s.count);
+}
 
-  const int active = ng * k * LW;
-  if (tid < active) {
-    const int l = tid % LW, t = tid / LW;
-    const int dx = t % k, grp = t / k;
-    float acc[DW_D];
+// acc[a][b] += g[r] * x[r + a][b] over the DW_L pixels of a lane's run in
+// one channel: a ring of DW_B window columns of DW_R + A - 1 inputs (the
+// pixels m, m + 1, m + 2 of the run), one new column and DW_R cotangent
+// values loaded a pixel, DW_R A DW_B FMAs on them.  xs: the lane's first
+// window column in the input tile, gs: its first cotangent value.
+template <int K, int C3>
+__device__ __forceinline__ void dw_lane(float (&acc)[dw_a(K)][DW_B],
+                                        const float* xs, const float* gs,
+                                        int CG, int sk, int xw, int gw) {
+  constexpr int A = dw_a(K), V = DW_R + A - 1;
+  float col[DW_B][V], gv[DW_R];
+  // pixel m of the run: m CG floats on, and a skew after each DW_L pixels
+  auto load_col = [&](float(&v)[V], int m) {
+    const float* p = xs + m * CG + m / DW_L * sk;
 #pragma unroll
-    for (int j = 0; j < DW_D; ++j) acc[j] = 0.f;
-    for (int X = l; X < DW_TX; X += LW) {
-#pragma unroll 1
-      for (int yc = 0; yc < DW_TH; yc += DW_R) {
-        float gr[DW_R];
+    for (int i = 0; i < V; ++i) v[i] = p[i * xw];
+  };
 #pragma unroll
-        for (int r = 0; r < DW_R; ++r) gr[r] = sg[(yc + r) * DW_TX + X];
-        const float* xc = sx + (grp * DW_D + yc) * SW + X + dx * C;
+  for (int m = 0; m < DW_B - 1; ++m) load_col(col[m], m);
 #pragma unroll
-        for (int yy = 0; yy < DW_R + DW_D - 1; ++yy) {
-          const float v = xc[yy * SW];
+  for (int j = 0; j < DW_L; ++j) {
+    load_col(col[(j + DW_B - 1) % DW_B], j + DW_B - 1);
 #pragma unroll
-          for (int j = 0; j < DW_D; ++j) {
-            const int r = yy - j;        // cotangent row paired with tap j
-            if (r >= 0 && r < DW_R) acc[j] = fmaf(gr[r], v, acc[j]);
-          }
-        }
-      }
-    }
+    for (int r = 0; r < DW_R; ++r) gv[r] = gs[r * gw + j * CG];
 #pragma unroll
-    for (int j = 0; j < DW_D; ++j) sred[tid * DW_D + j] = acc[j];
-  }
-  __syncthreads();
-
-  const int chunk = blockIdx.y * gridDim.x + blockIdx.x;
-  const int n_chunks = gridDim.x * gridDim.y;
-  float* pn = part + ((size_t)n * n_chunks + chunk) * k * k;
-  for (int tap = tid; tap < k * k; tap += nthr) {
-    const int dy = tap / k, dx = tap % k;
-    const int base = ((dy / DW_D) * k + dx) * LW * DW_D + dy % DW_D;
-    float sum = 0.f;
-    for (int l = 0; l < LW; ++l) sum += sred[base + l * DW_D];
-    pn[tap] = sum;
+    for (int r = 0; r < DW_R; ++r)
+#pragma unroll
+      for (int b = 0; b < DW_B; ++b)
+#pragma unroll
+        for (int a = 0; a < A; ++a)
+          acc[a][b] = fmaf(gv[r], col[(j + b) % DW_B][r + a], acc[a][b]);
   }
 }
 
-// out[n, tap] = sum over chunks (ascending) of part[n, chunk, tap]
+// rows [0, rows) of a tile whose row r is `len` floats of device memory at
+// src + r * stride, zero past row `nrows` and past float `lim` of a row,
+// into dst + r * dw (16-byte rows): 16-byte copies where aligned
+__device__ __forceinline__ void dw_copy_flat(float* dst, int dw,
+                                             const float* src, size_t stride,
+                                             int rows, int nrows, int len,
+                                             int lim) {
+  const int nq = (len + 3) / 4;
+  const FastDiv fq(nq);
+  for (int i = threadIdx.x; i < rows * nq; i += blockDim.x) {
+    const int r = fq.div(i), f = 4 * (i - r * nq);
+    float* d = dst + r * dw + f;
+    const bool row_in = r < nrows;
+    const float* s = src + (row_in ? r : 0) * stride;
+    if (row_in && f + 4 <= lim &&
+        (reinterpret_cast<uintptr_t>(s + f) & 15) == 0) {
+      cp_async16(d, s + f, 16);
+      continue;
+    }
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const bool in_e = row_in && f + e < lim;
+      cp_async4(d + e, in_e ? s + f + e : src, in_e ? 4 : 0);
+    }
+  }
+}
+
+// the same tile float by float, for a channel group of a wider image or
+// a skewed row: row r, pixel p, channel c of the group from pixel (y0 + r,
+// x0 + p), channel c0 + c of an image of h x w x C at `src`, zero outside
+__device__ __forceinline__ void dw_copy_group(float* dst, int dw,
+                                              const float* src, int h, int w,
+                                              int C, int y0, int x0, int c0,
+                                              int rows, int pix, int CG,
+                                              int sk) {
+  const int len = pix * CG;
+  const FastDiv fl(len), fc(CG);
+  for (int i = threadIdx.x; i < rows * len; i += blockDim.x) {
+    const int r = fl.div(i), q = i - r * len, p = fc.div(q);
+    const int y = y0 + r, x = x0 + p, c = c0 + q - p * CG;
+    const bool in = y < h && x < w && c < C;
+    cp_async4(dst + r * dw + q + p / DW_L * sk,
+              in ? src + ((size_t)y * w + x) * C + c : src, in ? 4 : 0);
+  }
+}
+
+// issue the copies of item t: the cotangent tile (DW_R rows x DW_PX pixels
+// x CG channels) and its input tile (DW_R + A - 1 rows from the dy group's
+// first row x dw_xpix(K) pixels x CG channels) into the stage at `buf`
+template <int K, int C3>
+__device__ __forceinline__ void dw_stage(float* buf, const float* xp,
+                                         const float* g, const DwShape& s,
+                                         int t, int xw, int gw) {
+  constexpr int A = dw_a(K), XR = DW_R + A - 1, XPIX = dw_xpix(K);
+  const int C = C3 ? 3 : s.C, CG = C3 ? 3 : s.CG, sk = C3 ? 0 : s.sk;
+  const int u = t / s.per_key, n = u / (K / A), grp = u - n * (K / A);
+  int r = t - u * s.per_key;
+  const int per_cg = s.strips * s.ranges, cg = r / per_cg;
+  r -= cg * per_cg;
+  const int sy = r / s.ranges;
+  const int y0 = sy * DW_R, x0 = (r - sy * s.ranges) * DW_PX, c0 = cg * CG;
+  const int Hp = s.H + K - 1, Wp = s.W + K - 1, xy0 = y0 + grp * A;
+  const float* xn = xp + (size_t)n * Hp * Wp * C;
+  const float* gn = g + (size_t)n * s.H * s.W * C;
+  float* gbuf = buf + XR * xw;
+  if (CG == C && sk == 0) {  // whole pixels: a tile row is one run
+    dw_copy_flat(buf, xw, xn + ((size_t)xy0 * Wp + x0) * C, (size_t)Wp * C,
+                 XR, Hp - xy0, XPIX * C, (Wp - x0) * C);
+    dw_copy_flat(gbuf, gw, gn + ((size_t)y0 * s.W + x0) * C,
+                 (size_t)s.W * C, DW_R, s.H - y0, DW_PX * C, (s.W - x0) * C);
+  } else {
+    dw_copy_group(buf, xw, xn, Hp, Wp, C, xy0, x0, c0, XR, XPIX, CG, sk);
+    dw_copy_group(gbuf, gw, gn, s.H, s.W, C, y0, x0, c0, DW_R, DW_PX, CG,
+                  sk);
+  }
+}
+
+// The persistent blocks: block b walks its items in order, the next item's
+// tiles arriving (cp.async) into the other stage under this one's FMAs.
+// Warp w owns the taps dx in [3 w, 3 w + 3) of the item's dy group; lane l
+// the pixels 3 l .. 3 l + 2 of the tile in all DW_R rows and the group's
+// channels.  Its sums run on over the items of one key; when the key
+// changes (or the block's items end) the warp sums its lanes (a butterfly:
+// a fixed order, every lane the same bits) into slot key + b of `part`.
+// C3 = 3: the build for C = 3 (images), whose shared rows are constants.
+template <int K, int C3>
+__global__ void __launch_bounds__(32 * dw_warps(K), C3 ? 3 : 1)
+blur_dw_kernel(const float* __restrict__ xp, const float* __restrict__ g,
+               float* __restrict__ part, DwShape s) {
+  extern __shared__ float sm[];  // 16-byte aligned: the dynamic base
+  constexpr int A = dw_a(K), XR = DW_R + A - 1;
+  const int CG = C3 ? 3 : s.CG, sk = C3 ? 0 : s.sk;
+  const int xw = C3 ? dw_xw(K, 3, 0) : s.xw, gw = C3 ? dw_gw(3, 0) : s.gw;
+  const int stage = XR * xw + DW_R * gw;
+  const int w = threadIdx.x >> 5, l = threadIdx.x & 31;
+  const int run = DW_L * CG + sk;  // floats from one run to the next
+  const int lo = (int)((long long)blockIdx.x * s.count / gridDim.x);
+  const int hi = (int)((long long)(blockIdx.x + 1) * s.count / gridDim.x);
+
+  float acc[A][DW_B];
+#pragma unroll
+  for (int a = 0; a < A; ++a)
+#pragma unroll
+    for (int b = 0; b < DW_B; ++b) acc[a][b] = 0.f;
+
+  dw_stage<K, C3>(sm, xp, g, s, lo, xw, gw);
+  cp_async_commit();
+#pragma unroll 1
+  for (int t = lo; t < hi; ++t) {
+    float* buf = sm + ((t - lo) & 1) * stage;
+    if (t + 1 < hi) {
+      dw_stage<K, C3>(sm + ((t + 1 - lo) & 1) * stage, xp, g, s, t + 1, xw,
+                      gw);
+      cp_async_commit();
+      cp_async_wait<1>();  // this item's tiles, not the next one's
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const float* xs = buf + (l + w) * run;
+    const float* gs = buf + XR * xw + l * run;
+#pragma unroll 1
+    for (int c = 0; c < CG; ++c)
+      dw_lane<K, C3>(acc, xs + c, gs + c, CG, sk, xw, gw);
+    const int u = t / s.per_key;
+    if (t + 1 == hi || (t + 1) / s.per_key != u) {
+#pragma unroll
+      for (int a = 0; a < A; ++a)
+#pragma unroll
+        for (int b = 0; b < DW_B; ++b) {
+          float v = acc[a][b];
+#pragma unroll
+          for (int o = 16; o > 0; o >>= 1)
+            v += __shfl_xor_sync(0xffffffffu, v, o);
+          const int dx = DW_B * w + b;
+          if (l == 0 && dx < K)
+            part[((size_t)(u + blockIdx.x) * A + a) * K + dx] = v;
+          acc[a][b] = 0.f;
+        }
+    }
+    __syncthreads();  // every warp is done with this stage
+  }
+}
+
+// out[n, dy, dx] = sum over the blocks that took items of key (n, dy / A),
+// ascending (so ascending item order), of their slots
 __global__ void blur_dw_reduce(const float* __restrict__ part,
-                               float* __restrict__ out, int n_chunks, int kk,
-                               int total) {
+                               float* __restrict__ out, DwShape s, int K,
+                               int A) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= total) return;
-  const int n = i / kk, tap = i - n * kk;
-  const float* p = part + (size_t)n * n_chunks * kk + tap;
+  if (i >= s.N * K * K) return;
+  const int n = i / (K * K), tap = i - n * K * K, dy = tap / K;
+  const int u = n * (K / A) + dy / A;
+  const int b0 = dw_block_of(s, (long long)u * s.per_key);
+  const int b1 = dw_block_of(s, (long long)(u + 1) * s.per_key - 1);
+  const float* p = part + (size_t)(dy % A) * K + (tap - dy * K);
   float sum = 0.f;
-  for (int c = 0; c < n_chunks; ++c) sum += p[(size_t)c * kk];
+  for (int b = b0; b <= b1; ++b) sum += p[(size_t)(u + b) * A * K];
   out[i] = sum;
 }
 
 struct DwPlan {
-  int ng, LW, threads, chunks_x, chunks_y;
+  DwShape s;
+  void (*kern)(const float*, const float*, float*, DwShape);
+  int threads, A, slots;
   size_t smem;
 };
 
-bool dw_plan(int H, int W, int C, int k, DwPlan* p) {
-  if (k < 1 || k > 25 || k % 2 == 0 || H < 1 || W < 1 || C < 1) return false;
-  p->ng = (k + DW_D - 1) / DW_D;
-  int lw = 256 / (p->ng * k);
-  p->LW = lw < 1 ? 1 : (lw > 32 ? 32 : lw);
-  const int active = p->ng * k * p->LW;
-  p->threads = (active + 31) / 32 * 32;
-  p->chunks_x = (W * C + DW_TX - 1) / DW_TX;
-  p->chunks_y = (H + DW_TH - 1) / DW_TH;
-  const size_t SW = DW_TX + (size_t)(k - 1) * C;
-  const size_t SH = DW_TH + p->ng * DW_D - 1;
-  p->smem = sizeof(float) * (DW_TH * DW_TX + SH * SW + (size_t)active * DW_D);
-  return p->smem <= MAX_SMEM && p->chunks_y <= 65535;
+// the shapes, build and persistent grid of a launch: cudaErrorInvalidValue
+// for shapes K7 does not take
+template <int K>
+int dw_plan_k(int N, int H, int W, int C, DwPlan* p) {
+  constexpr int A = dw_a(K), XR = DW_R + A - 1;
+  DwShape& s = p->s;
+  s.N = N, s.H = H, s.W = W, s.C = C;
+  s.ngc = (C + DW_MAX_CG - 1) / DW_MAX_CG;
+  s.CG = (C + s.ngc - 1) / s.ngc;
+  s.sk = s.CG % 2 == 0 ? 1 : 0;
+  s.xw = dw_xw(K, s.CG, s.sk);
+  s.gw = dw_gw(s.CG, s.sk);
+  s.strips = (H + DW_R - 1) / DW_R;
+  s.ranges = (W + DW_PX - 1) / DW_PX;
+  const long long per_key = (long long)s.ngc * s.strips * s.ranges;
+  const long long count = (long long)N * (K / A) * per_key;
+  if (count > 0x7fffffff) return cudaErrorInvalidValue;
+  s.per_key = (int)per_key;
+  s.count = (int)count;
+  p->smem = 2 * sizeof(float) * ((size_t)XR * s.xw + DW_R * s.gw);
+  if (p->smem > MAX_SMEM) return cudaErrorInvalidValue;
+  const bool c3 = IMAGE_BUILDS && C == 3;
+  p->kern = c3 ? blur_dw_kernel<K, 3> : blur_dw_kernel<K, 0>;
+  p->threads = 32 * dw_warps(K);
+  p->A = A;
+  // the cap on dynamic shared memory, raised once per build and device
+  static int raised[2] = {-1, -1};
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (raised[c3] != dev) {
+    e = cudaFuncSetAttribute(
+        p->kern, cudaFuncAttributeMaxDynamicSharedMemorySize, MAX_SMEM);
+    if (e != cudaSuccess) return e;
+    raised[c3] = dev;
+  }
+  s.grid = persistent_blocks(p->kern, p->threads, p->smem, s.count);
+  if (s.grid <= 0) {
+    e = cudaGetLastError();
+    return e != cudaSuccess ? e : cudaErrorInvalidConfiguration;
+  }
+  // slot key + b for each (key, block that took items of it): unique, as
+  // both grow together
+  p->slots = N * (K / A) + s.grid - 1;
+  return cudaSuccess;
+}
+
+int dw_plan(int N, int H, int W, int C, int k, DwPlan* p) {
+  if (N < 1 || N > 65535 || H < 1 || W < 1 || C < 1)
+    return cudaErrorInvalidValue;
+  switch (k) {
+    case 3: return dw_plan_k<3>(N, H, W, C, p);
+    case 5: return dw_plan_k<5>(N, H, W, C, p);
+    case 7: return dw_plan_k<7>(N, H, W, C, p);
+    case 15: return dw_plan_k<15>(N, H, W, C, p);
+    case 21: return dw_plan_k<21>(N, H, W, C, p);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -593,8 +814,8 @@ extern "C" int vt_blur_dx(const void* g, const void* kernels, void* dxp,
 extern "C" long long vt_blur_dw_scratch_elems(int N, int H, int W, int C,
                                               int k) {
   DwPlan p;
-  if (!dw_plan(H, W, C, k, &p)) return 0;
-  return (long long)N * p.chunks_x * p.chunks_y * k * k;
+  if (dw_plan(N, H, W, C, k, &p) != cudaSuccess) return 0;
+  return (long long)p.slots * p.A * k;
 }
 
 // xp (N, H+k-1, W+k-1, C) f32, g (N, H, W, C) f32 -> dw (N, k, k) f32
@@ -602,25 +823,17 @@ extern "C" int vt_blur_dw(const void* xp, const void* g, void* scratch,
                           void* dw, int N, int H, int W, int C, int k,
                           void* stream) {
   DwPlan p;
-  if (N < 1 || N > 65535 || !dw_plan(H, W, C, k, &p))
-    return cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (p.smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        blur_dw_partial, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)p.smem);
-    if (e != cudaSuccess) return e;
-  }
-  dim3 grid(p.chunks_x, p.chunks_y, N);
-  blur_dw_partial<<<grid, p.threads, p.smem, s>>>(
+  int e = dw_plan(N, H, W, C, k, &p);
+  if (e != cudaSuccess) return e;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  p.kern<<<p.s.grid, p.threads, p.smem, st>>>(
       static_cast<const float*>(xp), static_cast<const float*>(g),
-      static_cast<float*>(scratch), H, W * C, H + k - 1, (W + k - 1) * C, C,
-      k, p.ng, p.LW);
-  cudaError_t e = cudaGetLastError();
+      static_cast<float*>(scratch), p.s);
+  e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   const int total = N * k * k;
-  blur_dw_reduce<<<(total + 255) / 256, 256, 0, s>>>(
-      static_cast<const float*>(scratch), static_cast<float*>(dw),
-      p.chunks_x * p.chunks_y, k * k, total);
+  blur_dw_reduce<<<(total + 255) / 256, 256, 0, st>>>(
+      static_cast<const float*>(scratch), static_cast<float*>(dw), p.s, k,
+      p.A);
   return cudaGetLastError();
 }

@@ -3,7 +3,7 @@
 // mma.sync, division by a multiply, and a persistent walk over output
 // tiles.  Shared by K1 (conv3x3_mid.cu), K3 and K8 in bf16
 // (dncnn_head.cu), K4 (tail_residual.cu), the SNet level kernels of K2
-// and fp32 K3 and K8 (snet_levels.cu) and the blur kernels K5, K6
+// and fp32 K3 and K8 (snet_levels.cu) and the blur kernels K5-K7
 // (blur.cu).
 //
 // Layout convention: a halo tile in shared memory is (TH+2) x (TW+2)

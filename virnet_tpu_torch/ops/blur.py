@@ -6,16 +6,16 @@ PyTorch version (counterpart of virnet_tpu/ops/pallas_blur.py).
   K7 ``blur_dw``    <- pallas_blur._blur_mxu_dw, _blur_pallas_dw
 
 Images are NHWC float32 and kernels (N, k, k) float32; the CUDA sources
-are in ``csrc/blur.cu``, which builds K5 and K6 for the k of
-``SUPPORTED_K`` (the configs' 21, the tests' 3, 5, 7, and 15) and any C
-(a block takes up to 8 channels); the plain versions take any k.
-``valid_blur`` is the op with a
+are in ``csrc/blur.cu``, which builds K5, K6 and K7 for the k of
+``SUPPORTED_K`` (the configs' 21, the tests' 3, 5, 7, and 15), any H and
+W and any C (a block takes a group of up to 8 channels), up to 65535
+samples; the plain versions take any k.  ``valid_blur`` is the op with a
 gradient: forward K5, backward K6 and K7.  The padding stays outside it,
 so autograd folds the halo back according to the pad mode (``pad_hw``).
 A wrapper given CPU tensors runs the plain version (the k*k shifted-slice
 loop in f32); given CUDA tensors it launches its kernel or raises.  K7 is
-deterministic (fixed summation order, no atomics), so the backward is
-bitwise reproducible.
+deterministic (a fixed summation order, no atomics), so the backward is
+bitwise reproducible on one card.
 """
 
 from __future__ import annotations
@@ -124,7 +124,8 @@ def blur_dx(g: torch.Tensor, kernels: torch.Tensor) -> torch.Tensor:
 
 def blur_dw(xp: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     """K7: the gradient of K5 with respect to the kernels (one launch of
-    the chunk kernel and one of the fixed-order chunk sum)."""
+    the tap-block kernel and one of the fixed-order sum of its partials);
+    ValueError for shapes it does not take."""
     if _on_cpu(xp, g):
         return blur_dw_plain(xp, g)
     n, h, w, c = g.shape
