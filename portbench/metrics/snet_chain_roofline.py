@@ -1,0 +1,7 @@
+"""snet_chain: the share of its roofline (core/roofline.py)."""
+
+from portbench.core.roofline import share
+
+
+def read(ctx):
+    return share(ctx, "snet_chain")
