@@ -7,6 +7,7 @@ Both sides get the same seeded numpy inputs and the same weights (a JAX
 parameter tree carried across by convert.from_jax_params, or a demo
 checkpoint of model_zoo/).  Each tolerance is stated where it is used."""
 
+import json
 import pickle
 import sys
 from pathlib import Path
@@ -629,11 +630,16 @@ def test_measure_time_schedule_and_profiling(tmp_path):
         jeta(100, 1e-4, 1e-6, 99)
     from virnet_tpu_torch.eval import profiling
 
+    with pytest.raises(TypeError):
+        profiling.trace()                   # log_dir has no default
     with profiling.trace(tmp_path / "tr") as prof:
-        with profiling.annotate("restore"):
+        with profiling.span("restore"):
             torch.ones(8, 8) @ torch.ones(8, 8)
     assert (tmp_path / "tr" / "trace.json").exists()
     assert any(e.key == "restore" for e in prof.key_averages())
+    spans = json.loads((tmp_path / "tr" / "spans.json").read_text())
+    assert [r["name"] for r in spans["records"]] == ["restore"]
+    assert spans["summary"]["restore"]["count"] == 1
 
 
 # ---------------------------------------------------------------------------

@@ -26,6 +26,7 @@ from ..ops.pad import pad_bottom_right
 from ..ops.qconv import run_lockstep
 from ..precision import (compute_dtype, im2col_convs, int8_convs,
                          resolve_device, set_parity_mode)
+from .profiling import span
 from .spatial import (replicas, restore_rows_sharded,
                       sr_restore_rows_sharded)
 from .tiling import bucket_size, forward_chop
@@ -130,20 +131,22 @@ class Restorer:
         repeat-padded to a multiple of its size and run one chunk per mesh
         device (in int8, in lockstep threads sharing the batch's
         scales)."""
-        x = torch.as_tensor(x, dtype=torch.float32).to(self.device)
-        if self.mesh is None:
-            mu = self._forward(x, self.device)
-        else:
-            n, size = x.shape[0], self.mesh.size
-            rem = (-n) % size
-            if rem:
-                x = torch.cat([x, x[-1:].expand(rem, *x.shape[1:])])
-            calls = [lambda c=c, dev=dev: self._forward(c, dev)
-                     for c, dev in zip(x.chunk(size), self.mesh.devices)]
-            chunks = (run_lockstep(calls) if self.int8
-                      else [call() for call in calls])
-            mu = torch.cat([c.to(self.device) for c in chunks])[:n]
-        return torch.clamp(mu.float(), 0.0, 1.0)
+        with span("engine.restore_batch"):
+            with span("engine.copy_in"):
+                x = torch.as_tensor(x, dtype=torch.float32).to(self.device)
+            if self.mesh is None:
+                mu = self._forward(x, self.device)
+            else:
+                n, size = x.shape[0], self.mesh.size
+                rem = (-n) % size
+                if rem:
+                    x = torch.cat([x, x[-1:].expand(rem, *x.shape[1:])])
+                calls = [lambda c=c, dev=dev: self._forward(c, dev)
+                         for c, dev in zip(x.chunk(size), self.mesh.devices)]
+                chunks = (run_lockstep(calls) if self.int8
+                          else [call() for call in calls])
+                mu = torch.cat([c.to(self.device) for c in chunks])[:n]
+            return torch.clamp(mu.float(), 0.0, 1.0)
 
     def _fp32_model(self, mesh):
         """(model, its replicas on ``mesh``) that row-sharded restores run:
@@ -209,6 +212,10 @@ class Restorer:
         """HWC float32 [0, 1] -> restored HWC.  Gray inputs are stacked to
         3 channels; images above ``CHOP_THRESHOLD`` pixels run through
         overlap-shave quadrant tiling."""
+        with span("engine.restore_image"):
+            return self._restore_image(im)
+
+    def _restore_image(self, im: np.ndarray) -> np.ndarray:
         squeeze_gray = im.ndim == 2
         if squeeze_gray:
             im = np.stack([im] * 3, axis=2)

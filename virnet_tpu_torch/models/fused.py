@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import torch
 
+from ..eval.profiling import span
 from ..ops import fused_conv as fc
 from .common import conv_hwio
 from .virnet import LOG_MAX, LOG_MIN, VIRNet
@@ -40,15 +41,17 @@ def denoise_forward_fused(model: VIRNet, x: torch.Tensor, mode: str = "halo",
     near slab edges (ops/fused_conv.dncnn_head_slabzero)."""
     if mode not in ("halo", "carry", "slabzero"):
         raise ValueError(f"mode must be halo|carry|slabzero, got {mode!r}")
-    p = model.SNet.kernel_params()
-    head_conv = model.RNet.head
-    xk = x.to(model.dtype).contiguous()
-    args = (xk, p["w1"], p["b1"], p["wms"], p["bms"], p["wl"], p["bl"],
-            conv_hwio(head_conv), head_conv.bias)
-    kw = dict(slope=model.SNet.slope, lmin=LOG_MIN, lmax=LOG_MAX)
-    if mode == "slabzero":
-        head, sigma = fc.dncnn_head_slabzero(
-            *args, rows=32 if rows is None else int(rows), **kw)
-    else:
-        head, sigma = fc.dncnn_head_fused(*args, **kw)
-    return model.restore_from_head(x, head), sigma
+    with span("model.snet"):
+        p = model.SNet.kernel_params()
+        head_conv = model.RNet.head
+        xk = x.to(model.dtype).contiguous()
+        args = (xk, p["w1"], p["b1"], p["wms"], p["bms"], p["wl"], p["bl"],
+                conv_hwio(head_conv), head_conv.bias)
+        kw = dict(slope=model.SNet.slope, lmin=LOG_MIN, lmax=LOG_MAX)
+        if mode == "slabzero":
+            head, sigma = fc.dncnn_head_slabzero(
+                *args, rows=32 if rows is None else int(rows), **kw)
+        else:
+            head, sigma = fc.dncnn_head_fused(*args, **kw)
+    with span("model.rnet"):
+        return model.restore_from_head(x, head), sigma

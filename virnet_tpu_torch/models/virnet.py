@@ -30,6 +30,7 @@ from typing import Sequence
 import torch
 import torch.nn as nn
 
+from ..eval.profiling import span
 from ..ops.fused_conv import exp_clip
 from .attresunet import AttResUNet
 from .dncnn import DnCNN
@@ -68,10 +69,12 @@ class VIRNet(nn.Module):
 
         if fused_head_supported(self, x.shape):
             return denoise_forward_fused(self, x)
-        logits = self.SNet(x)
-        sigma = exp_clip(logits, LOG_MIN, LOG_MAX).to(logits.dtype)
-        extra = torch.sqrt(sigma) if self.noise_cond else None
-        return self.RNet(x, extra), sigma
+        with span("model.snet"):
+            logits = self.SNet(x)
+            sigma = exp_clip(logits, LOG_MIN, LOG_MAX).to(logits.dtype)
+            extra = torch.sqrt(sigma) if self.noise_cond else None
+        with span("model.rnet"):
+            return self.RNet(x, extra), sigma
 
     def restore_from_head(self, x: torch.Tensor,
                           head_pre: torch.Tensor) -> torch.Tensor:

@@ -45,6 +45,7 @@ from ..data.device_data import DeviceDataset, patch_draws, sample_patches
 from ..data.prefetch import DevicePrefetcher
 from ..data.sisr_synth import (SISRBatch, sisr_batch_draws,
                                synthesize_sisr_batch)
+from ..eval.profiling import span
 from ..losses.elbo import elbo_sisr, sisr_elbo_draws
 from ..models.virnet import VIRNetSR
 from ..precision import resolve_device, train_step_mode
@@ -226,27 +227,33 @@ class SISRTrainer:
 
     def _loss_and_grads(self, data, epoch: int, noise: dict, local: bool):
         cfg = self.cfg
-        self.generator.manual_seed(step_seed(cfg.seed, epoch, self.step))
-        shape = self._hr_shape(data, local)
-        rows = self.mesh.rows(shape[0])
-        noise = map_rows(self._draws(data, noise, shape), rows)
-        batch = self._batch(data, noise, rows, local)
-        sigma_prior = (batch.nlevel ** 2).reshape(-1, 1, 1, 1)
+        with span("train.data"):
+            self.generator.manual_seed(step_seed(cfg.seed, epoch, self.step))
+            shape = self._hr_shape(data, local)
+            rows = self.mesh.rows(shape[0])
+            noise = map_rows(self._draws(data, noise, shape), rows)
+            batch = self._batch(data, noise, rows, local)
+            sigma_prior = (batch.nlevel ** 2).reshape(-1, 1, 1, 1)
         self.optim.zero_grad()
-        with torch.autocast(self.device.type, torch.bfloat16,
-                            enabled=cfg.mixed_precision):
+        with span("train.forward"), torch.autocast(
+                self.device.type, torch.bfloat16,
+                enabled=cfg.mixed_precision):
             mu, kinfo_est, sigma_est = self.model(batch.im_lr, cfg.sf)
-        loss, aux = elbo_sisr(
-            mu.float(), sigma_est.float(), kinfo_est.float(), batch.im_hr,
-            batch.im_lr, sigma_prior, self.alpha0, batch.kinfo, cfg.kappa0,
-            cfg.r2, cfg.eps2, cfg.sf, cfg.k_size, cfg.penalty_K,
-            cfg.kernel_shift, cfg.downsampler, noise=noise["elbo"])
-        loss.backward()
-        loss = loss.detach()
-        scalars = {k: v.detach() for k, v in aux.items() if k != "kernel"}
-        self.mesh.all_reduce_mean_(
-            [p.grad for p in self.optim.params if p.grad is not None]
-            + [loss, *scalars.values()])
+        with span("train.elbo"):
+            loss, aux = elbo_sisr(
+                mu.float(), sigma_est.float(), kinfo_est.float(),
+                batch.im_hr, batch.im_lr, sigma_prior, self.alpha0,
+                batch.kinfo, cfg.kappa0, cfg.r2, cfg.eps2, cfg.sf,
+                cfg.k_size, cfg.penalty_K, cfg.kernel_shift,
+                cfg.downsampler, noise=noise["elbo"])
+        with span("train.backward"):
+            loss.backward()
+            loss = loss.detach()
+            scalars = {k: v.detach() for k, v in aux.items()
+                       if k != "kernel"}
+            self.mesh.all_reduce_mean_(
+                [p.grad for p in self.optim.params if p.grad is not None]
+                + [loss, *scalars.values()])
         return loss, scalars
 
     def run_step(self, im_hr_batch, epoch: int,
@@ -257,9 +264,10 @@ class SISRTrainer:
         with ``local``).  Returns the loss, the ELBO's terms and the
         pre-clip gradient norms as 0-d tensors on the device (no host
         synchronisation)."""
-        loss, aux = self.loss_and_grads(im_hr_batch, epoch, noise, local)
-        norms = self.optim.step()
-        self.step += 1
+        with span("train.step"):
+            loss, aux = self.loss_and_grads(im_hr_batch, epoch, noise, local)
+            norms = self.optim.step()
+            self.step += 1
         aux.update(loss=loss, gnorm_r=norms["rnet"], gnorm_s=norms["snet"],
                    gnorm_k=norms["knet"])
         return aux

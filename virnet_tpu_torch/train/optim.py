@@ -23,6 +23,8 @@ from typing import Callable, Dict, Optional
 import torch
 import torch.nn as nn
 
+from ..eval.profiling import span
+
 
 def warmup_cosine_epoch_schedule(base_lr: float, lr_min: float, epochs: int,
                                  warmup_epochs: int,
@@ -94,14 +96,15 @@ class SubnetAdam:
 
     def step(self) -> Dict[str, torch.Tensor]:
         """Clip, update, count.  Returns the pre-clip norm per subnet."""
-        norms = subnet_grad_norms(self.subnets)
-        clip_by_subnet_norm(self.subnets, self.clip_map, norms)
-        lr = self.schedule(self.count)
-        for group in self.adam.param_groups:
-            group["lr"] = lr
-        self.adam.step()
-        self.count += 1
-        return norms
+        with span("optim.step"):
+            norms = subnet_grad_norms(self.subnets)
+            clip_by_subnet_norm(self.subnets, self.clip_map, norms)
+            lr = self.schedule(self.count)
+            for group in self.adam.param_groups:
+                group["lr"] = lr
+            self.adam.step()
+            self.count += 1
+            return norms
 
     def state_dict(self) -> dict:
         return dict(adam=self.adam.state_dict(), count=self.count)
