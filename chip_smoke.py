@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of the virnet_tpu_torch port on one NVIDIA GPU (H100).
 
-    python3 chip_smoke.py [--phases build,kernels,blur,serve,profile,
+    python3 chip_smoke.py [--phases build,kernels,resblock,blur,serve,
+                           profile,
                            serve_odd,
                            ops,real,fp32,psnr,probe,sisr_fwd,serve_sisr,
                            train_fp32,
@@ -27,6 +28,17 @@ Phases (all by default; any failure raises and the exit code is not 0):
              its rows far from slab edges also against K3's output one row
              up (the largest difference printed), timed at 8, 16, 32 and
              beside its library route on the shifted slab view
+  resblock   (also run by kernels) K11, RNet's body conv with the block's
+             passes inside, against its plain version in both modes on a
+             block of default-init weights at the flagship batch's three
+             scales (32x256^2x96, 32x128^2x192, 32x64^2x288) and the real
+             preset's 160 and 224 (4x128^2, 4x64^2); the block (two K11
+             launches) against the same weights on today's route (cuDNN
+             and PyTorch's bias, LeakyReLU and residual passes); each
+             launch and each block timed cold beside its bound, its plain
+             version and the library route (cuDNN's conv with its bias
+             pass for a launch; the whole block for a block); fails where
+             a flagship scale's block is not faster than today's
   blur       builds csrc/blur.cu alone (without the phase build; ptxas's
              registers and spills of each K7 build printed) and holds the
              blur kernels (K5 forward, K6 dX, K7 dW) against their plain
@@ -40,7 +52,7 @@ Phases (all by default; any failure raises and the exit code is not 0):
              function of DIR's csrc/blur.cu (a checkout of another tree,
              built beside this one) in turns: parent, this, this, parent
   serve      Restorer('denoising-syn', bf16) on the flagship 32x256^2 batch
-             (K3 + K4), MP/s
+             (exactly K3, 30 K11 and K4), MP/s
   profile    torch.profiler device-time breakdown of that forward by kernel
              group, and the device's idle share
   serve_odd  restore_image at 321x481, a shape that fails the fused-head
@@ -255,7 +267,8 @@ import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent
-ALL_PHASES = ("build", "kernels", "blur", "serve", "profile", "serve_odd",
+ALL_PHASES = ("build", "kernels", "resblock", "blur", "serve", "profile",
+              "serve_odd",
               "ops", "real", "fp32", "psnr", "probe", "sisr_fwd", "serve_sisr",
               "train_fp32",
               "train_sisr", "train_pipeline", "train_denoise_fp32",
@@ -329,6 +342,11 @@ KERNELS = {
         replaces="not a Pallas kernel: virnet_tpu/ops/qconv.py:38 "
                  "(quantize_symmetric's absmax over (N, H, W), an XLA "
                  "reduction)"),
+    "resblock_conv": dict(
+        path="serve", source="virnet_tpu_torch/csrc/resblock_conv.cu",
+        replaces="not a Pallas kernel: RNet's body convolutions "
+                 "(virnet_tpu/models/common.py:conv), into which XLA fuses "
+                 "the bias, LeakyReLU and residual passes"),
 }
 # the measurement a kernel's row of the last-but-two line is taken from:
 # (results key, tag)
@@ -339,6 +357,8 @@ ROW_TAG["dncnn_head_fused_fp32"] = ("dncnn_head_fused", "syn fp32")
 # batch, the shape that most of their launches take
 ROW_TAG["conv_w8a8"] = ("conv_w8a8", "syn 32x256x256x96 k3 96")
 ROW_TAG["absmax_nhwc"] = ("absmax_nhwc", "syn 32x256x256x96")
+# K11's row: a whole block (two launches) at the flagship batch's scale 0
+ROW_TAG["resblock_conv"] = ("resblock_conv", "syn 32x256x256x96 block")
 
 
 def log(msg: str) -> None:
@@ -745,6 +765,166 @@ def check_kernels(sd, label, batch, mod, peaks, results):
               npx * (96 * esz + 3 * 4 + 3 * 4) + (wt.numel() + 3) * esz, 10,
               cold=True)
 
+
+
+# K11's shapes: RNet's body convs at the flagship batch's three scales and
+# the real preset's 160 and 224 wide (the `real` phase's batch of 4)
+RESBLOCK_SHAPES = (("syn", 32, 256, 96), ("syn", 32, 128, 192),
+                   ("syn", 32, 64, 288), ("real", 4, 128, 160),
+                   ("real", 4, 64, 224))
+
+
+@contextlib.contextmanager
+def plain_on_card():
+    """The plain versions' float32 convolutions on the card in full
+    float32 (TF32 off) and off cuDNN, whose heuristics pick FFT for RNet's
+    shapes with TF32 off (precision.py): PyTorch's im2col route."""
+    from virnet_tpu_torch.precision import parity_mode
+
+    with parity_mode(), torch.backends.cudnn.flags(enabled=False):
+        yield
+
+
+def phase_resblock(report, peaks):
+    """K11 at RNet's body widths: each mode against its plain version, the
+    block (two launches) against the same weights on today's route (cuDNN
+    and PyTorch's passes), and the times of each launch and each block,
+    cold, beside their bounds.  Fails where a flagship scale's block is
+    not faster than today's."""
+    import torch.nn.functional as F
+
+    from virnet_tpu_torch.models.attresunet import AttResBlock
+    from virnet_tpu_torch.models.common import hwio, to_nchw
+    from virnet_tpu_torch.ops import fused_conv as fc
+    from virnet_tpu_torch.ops import resblock
+
+    results = report.setdefault("kernels", {}).setdefault("resblock_conv",
+                                                          {})
+    bf = torch.bfloat16
+    for label, n, size, nf in RESBLOCK_SHAPES:
+        shape = f"{label} {n}x{size}x{size}x{nf}"
+        log(f"[resblock] K11 at {shape} (plan {resblock.plan(nf, nf)})")
+        torch.manual_seed(nf)
+        blk = AttResBlock(nf).to("cuda", bf).eval()
+        blk.kernels = True
+        x = torch.randn(n, size, size, nf, device="cuda").to(bf)
+        xc = to_nchw(x)
+        c1, c2 = blk.conv1, blk.conv2
+        w1, w2 = hwio(c1.weight), hwio(c2.weight)
+        w1k, w2k = resblock.kernel_weights(w1), resblock.kernel_weights(w2)
+        npx = n * size * size
+        wbytes = (w1.numel() + nf) * 2
+        with torch.inference_mode():
+            fc.reset_launches()
+            f = resblock.resblock_conv(x, w1k, c1.bias, "first")
+            out = resblock.resblock_conv(f, w2k, c2.bias, "second",
+                                         residual=x)
+            torch.cuda.synchronize()
+            if fc.LAUNCHES["resblock_conv"] != 2:
+                raise AssertionError("resblock: a block is not two K11 "
+                                     "launches")
+            with plain_on_card():
+                f_ref = resblock.resblock_conv_plain(x, w1, c1.bias, "first")
+                o_ref = resblock.resblock_conv_plain(f, w2, c2.bias,
+                                                     "second", residual=x)
+            errs = dict(
+                first=check_close(f"resblock_conv {shape} first", f, f_ref,
+                                  bf),
+                second=check_close(f"resblock_conv {shape} second", out,
+                                   o_ref, bf))
+            del f_ref, o_ref
+            if not blk.takes_kernel(xc, None) or not torch.equal(
+                    blk(xc, None), to_nchw(out)):
+                raise AssertionError("resblock: the block's route is not "
+                                     "its two K11 launches")
+            blk.kernels = False
+            today = blk(xc, None)
+            errs["block_vs_today"] = check_close(
+                f"resblock block {shape} vs today's route", to_nchw(out),
+                today, bf)
+            del today
+
+            def today_fn():
+                return blk(xc, None)
+
+            def k11_block():
+                return blk.forward_kernel(xc)
+
+            def plain_block():
+                with plain_on_card():
+                    g = resblock.resblock_conv_plain(x, w1, c1.bias, "first")
+                    return resblock.resblock_conv_plain(
+                        g, w2, c2.bias, "second", residual=x)
+
+            flops = 2 * 9 * nf * nf * npx
+            rows = {}
+            for mode, args, fn_lib, extra in (
+                    ("first", (x, w1k, c1.bias, "first"),
+                     lambda: F.leaky_relu(F.conv2d(
+                         F.leaky_relu(xc, 0.2), c1.weight, c1.bias,
+                         padding=1), 0.2), 0),
+                    ("second", (f, w2k, c2.bias, "second", x),
+                     lambda: F.conv2d(to_nchw(f), c2.weight, c2.bias,
+                                      padding=1) + xc, 1)):
+                nbytes = npx * nf * 2 * (2 + extra) + wbytes
+                b_ms, b_by = bound_ms(flops, nbytes, peaks["bf16"], peaks)
+                ms = time_cold_ms(lambda a=args: resblock.resblock_conv(*a), 5)
+                lib_ms = time_cold_ms(fn_lib, 5)
+                check_bound(f"resblock_conv {shape} {mode}", "the kernel", ms,
+                            b_ms)
+                rows[mode] = dict(
+                    max_abs_err=errs[mode], ms=ms, bound_ms=b_ms,
+                    bound_by=b_by, library_ms=lib_ms, flops=flops,
+                    bytes=nbytes, timing="cold L2", warm_ms=time_ms(
+                        lambda a=args: resblock.resblock_conv(*a), 5),
+                    library="cuDNN's conv with PyTorch's own passes of this "
+                            "launch's function")
+                log(f"  {mode}: kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} "
+                    f"TFLOP/s), library {lib_ms:.4f} ms, bound {b_ms:.4f} ms "
+                    f"({b_by}), warm {rows[mode]['warm_ms']:.4f} ms")
+            k_ms = time_cold_ms(k11_block, 5)
+            lib_ms = time_cold_ms(today_fn, 5)
+            plain_ms = time_cold_ms(plain_block, 2)
+            b_ms = rows["first"]["bound_ms"] + rows["second"]["bound_ms"]
+            rows["block"] = dict(
+                max_abs_err=errs["block_vs_today"], ms=k_ms, bound_ms=b_ms,
+                bound_by="operations", library_ms=lib_ms, plain_ms=plain_ms,
+                timing="cold L2", warm_ms=time_ms(k11_block, 5),
+                library_warm_ms=time_ms(today_fn, 5),
+                library="today's block: cuDNN's two convs and PyTorch's "
+                        "bias, LeakyReLU and residual passes")
+            for mode in ("first", "second"):
+                rows[mode]["plain_ms"] = plain_ms / 2
+            log(f"  block: K11 x2 {k_ms:.4f} ms against today's route "
+                f"{lib_ms:.4f} ms ({lib_ms / k_ms:.2f}x), bound {b_ms:.4f} "
+                f"ms ({100 * b_ms / k_ms:.1f}% of it), plain {plain_ms:.4f} "
+                f"ms; warm {rows['block']['warm_ms']:.4f} against "
+                f"{rows['block']['library_warm_ms']:.4f} ms")
+            for key, row in rows.items():
+                results[f"{shape} {key}"] = row
+            if label == "syn" and k_ms >= lib_ms:
+                raise AssertionError(
+                    f"resblock: K11's block at {shape} ({k_ms:.4f} ms) is "
+                    f"not faster than today's route ({lib_ms:.4f} ms)")
+        del blk, x, xc, f, out
+    # the wrapper's host cost a call: back-to-back launches on a tiny input,
+    # where the card waits on the host
+    x = torch.randn(1, 8, 8, 96, device="cuda").to(bf)
+    wk = resblock.kernel_weights(torch.randn(3, 3, 96, 96, device="cuda").to(
+        bf))
+    b = torch.zeros(96, device="cuda", dtype=bf)
+    with torch.inference_mode():
+        for _ in range(20):
+            resblock.resblock_conv(x, wk, b, "second", residual=x)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(500):
+            resblock.resblock_conv(x, wk, b, "second", residual=x)
+        host_us = (time.perf_counter() - t0) / 500 * 1e6
+        torch.cuda.synchronize()
+    results["host_us_per_call"] = host_us
+    log(f"  host cost of one K11 call (1x8x8x96, back to back): "
+        f"{host_us:.1f} us")
 
 
 def library_route(p, L, kw, slope=0.25):
@@ -1223,6 +1403,7 @@ GROUPS = (("K3/K8 bf16 dncnn_head.cu", ("dncnn_head_",)),
            ("snet_conv1", "snet_last")),
           ("K4 tail_residual.cu", ("tail_kernel",)),
           ("K1 conv3x3_mid.cu", ("conv3x3_mid_",)),
+          ("K11 resblock_conv.cu", ("resblock_conv_",)),
           ("library convolutions", ("conv", "cudnn", "xmma", "gemm",
                                     "cutlass", "implicit")))
 TRAIN_GROUPS = (
@@ -1287,6 +1468,15 @@ def run_path(name, fn, expect):
     if missing:
         raise AssertionError(f"{name}: kernels {missing} never launched")
     return out, counts
+
+
+def check_launches(name, counts, want):
+    """Fail unless the launches ``counts`` are exactly ``want`` (kernels not
+    named there: none)."""
+    extra = {k: n for k, n in counts.items() if n != want.get(k, 0)}
+    if extra:
+        raise AssertionError(f"{name}: launched {extra}, expected exactly "
+                             f"{want}")
 
 
 def check_image(name, out, shape):
@@ -1359,10 +1549,10 @@ def phase_probe(report, launches):
     log(f"[probe] cli.bench_fused_head.run {variants}, 32x256x256 bf16")
     res = bench_fused_head.run(variants, batch=32, size=256, reps=3, chain=4,
                                log=lambda m: log("  " + m))
-    want = {"unfused": {},
-            "halo": {"dncnn_head_fused": 1, "conv3x3_tail_residual": 1}}
+    want = {"unfused": {}, "halo": dict(SERVE_PATH)}
     for v in variants[2:]:
-        want[v] = {"dncnn_head_slabzero": 1, "conv3x3_tail_residual": 1}
+        want[v] = {"dncnn_head_slabzero": 1, "conv3x3_tail_residual": 1,
+                   "resblock_conv": SERVE_PATH["resblock_conv"]}
     for v, counts in want.items():
         if res[v]["launches"] != counts:
             raise AssertionError(f"probe: one apply of {v} launched "
@@ -1412,6 +1602,8 @@ def phase_sisr_fwd(report):
 
 
 SISR_PATH = {"dncnn_fused": 1, "conv3x3_mid": 3, "conv3x3_tail_residual": 1}
+# bf16 adds K11 twice for each of RNet's 4 unconditioned up-path blocks
+SISR_BF16_PATH = dict(SISR_PATH, resblock_conv=8)
 
 
 @contextlib.contextmanager
@@ -1508,7 +1700,8 @@ def check_k2_calls(key, snet, tail):
 def phase_serve_sisr(report, launches, lr_hw=(125, 171), sf=4):
     """SISR serving through Restorer at full width (the x4 demo weights):
     one odd-size LR image, fp32 on the card against the CPU, the launches
-    of one image in each compute (exactly SISR_PATH), the path's kernels
+    of one image in each compute (exactly SISR_PATH, in bf16 with K11 on
+    the up path: SISR_BF16_PATH), the path's kernels
     against their plain versions on its own arguments, and ms per image
     by cli/bench_restore's timer."""
     from virnet_tpu_torch.cli.bench_restore import time_image
@@ -1523,14 +1716,11 @@ def phase_serve_sisr(report, launches, lr_hw=(125, 171), sf=4):
     for compute in ("fp32", "bf16"):
         sr = Restorer("sisr", ckpt_path=SISR_CKPT, sf=sf, compute=compute)
         key = "serve_sisr" if compute == "fp32" else "serve_sisr_bf16"
+        path = SISR_PATH if compute == "fp32" else SISR_BF16_PATH
         out, launches[key] = run_path(key, lambda: sr.restore_image(lr),
-                                      tuple(SISR_PATH))
+                                      tuple(path))
         check_image(key, out, out_hw)
-        extra = {k: n for k, n in launches[key].items()
-                 if n != SISR_PATH.get(k, 0)}
-        if extra:
-            raise AssertionError(f"{key}: one image launched {extra}, "
-                                 f"expected exactly {SISR_PATH}")
+        check_launches(key, launches[key], path)
         res[f"{compute}_kernels_max_abs_err"] = check_path_kernels(key, sr,
                                                                    lr)
         if compute == "fp32":
@@ -2163,10 +2353,17 @@ def phase_train_pipeline(report, launches, steps=30):
     report["train_pipeline"] = res
 
 
-SIDD_BF16_PATH = {"dncnn_head_fused": 1, "conv3x3_tail_residual": 1}
+# the bf16 paths take K11 twice for each unconditioned RNet block: 15
+# blocks of denoising-syn, 21 of denoising-real, SISR's 4 up-path blocks
+SERVE_PATH = {"dncnn_head_fused": 1, "conv3x3_tail_residual": 1,
+              "resblock_conv": 30}
+SIDD_BF16_PATH = {"dncnn_head_fused": 1, "conv3x3_tail_residual": 1,
+                  "resblock_conv": 42}
 SIDD_FP32_PATH = {"dncnn_head_fused": 1, "conv3x3_mid": 6,
                   "conv3x3_tail_residual": 1}
 K2_PATH = {"dncnn_fused": 1, "conv3x3_mid": 3, "conv3x3_tail_residual": 1}
+K2_BF16_PATH = {"syn": dict(K2_PATH, resblock_conv=30),
+                "sisr": dict(K2_PATH, resblock_conv=8)}
 
 
 @contextlib.contextmanager
@@ -2591,7 +2788,8 @@ def phase_eval_tables(report, launches, sidd=(40, 32, 256), fp32_blocks=64,
                 tab, n = harness_path(
                     key, launches, lambda: denoise_synthetic_table(
                         syn, {"CBSD68 shapes": cbsd}, "niid",
-                        log_fn=lambda m: log("  " + m)), K2_PATH)
+                        log_fn=lambda m: log("  " + m)),
+                    K2_PATH if compute == "fp32" else K2_BF16_PATH["syn"])
             wall = time.perf_counter() - t0
             cases = tab["CBSD68 shapes"]
             res["table12"][compute] = dict(
@@ -2627,7 +2825,9 @@ def phase_eval_tables(report, launches, sidd=(40, 32, 256), fp32_blocks=64,
                     tab, n = harness_path(
                         key, launches, lambda: sisr_synthetic_table(
                             sr, {hr_key: hr}, 4, use_lpips=True,
-                            log_fn=lambda m: log("  " + m)), K2_PATH)
+                            log_fn=lambda m: log("  " + m)),
+                        K2_PATH if compute == "fp32"
+                        else K2_BF16_PATH["sisr"])
                 wall = time.perf_counter() - t0
                 ks = tab[hr_key]["per_kernel"]
                 res["table5"][compute] = dict(
@@ -2835,14 +3035,10 @@ def runtime_dp_restore(res, launches):
                       mesh=Mesh(["cuda:0"] * 2))
     want = plain.restore_batch(x)
     got, counts = run_path("runtime_dp_restore",
-                           lambda: meshed.restore_batch(x),
-                           ("dncnn_head_fused", "conv3x3_tail_residual"))
+                           lambda: meshed.restore_batch(x), tuple(SERVE_PATH))
     launches["runtime_dp_restore"] = counts
-    per_chunk = {"dncnn_head_fused": 2, "conv3x3_tail_residual": 2}
-    extra = {k: n for k, n in counts.items() if n != per_chunk.get(k, 0)}
-    if extra:
-        raise AssertionError(f"runtime_dp_restore: launched {extra}, "
-                             f"expected K3 + K4 once per chunk {per_chunk}")
+    check_launches("runtime_dp_restore (the serve path once per chunk)",
+                   counts, {k: 2 * n for k, n in SERVE_PATH.items()})
     err = check_close("runtime_dp_restore mesh vs no mesh, all 33 images",
                       got, want, torch.bfloat16)
     head, tail = [], []
@@ -4115,6 +4311,9 @@ def main(argv=None) -> int:
     if "kernels" in phases:
         phase_kernels(report, peaks)
 
+    if "kernels" in phases or "resblock" in phases:
+        phase_resblock(report, peaks)
+
     if "blur" in phases:
         phase_blur(report, peaks, args.parent)
 
@@ -4130,8 +4329,8 @@ def main(argv=None) -> int:
         x = torch.as_tensor(rng.random((32, 256, 256, 3), dtype=np.float32),
                             device="cuda")
         out, launches["serve"] = run_path(
-            "serve", lambda: syn.restore_batch(x),
-            ("dncnn_head_fused", "conv3x3_tail_residual"))
+            "serve", lambda: syn.restore_batch(x), tuple(SERVE_PATH))
+        check_launches("serve", launches["serve"], SERVE_PATH)
         check_image("serve", out.cpu(), (32, 256, 256, 3))
         t0 = time.perf_counter()
         for _ in range(3):
@@ -4219,8 +4418,8 @@ def main(argv=None) -> int:
         x = torch.as_tensor(rng.random((4, 256, 256, 3), dtype=np.float32),
                             device="cuda")
         out, launches["real"] = run_path(
-            "real", lambda: real.restore_batch(x),
-            ("dncnn_head_fused", "conv3x3_tail_residual"))
+            "real", lambda: real.restore_batch(x), tuple(SIDD_BF16_PATH))
+        check_launches("real", launches["real"], SIDD_BF16_PATH)
         check_image("real", out.cpu(), (4, 256, 256, 3))
         del real
 

@@ -725,3 +725,104 @@ def test_conv_w8a8_plan_splits_without_padding():
                 assert p["splits"] == 1
     p = qconv.conv_q8_plan(3, 224, 224)
     assert (p["co_blk"], p["splits"], p["tail"]) == (64, 4, 32)
+
+
+# K11 (ops/resblock.py): RNet's body convs at the flagship batch's three
+# scales (32 x 256^2 x 96, 32 x 128^2 x 192, 32 x 64^2 x 288), the real
+# preset's 160 and 224 wide, and odd sizes around the 32 x 8 tile
+@pytest.mark.parametrize("mode", ["first", "second"])
+@pytest.mark.parametrize("nf,shape", [
+    (96, (32, 256, 256)), (192, (32, 128, 128)), (288, (32, 64, 64)),
+    (160, (4, 128, 128)), (224, (4, 64, 64)), (96, (1, 37, 45)),
+    (288, (2, 9, 13)), (160, (1, 1, 1)), (224, (3, 33, 7))])
+def test_resblock_conv_kernel_matches_plain_on_card(nf, shape, mode):
+    """K11 against its plain version on the card (TF32 off), one launch a
+    call: both sum the same products in float32 and round once, so they
+    differ by the summation order alone (4 bf16 ulps of the scale)."""
+    _need_card()
+    from virnet_tpu_torch.ops import resblock
+    from virnet_tpu_torch.precision import set_parity_mode
+
+    set_parity_mode()
+    rng = np.random.default_rng(nf + sum(shape))
+    bound = 1 / np.sqrt(9 * nf)    # the models' init
+    dev, bf = "cuda", torch.bfloat16
+    x = _t(_rand(rng, (*shape, nf))).to(dev, bf)
+    w = _t(rng.uniform(-bound, bound, (3, 3, nf, nf)).astype(
+        np.float32)).to(dev, bf)
+    b = _t(rng.uniform(-bound, bound, nf).astype(np.float32)).to(dev, bf)
+    res = _t(_rand(rng, (*shape, nf))).to(dev, bf)
+    wk = resblock.kernel_weights(w)
+    fc.reset_launches()
+    got = resblock.resblock_conv(x, wk, b, mode, residual=res)
+    torch.cuda.synchronize()
+    assert fc.LAUNCHES["resblock_conv"] == 1
+    assert got.dtype == bf and got.shape == (*shape, nf)
+    # the plain version off cuDNN, whose heuristics pick FFT for these
+    # shapes in float32 with TF32 off (precision.py)
+    with torch.backends.cudnn.flags(enabled=False):
+        want = resblock.resblock_conv_plain(x, w, b, mode, residual=res)
+    _close(got, want, bf)
+    d = (got.float() - want.float()).abs()
+    assert float(d.mean()) < 1e-3 * float(want.float().abs().mean())
+
+
+def test_resblock_conv_kernel_raises_on_what_it_does_not_take():
+    """fp32 activations, widths K11 does not take, weights not in its
+    layout, a missing residual, a non-contiguous or misaligned input:
+    raised before any launch."""
+    _need_card()
+    from virnet_tpu_torch.ops import resblock
+
+    rng = np.random.default_rng(31)
+    dev, bf = "cuda", torch.bfloat16
+    x = _t(_rand(rng, (1, 8, 8, 32))).to(dev, bf)
+    w = _t(_rand(rng, (3, 3, 32, 32), 0.05)).to(dev, bf)
+    b = torch.zeros(32, device=dev, dtype=bf)
+    wk = resblock.kernel_weights(w)
+    fc.reset_launches()
+    with pytest.raises(TypeError):
+        resblock.resblock_conv(x.float(), wk, b, "first")
+    with pytest.raises(ValueError, match="multiples of 16"):
+        resblock.resblock_conv(x[..., :24].contiguous(), wk, b, "first")
+    with pytest.raises(ValueError, match="shape"):
+        resblock.resblock_conv(x, w, b, "first")
+    with pytest.raises(ValueError, match="residual"):
+        resblock.resblock_conv(x, wk, b, "second")
+    with pytest.raises(ValueError, match="contiguous"):
+        resblock.resblock_conv(x.transpose(1, 2), wk, b, "first")
+    flat = torch.empty(x.numel() + 4, device=dev, dtype=bf)
+    with pytest.raises(ValueError, match="aligned"):
+        resblock.resblock_conv(flat[4:].view(x.shape), wk, b, "first")
+    assert fc.LAUNCHES["resblock_conv"] == 0
+
+
+def test_bf16_restore_batch_runs_every_body_block_on_k11():
+    """Restorer('denoising-syn', bf16) on a 2 x 256^2 batch: K3, 30 K11
+    (15 blocks) and K4, 32 launches of ours and nothing else; the output
+    agrees with the same weights on today's library route (every block's
+    kernels off) within 4 bf16 ulps of the image scale."""
+    _need_card()
+    from pathlib import Path
+
+    from virnet_tpu_torch.eval.engine import Restorer
+    from virnet_tpu_torch.models.attresunet import AttResBlock
+
+    ckpt = Path(__file__).resolve().parents[1] / "model_zoo" / \
+        "virnet_denoising_syn_demo.pth"
+    r = Restorer("denoising-syn", ckpt_path=ckpt, compute="bf16")
+    x = torch.from_numpy(np.random.default_rng(32).random(
+        (2, 256, 256, 3), dtype=np.float32)).cuda()
+    fc.reset_launches()
+    got = r.restore_batch(x)
+    torch.cuda.synchronize()
+    counts = {k: n for k, n in fc.LAUNCHES.items() if n}
+    assert counts == {"dncnn_head_fused": 1, "conv3x3_tail_residual": 1,
+                      "resblock_conv": 30}
+    blocks = [m for m in r.model.modules() if isinstance(m, AttResBlock)]
+    for m in blocks:
+        m.kernels = False
+    fc.reset_launches()
+    want = r.restore_batch(x)
+    assert fc.LAUNCHES["resblock_conv"] == 0
+    _close(torch.as_tensor(got), torch.as_tensor(want), torch.bfloat16)

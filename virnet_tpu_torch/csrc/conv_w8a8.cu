@@ -64,6 +64,7 @@
 #include <limits.h>
 
 #include "common.cuh"
+#include "hopper.cuh"
 #include "tile_async.cuh"
 
 namespace {
@@ -214,68 +215,6 @@ template <> struct Wgmma<96> {
         : "l"(a), "l"(b), "r"(scale_d));
   }
 };
-
-// the shared-memory matrix descriptor of a K-major operand without
-// swizzle: 8-row core matrices of 16-byte rows; `lbo` bytes between the
-// two 16-byte halves of a 32-byte K step, `sbo` between 8-row blocks
-__device__ __forceinline__ uint64_t mat_desc(const void* p, int lbo,
-                                             int sbo) {
-  return (uint64_t)((smem_addr(p) & 0x3FFFF) >> 4) |
-         ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
-         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-// wait until at most P of this warpgroup's committed batches run
-template <int P> __device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(P) : "memory");
-}
-// writes of the generic proxy (st.shared, cp.async) seen by wgmma
-__device__ __forceinline__ void fence_async_smem() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-// keep the compiler from moving accesses of r across an async wgmma
-__device__ __forceinline__ void pin(int& r) {
-  asm volatile("" : "+r"(r)::"memory");
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(
-                   smem_addr(bar)));
-}
-// one arrival that also expects `bytes` of the tensor copy
-__device__ __forceinline__ void mbar_expect(uint64_t* bar, int bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-          smem_addr(bar)),
-      "r"(bytes)
-      : "memory");
-}
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
-  asm volatile(
-      "{\n.reg .pred done;\nwait:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
-      "@!done bra wait;\n}\n" ::"r"(smem_addr(bar)),
-      "r"(parity)
-      : "memory");
-}
-// the box (32 channels, HW, HH, 1) at (c, x, y, n) of NHWC x by the
-// tensor copy engine, zeros outside the tensor
-__device__ __forceinline__ void tma_box(void* dst, const CUtensorMap* map,
-                                        int c, int x, int y, int n,
-                                        uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.tile.mbarrier::"
-      "complete_tx::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(
-          smem_addr(dst)),
-      "l"(map), "r"(c), "r"(x), "r"(y), "r"(n), "r"(smem_addr(bar))
-      : "memory");
-}
 
 // eight consecutive floats from shared memory
 __device__ __forceinline__ void load8(const float* p, float v[8]) {
@@ -632,34 +571,6 @@ int plan(int Ci, int Co, int& width, int& tail, int& splits, size_t& smem) {
   return best >= 0;
 }
 
-// cuTensorMapEncodeTiled, looked up at run time (no link against libcuda)
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType,
-                                cuuint32_t, void*, const cuuint64_t*,
-                                const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave,
-                                CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                         cudaEnableDefault, &q) ==
-            cudaSuccess &&
-        q == cudaDriverEntryPointSuccess)
-#else
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                cudaEnableDefault, &q) == cudaSuccess &&
-        q == cudaDriverEntryPointSuccess)
-#endif
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
 template <int KS, int N, int NT, typename Tout>
 int launch_n(const void* x, const void* sx, const void* w, const void* sw,
              const void* bias, void* y, int Nb, int H, int W, int Ci, int Co,
@@ -680,21 +591,8 @@ int launch_n(const void* x, const void* sx, const void* w, const void* sw,
   CUtensorMap map{};
   int tma = 0;
   if (Ci % 8 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0) {
-    EncodeTiled encode = encode_tiled();
-    if (encode == nullptr) return cudaErrorNotSupported;
-    const cuuint64_t dims[4] = {(cuuint64_t)Ci, (cuuint64_t)W,
-                                (cuuint64_t)H, (cuuint64_t)Nb};
-    const cuuint64_t strides[3] = {(cuuint64_t)Ci * 2,
-                                   (cuuint64_t)W * Ci * 2,
-                                   (cuuint64_t)H * W * Ci * 2};
-    const cuuint32_t box[4] = {KC, G::HW, G::HH, 1};
-    const cuuint32_t unit[4] = {1, 1, 1, 1};
-    if (encode(&map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
-               const_cast<void*>(x), dims, strides, box, unit,
-               CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
-               CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-               CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
-      return cudaErrorInvalidValue;
+    const int bad = nhwc_bf16_map(&map, x, Nb, H, W, Ci, KC, G::HW, G::HH);
+    if (bad != 0) return bad;
     tma = 1;
   }
   const bool vec_out = (Co * sizeof(Tout)) % 16 == 0 &&

@@ -9,7 +9,12 @@ AttResBlocks and a stride-2 conv per scale; the up path a 2x2-stride-2
 ConvTranspose, an additive skip and unconditioned AttResBlocks.  The tail
 conv and the residual run as one K4 launch on the card (``tail_impl=
 'fused'``, forward-only) or through ``F.conv2d`` with autograd
-(``tail_impl='torch'``, the training route).  ``remat`` recomputes each
+(``tail_impl='torch'``, the training route).  A model built with
+``tail_impl='fused'`` runs each unconditioned AttResBlock on a CUDA bf16
+input as two K11 launches (ops/resblock.py: the bias, both LeakyReLUs and
+the residual inside the convolutions) where autograd does not record and
+neither the im2col nor the int8 mode is on; every other block, compute
+and build keeps the library route.  ``remat`` recomputes each
 AttResBlock in the backward instead of keeping its activations
 (``torch.utils.checkpoint``, non-reentrant; the values and the gradients
 are the same bits), an AttResBlock's ``remat_gates`` its SFT gates; both
@@ -37,11 +42,13 @@ import torch.nn as nn
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from ..ops import resblock
 from ..ops.fused_conv import conv3x3_tail_residual
 from ..ops.pad import pad_to_multiple
 from ..ops.upsample import conv_transpose_2x2
-from .common import (conv, conv_hwio, lrelu, make_conv, to_nchw, to_nhwc,
-                     torch_default_init_)
+from ..precision import im2col_on, int8_dtype
+from .common import (conv, conv_hwio, hwio, kernel_layout, lrelu, make_conv,
+                     to_nchw, to_nhwc, torch_default_init_)
 
 MODES = ("null", "input", "down", "both")
 
@@ -72,8 +79,22 @@ class AttLayer(nn.Module):
                 conv(self.add_conv, f))
 
 
+def _on_card(x: torch.Tensor) -> bool:
+    """The kernel route's device gate: x lies on a CUDA device."""
+    return x.is_cuda
+
+
+def _k11_weights(m: nn.Conv2d) -> torch.Tensor:
+    """``m``'s weight in K11's layout (ops/resblock.kernel_weights),
+    cached on ``m``."""
+    return kernel_layout(m, lambda mod: resblock.kernel_weights(
+        hwio(mod.weight)), key="_resblock_layout")
+
+
 class AttResBlock(nn.Module):
-    """``extra_chn`` > 0 makes the block conditioned (sft1/sft2)."""
+    """``extra_chn`` > 0 makes the block conditioned (sft1/sft2).
+    ``kernels`` (set by AttResUNet from ``tail_impl``) lets the block run
+    on K11 where ``takes_kernel`` says so."""
 
     def __init__(self, nf: int, extra_chn: int = 0,
                  remat_gates: bool = False):
@@ -83,10 +104,37 @@ class AttResBlock(nn.Module):
             self.sft2 = AttLayer(nf, extra_chn)
         self.conditioned = extra_chn > 0
         self.remat_gates = remat_gates
+        self.kernels = False
         self.conv1 = make_conv(nf, nf, 3)
         self.conv2 = make_conv(nf, nf, 3)
 
+    def takes_kernel(self, x: torch.Tensor, extra) -> bool:
+        """Whether the block runs on K11: built with kernels, unconditioned,
+        x a CUDA bf16 tensor (and the weights bf16), autograd not
+        recording, neither ``precision.im2col_convs`` nor
+        ``precision.int8_convs`` on, and widths K11 takes."""
+        w = self.conv1.weight
+        return (self.kernels and extra is None and not self.conditioned
+                and x.dtype == torch.bfloat16 and w.dtype == torch.bfloat16
+                and _on_card(x)
+                and not (torch.is_grad_enabled() and (x.requires_grad or any(
+                    p.requires_grad for p in self.parameters())))
+                and not im2col_on() and int8_dtype() is None
+                and resblock.plan(w.shape[1], w.shape[0]) is not None)
+
+    def forward_kernel(self, x: torch.Tensor) -> torch.Tensor:
+        """The block as two K11 launches: lrelu(conv1(lrelu(x)) + b1),
+        then x + conv2(that) + b2; x NCHW-shaped, channels_last."""
+        xh = to_nhwc(x)
+        f = resblock.resblock_conv(xh, _k11_weights(self.conv1),
+                                   self.conv1.bias, "first")
+        out = resblock.resblock_conv(f, _k11_weights(self.conv2),
+                                     self.conv2.bias, "second", residual=xh)
+        return to_nchw(out)
+
     def forward(self, x, extra):
+        if self.takes_kernel(x, extra):
+            return self.forward_kernel(x)
         t = x
         if self.conditioned:
             mul, add = _call(self.sft1, self.remat_gates, extra)
@@ -159,6 +207,9 @@ class AttResUNet(nn.Module):
         for up in self.up_path:
             up.remat = remat
         self.tail = make_conv(n_feat[0], out_chn, 3)
+        for m in self.modules():
+            if isinstance(m, AttResBlock):
+                m.kernels = tail_impl == "fused"
 
     def forward(self, x_in: torch.Tensor, extra_in: Optional[torch.Tensor],
                 head_pre: Optional[torch.Tensor] = None) -> torch.Tensor:

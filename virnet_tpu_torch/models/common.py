@@ -106,25 +106,25 @@ def hwio(w: torch.Tensor) -> torch.Tensor:
     return w.permute(2, 3, 1, 0).contiguous()
 
 
-def kernel_layout(module: nn.Module, build):
+def kernel_layout(module: nn.Module, build, key: str = "_kernel_layout"):
     """``build(module)``, the module's weights in the kernels' layout,
-    cached on the module.  The cache holds on to the parameters' storage
-    and version counters, so it is rebuilt when a parameter is moved, cast,
-    loaded or updated in place.  While autograd records, it is built anew
-    every call and stays attached to the parameters, so that a
-    forward-only kernel handed it sees that they require grad and
-    raises."""
+    cached on the module under ``key`` (one key a layout).  The cache holds
+    on to the parameters' storage and version counters, so it is rebuilt
+    when a parameter is moved, cast, loaded or updated in place.  While
+    autograd records, it is built anew every call and stays attached to
+    the parameters, so that a forward-only kernel handed it sees that they
+    require grad and raises."""
     params = list(module.parameters())
     if torch.is_grad_enabled() and any(p.requires_grad for p in params):
         return build(module)
-    hit = module.__dict__.get("_kernel_layout")
+    hit = module.__dict__.get(key)
     if hit is not None and len(hit[0]) == len(params) and all(
             p.data_ptr() == s.data_ptr() and p._version == v
             for p, (s, v) in zip(params, hit[0])):
         return hit[1]
     with torch.no_grad():
         out = build(module)
-    module.__dict__["_kernel_layout"] = (
+    module.__dict__[key] = (
         [(p.detach(), p._version) for p in params], out)
     return out
 

@@ -21,7 +21,8 @@ or bfloat16); the plain versions (``*_plain``) follow the same rounding
 with ``F.conv2d`` in f32.  A wrapper given CPU tensors runs the plain
 version; given CUDA tensors it launches its kernel or raises — there is no
 fallback.  ``LAUNCHES`` counts kernel launches per wrapper, those of the
-blur kernels in ``ops/blur.py`` and of K9 and K10 in ``ops/qconv.py`` too.
+blur kernels in ``ops/blur.py``, of K9 and K10 in ``ops/qconv.py`` and of
+K11 in ``ops/resblock.py`` too.
 
 These kernels are forward-only, like the Pallas kernels they replace
 (virnet_tpu/models/common.py:train_conv_impl): with autograd recording and
@@ -42,7 +43,7 @@ from . import _build
 LAUNCHES = {"conv3x3_mid": 0, "dncnn_fused": 0, "dncnn_head_fused": 0,
             "conv3x3_tail_residual": 0, "dncnn_head_slabzero": 0,
             "blur_valid": 0, "blur_dx": 0, "blur_dw": 0, "conv_w8a8": 0,
-            "absmax_nhwc": 0}
+            "absmax_nhwc": 0, "resblock_conv": 0}
 # copies a wrapper had to make of an input it was handed in another layout
 COPIES = {"blur_cotangent": 0}
 
@@ -68,6 +69,7 @@ _SIGNATURES = {
                                      _P]),
     "vt_conv_w8a8_plan": ("conv_w8a8", [_I] * 4 + [ctypes.POINTER(_I)]),
     "vt_conv_w8a8": ("conv_w8a8", [_P] * 6 + [_I] * 7 + [_P]),
+    "vt_resblock_conv": ("resblock_conv", [_P] * 5 + [_I] * 8 + [_P]),
 }
 _FNS: dict = {}
 
