@@ -20,6 +20,12 @@ AttResBlock in the backward instead of keeping its activations
 are the same bits), an AttResBlock's ``remat_gates`` its SFT gates; both
 act only while autograd records.
 
+The span ``model.rnet.deep`` (eval/profiling.py; recorded only while a
+torch.profiler session records) covers the levels below the top: from
+level 0's downsampler to where the last up block, the one that returns
+to ``n_feat[0]`` at full size, begins; every block, sampler and skip add
+in between.
+
 Parameter names are the reference torch keys (``head``,
 ``down_path.{i}.body.{j}.conv{1,2}``, ``down_path.{i}.downsampler``,
 ``up_path.{k}.upsampler``, ``up_path.{k}.body.{b}``, ``tail``);
@@ -35,6 +41,7 @@ conv sees the zero-padded border).
 
 from __future__ import annotations
 
+from contextlib import ExitStack
 from typing import Optional, Sequence
 
 import torch
@@ -42,6 +49,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from ..eval.profiling import span
 from ..ops import resblock
 from ..ops.fused_conv import conv3x3_tail_residual
 from ..ops.pad import pad_to_multiple
@@ -248,18 +256,23 @@ class AttResUNet(nn.Module):
         cond_down = mode in ("down", "both")
         extra_cur = to_nchw(extra_in) if compact else extra
         bridges = []
-        for ii, down in enumerate(self.down_path):
-            for blk in down.body:
-                x = _call(blk, self.remat, x,
-                          extra_cur if cond_down else None)
-            if ii + 1 < depth:
-                bridges.append(x)
-                x = conv(down.downsampler, x)
-                if cond_down and not compact:
-                    extra_cur = F.interpolate(extra, size=x.shape[-2:],
-                                              mode="nearest")
-        for k, up in enumerate(self.up_path):
-            x = up(x, bridges[depth - 2 - k])
+        with ExitStack() as deep:
+            for ii, down in enumerate(self.down_path):
+                for blk in down.body:
+                    x = _call(blk, self.remat, x,
+                              extra_cur if cond_down else None)
+                if ii + 1 < depth:
+                    bridges.append(x)
+                    if ii == 0:
+                        deep.enter_context(span("model.rnet.deep"))
+                    x = conv(down.downsampler, x)
+                    if cond_down and not compact:
+                        extra_cur = F.interpolate(extra, size=x.shape[-2:],
+                                                  mode="nearest")
+            for k, up in enumerate(self.up_path):
+                if k == depth - 2:
+                    deep.close()
+                x = up(x, bridges[depth - 2 - k])
         if self.tail_impl == "torch":
             out = conv(self.tail, x)[:, :, :h, :w]
             return to_nhwc(out) + x_in
