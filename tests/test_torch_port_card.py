@@ -826,3 +826,69 @@ def test_bf16_restore_batch_runs_every_body_block_on_k11():
     want = r.restore_batch(x)
     assert fc.LAUNCHES["resblock_conv"] == 0
     _close(torch.as_tensor(got), torch.as_tensor(want), torch.bfloat16)
+
+
+@pytest.mark.parametrize("compute", ["fp32", "bf16"])
+def test_numpy_requests_cross_through_page_locked_blocks(compute):
+    """Restorer.restore_batch on the card: a numpy batch's result is a
+    page-locked host tensor equal bit for bit to the tensor request's
+    result (which stays on the card), a float64 batch converts as before,
+    every numpy request counts one page-locked copy each way in
+    ``engine.COPIES``, and a result kept from one request is unchanged
+    after the next returns (no block the caller holds is handed out
+    again)."""
+    _need_card()
+    from pathlib import Path
+
+    from virnet_tpu_torch.eval import engine
+
+    ckpt = Path(__file__).resolve().parents[1] / "model_zoo" / \
+        "virnet_denoising_syn_demo.pth"
+    r = engine.Restorer("denoising-syn", ckpt_path=ckpt, compute=compute)
+    rng = np.random.default_rng(25)
+    x, x2 = (rng.random((2, 64, 72, 3), dtype=np.float32) for _ in range(2))
+    want = r.restore_batch(torch.from_numpy(x).cuda())
+    assert want.is_cuda
+    before = dict(engine.COPIES)
+    got = r.restore_batch(x)
+    assert {k: n - before[k] for k, n in engine.COPIES.items()} == \
+        {"pinned_in": 1, "pinned_out": 1, "pageable_in": 0,
+         "pageable_out": 0}
+    assert got.device.type == "cpu" and got.is_pinned()
+    assert torch.equal(got, want.cpu())
+    kept = got.clone()
+    other = r.restore_batch(x2)
+    assert other.is_pinned() and not torch.equal(other, got)
+    assert torch.equal(got, kept)
+    del other
+    again = r.restore_batch(x.astype(np.float64))
+    assert again.is_pinned() and torch.equal(again, kept)
+    assert engine.COPIES["pinned_in"] - before["pinned_in"] == 3
+    assert engine.COPIES["pinned_out"] - before["pinned_out"] == 3
+
+
+def test_numpy_image_on_the_chop_path_crosses_page_locked(monkeypatch):
+    """restore_image above the chop threshold (lowered here so that a 40 x
+    44 image splits once) on the card: one page-locked copy each way for
+    the whole image (the quadrants' forwards take tensors and count none),
+    and the bits of ``forward_chop`` over tensor requests."""
+    _need_card()
+    from pathlib import Path
+
+    from virnet_tpu_torch.eval import engine
+    from virnet_tpu_torch.eval.tiling import forward_chop
+
+    monkeypatch.setattr(engine, "CHOP_THRESHOLD", 1000)
+    ckpt = Path(__file__).resolve().parents[1] / "model_zoo" / \
+        "virnet_denoising_syn_demo.pth"
+    r = engine.Restorer("denoising-syn", ckpt_path=ckpt, compute="bf16")
+    im = np.random.default_rng(26).random((40, 44, 3), dtype=np.float32)
+    before = dict(engine.COPIES)
+    got = r.restore_image(im)
+    assert {k: n - before[k] for k, n in engine.COPIES.items()} == \
+        {"pinned_in": 1, "pinned_out": 1, "pageable_in": 0,
+         "pageable_out": 0}
+    want = forward_chop(r.restore_batch, torch.from_numpy(im[None]).cuda(),
+                        shave=10, min_size=1000)[0]
+    assert isinstance(got, np.ndarray)
+    np.testing.assert_array_equal(got, want.cpu().numpy())

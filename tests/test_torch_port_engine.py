@@ -200,6 +200,97 @@ def test_bench_restore_takes_the_sisr_task_and_its_flags():
     assert len(res["ms"]) == 2 and 0 < res["min_ms"] <= res["median_ms"]
 
 
+# ------------------------------------------ the Restorer's host copies
+
+def _request(r, entry, x):
+    """(numpy-in result, tensor-in result) of one request: ``restore_batch``
+    of the batch ``x``, or ``restore_image`` of its first image on the
+    quadrant-chop path against ``forward_chop`` of ``restore_batch`` on a
+    tensor (the chop's own forward, ``pad_multiple=0``)."""
+    if entry == "batch":
+        return r.restore_batch(x), r.restore_batch(torch.from_numpy(x))
+    got = r.restore_image(x[0])
+    want = forward_chop(r.restore_batch, torch.from_numpy(x[:1]),
+                        shave=10, min_size=1000)[0]
+    return got, want
+
+
+@pytest.mark.parametrize("entry", ["batch", "chop"])
+@pytest.mark.parametrize("compute", ["fp32", "bf16"])
+def test_cpu_numpy_and_tensor_requests_agree_and_copy_nothing(
+        entry, compute, monkeypatch):
+    """On the CPU a numpy request and a tensor request give the same bits,
+    both on the host, and ``COPIES`` stays zero: nothing is pinned or
+    copied.  ``chop`` lowers the quadrant-chop threshold so that a 40 x
+    44 image takes that path (one split)."""
+    from virnet_tpu_torch.eval import engine
+
+    monkeypatch.setattr(engine, "CHOP_THRESHOLD", 1000)
+    r = Restorer("denoising-syn", ckpt_path=SYN, compute=compute,
+                 device="cpu")
+    x = np.random.default_rng(25).random((2, 40, 44, 3), dtype=np.float32)
+    got, want = _request(r, entry, x)
+    assert want.device.type == "cpu"
+    if entry == "batch":
+        assert isinstance(got, torch.Tensor) and got.device.type == "cpu"
+        got = got.numpy()
+    else:
+        assert isinstance(got, np.ndarray) and got.shape == (40, 44, 3)
+    np.testing.assert_array_equal(got, want.numpy())
+    assert engine.COPIES == dict.fromkeys(engine.COPIES, 0)
+
+
+def _metric_reader(name):
+    import importlib.util
+
+    path = ROOT / "portbench" / "metrics" / f"{name}.py"
+    spec = importlib.util.spec_from_file_location(
+        "reader_" + name.replace(".", "_"), path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.read
+
+
+@pytest.mark.parametrize("name,missing", [
+    ("copy_out_host_ms.serve", "no span"),
+    ("pinned_copy_pct.serve", "no counter"),
+    ("pinned_copy_pct.serve", "nothing counted"),
+])
+def test_copy_readers_read_none_where_the_program_has_nothing(
+        name, missing, monkeypatch):
+    """The readers of the copy-out span and of ``COPIES`` give None where
+    the program has no ``engine.copy_out`` span, no ``COPIES`` (a program
+    from before them) or counted no copy, and the page-locked share of
+    what ``COPIES`` counted on the card (never off it)."""
+    import types
+
+    from virnet_tpu_torch.eval import engine, profiling
+
+    read = _metric_reader(name)
+    card = types.SimpleNamespace(device=torch.device("cuda"))
+    cpu = types.SimpleNamespace(device=torch.device("cpu"))
+    if missing == "no span":
+        monkeypatch.setattr(profiling, "records", lambda: [
+            profiling.Record(0, "engine.restore_batch", None, 0, 0, 10),
+            profiling.Record(1, "engine.copy_in", 0, 0, 0, 4)])
+        assert read(card) is None and read(cpu) is None
+        monkeypatch.setattr(profiling, "records", lambda: [
+            profiling.Record(0, "engine.restore_batch", None, 0, 0, 10 ** 7),
+            profiling.Record(1, "engine.copy_out", 0, 0, 10 ** 6,
+                             4 * 10 ** 6)])
+        assert read(card) == pytest.approx(3.0)
+        return
+    if missing == "no counter":
+        monkeypatch.delattr(engine, "COPIES")
+        assert read(card) is None
+        return
+    monkeypatch.setattr(engine, "COPIES", dict.fromkeys(engine.COPIES, 0))
+    assert read(card) is None
+    engine.COPIES.update(pinned_in=3, pinned_out=2, pageable_in=1)
+    assert read(card) == pytest.approx(100.0 * 5 / 6)
+    assert read(cpu) is None
+
+
 FORBIDDEN = ("jax", "flax", "virnet_tpu")
 
 

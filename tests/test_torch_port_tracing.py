@@ -156,6 +156,7 @@ def test_sisr_step_records_the_training_spans(tmp_path):
 
 READS = {   # reader: (its value on the synthetic records, reads the card)
     "copy_in_host_ms.serve": (2.0, False),
+    "copy_out_host_ms.serve": (1.5, False),
     "snet_card_ms.serve": (4.0, True),
     "rnet_card_ms.serve": (20.0, True),
     "own_launches.serve": (2, True),
@@ -195,6 +196,7 @@ def _synthetic():
         root = rec("engine.restore_batch", parent, call, (t, t + 40),
                    (t, t + 41), launches=round(2 * k))
         rec("engine.copy_in", root, call, (t, t + 2 * k))
+        rec("engine.copy_out", root, call, (t + 38, t + 38 + 1.5 * k))
         rec("model.snet", root, call, (t + 3, t + 4), (t + 3, t + 3 + 4 * k),
             round(k))
         rec("model.rnet", root, call, (t + 5, t + 6),
@@ -248,9 +250,11 @@ def test_every_new_reader_has_its_manifest_entry():
 
 def test_card_spans_times_anchor_and_launches(tmp_path):
     """bf16 restore_batch at 32 x 256^2: the spans record under a session
-    of the card alone, card times are ordered and nest, 2 launches (K3 +
-    K4) a call, and trace() writes both files with the spans as user
-    annotations on the kernels' clock."""
+    of the card alone, card times are ordered and nest, 32 launches (K3,
+    K11 twice in each of the 15 body blocks, K4) a call, the numpy
+    batch's result copied out in a span of its own, and trace() writes
+    both files with the spans as user annotations on the kernels'
+    clock."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: card times and launches exist "
                     "only on the card")
@@ -264,7 +268,7 @@ def test_card_spans_times_anchor_and_launches(tmp_path):
         for _ in range(2):
             r.restore_batch(x)
     recs = profiling.records()
-    assert {rec.name for rec in recs} == SERVE_SPANS
+    assert {rec.name for rec in recs} == SERVE_SPANS | {"engine.copy_out"}
     by_id = {rec.id: rec for rec in recs}
     for rec in recs:
         assert rec.card_start is not None
@@ -274,7 +278,7 @@ def test_card_spans_times_anchor_and_launches(tmp_path):
             assert p.card_start <= rec.card_start <= rec.card_end \
                 <= p.card_end
     roots = [rec for rec in recs if rec.parent is None]
-    assert [rec.launches for rec in roots] == [2, 2]
+    assert [rec.launches for rec in roots] == [32, 32]
     assert all(rec.card_end >= rec.host_start for rec in roots)
     # the forward's card time is most of the call's
     s = profiling.summary(recs)
@@ -290,12 +294,14 @@ def test_card_spans_times_anchor_and_launches(tmp_path):
     notes = {e["name"]: e for e in events
              if e.get("cat") == "user_annotation"}
     kernels = [e for e in events if e.get("cat") == "kernel"]
-    assert {"engine.copy_in", "model.snet", "model.rnet"} <= set(notes)
+    assert {"engine.copy_in", "engine.copy_out", "model.snet",
+            "model.rnet"} <= set(notes)
     assert kernels
     k0 = min(e["ts"] for e in kernels)
     k1 = max(e["ts"] + e.get("dur", 0) for e in kernels)
     call = notes["engine.restore_batch"]
     assert call["ts"] <= k0 and k0 - call["ts"] < 1e6 and k1 > call["ts"]
     spans = json.loads((tmp_path / "tr" / "spans.json").read_text())
-    assert {rec["name"] for rec in spans["records"]} == SERVE_SPANS
-    assert spans["summary"]["engine.restore_batch"]["launches"] == 2
+    assert {rec["name"] for rec in spans["records"]} == \
+        SERVE_SPANS | {"engine.copy_out"}
+    assert spans["summary"]["engine.restore_batch"]["launches"] == 32

@@ -11,6 +11,15 @@ convolution goes through ``models/common.conv`` and the int8 gate: no K2,
 K3 or K4 runs in that mode (SNet's first and last convs and RNet's head,
 strided, transposed and tail convs are bf16 library convolutions), and
 the gated ones are W8A8 on K10 + K9.
+
+Copies between host and card.  A numpy request on a card engine crosses
+both ways through page-locked blocks of PyTorch's caching host allocator
+(``torch.empty(..., pin_memory=True)``): ATen's CPU copy stages the input
+in one and the copy to the card runs without blocking the host; the
+result is copied into another, which ``restore_batch`` returns (``.cpu()``
+on it is a no-op, ``.numpy()`` a view).  A tensor request keeps its result
+on the engine's device, and on the CPU nothing is pinned.  ``COPIES``
+counts the copies each way.
 """
 
 from __future__ import annotations
@@ -32,6 +41,47 @@ from .spatial import (replicas, restore_rows_sharded,
 from .tiling import bucket_size, forward_chop
 
 CHOP_THRESHOLD = 160000   # pixels; above this, quadrant tiling kicks in
+
+# The Restorer's copies between host and card, one each way a request that
+# crosses: page-locked (numpy requests, results returned to the host) or
+# pageable (a host tensor handed in; no result goes out pageable).
+COPIES = dict.fromkeys(("pinned_in", "pinned_out", "pageable_in",
+                        "pageable_out"), 0)
+
+
+def _to_device(x, device) -> torch.Tensor:
+    """``x`` (numpy or tensor) as a float32 tensor on ``device``.  On a
+    card, numpy goes through a page-locked block of the caching host
+    allocator: ATen's CPU copy stages it there, converting the dtype as
+    ``torch.as_tensor`` would, and the copy to the card does not block the
+    host (the allocator keeps the block until that copy has finished)."""
+    if device.type != "cuda":
+        return torch.as_tensor(x, dtype=torch.float32).to(device)
+    if isinstance(x, torch.Tensor):
+        if x.device.type == "cpu":
+            COPIES["pinned_in" if x.is_pinned() else "pageable_in"] += 1
+        return torch.as_tensor(x, dtype=torch.float32).to(device)
+    src = torch.as_tensor(x)
+    block = torch.empty(src.shape, dtype=torch.float32, pin_memory=True)
+    block.copy_(src)
+    COPIES["pinned_in"] += 1
+    return block.to(device, non_blocking=True)
+
+
+def _to_host(y: torch.Tensor) -> torch.Tensor:
+    """``y`` copied from the card into a page-locked block of the caching
+    host allocator, returned once the copy has finished (``y`` itself where
+    it is on the host already).  Nothing here keeps the block: the
+    allocator reuses it once the caller drops it."""
+    if y.device.type == "cpu":
+        return y
+    out = torch.empty(y.shape, dtype=y.dtype, pin_memory=True)
+    # wait for the forward, so that the span times the copy alone
+    torch.cuda.current_stream(y.device).synchronize()
+    with span("engine.copy_out"):
+        out.copy_(y)              # blocking: returns with the copy done
+    COPIES["pinned_out"] += 1
+    return out
 
 
 class Restorer:
@@ -127,13 +177,17 @@ class Restorer:
 
     def restore_batch(self, x) -> torch.Tensor:
         """NHWC float32 batch (numpy or tensor) -> restored NHWC float32
-        tensor on the engine's device, clamped to [0, 1]; with a mesh,
-        repeat-padded to a multiple of its size and run one chunk per mesh
-        device (in int8, in lockstep threads sharing the batch's
-        scales)."""
+        tensor, clamped to [0, 1]; with a mesh, repeat-padded to a multiple
+        of its size and run one chunk per mesh device (in int8, in lockstep
+        threads sharing the batch's scales).  A tensor's result stays on
+        the engine's device.  A numpy batch's comes back on the host: on a
+        card, in a page-locked block that the copy has finished writing
+        when this returns and that the engine does not keep (module
+        docstring)."""
+        to_host = not isinstance(x, torch.Tensor)
         with span("engine.restore_batch"):
             with span("engine.copy_in"):
-                x = torch.as_tensor(x, dtype=torch.float32).to(self.device)
+                x = _to_device(x, self.device)
             if self.mesh is None:
                 mu = self._forward(x, self.device)
             else:
@@ -146,7 +200,8 @@ class Restorer:
                 chunks = (run_lockstep(calls) if self.int8
                           else [call() for call in calls])
                 mu = torch.cat([c.to(self.device) for c in chunks])[:n]
-            return torch.clamp(mu.float(), 0.0, 1.0)
+            y = torch.clamp(mu.float(), 0.0, 1.0)
+            return _to_host(y) if to_host else y
 
     def _fp32_model(self, mesh):
         """(model, its replicas on ``mesh``) that row-sharded restores run:
@@ -206,7 +261,7 @@ class Restorer:
             batch = np.pad(batch, ((0, 0), (0, hb - h), (0, wb - w), (0, 0)),
                            mode="reflect")
         sf = self.sf
-        return self.restore_batch(batch)[:, :h * sf, :w * sf].cpu().numpy()
+        return self.restore_batch(batch)[:, :h * sf, :w * sf].numpy()
 
     def restore_image(self, im: np.ndarray) -> np.ndarray:
         """HWC float32 [0, 1] -> restored HWC.  Gray inputs are stacked to
@@ -228,9 +283,10 @@ class Restorer:
                 return self.restore_batch(x)[:, :hh * self.sf,
                                              :ww * self.sf]
 
-            x = torch.as_tensor(im[None], dtype=torch.float32).to(self.device)
-            out = forward_chop(fwd, x, sf=self.sf, shave=10,
-                               min_size=CHOP_THRESHOLD)[0].cpu().numpy()
+            with span("engine.copy_in"):
+                x = _to_device(im[None], self.device)
+            out = _to_host(forward_chop(fwd, x, sf=self.sf, shave=10,
+                                        min_size=CHOP_THRESHOLD)[0]).numpy()
         else:
             out = self._restore_padded(im[None])[0]
         if squeeze_gray and self.gray_mean:
