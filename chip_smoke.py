@@ -1,11 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of the virnet_tpu_torch port on one NVIDIA GPU (H100).
 
-    python3 chip_smoke.py [--phases build,kernels,resblock,blur,serve,
-                           profile,
-                           serve_odd,
-                           ops,real,fp32,psnr,probe,sisr_fwd,serve_sisr,
-                           train_fp32,
+    python3 chip_smoke.py [--phases build,kernels,resblock,blur,fp32,psnr,
+                           probe,sisr_fwd,serve_sisr,train_fp32,
                            train_sisr,train_pipeline,train_denoise_fp32,
                            train_denoise,eval_tables,runtime,int8,grids,
                            prepare]
@@ -51,25 +48,11 @@ Phases (all by default; any failure raises and the exit code is not 0):
              any_c_ms) and, with --parent DIR, each beside the same
              function of DIR's csrc/blur.cu (a checkout of another tree,
              built beside this one) in turns: parent, this, this, parent
-  serve      Restorer('denoising-syn', bf16) on the flagship 32x256^2 batch
-             (exactly K3, 30 K11 and K4), MP/s
-  profile    torch.profiler device-time breakdown of that forward by kernel
-             group, and the device's idle share
-  serve_odd  restore_image at 321x481, a shape that fails the fused-head
-             gate (K2: snet_conv1, K1 x3, snet_last; then K4), ms per image
-             in bf16 and in fp32, the default compute (its library
-             convolutions on PyTorch's im2col route, not cuDNN:
-             precision.im2col_convs); fails above 150 ms per fp32 image;
-             one fp32 image timed with the convolutions on cuDNN instead
-             (its heuristics choosing), which watches for a cuDNN that
-             no longer picks FFT there
-  ops        the same image on SNet's per-op route, conv_impl='ops' (K1),
-             ms per image
-  real       the denoising-real demo weights on a 4x256^2 batch (co=3, L=6)
   fp32       card forward vs the same model on the CPU (plain versions),
              both presets, one shape through K3 and one through K2 (the
              level chain in fp32); launches of the syn forwards
   psnr       denoising a seeded smooth image with sigma=25/255 noise
+             (denoising-syn, bf16)
   probe      cli.bench_fused_head.run at the flagship shape, full width:
              unfused, halo (K3 + K4) and slabzero (K8 + K4) on 8-, 16- and
              32-row slabs; launches of one apply of each, ms per apply, MP/s
@@ -84,8 +67,7 @@ Phases (all by default; any failure raises and the exit code is not 0):
              snet_last) once and K4 once; in each compute K2, each of its
              K1 levels and K4 against their plain versions on the
              arguments one image hands them (recorded on another call);
-             ms per image in bf16 and fp32 with cli/bench_restore's
-             timer, output MP/s
+             ms per image in bf16 and fp32 (time_image), output MP/s
   train_fp32 one SISR training step at 2x96^2 (full width) in fp32 with
              injected noise, card vs CPU: loss, ELBO terms, gradient norms
   train_sisr the SISR trainer built from configs/sisr_x4.json (full width,
@@ -230,8 +212,8 @@ Phases (all by default; any failure raises and the exit code is not 0):
              where h5py is absent, else its files read back through
              H5BenchmarkReader; seconds
 
-Every main-path phase (serve, serve_odd, ops, real, fp32, probe,
-serve_sisr, train_sisr, train_pipeline, eval_tables, runtime, int8, grids)
+Every main-path phase (fp32, probe, serve_sisr, train_sisr,
+train_pipeline, eval_tables, runtime, int8, grids)
 zeroes the launch counters, drives its path once and reads them; it fails
 if a kernel of its path did not launch (grids: if any launched).  The line before the card's line is one JSON
 object with the kernels' numbers: times and errors from the syn weights
@@ -267,13 +249,10 @@ import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent
-ALL_PHASES = ("build", "kernels", "resblock", "blur", "serve", "profile",
-              "serve_odd",
-              "ops", "real", "fp32", "psnr", "probe", "sisr_fwd", "serve_sisr",
-              "train_fp32",
-              "train_sisr", "train_pipeline", "train_denoise_fp32",
-              "train_denoise", "eval_tables", "runtime", "int8", "grids",
-              "prepare")
+ALL_PHASES = ("build", "kernels", "resblock", "blur", "fp32", "psnr", "probe",
+              "sisr_fwd", "serve_sisr", "train_fp32", "train_sisr",
+              "train_pipeline", "train_denoise_fp32", "train_denoise",
+              "eval_tables", "runtime", "int8", "grids", "prepare")
 SYN_CKPT = ROOT / "model_zoo" / "virnet_denoising_syn_demo.pth"
 REAL_CKPT = ROOT / "model_zoo" / "virnet_denoising_real_demo.pth"
 SISR_CKPT = ROOT / "model_zoo" / "virnet_sisr_x4_demo.pth"
@@ -292,19 +271,21 @@ PEAKS = {
 
 KERNELS = {
     "conv3x3_mid": dict(
-        path="ops", source="virnet_tpu_torch/csrc/conv3x3_mid.cu",
+        path="serve_sisr", source="virnet_tpu_torch/csrc/conv3x3_mid.cu",
         replaces="virnet_tpu/ops/pallas_conv.py:627 (conv3x3_mid_pair), "
                  ":297 (conv3x3_mid_stack_pair)"),
     "dncnn_fused": dict(
-        path="serve_odd", source="virnet_tpu_torch/csrc/snet_levels.cu",
+        path="serve_sisr", source="virnet_tpu_torch/csrc/snet_levels.cu",
         uses="virnet_tpu_torch/csrc/conv3x3_mid.cu (K1, the mid levels)",
         replaces="virnet_tpu/ops/pallas_conv.py:474 (dncnn_pair_fused)"),
     "dncnn_head_fused": dict(
-        path="serve", source="virnet_tpu_torch/csrc/dncnn_head.cu",
+        path="runtime_dp_restore",
+        source="virnet_tpu_torch/csrc/dncnn_head.cu",
         replaces="virnet_tpu/ops/pallas_conv.py:1289 (dncnn_head_fused "
                  "halo :1512, carry :1459)"),
     "conv3x3_tail_residual": dict(
-        path="serve", source="virnet_tpu_torch/csrc/tail_residual.cu",
+        path="runtime_dp_restore",
+        source="virnet_tpu_torch/csrc/tail_residual.cu",
         replaces="virnet_tpu/ops/pallas_conv.py:841 "
                  "(conv3x3_tail_residual)"),
     "dncnn_head_fused_fp32": dict(
@@ -343,7 +324,8 @@ KERNELS = {
                  "(quantize_symmetric's absmax over (N, H, W), an XLA "
                  "reduction)"),
     "resblock_conv": dict(
-        path="serve", source="virnet_tpu_torch/csrc/resblock_conv.cu",
+        path="runtime_dp_restore",
+        source="virnet_tpu_torch/csrc/resblock_conv.cu",
         replaces="not a Pallas kernel: RNet's body convolutions "
                  "(virnet_tpu/models/common.py:conv), into which XLA fuses "
                  "the bias, LeakyReLU and residual passes"),
@@ -430,6 +412,58 @@ def time_cold_ms(fn, iters: int, warmup: int = 2) -> float:
         pairs.append((start, end))
     torch.cuda.synchronize()
     return float(np.median([s.elapsed_time(e) for s, e in pairs]))
+
+
+def time_calls(fn, reps: int = 30, warmup: int = 3) -> dict:
+    """ms per ``fn()`` by the host clock, each call ending in a
+    synchronisation with the card when there is one: median, least, all."""
+    sync = torch.cuda.synchronize if torch.cuda.is_available() else (
+        lambda: None)
+    for _ in range(warmup):
+        fn()
+    ms = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        sync()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return dict(median_ms=float(np.median(ms)), min_ms=min(ms), ms=ms)
+
+
+def time_image(restorer, image: np.ndarray, reps: int = 30,
+               warmup: int = 3) -> dict:
+    """ms per ``restorer.restore_image(image)``."""
+    return time_calls(lambda: restorer.restore_image(image), reps, warmup)
+
+
+def profile_calls(fn, iters: int = 1) -> dict:
+    """torch.profiler (CUPTI) of ``iters`` calls of ``fn()``, each per
+    call: ``wall_ms``; ``kernels``, {device kernel: [ms, launches]}; and
+    ``torch_ops``, [aten op, ms of its own kernels, count], longest
+    first."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / iters
+    kernels: dict = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            us, n = kernels.get(e.name, (0.0, 0))
+            kernels[e.name] = (us + e.time_range.elapsed_us(), n + 1)
+    kernels = {k: [us / 1e3 / iters, n // iters]
+               for k, (us, n) in kernels.items()}
+    ops = sorted(([e.key, e.self_device_time_total / 1e3 / iters,
+                   e.count // iters] for e in prof.key_averages()
+                  if e.key.startswith("aten::")
+                  and e.self_device_time_total > 0), key=lambda r: -r[1])
+    return dict(wall_ms=wall_ms, kernels=kernels, torch_ops=ops)
 
 
 def check_bound(name, what, ms, b_ms):
@@ -573,7 +607,7 @@ def check_kernels(sd, label, batch, mod, peaks, results):
                 check_bound(name, "the library call", lib_ms, b_ms)
             results.setdefault(name, {})[tag] = row
 
-        # K1 at the ops route's shape (one mid conv of SNet at 321x481)
+        # K1 at one mid conv of K2's chain at 321x481
         xm = mid_in.to(dtype)
         w, b = p["wms"][0], p["bms"][0]
         got = fc.conv3x3_mid(xm, w, b, 0.25)
@@ -1376,8 +1410,6 @@ def blur_kernels(report, peaks, any_c, parent=None):
     # (torch.profiler) beside the host time a call of its wrapper takes to
     # enqueue (50 calls, well inside the launch queue, then one sync);
     # last, as a profiler session leaves later launches dearer (PR 14)
-    from virnet_tpu_torch.cli.bench_restore import profile_calls
-
     xp, g, kern = train
     for name, fn in (("blur_valid", lambda: blur.blur_valid(xp, kern)),
                      ("blur_dx", lambda: blur.blur_dx(g, kern)),
@@ -1398,14 +1430,6 @@ def blur_kernels(report, peaks, any_c, parent=None):
 
 
 # kernel-name keys of each group, the first match wins
-GROUPS = (("K3/K8 bf16 dncnn_head.cu", ("dncnn_head_",)),
-          ("K2/K3-fp32/K8-fp32 level kernels snet_levels.cu",
-           ("snet_conv1", "snet_last")),
-          ("K4 tail_residual.cu", ("tail_kernel",)),
-          ("K1 conv3x3_mid.cu", ("conv3x3_mid_",)),
-          ("K11 resblock_conv.cu", ("resblock_conv_",)),
-          ("library convolutions", ("conv", "cudnn", "xmma", "gemm",
-                                    "cutlass", "implicit")))
 TRAIN_GROUPS = (
     ("K5 blur_valid", ("blur_valid_kernel",)),
     ("K6 blur_dx", ("blur_dx_kernel",)),
@@ -1416,42 +1440,6 @@ TRAIN_GROUPS = (
     ("cuDNN forward", ("cudnn", "xmma", "implicit", "conv", "fprop",
                        "cutlass")),
     ("matmul", ("gemm", "gemv", "cublas")))
-
-
-def phase_profile(fn, report, key, what, groups=GROUPS, iters=2, top_ops=6,
-                  rest="other"):
-    """Device time of ``fn()`` by kernel group (``rest`` names the kernels
-    no group claims), from torch.profiler (CUPTI,
-    cli/bench_restore.profile_calls), and the share of the wall time the
-    device was idle (the profiler's own overhead counts as idle)."""
-    from virnet_tpu_torch.cli.bench_restore import profile_calls
-
-    prof = profile_calls(fn, iters)
-    wall_ms = prof["wall_ms"]
-    kernels = {name: ms for name, (ms, _) in prof["kernels"].items()}
-    if not kernels:
-        log("  device time: not measured (the profiler saw no kernels)")
-        report[key] = None
-        return
-    by_group: dict = {}
-    for name, ms in kernels.items():
-        low = name.lower()
-        group = next((g for g, keys in groups
-                      if any(k in low for k in keys)), rest)
-        by_group[group] = by_group.get(group, 0.0) + ms
-    busy = sum(kernels.values())
-    log(f"  per {what}: wall {wall_ms:.2f} ms (profiled), device busy "
-        f"{busy:.2f} ms, idle share {1 - busy / wall_ms:.3f}")
-    for g, ms in sorted(by_group.items(), key=lambda kv: -kv[1]):
-        log(f"  {g}: {ms:.3f} ms ({ms / busy:.1%} of device time)")
-    for name, ms in sorted(kernels.items(), key=lambda kv: -kv[1])[:8]:
-        log(f"    {ms:8.3f} ms  {name[:90]}")
-    ops = prof["torch_ops"]
-    for op, ms, count in ops[:top_ops]:
-        log(f"    {ms:8.3f} ms  {op} x{count} (torch op, own kernels)")
-    report[key] = dict(wall_ms=wall_ms, busy_ms=busy, groups=by_group,
-                       idle_share=1 - busy / wall_ms, kernels=kernels,
-                       torch_ops=ops)
 
 
 def run_path(name, fn, expect):
@@ -1703,8 +1691,7 @@ def phase_serve_sisr(report, launches, lr_hw=(125, 171), sf=4):
     of one image in each compute (exactly SISR_PATH, in bf16 with K11 on
     the up path: SISR_BF16_PATH), the path's kernels
     against their plain versions on its own arguments, and ms per image
-    by cli/bench_restore's timer."""
-    from virnet_tpu_torch.cli.bench_restore import time_image
+    (time_image)."""
     from virnet_tpu_torch.eval.engine import Restorer
 
     h, w = lr_hw
@@ -1737,8 +1724,8 @@ def phase_serve_sisr(report, launches, lr_hw=(125, 171), sf=4):
         res[compute] = dict(ms_per_image=t["median_ms"], min_ms=t["min_ms"],
                             out_mp_per_s=mp)
         log(f"  {compute}: {t['median_ms']:.2f} ms per image, median of 20 "
-            f"(least {t['min_ms']:.2f}; host clock, copies included; "
-            f"cli/bench_restore), {mp:.2f} output MP/s")
+            f"(least {t['min_ms']:.2f}; host clock, copies included), "
+            f"{mp:.2f} output MP/s")
         del sr
     report["serve_sisr"] = res
 
@@ -1781,20 +1768,44 @@ def phase_train_fp32(report):
 
 
 def profile_step(step_fn, report, key, ms):
-    """Device-time breakdown of two profiled training steps by
-    TRAIN_GROUPS, and the idle share against ``ms``, the median of the
-    unprofiled steps (None when the profiler saw no kernel)."""
-    phase_profile(step_fn, report, key, "step", groups=TRAIN_GROUPS, iters=2,
-                  top_ops=12, rest="elementwise, copies, reductions (PyTorch)")
-    prof = report.get(key)
-    if not prof:
+    """Device time of two profiled training steps by TRAIN_GROUPS, from
+    torch.profiler (CUPTI, profile_calls), the share of their wall time
+    the device was idle (the profiler's own overhead counts as idle), and
+    the idle share against ``ms``, the median of the unprofiled steps
+    (None when the profiler saw no kernel)."""
+    prof = profile_calls(step_fn, 2)
+    wall_ms = prof["wall_ms"]
+    kernels = {name: t for name, (t, _) in prof["kernels"].items()}
+    if not kernels:
+        log("  device time: not measured (the profiler saw no kernels)")
+        report[key] = None
         return None
+    by_group: dict = {}
+    for name, t in kernels.items():
+        low = name.lower()
+        group = next((g for g, keys in TRAIN_GROUPS
+                      if any(k in low for k in keys)),
+                     "elementwise, copies, reductions (PyTorch)")
+        by_group[group] = by_group.get(group, 0.0) + t
+    busy = sum(kernels.values())
+    log(f"  per step: wall {wall_ms:.2f} ms (profiled), device busy "
+        f"{busy:.2f} ms, idle share {1 - busy / wall_ms:.3f}")
+    for g, t in sorted(by_group.items(), key=lambda kv: -kv[1]):
+        log(f"  {g}: {t:.3f} ms ({t / busy:.1%} of device time)")
+    for name, t in sorted(kernels.items(), key=lambda kv: -kv[1])[:8]:
+        log(f"    {t:8.3f} ms  {name[:90]}")
+    ops = prof["torch_ops"]
+    for op, t, count in ops[:12]:
+        log(f"    {t:8.3f} ms  {op} x{count} (torch op, own kernels)")
+    report[key] = dict(wall_ms=wall_ms, busy_ms=busy, groups=by_group,
+                       idle_share=1 - busy / wall_ms, kernels=kernels,
+                       torch_ops=ops)
     # the profiler slows the host down, so the busy time of the two
     # profiled steps is held against the median of the unprofiled
     # steps: two different sets of steps.  A negative share says that
     # they do not belong together.
-    idle = 1 - prof["busy_ms"] / ms
-    log(f"  device busy {prof['busy_ms']:.2f} ms (2 profiled steps) of "
+    idle = 1 - busy / ms
+    log(f"  device busy {busy:.2f} ms (2 profiled steps) of "
         f"the {ms:.2f} ms unprofiled step (median of other steps): "
         f"idle share {idle:.3f}")
     if idle < 0:
@@ -3681,7 +3692,6 @@ def quantize_product_ms(r8, x) -> dict:
     conv_w8a8 call (K10, the group reduce, the scales, the weights' fold
     and quantize, K9) recorded from one forward and replayed in order;
     device time by the profiler, ms by events (warm)."""
-    from virnet_tpu_torch.cli.bench_restore import profile_calls
     from virnet_tpu_torch.models import common
     from virnet_tpu_torch.ops import qconv
 
@@ -3785,7 +3795,6 @@ def check_int8_launches(key, counts, task):
 
 def phase_int8(report, launches, peaks, batch=32, size=256):
     """int8 (W8A8) serving on the card (see the module docstring)."""
-    from virnet_tpu_torch.cli.bench_restore import profile_calls
     from virnet_tpu_torch.eval.engine import Restorer
 
     res: dict = {}
@@ -4319,109 +4328,6 @@ def main(argv=None) -> int:
 
     launches: dict = {}       # path -> the counts of its one run
     rng = np.random.default_rng(0)
-    odd = rng.random((321, 481, 3), dtype=np.float32)
-    if any(p in phases for p in ("serve", "profile", "serve_odd", "ops",
-                                 "psnr")):
-        syn = Restorer("denoising-syn", ckpt_path=SYN_CKPT, compute="bf16")
-
-    if "serve" in phases:
-        log("[serve] denoising-syn bf16, restore_batch 32x256x256")
-        x = torch.as_tensor(rng.random((32, 256, 256, 3), dtype=np.float32),
-                            device="cuda")
-        out, launches["serve"] = run_path(
-            "serve", lambda: syn.restore_batch(x), tuple(SERVE_PATH))
-        check_launches("serve", launches["serve"], SERVE_PATH)
-        check_image("serve", out.cpu(), (32, 256, 256, 3))
-        t0 = time.perf_counter()
-        for _ in range(3):
-            syn.restore_batch(x)
-        torch.cuda.synchronize()
-        sec = (time.perf_counter() - t0) / 3
-        report["serve"] = dict(s_per_batch=sec,
-                               mp_per_s=32 * 256 * 256 / sec / 1e6)
-        log(f"  {sec * 1e3:.2f} ms per batch, "
-            f"{report['serve']['mp_per_s']:.2f} MP/s")
-
-    if "profile" in phases:
-        log("[profile] flagship forward, device time by kernel")
-        x = torch.as_tensor(rng.random((32, 256, 256, 3), dtype=np.float32),
-                            device="cuda")
-        syn.restore_batch(x)                     # warm-up
-        phase_profile(lambda: syn.restore_batch(x), report, "profile",
-                      "forward")
-
-    if "serve_odd" in phases:
-        log("[serve_odd] restore_image 321x481 (K2: snet_conv1, K1 x3, "
-            "snet_last; K4)")
-        out_odd, launches["serve_odd"] = run_path(
-            "serve_odd", lambda: syn.restore_image(odd),
-            ("dncnn_fused", "conv3x3_mid", "conv3x3_tail_residual"))
-        check_image("serve_odd", out_odd, (321, 481, 3))
-        if launches["serve_odd"]["conv3x3_mid"] != 3:
-            raise AssertionError("serve_odd: K2's chain must launch K1 once "
-                                 "per mid level (3)")
-        from virnet_tpu_torch.cli.bench_restore import time_image
-
-        res = time_image(syn, odd, reps=20)
-        report["serve_odd"] = dict(ms_per_image=res["median_ms"],
-                                   min_ms=res["min_ms"])
-        log(f"  {res['median_ms']:.2f} ms per image, median of 20 (least "
-            f"{res['min_ms']:.2f}; host clock, copies to and from the card "
-            f"included; cli/bench_restore)")
-        syn32 = Restorer("denoising-syn", ckpt_path=SYN_CKPT, compute="fp32")
-        out32, launches["serve_odd_fp32"] = run_path(
-            "serve_odd_fp32", lambda: syn32.restore_image(odd),
-            ("dncnn_fused", "conv3x3_mid", "conv3x3_tail_residual"))
-        check_image("serve_odd_fp32", out32, (321, 481, 3))
-        res = time_image(syn32, odd, reps=10)
-        log(f"  fp32: {res['median_ms']:.2f} ms per image, median of 10 "
-            f"(least {res['min_ms']:.2f}; bar 150)")
-        # the route monitor: the same image with cuDNN choosing
-        syn32.im2col = False
-        cudnn = time_image(syn32, odd, reps=1, warmup=1)["median_ms"]
-        log(f"  fp32 with the convolutions on cuDNN: {cudnn:.2f} ms per "
-            f"image (one call)")
-        report["serve_odd"].update(
-            fp32_ms_per_image=res["median_ms"], fp32_min_ms=res["min_ms"],
-            fp32_cudnn_ms=cudnn)
-        if res["median_ms"] > 150:
-            raise AssertionError("serve_odd: one fp32 321x481 image took "
-                                 f"{res['median_ms']:.1f} ms (bar 150)")
-        del syn32
-
-    if "ops" in phases:
-        log("[ops] restore_image 321x481 on the per-op SNet route (K1)")
-        syn_ops = Restorer("denoising-syn", ckpt_path=SYN_CKPT,
-                           compute="bf16", conv_impl="ops")
-        out_ops, launches["ops"] = run_path(
-            "ops", lambda: syn_ops.restore_image(odd),
-            ("conv3x3_mid", "conv3x3_tail_residual"))
-        check_image("ops", out_ops, (321, 481, 3))
-        t0 = time.perf_counter()
-        for _ in range(5):
-            syn_ops.restore_image(odd)
-        torch.cuda.synchronize()
-        report["ops"] = dict(ms_per_image=(time.perf_counter() - t0) / 5
-                             * 1e3)
-        log(f"  {report['ops']['ms_per_image']:.2f} ms per image (host "
-            f"clock, copies to and from the card included)")
-        d = float(np.abs(out_ops - syn.restore_image(odd)).max())
-        log(f"  max diff vs the fused route {d:.3g} (bound 4/255)")
-        if d > 4 / 255:
-            raise AssertionError("ops route disagrees with fused route")
-        del syn_ops
-
-    if "real" in phases:
-        log("[real] denoising-real bf16, restore_batch 4x256x256")
-        real = Restorer("denoising-real", ckpt_path=REAL_CKPT,
-                        compute="bf16")
-        x = torch.as_tensor(rng.random((4, 256, 256, 3), dtype=np.float32),
-                            device="cuda")
-        out, launches["real"] = run_path(
-            "real", lambda: real.restore_batch(x), tuple(SIDD_BF16_PATH))
-        check_launches("real", launches["real"], SIDD_BF16_PATH)
-        check_image("real", out.cpu(), (4, 256, 256, 3))
-        del real
 
     if "fp32" in phases:
         from virnet_tpu_torch.convert import load_pth
@@ -4471,6 +4377,7 @@ def main(argv=None) -> int:
 
     if "psnr" in phases:
         log("[psnr] sigma=25/255 noise on a smooth image, syn demo bf16")
+        syn = Restorer("denoising-syn", ckpt_path=SYN_CKPT, compute="bf16")
         clean = smooth_image(np.random.default_rng(1), 256, 256)
         noisy = (clean + np.random.default_rng(2).normal(
             0, 25 / 255, clean.shape)).astype(np.float32)

@@ -6,6 +6,8 @@ device.  Imports no JAX, so it runs on a machine without it:
     python -m pytest --noconftest tests/test_torch_port_card.py -q
 """
 
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -797,35 +799,58 @@ def test_resblock_conv_kernel_raises_on_what_it_does_not_take():
     assert fc.LAUNCHES["resblock_conv"] == 0
 
 
-def test_bf16_restore_batch_runs_every_body_block_on_k11():
-    """Restorer('denoising-syn', bf16) on a 2 x 256^2 batch: K3, 30 K11
-    (15 blocks) and K4, 32 launches of ours and nothing else; the output
-    agrees with the same weights on today's library route (every block's
-    kernels off) within 4 bf16 ulps of the image scale."""
-    _need_card()
-    from pathlib import Path
+# the released serving paths: (task, compute, the shape of the request's
+# input on the card, a batch for restore_batch or an image for
+# restore_image, and the launches of ours one request makes).  256^2
+# passes the fused-head gate (K3), 321 x 481 fails it (K2: snet_conv1, K1
+# once per mid level, snet_last); bf16 runs each unconditioned RNet block
+# as two K11 launches (15 blocks of denoising-syn, 21 of denoising-real).
+# tests/test_torch_port_engine.py holds the same table on the CPU.
+SERVING_PATHS = {
+    "syn-bf16-batch": ("denoising-syn", "bf16", (2, 256, 256, 3), dict(
+        dncnn_head_fused=1, resblock_conv=30, conv3x3_tail_residual=1)),
+    "syn-bf16-odd": ("denoising-syn", "bf16", (321, 481, 3), dict(
+        dncnn_fused=1, conv3x3_mid=3, resblock_conv=30,
+        conv3x3_tail_residual=1)),
+    "syn-fp32-odd": ("denoising-syn", "fp32", (321, 481, 3), dict(
+        dncnn_fused=1, conv3x3_mid=3, conv3x3_tail_residual=1)),
+    "real-bf16-batch": ("denoising-real", "bf16", (4, 256, 256, 3), dict(
+        dncnn_head_fused=1, resblock_conv=42, conv3x3_tail_residual=1)),
+}
+DEMO_CKPTS = {task: Path(__file__).resolve().parents[1] / "model_zoo" /
+              f"virnet_{task.replace('-', '_')}_demo.pth"
+              for task in ("denoising-syn", "denoising-real")}
 
+
+@pytest.mark.parametrize("case", list(SERVING_PATHS))
+def test_serving_paths_launch_exactly_their_kernels(case):
+    """One request of each released serving path on the card launches
+    exactly its kernels of SERVING_PATHS and nothing else of ours; in bf16
+    the output agrees with the same weights on today's library route
+    (every body block's K11 off) within 4 bf16 ulps of the image scale."""
+    _need_card()
     from virnet_tpu_torch.eval.engine import Restorer
     from virnet_tpu_torch.models.attresunet import AttResBlock
 
-    ckpt = Path(__file__).resolve().parents[1] / "model_zoo" / \
-        "virnet_denoising_syn_demo.pth"
-    r = Restorer("denoising-syn", ckpt_path=ckpt, compute="bf16")
-    x = torch.from_numpy(np.random.default_rng(32).random(
-        (2, 256, 256, 3), dtype=np.float32)).cuda()
+    task, compute, shape, want = SERVING_PATHS[case]
+    r = Restorer(task, ckpt_path=DEMO_CKPTS[task], compute=compute)
+    x = np.random.default_rng(32).random(shape, dtype=np.float32)
+    if len(shape) == 4:
+        x = torch.from_numpy(x).cuda()
+    request = r.restore_batch if len(shape) == 4 else r.restore_image
     fc.reset_launches()
-    got = r.restore_batch(x)
+    got = request(x)
     torch.cuda.synchronize()
-    counts = {k: n for k, n in fc.LAUNCHES.items() if n}
-    assert counts == {"dncnn_head_fused": 1, "conv3x3_tail_residual": 1,
-                      "resblock_conv": 30}
-    blocks = [m for m in r.model.modules() if isinstance(m, AttResBlock)]
-    for m in blocks:
-        m.kernels = False
+    assert {k: n for k, n in fc.LAUNCHES.items() if n} == want
+    if compute == "fp32":
+        return
+    for m in r.model.modules():
+        if isinstance(m, AttResBlock):
+            m.kernels = False
     fc.reset_launches()
-    want = r.restore_batch(x)
+    want_out = request(x)
     assert fc.LAUNCHES["resblock_conv"] == 0
-    _close(torch.as_tensor(got), torch.as_tensor(want), torch.bfloat16)
+    _close(torch.as_tensor(got), torch.as_tensor(want_out), torch.bfloat16)
 
 
 @pytest.mark.parametrize("compute", ["fp32", "bf16"])
@@ -838,13 +863,10 @@ def test_numpy_requests_cross_through_page_locked_blocks(compute):
     after the next returns (no block the caller holds is handed out
     again)."""
     _need_card()
-    from pathlib import Path
-
     from virnet_tpu_torch.eval import engine
 
-    ckpt = Path(__file__).resolve().parents[1] / "model_zoo" / \
-        "virnet_denoising_syn_demo.pth"
-    r = engine.Restorer("denoising-syn", ckpt_path=ckpt, compute=compute)
+    r = engine.Restorer("denoising-syn", ckpt_path=DEMO_CKPTS["denoising-syn"],
+                        compute=compute)
     rng = np.random.default_rng(25)
     x, x2 = (rng.random((2, 64, 72, 3), dtype=np.float32) for _ in range(2))
     want = r.restore_batch(torch.from_numpy(x).cuda())
@@ -873,15 +895,12 @@ def test_numpy_image_on_the_chop_path_crosses_page_locked(monkeypatch):
     the whole image (the quadrants' forwards take tensors and count none),
     and the bits of ``forward_chop`` over tensor requests."""
     _need_card()
-    from pathlib import Path
-
     from virnet_tpu_torch.eval import engine
     from virnet_tpu_torch.eval.tiling import forward_chop
 
     monkeypatch.setattr(engine, "CHOP_THRESHOLD", 1000)
-    ckpt = Path(__file__).resolve().parents[1] / "model_zoo" / \
-        "virnet_denoising_syn_demo.pth"
-    r = engine.Restorer("denoising-syn", ckpt_path=ckpt, compute="bf16")
+    r = engine.Restorer("denoising-syn", ckpt_path=DEMO_CKPTS["denoising-syn"],
+                        compute="bf16")
     im = np.random.default_rng(26).random((40, 44, 3), dtype=np.float32)
     before = dict(engine.COPIES)
     got = r.restore_image(im)

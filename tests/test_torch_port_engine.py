@@ -20,6 +20,7 @@ from virnet_tpu.ops.augment import dihedral_np as jax_d
 from virnet_tpu_torch.eval.engine import Restorer
 from virnet_tpu_torch.eval.tiling import bucket_size, forward_chop
 from virnet_tpu_torch.ops.augment import dihedral_inverse_np, dihedral_np
+from test_torch_port_card import DEMO_CKPTS, SERVING_PATHS
 from test_torch_port_shared import _one_thread  # noqa: F401 (autouse)
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -161,43 +162,46 @@ def test_entry_points_need_cuda_unless_cpu_is_asked():
         Restorer("denoising-syn", ckpt_path=SYN)
 
 
-def test_bench_restore_times_restore_image_and_needs_the_card():
-    """cli/bench_restore: its timer drives ``restore_image`` (here on the
-    CPU, at a small odd size); its command line measures the card only."""
-    from virnet_tpu_torch.cli import bench_restore
+@pytest.mark.parametrize("case", list(SERVING_PATHS))
+def test_serving_paths_call_exactly_their_kernels(case, monkeypatch):
+    """The released serving paths of SERVING_PATHS (test_torch_port_card.py)
+    on the CPU, with the card's device gate open and at a small size of the
+    same kind (a pad-free 32^2 batch, an odd 21 x 27 image): one request
+    calls exactly the path's kernel wrappers, each running its plain
+    version (K1 inside K2 is part of K2's plain version and not counted),
+    and launches nothing."""
+    from virnet_tpu_torch.models import attresunet
+    from virnet_tpu_torch.ops import fused_conv as fc
+    from virnet_tpu_torch.ops import resblock
 
-    cpu = Restorer("denoising-syn", ckpt_path=SYN, device="cpu")
-    res = bench_restore.time_image(cpu, np.random.default_rng(0).random(
-        (13, 15, 3), dtype=np.float32), reps=2, warmup=1)
-    assert len(res["ms"]) == 2 and 0 < res["min_ms"] <= res["median_ms"]
-    if torch.cuda.is_available():
-        pytest.skip("a CUDA device is present")
-    with pytest.raises(SystemExit):
-        bench_restore.main(["--size", "13x15"])
+    task, compute, shape, want = SERVING_PATHS[case]
+    calls = {}
 
+    def record(module, name):
+        real = getattr(module, name)
 
-def test_bench_restore_takes_the_sisr_task_and_its_flags():
-    """cli/bench_restore --task sisr --sf N [--profile] [--cudnn]: the
-    flags parse, the default weights are the scale's demo checkpoint, and
-    its timer drives a SISR ``restore_image`` (here on the CPU, at a small
-    size)."""
-    from virnet_tpu_torch.cli import bench_restore
+        def call(*args, **kwargs):
+            calls[name] = calls.get(name, 0) + 1
+            return real(*args, **kwargs)
+        monkeypatch.setattr(module, name, call)
 
-    args = bench_restore.build_parser().parse_args(
-        ["--task", "sisr", "--sf", "3", "--profile", "--compute", "fp32"])
-    assert (args.task, args.sf, args.profile, args.compute) == \
-        ("sisr", 3, True, "fp32")
-    assert not bench_restore.build_parser().parse_args([]).profile
-    assert not bench_restore.build_parser().parse_args([]).cudnn
-    assert bench_restore.build_parser().parse_args(["--cudnn"]).cudnn
-    with pytest.raises(SystemExit):
-        bench_restore.build_parser().parse_args(["--sf", "5"])
-    ckpt = bench_restore.default_ckpt("sisr", 3)
-    assert ckpt.name == "virnet_sisr_x3_demo.pth" and ckpt.exists()
-    assert bench_restore.default_ckpt("denoising-syn", 3).exists()
-    cpu = Restorer("sisr", ckpt_path=ckpt, sf=3, device="cpu")
-    res = bench_restore.time_image(cpu, _im(10, 9, 11), reps=2, warmup=1)
-    assert len(res["ms"]) == 2 and 0 < res["min_ms"] <= res["median_ms"]
+    monkeypatch.setattr(attresunet, "_on_card", lambda x: True)
+    for module, name in ((fc, "dncnn_head_fused"), (fc, "dncnn_fused"),
+                         (attresunet, "conv3x3_tail_residual"),
+                         (resblock, "resblock_conv")):
+        record(module, name)
+    r = Restorer(task, ckpt_path=DEMO_CKPTS[task], compute=compute,
+                 device="cpu")
+    fc.reset_launches()
+    if len(shape) == 4:
+        out = r.restore_batch(_im(33, 32, 32)[None])
+        assert out.shape == (1, 32, 32, 3)
+    else:
+        out = r.restore_image(_im(33, 21, 27))
+        assert out.shape == (21, 27, 3)
+    assert np.isfinite(np.asarray(out)).all()
+    assert calls == {k: n for k, n in want.items() if k != "conv3x3_mid"}
+    assert not any(fc.LAUNCHES.values())
 
 
 # ------------------------------------------ the Restorer's host copies
@@ -313,7 +317,6 @@ def test_port_imports_no_jax():
         "        'virnet_tpu_torch.data.eval_sets',\n"
         "        'virnet_tpu_torch.ops.sigma_fields',\n"
         "        'virnet_tpu_torch.ops.degrade',\n"
-        "        'virnet_tpu_torch.cli.bench_restore',\n"
         "        'virnet_tpu_torch.cli.train_denoising_syn',\n"
         "        'virnet_tpu_torch.cli.train_denoising_real',\n"
         "        'virnet_tpu_torch.train.mesh',\n"

@@ -95,21 +95,6 @@ def test_presets_load_strict_and_match_jax(task):
     np.testing.assert_allclose(mu, np.asarray(mu_j), atol=1e-5)
 
 
-def test_ops_route_matches_fused_route():
-    """conv_impl='ops' (K1 per conv) computes the same function."""
-    sd = load_pth(CKPTS["denoising-syn"])
-    fused = build_model("denoising-syn")
-    ops = build_model("denoising-syn", conv_impl="ops")
-    for m in (fused, ops):
-        m.load_state_dict(sd, strict=True)
-    for hw in ((32, 32), (21, 27)):
-        x = np.random.default_rng(3).random((1, *hw, 3), dtype=np.float32)
-        assert not fused_head_supported(ops, x.shape)
-        a, b = _port_forward(fused, x), _port_forward(ops, x)
-        np.testing.assert_allclose(a[0], b[0], atol=1e-5)
-        np.testing.assert_allclose(a[1], b[1], atol=2e-6)
-
-
 def test_fused_gate():
     syn = build_model("denoising-syn")              # depth 3 -> mod 4
     assert fused_head_supported(syn, (1, 64, 64, 3))
@@ -124,6 +109,9 @@ def test_fused_gate():
     assert not fused_head_supported(build_model("sisr"), (1, 64, 64, 3))
     with pytest.raises(ValueError):
         build_model("deblurring")
+    for impl in ("ops", "pair_ops"):        # no per-op SNet route
+        with pytest.raises(ValueError, match=r"fused\|torch"):
+            build_model("denoising-syn", conv_impl=impl)
 
 
 def test_kernel_layout_is_cached_and_follows_the_weights():

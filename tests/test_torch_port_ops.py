@@ -288,16 +288,3 @@ def test_dncnn_fused_source_holds_the_probe_only():
     assert {fc._SIGNATURES[s][0] for s in ("vt_snet_conv1",
                                            "vt_snet_last")} == {
         "snet_levels"}
-
-
-def test_k3_phase_variants_apply_to_the_kernel_source():
-    """cli/bench_k3_phases compiles parts of csrc/dncnn_head.cu out by
-    editing its text; every edit must still find its pattern, or the tool
-    would time something else."""
-    from virnet_tpu_torch.cli import bench_k3_phases as b
-    from virnet_tpu_torch.ops import _build
-
-    src = (_build.CSRC / "dncnn_head.cu").read_text()
-    for name in b._EDITS:
-        out = b.variant_source(name, src)
-        assert (out == src) == (name == "all"), name

@@ -116,7 +116,7 @@ class Restorer:
     its batch to a multiple of the mesh's size, runs one chunk per mesh
     device and crops the result (per-image outputs as without the mesh,
     up to the summation order of another batch size).  Extra keyword
-    arguments go to ``build_model`` (e.g. ``conv_impl='ops'``)."""
+    arguments go to ``build_model`` (e.g. ``conv_impl='torch'``)."""
 
     def __init__(self, task: str, ckpt_path=None, sf: int = 2,
                  pad_multiple: int = 0, gray_mean: bool = False,

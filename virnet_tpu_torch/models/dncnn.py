@@ -20,10 +20,8 @@ from .common import (conv, hwio, kernel_layout, leaky_relu_gain, lrelu,
 
 class DnCNN(nn.Module):
     """``conv_impl``: 'fused' runs the whole stack as one K2 launch
-    (counterpart of pallas_conv.dncnn_pair_fused); 'ops' is its per-op
-    route (``conv_impl='pair_ops'`` in the JAX package): conv1 and
-    conv_last in plain torch, the mids as L launches of K1.  Both are
-    forward-only.  'torch' runs every conv through ``F.conv2d`` with
+    (counterpart of pallas_conv.dncnn_pair_fused), forward-only.
+    'torch' runs every conv through ``F.conv2d`` with
     autograd: the training route, the counterpart of ``conv_impl='xla'``
     that the JAX trainers force (models/common.py:train_conv_impl)."""
 
@@ -31,8 +29,8 @@ class DnCNN(nn.Module):
                  num_filters: int = 64, slope: float = 0.25,
                  conv_impl: str = "fused", noise_avg: bool = False):
         super().__init__()
-        if conv_impl not in ("fused", "ops", "torch"):
-            raise ValueError(f"conv_impl must be fused|ops|torch, got "
+        if conv_impl not in ("fused", "torch"):
+            raise ValueError(f"conv_impl must be fused|torch, got "
                              f"{conv_impl!r}")
         self.slope = slope
         self.conv_impl = conv_impl
@@ -81,9 +79,5 @@ class DnCNN(nn.Module):
             return to_nhwc(conv(self.conv_last, y))
         p = self.kernel_params()
         x = x.to(p["w1"].dtype).contiguous()
-        if self.conv_impl == "ops":
-            y = fc.conv3x3_plain(x, p["w1"], p["b1"], self.slope)
-            y = fc.conv3x3_mid_stack(y, p["wms"], p["bms"], self.slope)
-            return fc.conv3x3_plain(y, p["wl"], p["bl"])
         return fc.dncnn_fused(x, p["w1"], p["b1"], p["wms"], p["bms"],
                               p["wl"], p["bl"], slope=self.slope)

@@ -9,17 +9,16 @@ reference networks/VIRNet.py).
                kernel info and the noise level.
 
 ``conv_impl`` chooses how SNet's stack and RNet's tail run: 'fused' (K2 /
-K3 and K4) and 'ops' (K1) are the forward-only serving routes, 'torch'
-runs them through ``F.conv2d`` with autograd and is what the trainers
-build; ``remat`` (RNet's blocks recomputed in the backward,
-models/attresunet.py) needs it.
+K3 and K4) is the forward-only serving route, 'torch' runs them through
+``F.conv2d`` with autograd and is what the trainers build; ``remat``
+(RNet's blocks recomputed in the backward, models/attresunet.py) needs
+it.
 
 In the denoising model, on shapes that pass ``models/fused.fused_head_supported`` the forward runs
 SNet, the sigma epilogue and RNet's head conv through K3 (one launch in
 bf16, the SNet level chain in fp32) and continues RNet from the head
-activation; other shapes run SNet (K2, or K1
-on the 'ops' route), the epilogue and RNet's pad and head in torch.  The
-RNet tail is K4 on every shape.
+activation; other shapes run SNet (K2), the epilogue and RNet's pad
+and head in torch.  The RNet tail is K4 on every shape.
 """
 
 from __future__ import annotations
