@@ -10,18 +10,19 @@
 
 Phases (all by default; any failure raises and the exit code is not 0):
   build      nvcc-builds the CUDA kernels from virnet_tpu_torch/csrc/
-  kernels    holds each kernel (K1-K4, K8) against its plain PyTorch version
+  kernels    holds each kernel (K1-K4, K8; K3's wgmma mid level alone in
+             bf16) against its plain PyTorch version
              on the card at the main paths' shapes, with the weights of both
              presets (syn: L=3, co=1; real: L=6, co=3), in fp32 (TF32 off)
              and bf16, and times kernel, plain version and library call; K2
              also at 8x321x481 (the batch of Restorer.restore_images), K2
-             and fp32 K3 (the level chain of csrc/snet_levels.cu) with each
-             level timed alone, the level chain in bf16 with the head mode
-             at the flagship batch beside K3 bf16 (a measurement, routed
-             nowhere), and at the real weights the logits error of K2 and
+             and K3 (the level chains of csrc/snet_levels.cu, and of
+             csrc/dncnn_head.cu for K3 in bf16) with each level timed
+             alone, K3 in bf16 also on one 4032x3024 photo at the real
+             weights, and at the real weights the logits error of K2 and
              the spread of the plain version, card against CPU; the
-             probe K8 (K3's device code on the slab view: dncnn_head.cu in
-             bf16, the level chain in fp32) on 8-, 16- and 32-row slabs,
+             probe K8 (K3's level chain on the slab view) on 8-, 16- and
+             32-row slabs,
              its rows far from slab edges also against K3's output one row
              up (the largest difference printed), timed at 8, 16, 32 and
              beside its library route on the shifted slab view
@@ -56,8 +57,8 @@ Phases (all by default; any failure raises and the exit code is not 0):
   probe      cli.bench_fused_head.run at the flagship shape, full width:
              unfused, halo (K3 + K4) and slabzero (K8 + K4) on 8-, 16- and
              32-row slabs; launches of one apply of each, ms per apply, MP/s
-             and halo - slabzero (K8 runs K3's kernel on slabs, so at 32
-             rows this is what K3's row halo costs an apply)
+             and halo - slabzero (K8 runs K3's level chain on slabs, which
+             recomputes nothing either way: about 0)
   sisr_fwd   VIRNetSR with the x4 demo weights on a 4x48x48 LR batch, card
              (K2 + K4) vs CPU in fp32
   serve_sisr Restorer('sisr', sf=4) with the x4 demo weights: restore_image
@@ -281,8 +282,16 @@ KERNELS = {
     "dncnn_head_fused": dict(
         path="runtime_dp_restore",
         source="virnet_tpu_torch/csrc/dncnn_head.cu",
+        uses="virnet_tpu_torch/csrc/snet_levels.cuh (the conv1 and last "
+             "levels' device bodies); dncnn_head_mid, the wgmma mid level, "
+             "once per mid level",
         replaces="virnet_tpu/ops/pallas_conv.py:1289 (dncnn_head_fused "
                  "halo :1512, carry :1459)"),
+    "dncnn_head_mid": dict(
+        path="runtime_dp_restore",
+        source="virnet_tpu_torch/csrc/dncnn_head.cu",
+        replaces="the mid levels of virnet_tpu/ops/pallas_conv.py:1289 "
+                 "(dncnn_head_fused), in bf16: K3's and K8's wgmma level"),
     "conv3x3_tail_residual": dict(
         path="runtime_dp_restore",
         source="virnet_tpu_torch/csrc/tail_residual.cu",
@@ -296,8 +305,9 @@ KERNELS = {
                  "halo :1512, carry :1459), in fp32"),
     "dncnn_head_slabzero": dict(
         path="probe", source="virnet_tpu_torch/csrc/dncnn_head.cu",
-        uses="fp32: virnet_tpu_torch/csrc/snet_levels.cu + conv3x3_mid.cu "
-             "(K3's level chain on the slab view)",
+        uses="K3's level chain on the slab view (bf16: dncnn_head.cu's "
+             "kernels; fp32: virnet_tpu_torch/csrc/snet_levels.cu + "
+             "conv3x3_mid.cu)",
         replaces="virnet_tpu/ops/pallas_conv.py:1183 "
                  "(_dncnn_head_kernel_slabzero; dncnn_head_fused "
                  "mode='slabzero', pallas_call :1412)"),
@@ -564,6 +574,7 @@ def check_kernels(sd, label, batch, mod, peaks, results):
     mid_in = rand(1, 321, 481, 64, scale=2.0)    # a mid conv's input there
     feats_flag = rand(batch, 256, 256, 96) - 0.5  # RNet tail input
     feats_pad = rand(1, hp, wp, 96) - 0.5        # padded for 321x481
+    mid_flag = rand(batch, 256, 256, 64, scale=2.0)  # K3's mid level there
     for dtype in (torch.float32, torch.bfloat16):
         tag = f"{label} {'fp32' if dtype == torch.float32 else 'bf16'}"
         p = snet_params(sd, dtype, dev)
@@ -685,30 +696,30 @@ def check_kernels(sd, label, batch, mod, peaks, results):
               npx * (3 + co + cf) * esz + weights_b
               + (p["wh"].numel() + cf) * esz, 5, cold=True,
               library=f"library route, {lib_calls[1]} calls")
-        if dtype == torch.float32:
-            results["dncnn_head_fused"][tag]["levels_ms"] = chain_levels(
-                (xf, *args3), p, True, kw)
-        elif label == "syn":
-            # the level chain in bf16 with snet_last's sigma + head mode: a
-            # measurement beside K3 bf16's one launch, routed nowhere
-            def chain():
-                return fc._snet_chain(True, xf, *args3, p["wh"], p["bh"],
-                                      0.25, kw["lmin"], kw["lmax"])
-            hc, sc = chain()
+        results["dncnn_head_fused"][tag]["levels_ms"] = chain_levels(
+            (xf, *args3), p, True, kw)
+        if dtype == torch.bfloat16:
+            # K3's wgmma mid level alone on one level map of the batch
+            ym = mid_flag.to(dtype)
+            w, b = p["wms"][0], p["bms"][0]
+            got = fc.dncnn_head_mid(ym, w, b, 0.25)
             torch.cuda.synchronize()
-            check_close("level chain bf16 (measurement only) head", hc,
-                        head_ref, dtype)
-            check_close("level chain bf16 (measurement only) sigma", sc,
-                        sig_ref, dtype, kind="sigma")
-            del hc, sc
-            c_ms = time_cold_ms(chain, 5)
-            k3_ms = results["dncnn_head_fused"][tag]["ms"]
-            log(f"  level chain bf16, sigma + head mode, cold: {c_ms:.4f} ms "
-                f"against K3 bf16's one launch {k3_ms:.4f} ms "
-                f"({c_ms / k3_ms:.3f}x)")
-            results["dncnn_head_fused"][tag]["chain_bf16"] = dict(
-                ms=c_ms, k3_ms=k3_ms,
-                levels_ms=chain_levels((xf, *args3), p, True, kw))
+            err = check_close("dncnn_head_mid", got,
+                              fc.conv3x3_plain(ym, w, b, 0.25), dtype)
+            del got
+            ym_nchw = ym.permute(0, 3, 1, 2)
+            w_oihw = w.permute(3, 2, 0, 1).contiguous()
+            entry("dncnn_head_mid", err,
+                  lambda: fc.dncnn_head_mid(ym, w, b, 0.25),
+                  lambda: fc.conv3x3_plain(ym, w, b, 0.25),
+                  lambda: F.conv2d(ym_nchw, w_oihw, b, padding=1),
+                  2 * 9 * 64 * 64 * npx,
+                  2 * npx * 64 * esz + (w.numel() + b.numel()) * esz, 10,
+                  cold=True)
+            del ym, ym_nchw
+        if label == "real" and dtype == torch.bfloat16:
+            results["dncnn_head_fused"][tag]["photo"] = k3_photo(
+                rand(1, 3024, 4032, 3).to(dtype), p, kw, bound)
 
         # K8 at the gated batch: 8-, 16- and 32-row slabs against the
         # plain version, to K3's tolerances; the rows farther than L+3 from
@@ -755,17 +766,12 @@ def check_kernels(sd, label, batch, mod, peaks, results):
               library=f"library route on the shifted slab view, "
                       f"{lib_calls[1]} calls")
         del xs8
-        # K3 - K8: K8 runs K3's device code on slabs.  In bf16 (one launch
-        # of dncnn_head.cu) K8's tiles span a slab's rows up to 32 and
-        # recompute only the column halo, so at r=32 the difference is what
-        # K3's row halo costs; in fp32 both are the level chain, which
-        # recomputes nothing, so it should be about 0
+        # K3 - K8: K8 runs K3's level chain on slabs, which recomputes
+        # nothing in either, so it should be about 0
         by_rows = {r: time_cold_ms(lambda: fc.dncnn_head_slabzero(
             *args8, rows=r, **kw), 3) for r in (8, 16, 32)}
         k3_ms = results["dncnn_head_fused"][tag]["ms"]
-        what = ("K3 - K8: the cost of K3's row halo (one device code, "
-                "dncnn_head.cu)" if dtype == torch.bfloat16 else
-                "K3 - K8: the level chain on images against on slabs "
+        what = ("K3 - K8: the level chain on images against on slabs "
                 "(nothing recomputed in either)")
         results["dncnn_head_slabzero"][tag].update(
             ms_by_rows=by_rows, k3_minus_k8_ms={
@@ -994,10 +1000,44 @@ def library_route(p, L, kw, slope=0.25):
     return snet, head, (snet_calls, snet_calls + 7)
 
 
+def k3_photo(x, p, kw, bound, iters=3):
+    """K3 in bf16 on one whole 4032 x 3024 photo ``x`` at the real
+    weights, the request of the benchmark's photo cell: held against its
+    plain version, timed whole and level by level beside its bound and the
+    mid level's (73.7 kFLOP against 256 B a pixel)."""
+    from virnet_tpu_torch.ops import fused_conv as fc
+
+    args = (x, p["w1"], p["b1"], p["wms"], p["bms"], p["wl"], p["bl"])
+    head, sig = fc.dncnn_head_fused(*args, p["wh"], p["bh"], **kw)
+    torch.cuda.synchronize()
+    h_ref, s_ref = fc.dncnn_head_fused_plain(*args, p["wh"], p["bh"], **kw)
+    err = max(check_close("dncnn_head_fused head, 4032x3024", head, h_ref,
+                          torch.bfloat16),
+              check_close("dncnn_head_fused sigma, 4032x3024", sig, s_ref,
+                          torch.bfloat16, kind="sigma"))
+    del head, sig, h_ref, s_ref
+    L, co, cf = p["wms"].shape[0], p["wl"].shape[3], p["wh"].shape[3]
+    npx = 3024 * 4032
+    ms = time_cold_ms(lambda: fc.dncnn_head_fused(*args, p["wh"], p["bh"],
+                                                  **kw), iters)
+    flops = 2 * 9 * (3 * 64 + L * 64 * 64 + 64 * co + (3 + co) * cf) * npx
+    b_ms, b_by = bound(flops, npx * (3 + co + cf) * 2)
+    mid_ms, mid_by = bound(2 * 9 * 64 * 64 * npx, 2 * 64 * 2 * npx)
+    levels = chain_levels(args, p, True, kw, iters)
+    log(f"  dncnn_head_fused 4032x3024: {ms:.4f} ms, bound {b_ms:.4f} ms "
+        f"({b_by}); a mid level {levels['mid_each']:.4f} ms against "
+        f"{mid_ms:.4f} ({mid_by})")
+    check_bound("dncnn_head_fused 4032x3024", "the kernel", ms, b_ms)
+    return dict(max_abs_err=err, ms=ms, bound_ms=b_ms, bound_by=b_by,
+                levels_ms=levels, mid_bound_ms=mid_ms, mid_bound_by=mid_by)
+
+
 def chain_levels(args, p, head, kw, iters=5):
     """Cold ms of each launch of the level chain (K2, or K3 with ``head``)
     alone, on the inputs of ``args`` (x, w1, b1, wms, bms, wl, bl): the
-    breakdown that says which level holds the chain back."""
+    breakdown that says which level holds the chain back.  K3 in bf16 is
+    csrc/dncnn_head.cu's chain (conv1, the wgmma mid level, the last
+    level); the others csrc/snet_levels.cu's with K1 for the mids."""
     from virnet_tpu_torch.ops import fused_conv as fc
 
     x = args[0]
@@ -1006,20 +1046,34 @@ def chain_levels(args, p, head, kw, iters=5):
     co = p["wl"].shape[3]
     cf = p["wh"].shape[3] if head else 0
     L = p["wms"].shape[0]
+    ours = head and x.dtype == torch.bfloat16
     y = torch.empty((n, h, w, 64), dtype=x.dtype, device=x.device)
     out0 = torch.empty((n, h, w, cf if head else co), dtype=x.dtype,
                        device=x.device)
     out1 = torch.empty((n, h, w, co), dtype=x.dtype, device=x.device)
 
     def conv1():
+        if ours:
+            fc._ret(fc._fn("vt_dncnn_head_conv1")(
+                x.data_ptr(), p["w1"].data_ptr(), p["b1"].data_ptr(),
+                y.data_ptr(), n, h, w, 0, 0.25, st), "vt_dncnn_head_conv1")
+            return
         fc._ret(fc._fn("vt_snet_conv1")(
             x.data_ptr(), p["w1"].data_ptr(), p["b1"].data_ptr(),
             y.data_ptr(), n, h, w, 0, code, 0.25, st), "vt_snet_conv1")
 
     def mid():
-        fc.conv3x3_mid(y, p["wms"][0], p["bms"][0], 0.25)
+        (fc.dncnn_head_mid if ours else fc.conv3x3_mid)(
+            y, p["wms"][0], p["bms"][0], 0.25)
 
     def last():
+        if ours:
+            fc._ret(fc._fn("vt_dncnn_head_last")(
+                y.data_ptr(), x.data_ptr(), p["wl"].data_ptr(),
+                p["bl"].data_ptr(), p["wh"].data_ptr(), p["bh"].data_ptr(),
+                out0.data_ptr(), out1.data_ptr(), n, h, w, co, cf, 0,
+                kw["lmin"], kw["lmax"], st), "vt_dncnn_head_last")
+            return
         fc._ret(fc._fn("vt_snet_last")(
             y.data_ptr(), x.data_ptr(), p["wl"].data_ptr(),
             p["bl"].data_ptr(), p["wh"].data_ptr() if head else None,
@@ -1028,13 +1082,16 @@ def chain_levels(args, p, head, kw, iters=5):
             0, code, kw["lmin"], kw["lmax"], st), "vt_snet_last")
 
     conv1()
-    out = dict(snet_conv1=time_cold_ms(conv1, iters),
-               k1_each=time_cold_ms(mid, iters),
-               snet_last=time_cold_ms(last, iters))
-    out["k1_all"] = L * out["k1_each"]
-    log(f"  level chain ({'K3 sigma + head' if head else 'K2 logits'}), each "
-        f"launch alone, cold: snet_conv1 {out['snet_conv1']:.4f} ms, K1 "
-        f"{out['k1_each']:.4f} ms x {L}, snet_last {out['snet_last']:.4f} ms")
+    out = dict(kernels=("dncnn_head_conv1, dncnn_head_mid, dncnn_head_last"
+                        if ours else "snet_conv1, K1, snet_last"),
+               conv1=time_cold_ms(conv1, iters),
+               mid_each=time_cold_ms(mid, iters),
+               last=time_cold_ms(last, iters))
+    out["mid_all"] = L * out["mid_each"]
+    log(f"  level chain ({'K3 sigma + head' if head else 'K2 logits'}: "
+        f"{out['kernels']}), each launch alone, cold: conv1 "
+        f"{out['conv1']:.4f} ms, mid {out['mid_each']:.4f} ms x {L}, last "
+        f"{out['last']:.4f} ms")
     return out
 
 
@@ -1540,6 +1597,7 @@ def phase_probe(report, launches):
     want = {"unfused": {}, "halo": dict(SERVE_PATH)}
     for v in variants[2:]:
         want[v] = {"dncnn_head_slabzero": 1, "conv3x3_tail_residual": 1,
+                   "dncnn_head_mid": SERVE_PATH["dncnn_head_mid"],
                    "resblock_conv": SERVE_PATH["resblock_conv"]}
     for v, counts in want.items():
         if res[v]["launches"] != counts:
@@ -1552,7 +1610,7 @@ def phase_probe(report, launches):
         r = res[v]
         extra = ("" if not v.startswith("slabzero") else
                  f", halo - {v} {halo - r['best_ms']:+.2f} ms (K8 is K3's "
-                 f"kernel on slabs)")
+                 f"level chain on slabs)")
         log(f"  {v}: best {r['best_ms']:.2f} ms per apply, "
             f"{r['mp_per_s']:.2f} MP/s, reps "
             f"{[round(m, 2) for m in r['ms']]}{extra}")
@@ -2365,11 +2423,12 @@ def phase_train_pipeline(report, launches, steps=30):
 
 
 # the bf16 paths take K11 twice for each unconditioned RNet block: 15
-# blocks of denoising-syn, 21 of denoising-real, SISR's 4 up-path blocks
-SERVE_PATH = {"dncnn_head_fused": 1, "conv3x3_tail_residual": 1,
-              "resblock_conv": 30}
-SIDD_BF16_PATH = {"dncnn_head_fused": 1, "conv3x3_tail_residual": 1,
-                  "resblock_conv": 42}
+# blocks of denoising-syn, 21 of denoising-real, SISR's 4 up-path blocks;
+# bf16 K3 its wgmma mid kernel once per SNet mid level (syn 3, real 6)
+SERVE_PATH = {"dncnn_head_fused": 1, "dncnn_head_mid": 3,
+              "conv3x3_tail_residual": 1, "resblock_conv": 30}
+SIDD_BF16_PATH = {"dncnn_head_fused": 1, "dncnn_head_mid": 6,
+                  "conv3x3_tail_residual": 1, "resblock_conv": 42}
 SIDD_FP32_PATH = {"dncnn_head_fused": 1, "conv3x3_mid": 6,
                   "conv3x3_tail_residual": 1}
 K2_PATH = {"dncnn_fused": 1, "conv3x3_mid": 3, "conv3x3_tail_residual": 1}

@@ -106,10 +106,11 @@ def _need_card():
 ], ids=["syn-r16", "syn-odd-r8", "real-r32", "real-r4", "syn-r64",
         "real-r48-w50"])
 def test_slabzero_kernel_matches_plain_on_card(L, co, shape, rows, dtype):
-    """K8 against its plain version on the card, to K3's tolerances (bf16:
-    csrc/dncnn_head.cu on the slab view, tiles of min(rows, 32) x 24; fp32:
-    the level chain); one K8 count per call, and in fp32 one K1 launch per
-    mid level; rows far from slab edges equal K3 one row up."""
+    """K8 against its plain version on the card, to K3's tolerances (K3's
+    level chain on the slab view: csrc/dncnn_head.cu's kernels in bf16,
+    csrc/snet_levels.cu's and K1 in fp32); one K8 count per call and one
+    mid launch per level (bf16 dncnn_head_mid, fp32 K1); rows far from
+    slab edges equal K3 one row up."""
     _need_card()
     from virnet_tpu_torch.precision import set_parity_mode
 
@@ -123,10 +124,9 @@ def test_slabzero_kernel_matches_plain_on_card(L, co, shape, rows, dtype):
     fc.reset_launches()
     head, sig = fc.dncnn_head_slabzero(x, *args, rows=rows)
     torch.cuda.synchronize()
-    assert fc.LAUNCHES["dncnn_head_slabzero"] == 1
-    assert fc.LAUNCHES["dncnn_head_fused"] == 0
-    assert fc.LAUNCHES["conv3x3_mid"] == (L if dtype == torch.float32 else 0)
-    assert sum(fc.LAUNCHES.values()) == 1 + fc.LAUNCHES["conv3x3_mid"]
+    mid = "conv3x3_mid" if dtype == torch.float32 else "dncnn_head_mid"
+    assert {k: n for k, n in fc.LAUNCHES.items() if n} == {
+        "dncnn_head_slabzero": 1, mid: L}
     head_ref, sig_ref = fc.dncnn_head_slabzero_plain(x, *args, rows=rows)
     _close(head, head_ref, dtype)
     _close(sig, sig_ref, dtype, sigma=True)
@@ -374,9 +374,12 @@ def test_mid_and_tail_raise_on_what_they_do_not_take():
         fc.conv3x3_tail_residual(feats.requires_grad_(), x_in, wt, bt)
 
 
-# the output tile of csrc/dncnn_head.cu (K3 in bf16); its mid levels run
-# in rectangles of at most 32 columns and 256 pixels
-K3_TILE = 24
+# K3 and K8 in bf16 run csrc/dncnn_head.cu's chain: conv1 and the last
+# level in 16 x 16 tiles, the wgmma mid levels in 32-row x 16-column tiles
+# (each warpgroup 8 columns); shapes around both, one pixel, a row of 17, a
+# CBSD68 image's size and batches
+_K3_SHAPES = ((1, 1, 1, 3), (1, 1, 17, 3), (1, 31, 17, 3), (2, 32, 48, 3),
+              (3, 37, 45, 3), (1, 321, 481, 3))
 
 
 def _head_args(rng, L, co, cf, dtype=torch.bfloat16):
@@ -386,25 +389,27 @@ def _head_args(rng, L, co, cf, dtype=torch.bfloat16):
     return [g[k] for k in ("w1", "b1", "wms", "bms", "wl", "bl", "wh", "bh")]
 
 
-@pytest.mark.parametrize("cf", [16, 96, 256])
-@pytest.mark.parametrize("L,co", [(1, 1), (3, 1), (6, 3)],
-                         ids=["L1", "syn", "real"])
+@pytest.mark.parametrize("L,co,cf", [(1, 1, 16), (3, 1, 96), (3, 1, 256),
+                                     (6, 3, 16), (6, 3, 96), (6, 3, 256)],
+                         ids=["L1", "syn", "syn-cf256", "real-cf16", "real",
+                              "real-cf256"])
 def test_head_kernel_bf16_matches_plain_on_card(L, co, cf):
-    """K3 in bf16 (csrc/dncnn_head.cu) against its plain version on the
-    card: one pixel, the tile size -1 / +1, two whole tiles across, and an
-    odd size; exactly one launch per call."""
+    """K3 in bf16 (csrc/dncnn_head.cu's level chain: conv1, L wgmma mid
+    levels, the last level's sigma + head mode) against its plain version
+    on the card at both presets' depths and head widths 16-256: one
+    pixel, a row of 17, the mid tile -1 across, batches of 2 and 3, a
+    CBSD68 image's size; one dncnn_head_fused count and L dncnn_head_mid
+    launches a call, nothing else."""
     _need_card()
     rng = np.random.default_rng(16)
     args = _head_args(rng, L, co, cf)
-    t = K3_TILE
-    for shape in ((1, 1, 1, 3), (1, t - 1, t + 1, 3), (2, t, 2 * t, 3),
-                  (1, 37, 45, 3)):
+    for shape in _K3_SHAPES:
         x = _t(rng.random(shape, dtype=np.float32)).to("cuda", torch.bfloat16)
         fc.reset_launches()
         head, sig = fc.dncnn_head_fused(x, *args)
         torch.cuda.synchronize()
-        assert fc.LAUNCHES["dncnn_head_fused"] == 1, shape
-        assert sum(fc.LAUNCHES.values()) == 1, shape
+        assert {k: n for k, n in fc.LAUNCHES.items() if n} == {
+            "dncnn_head_fused": 1, "dncnn_head_mid": L}, shape
         assert head.shape == (*shape[:3], cf) and sig.shape == (*shape[:3], co)
         h_ref, s_ref = fc.dncnn_head_fused_plain(x, *args)
         _close(head, h_ref, torch.bfloat16)
@@ -412,18 +417,69 @@ def test_head_kernel_bf16_matches_plain_on_card(L, co, cf):
 
 
 def test_head_kernel_bf16_raises_on_what_it_does_not_take():
+    """K3 in bf16 refuses before any launch: stacked mid weights that do
+    not start 16-byte aligned, a head width that is no multiple of 16,
+    co = 4; an input that starts off 16 bytes is taken (conv1 reads it a
+    value at a time) and gives the same bits."""
     _need_card()
     rng = np.random.default_rng(17)
     args = _head_args(rng, 3, 1, 96)
     x = torch.rand(1, 30, 30, 3, device="cuda").bfloat16()
+    fc.reset_launches()
     with pytest.raises(ValueError, match="aligned"):
-        fc.dncnn_head_fused(_offset(x), *args)
+        fc.dncnn_head_fused(x, *args[:2], _offset(args[2]), *args[3:])
     wh24 = torch.rand(3, 3, 4, 24, device="cuda").bfloat16()
     with pytest.raises(ValueError, match="multiple of 16"):
         fc.dncnn_head_fused(x, *args[:6], wh24, args[7][:24].contiguous())
     a4 = _head_args(rng, 3, 4, 96)
     with pytest.raises(ValueError, match="1-3 outputs"):
         fc.dncnn_head_fused(x, *a4)
+    assert sum(fc.LAUNCHES.values()) == 0
+    for got, want in zip(fc.dncnn_head_fused(_offset(x), *args),
+                         fc.dncnn_head_fused(x, *args)):
+        torch.testing.assert_close(got, want, atol=0, rtol=0)
+
+
+@pytest.mark.parametrize("shape", [
+    (1, 1, 1, 64), (1, 1, 17, 64), (1, 31, 15, 64), (2, 32, 16, 64),
+    (1, 33, 17, 64), (3, 40, 24, 64), (1, 321, 481, 64)])
+def test_head_mid_kernel_matches_plain_on_card(shape):
+    """K3's wgmma mid level alone (csrc/dncnn_head.cu) against its plain
+    version, conv3x3_plain at the SNet's slope 0.25, on inputs of a level
+    map's range: one pixel, a row of 17, the tile (32 x 16) -1, exact and
+    +1, a batch of 3 and a CBSD68 image's size; one launch a call."""
+    _need_card()
+    rng = np.random.default_rng(26)
+    x = _t(_rand(rng, shape)).to("cuda", torch.bfloat16)
+    w = _t(_rand(rng, (3, 3, 64, 64), 0.04)).to("cuda", torch.bfloat16)
+    b = _t(_rand(rng, (64,), 0.05)).to("cuda", torch.bfloat16)
+    fc.reset_launches()
+    got = fc.dncnn_head_mid(x, w, b, 0.25)
+    torch.cuda.synchronize()
+    assert {k: n for k, n in fc.LAUNCHES.items() if n} == {
+        "dncnn_head_mid": 1}
+    _close(got, fc.conv3x3_plain(x, w, b, 0.25), torch.bfloat16)
+
+
+def test_head_mid_kernel_raises_on_what_it_does_not_take():
+    _need_card()
+    x = torch.rand(1, 20, 20, 64, device="cuda").bfloat16()
+    w = torch.rand(3, 3, 64, 64, device="cuda").bfloat16()
+    b = torch.rand(64, device="cuda").bfloat16()
+    fc.reset_launches()
+    with pytest.raises(TypeError):
+        fc.dncnn_head_mid(x.float(), w.float(), b.float())
+    with pytest.raises(ValueError):
+        fc.dncnn_head_mid(x[..., :32].contiguous(), w, b)
+    with pytest.raises(ValueError, match="aligned"):
+        fc.dncnn_head_mid(_offset(x), w, b)
+    with pytest.raises(ValueError, match="aligned"):
+        fc.dncnn_head_mid(x, _offset(w), b)
+    with pytest.raises(ValueError):
+        fc.dncnn_head_mid(x, w.cpu(), b)
+    with pytest.raises(RuntimeError, match="forward-only"):
+        fc.dncnn_head_mid(x, w.requires_grad_(), b)
+    assert sum(fc.LAUNCHES.values()) == 0
 
 
 # the output tile of csrc/snet_levels.cu's kernels (K2 both dtypes, K3
@@ -484,25 +540,6 @@ def test_head_level_chain_fp32_matches_plain_on_card(L, co, cf):
         h_ref, s_ref = fc.dncnn_head_fused_plain(x, *args)
         _close(head, h_ref, torch.float32)
         _close(sig, s_ref, torch.float32, sigma=True)
-
-
-@pytest.mark.parametrize("L,co,cf", [(3, 1, 96), (6, 3, 16)],
-                         ids=["syn", "real"])
-def test_head_level_chain_bf16_matches_plain_on_card(L, co, cf):
-    """The level chain's sigma + head mode in bf16, which only the
-    measurement beside K3 bf16 runs (K3 bf16 itself is dncnn_head.cu),
-    against the plain version at the bf16 bars."""
-    _need_card()
-    rng = np.random.default_rng(20)
-    args = _head_args(rng, L, co, cf)
-    for shape in ((1, 1, 1, 3), (2, 17, 33, 3), (1, 64, 48, 3)):
-        x = _t(rng.random(shape, dtype=np.float32)).to("cuda", torch.bfloat16)
-        head, sig = fc._snet_chain(True, x, *args, 0.25, -23.025850929940457,
-                                   4.605170185988092)
-        torch.cuda.synchronize()
-        h_ref, s_ref = fc.dncnn_head_fused_plain(x, *args)
-        _close(head, h_ref, torch.bfloat16)
-        _close(sig, s_ref, torch.bfloat16, sigma=True)
 
 
 @_DTYPES
@@ -802,20 +839,23 @@ def test_resblock_conv_kernel_raises_on_what_it_does_not_take():
 # the released serving paths: (task, compute, the shape of the request's
 # input on the card, a batch for restore_batch or an image for
 # restore_image, and the launches of ours one request makes).  256^2
-# passes the fused-head gate (K3), 321 x 481 fails it (K2: snet_conv1, K1
-# once per mid level, snet_last); bf16 runs each unconditioned RNet block
+# passes the fused-head gate (K3; in bf16 its chain's wgmma mid kernel
+# once per mid level), 321 x 481 fails it (K2: snet_conv1, K1 once per mid
+# level, snet_last); bf16 runs each unconditioned RNet block
 # as two K11 launches (15 blocks of denoising-syn, 21 of denoising-real).
 # tests/test_torch_port_engine.py holds the same table on the CPU.
 SERVING_PATHS = {
     "syn-bf16-batch": ("denoising-syn", "bf16", (2, 256, 256, 3), dict(
-        dncnn_head_fused=1, resblock_conv=30, conv3x3_tail_residual=1)),
+        dncnn_head_fused=1, dncnn_head_mid=3, resblock_conv=30,
+        conv3x3_tail_residual=1)),
     "syn-bf16-odd": ("denoising-syn", "bf16", (321, 481, 3), dict(
         dncnn_fused=1, conv3x3_mid=3, resblock_conv=30,
         conv3x3_tail_residual=1)),
     "syn-fp32-odd": ("denoising-syn", "fp32", (321, 481, 3), dict(
         dncnn_fused=1, conv3x3_mid=3, conv3x3_tail_residual=1)),
     "real-bf16-batch": ("denoising-real", "bf16", (4, 256, 256, 3), dict(
-        dncnn_head_fused=1, resblock_conv=42, conv3x3_tail_residual=1)),
+        dncnn_head_fused=1, dncnn_head_mid=6, resblock_conv=42,
+        conv3x3_tail_residual=1)),
 }
 DEMO_CKPTS = {task: Path(__file__).resolve().parents[1] / "model_zoo" /
               f"virnet_{task.replace('-', '_')}_demo.pth"

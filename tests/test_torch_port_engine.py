@@ -168,8 +168,9 @@ def test_serving_paths_call_exactly_their_kernels(case, monkeypatch):
     on the CPU, with the card's device gate open and at a small size of the
     same kind (a pad-free 32^2 batch, an odd 21 x 27 image): one request
     calls exactly the path's kernel wrappers, each running its plain
-    version (K1 inside K2 is part of K2's plain version and not counted),
-    and launches nothing."""
+    version (the mids inside K2 and K3, K1 and K3's dncnn_head_mid, are
+    part of their plain versions and not counted), and launches
+    nothing."""
     from virnet_tpu_torch.models import attresunet
     from virnet_tpu_torch.ops import fused_conv as fc
     from virnet_tpu_torch.ops import resblock
@@ -200,7 +201,8 @@ def test_serving_paths_call_exactly_their_kernels(case, monkeypatch):
         out = r.restore_image(_im(33, 21, 27))
         assert out.shape == (21, 27, 3)
     assert np.isfinite(np.asarray(out)).all()
-    assert calls == {k: n for k, n in want.items() if k != "conv3x3_mid"}
+    assert calls == {k: n for k, n in want.items()
+                     if k not in ("conv3x3_mid", "dncnn_head_mid")}
     assert not any(fc.LAUNCHES.values())
 
 

@@ -268,23 +268,83 @@ def test_every_signature_is_an_entry_of_its_source(symbol):
 
 def test_dncnn_fused_source_holds_the_probe_only():
     """The probe K8 left PR 1's csrc/dncnn_fused.cu for K3's own device
-    code: no source exports the old probe's entries, K8's entries are K3's
-    (csrc/dncnn_head.cu in bf16, the level chain of csrc/snet_levels.cu in
-    fp32), and the build lists no source that exports no entry."""
+    code: no source exports the old probe's entries nor those of the fused
+    bf16 K3 that csrc/dncnn_head.cu held before its level chain, K8's
+    entries are K3's (the chain of csrc/dncnn_head.cu in bf16, that of
+    csrc/snet_levels.cu in fp32), and the build lists no source that
+    exports no entry."""
     from virnet_tpu_torch.ops import _build
 
     assert "dncnn_fused" not in _build.SOURCES
     assert not (_build.CSRC / "dncnn_fused.cu").exists()
     entries = {name: _c_entries(name) for name in _build.SOURCES}
     old = {"vt_dncnn_slab_grid", "vt_dncnn_slab_scratch_elems",
-           "vt_dncnn_head_slabzero"}
+           "vt_dncnn_head_slabzero", "vt_dncnn_head_grid",
+           "vt_dncnn_head_scratch_elems", "vt_dncnn_head"}
     assert not old & set().union(*entries.values())
     assert not old & set(fc._SIGNATURES)
-    assert entries["dncnn_head"] == {"vt_dncnn_head_grid",
-                                     "vt_dncnn_head_scratch_elems",
-                                     "vt_dncnn_head"}
+    assert entries["dncnn_head"] == {"vt_dncnn_head_conv1",
+                                     "vt_dncnn_head_mid",
+                                     "vt_dncnn_head_last"}
     assert entries["snet_levels"] == {"vt_snet_conv1", "vt_snet_last"}
     assert all(entries.values()), entries
     assert {fc._SIGNATURES[s][0] for s in ("vt_snet_conv1",
                                            "vt_snet_last")} == {
         "snet_levels"}
+
+
+def _kernels(name):
+    """The names of the __global__ functions that csrc/<name>.cu defines."""
+    import re
+
+    from virnet_tpu_torch.ops import _build
+
+    src = (_build.CSRC / f"{name}.cu").read_text()
+    return re.findall(r"__global__\s+void\s+"
+                      r"(?:__launch_bounds__\([^)]*\)\s*)?(\w+)\s*\(", src)
+
+
+# name fragments that the benchmark's K2 chain and K11 counts read
+OTHER_ROUTES = ("snet_conv1", "snet_last", "conv3x3_mid_", "resblock_conv_")
+
+
+@pytest.mark.parametrize("kernel", ["dncnn_head_conv1_kernel",
+                                    "dncnn_head_mid_kernel",
+                                    "dncnn_head_last_kernel"])
+def test_k3_route_launches_only_kernels_named_for_k3(kernel):
+    """K3's and K8's bf16 route launches only the kernels of
+    csrc/dncnn_head.cu, each named dncnn_head_* and named nothing that the
+    K2 chain's or K11's counts read, so that a trace credits the whole
+    route to K3 (portbench/counts/k3.py) and none of it to another
+    kernel; snet_levels.cu's kernels carry no K3 name."""
+    from portbench.counts import k3, k11, snet_chain
+
+    assert kernel in _kernels("dncnn_head")
+    assert set(_kernels("dncnn_head")) == {
+        "dncnn_head_conv1_kernel", "dncnn_head_mid_kernel",
+        "dncnn_head_last_kernel"}
+    assert any(k in kernel for k in k3.KERNELS)
+    assert not any(k in kernel for k in OTHER_ROUTES)
+    assert not any(k in kernel for k in snet_chain.KERNELS + k11.KERNELS)
+    for other in _kernels("snet_levels") + _kernels("conv3x3_mid"):
+        assert not any(k in other for k in k3.KERNELS), other
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+def test_dncnn_head_mid_runs_its_plain_version_on_the_cpu(dtype):
+    """K3's wgmma mid level on CPU tensors is its plain version, K1's
+    function at the SNet's slope, bit for bit, and launches nothing; under
+    autograd it raises, as every kernel wrapper does."""
+    rng = np.random.default_rng(27)
+    x = _t(_rand(rng, (2, 9, 13, 64))).to(dtype)
+    w = _t(_rand(rng, (3, 3, 64, 64), 0.04)).to(dtype)
+    b = _t(_rand(rng, (64,), 0.05)).to(dtype)
+    fc.reset_launches()
+    got = fc.dncnn_head_mid(x, w, b, 0.25)
+    assert not any(fc.LAUNCHES.values())
+    assert got.dtype == dtype and got.shape == x.shape
+    torch.testing.assert_close(got, fc.conv3x3_mid(x, w, b, 0.25), atol=0,
+                               rtol=0)
+    with pytest.raises(RuntimeError, match="forward-only"):
+        fc.dncnn_head_mid(x, w.clone().requires_grad_(), b)

@@ -15,10 +15,9 @@ bf16) at the flagship serving shape, per variant:
   slabzero[:rN]   the halo-free probe K8 on N-row slabs (default 32) in
                   K3's place.  Its output is wrong near slab edges
                   (ops/fused_conv.dncnn_head_slabzero): only its time
-                  means anything.  K8 runs K3's own kernel on the
-                  slabs, recomputing only the column halo up to 32 rows,
-                  so in bf16 halo - slabzero:r32 is what K3's row halo
-                  costs an apply.
+                  means anything.  K8 runs K3's own level chain on the
+                  slabs, which recomputes nothing either way, so halo -
+                  slabzero:r32 should be about 0.
 
 A fused variant takes an optional row-slab size (``halo:r16`` is accepted
 and means ``halo``: K3 has no row slabs).  ``+tail`` is accepted as in the

@@ -1,804 +1,419 @@
-// K3 dncnn_head_fused in bf16 and the probe K8 dncnn_head_slabzero in
-// bf16: SNet (DnCNN) + sigma epilogue + RNet's head conv in one launch,
-// redesigned for Hopper.  (K2 in both dtypes and K3 and K8 in fp32 are the
-// level chain of snet_levels.cu with K1 for the mids.)
+// K3 dncnn_head_fused and the probe K8 dncnn_head_slabzero in bf16: SNet
+// (DnCNN) + sigma epilogue + RNet's head conv as a chain of launches, one
+// per level, with each 64-channel level map in device memory between them:
 //
-// Replaces: virnet_tpu/ops/pallas_conv.py:dncnn_head_fused (:1289) modes
-// 'halo' (_dncnn_head_kernel :925, pallas_call :1512) and 'carry'
-// (_dncnn_head_kernel_carry :1055, pallas_call :1459).  Hopper blocks run
-// in no order, so both modes become one halo kernel.  Also mode
-// 'slabzero' (_dncnn_head_kernel_slabzero :1183, pallas_call :1412): the
-// same kernel on a view of the input cut into slabs of r rows (N * H / r
-// images of r rows), x read one row up, row -1 of each input image zero
-// (XS below).  Slab t then reads image rows [t*r - 1, t*r + r - 1) and
-// writes rows [t*r, t*r + r): the JAX probe's output, wrong near slab
+//   dncnn_head_conv1   3->64 + bias + lrelu     (snet_conv1's body)
+//   L x dncnn_head_mid 64->64 + bias + lrelu    (wgmma, this file)
+//   dncnn_head_last    64->co + bias, the sigma epilogue and RNet's head
+//                      conv on [x | sqrt(sigma)] (snet_last's body, sigma +
+//                      head mode)
+//
+// Every launch is a kernel of this file, named dncnn_head_*: conv1 and the
+// last level run the device bodies of snet_levels.cuh, which
+// snet_levels.cu's snet_conv1 and snet_last kernels run for K2 (both
+// dtypes) and for K3 and K8 in fp32, under entry points of their own.
+//
+// Replaces: virnet_tpu/ops/pallas_conv.py:dncnn_head_fused (:1289) in its
+// three modes: 'halo' (_dncnn_head_kernel :925, pallas_call :1512) and
+// 'carry' (_dncnn_head_kernel_carry :1055, pallas_call :1459), which on
+// the card are one function; and 'slabzero' (_dncnn_head_kernel_slabzero
+// :1183, pallas_call :1412), the probe K8: the same chain on a view of the
+// input cut into slabs of r rows (N * H / r images of r rows), the level
+// maps and the mid kernel seeing slab edges as image edges, conv1 and the
+// last level given XS = H / r reading x one row up with zeros in row -1 of
+// every input image.  Slab t then reads image rows [t*r - 1, t*r + r - 1)
+// and writes rows [t*r, t*r + r): the JAX probe's output, wrong near slab
 // edges and shifted down one row on purpose.
 //
-// Function: conv1 3->64 + lrelu, L mids 64->64 + lrelu, conv_last 64->co,
-// zero 'same' padding at every level with exact image borders, f32
-// accumulation and one rounding to bf16 per conv; logits rounded to bf16,
-// sigma = exp(clip(logits, lmin, lmax)) and sqrt(sigma) in f32, sigma
-// emitted in bf16, sqrt(sigma) rounded to bf16 and ZERO outside the image;
-// head = conv(x, wh[:, :, :3]) + conv(sqrt(sigma), wh[:, :, 3:]) + bh (the
+// Function: conv1 3->64 + LeakyReLU, L mids 64->64 + LeakyReLU, conv_last
+// 64->co, zero 'same' padding at every level with exact image borders, f32
+// sums and one rounding to bf16 per conv; logits rounded to bf16, sigma =
+// exp(clip(logits, lmin, lmax)) and sqrt(sigma) in f32, sigma emitted in
+// bf16, sqrt(sigma) rounded to bf16 and zero outside the image; head =
+// conv(x, wh[:, :, :3]) + conv(sqrt(sigma), wh[:, :, 3:]) + bh (the
 // concatenation never exists).  Any N, H, W >= 1, any L >= 1, co in 1..3,
 // CF a multiple of 16 up to 256.
 //
-// Bound on an H100 SXM: ~233 kFLOP per pixel (denoising-syn) against ~200
-// B of input and output per pixel: compute bound (0.49 ms at 32x256^2).
+// Bound on an H100 SXM (989 TFLOP/s dense bf16, 3.35 TB/s): 2 * 9 * (3 *
+// 64 + L * 64 * 64 + 64 * co + (3 + co) * CF) operations a pixel, 460
+// kFLOP at the real preset (L = 6, co = 3, CF = 96), against ~200 B of
+// input and output: compute bound, 5.67 ms for a 4032 x 3024 photo and
+// 0.49 ms at 32 x 256^2 (syn, L = 3).  The chain moves each level map
+// through device memory once each way (256 B a pixel a level), which a
+// fused kernel would not; a mid level alone is 73.7 kFLOP against 256 B a
+// pixel, 288 FLOP a byte, at the card's ridge (295): 0.91 ms of
+// operations and 0.93 ms of bytes at 12.19 MP.
 //
-// What held PR 1's fused kernel back: its mid levels read every A
-// fragment by 32-bit loads straight from the block's level buffers in
-// device memory, each pixel nine times, from a scratch larger than the
-// 50 MB L2; conv1, conv_last and the head ran on the f32 CUDA cores; the
-// weights were transposed element by element for every tile and level.
-// This design:
-//  - a persistent block walks TH x TILE output tiles (TileGrid), TILE = 24
-//    columns and TH rows (K3: 24; K8: min(r, 32), so that a tile spans
-//    its slab's rows up to r = 32), and recomputes a halo of up to L + 2
-//    pixels.  Each level's region is the tile with its margin, clipped to
-//    the image (for K8 the slab): nothing outside is computed, and the
-//    copies of the next level read zeros there (cp.async zero fill).  So
-//    K8 at r <= 32 recomputes only the column halo (1.25x at r = 32, L =
-//    3, against K3's 1.57x at 24 x 24).  The two level buffers per block
-//    hold (TH + 2(L+2)) x (TILE + 2(L+2)) pixels; the parts touched at 24
-//    x 24 (K3) or 32 x 24 clipped to a 32-row slab (K8) are 296 KB at L =
-//    3, so 132 blocks keep 39 MB in L2;
-//  - every conv is an implicit GEMM on the tensor cores, mma.sync m16n8k16
-//    with f32 sums, M = 16 pixels; a warp takes two m-tiles at a time and
-//    both share each B fragment;
-//  - the mids (K1's pattern, conv3x3_mid.cu; N = 64, K = 9 x 64): a
-//    level's output region is cut into rectangles of at most 256 pixels and
-//    32 columns; each rectangle's input, (rh+2) x (cw+2) pixels, is staged
-//    in shared memory by 16-byte cp.async, double buffered (the next
-//    rectangle's copy under this one's math), pixel rows padded to 9
-//    16-byte units (odd: ldmatrix conflict-free).  A by ldmatrix from the
-//    staged pixels (any 16 pixels of the rectangle: every lane gives its
-//    own row address), B by ldmatrix.trans straight from the HWIO weights,
-//    which arrive by cp.async once per level and tile.  Bias, lrelu, one
-//    rounding, staged per warp and written back as 16-byte stores;
-//  - conv1 (N = 64, K = 27 taps x channels padded to 32): A gathered from
-//    the x pixels of the whole region, staged once per tile in shared
-//    memory 4 channels apart;
-//  - conv1 and the mids start their sums at the bias; their epilogue
-//    (LeakyReLU, staging, stores) cost about as much as the mids' mma loop
-//    until the index math lost its run-time divisions (FastDiv);
-//  - conv_last (N = 8 of which co are used, K = 9 x 64): the mids' staging
-//    and A; the sigma epilogue in f32 as before; sqrt(sigma) goes to a
-//    shared (TH+2) x (TILE+2) plane beside x;
-//  - head (N = CF in passes of 64, K = 9 (3 + co) padded to 16s): A
-//    gathered from that plane, B by ldmatrix.trans from [k][CF] weights;
-//    bias in f32, one rounding, staged and written as 16-byte stores.
-#include "common.cuh"
-#include "tile_async.cuh"
+// Why level by level, and not the fused halo design this file held
+// before.  A fused SNet computes each tile's levels in block-private
+// buffers and recomputes a margin of up to L + 2 pixels at every level: at
+// 24 x 24 tiles and L = 6 the first mid level computes 38 x 38 pixels for
+// 24 x 24 outputs, 1.4-2.5x a level and 1.9x over the six.  Its two level
+// buffers grow to ~410 KB a block, ~54 MB over 132 persistent blocks, more
+// than the 50 MB L2 (296 KB and 39 MB at L = 3), so the deeper preset also
+// spills: both presets ran at 12.5-13% of the bound.  A level map between
+// launches costs one write and one read of 128 B a pixel, ~0.93 ms a
+// level at 12 MP, less than the recompute, and frees each level to take
+// the layout and the instructions its shape wants: the mids run on wgmma
+// with the whole weight set resident, which the fused kernel's mma.sync
+// mids, sharing shared memory with four other stages, could not.
+//
+// The mid kernel (dncnn_head_mid_kernel): an implicit GEMM with the roles
+// of K11 (resblock_conv.cu) swapped, M = the 64 output channels, N = 256
+// pixels, K = 16 input channels x 9 taps a step:
+//  - a persistent grid of one block of two warpgroups per SM walks output
+//    tiles of 32 rows x 16 columns; warpgroup g takes columns 8g .. 8g + 7
+//    of all 32 rows, N = 256 (an N of 256 reads 51 operations per
+//    shared-memory byte, against K11's m64n96 at 38);
+//  - a step is one (tile, chunk of 16 input channels): its halo (34 x 18
+//    pixels, zeros outside the tensor: the 'same' padding) arrives as two
+//    tensor copies of 8 channels, each pixel a 16-byte row (the layout
+//    wgmma reads without swizzle), onto the stage's mbarrier, in a ring of
+//    4 stages, 3 steps ahead across tiles; B of tap (dy, dx) is the halo
+//    at that offset, 32 core matrices a halo row apart;
+//  - the level's 9 x 64 x 64 weights (73.7 KB) stay resident: each block
+//    lays them out once as the A operands ([tap][chunk][half][co][8 ci],
+//    K-major), transposing 8 x 8 blocks in registers as it reads the HWIO
+//    weights, while the first halos arrive;
+//  - each warpgroup issues a step's 9 m64n256k16 asynchronously and keeps
+//    them in flight while the block prepares the next step;
+//  - the epilogue adds the bias and takes LeakyReLU in f32, rounds once,
+//    transposes to pixel-major rows through stmatrix.trans into shared
+//    memory (rows of 144 bytes: conflict-free), and stores each pixel's
+//    128 bytes as 16-byte writes.
+#include <limits.h>
+
+#include "hopper.cuh"
+#include "snet_levels.cuh"
 
 namespace {
 
 using bf16 = __nv_bfloat16;
 
-constexpr int NF = 64;     // DnCNN filters
-constexpr int CI = 3;      // image channels
-constexpr int TILE = 24;   // tile columns
-constexpr int MAX_TH = 32; // tile rows, at most
-constexpr int THREADS = 256, WARPS = THREADS / 32;
-constexpr int ROW = odd_units(NF * 2) * 8;  // elements per staged pixel: 72
-constexpr int RECT_PX = 256;  // output pixels of one rectangle, at most
-constexpr int RECT_W = 32;    // and columns
-// input pixels of one rectangle, (rh + 2) * (cw + 2): Cut keeps every
-// rectangle within it; a full region of TILE + 2 or more columns (cw in
-// [17, 32]) reaches it at cw = 32, rh = 8
-constexpr int IN_PX = 340;
-constexpr int XC = 4;         // channel stride of conv1's staged x pixels
-constexpr int EC = 6;         // channel stride of the head's [x | sqrt(sigma)]
-constexpr int MAX_CF = 256;
-constexpr int ES = TILE + 2;  // row of the head's input plane, in pixels
+// ---- conv1 and the last level: snet_levels.cuh's bodies ------------------
 
-constexpr size_t W_BYTES = (size_t)9 * NF * ROW * 2;
-constexpr size_t IN_BYTES = (size_t)IN_PX * ROW * 2;
-constexpr size_t STAGE_BYTES = (size_t)WARPS * 32 * ROW * 2;
-constexpr size_t SMEM = W_BYTES + 2 * IN_BYTES + STAGE_BYTES +
-                        4 * MAX_CF + (size_t)(MAX_TH + 2) * ES * EC * 2;
-static_assert(SMEM <= 232448, "one block's shared memory on an H100");
-
-struct Args {
-  const bf16 *x, *w1, *b1, *wm, *bm, *wl, *bl, *wh, *bh;
-  bf16 *head, *sigma, *scratch;
-  int N, H, W, L, CO, CF;
-  int TH;  // tile rows
-  int XS;  // 0, or (K8) slabs per input image: x is read one row up
-  float slope, lmin, lmax;
-};
-
-// the tile a block works on, and its level buffers' geometry: pixel (ly,
-// lx) of the tile (ly in [-Hh, TH + Hh), lx in [-Hh, TILE + Hh)) is
-// buffer pixel (ly + Hh) * S + lx + Hh.  x of tile row `zr` reads zero
-// (K8: row 0 of the first slab of an input image, whose row above is
-// outside that image).
-struct Tile {
-  int n, ty0, tx0, H, W, Hh, S, TH, zr;
-  __device__ bool in_image(int ly, int lx) const {
-    const int gy = ty0 + ly, gx = tx0 + lx;
-    return gy >= 0 && gy < H && gx >= 0 && gx < W;
-  }
-};
-
-// a level's output region, the tile with margin m clipped to the image:
-// tile rows [y0, y0 + h) and columns [x0, x0 + w)
-struct Region {
-  int y0, x0, h, w;
-  __device__ Region(const Tile& tl, int m)
-      : y0(max(-m, -tl.ty0)), x0(max(-m, -tl.tx0)),
-        h(min(tl.TH + m, tl.H - tl.ty0) - max(-m, -tl.ty0)),
-        w(min(TILE + m, tl.W - tl.tx0) - max(-m, -tl.tx0)) {}
-};
-
-// a region cut into rectangles of at most RECT_PX pixels and RECT_W
-// columns, near-equal, each with an input of at most IN_PX pixels
-struct Cut {
-  int cw, rh, nc, nr;
-  __device__ Cut(int rows, int cols) {
-    nc = (cols + RECT_W - 1) / RECT_W;
-    cw = (cols + nc - 1) / nc;
-    const int rmax = min(RECT_PX / cw, IN_PX / (cw + 2) - 2);
-    nr = (rows + rmax - 1) / rmax;
-    rh = (rows + nr - 1) / nr;
-  }
-  // tile rows [ry0, ry0 + h) and columns [rx0, rx0 + w) of rectangle r of
-  // region rg
-  __device__ void at(int r, const Region& rg, int& ry0, int& rx0, int& h,
-                     int& w) const {
-    const int i = r / nc, j = r - i * nc;
-    ry0 = i * rh;
-    rx0 = j * cw;
-    h = min(rh, rg.h - ry0);
-    w = min(cw, rg.w - rx0);
-    ry0 += rg.y0;
-    rx0 += rg.x0;
-  }
-};
-
-// what a warp's two m-tiles cover: m-tiles mt0 and mt0 + WARPS of a
-// rectangle of npx pixels, cw columns, at tile pixel (ry0, rx0)
-struct MTiles {
-  int mt0, npx;
-  FastDiv cw;
-  int ry0, rx0;
-  // pixel q (0..31: m-tile q / 16, row q % 16) as an index into the
-  // rectangle, npx when past its end
-  __device__ int pixel(int q) const {
-    const int p = (mt0 + (q >> 4) * WARPS) * 16 + (q & 15);
-    return p < npx ? p : npx;
-  }
-};
-
-__device__ __forceinline__ uint32_t pack_raw(uint16_t lo, uint16_t hi) {
-  return lo | (uint32_t)hi << 16;
+__global__ void __launch_bounds__(THREADS, 2)
+dncnn_head_conv1_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
+                        const bf16* __restrict__ b, bf16* __restrict__ y,
+                        TileGrid tg, int xs, float slope) {
+  conv1_body<bf16>(x, w, b, y, tg, xs, slope);
 }
 
-__device__ __forceinline__ uint16_t bits(bf16 v) {
-  return __bfloat16_as_ushort(v);
+template <int CO>
+__global__ void __launch_bounds__(THREADS, 2)
+dncnn_head_last_kernel(LastArgs a, TileGrid tg) {
+  last_body<bf16, CO, true>(a, tg);
 }
 
-// channel c of x at tile pixel (ly, lx), zero outside the image; with XS
-// (K8) the image is a slab of the input and x is read one row up
-__device__ __forceinline__ uint16_t x_at(const Args& a, const Tile& tl,
-                                         int ly, int lx, int c) {
-  if (!tl.in_image(ly, lx) || ly == tl.zr) return 0;
-  const size_t row = (size_t)tl.n * a.H + tl.ty0 + ly - (a.XS > 0);
-  return bits(a.x[(row * a.W + tl.tx0 + lx) * CI + c]);
+// ---- the mid levels: 64->64 + bias + lrelu on wgmma ----------------------
+
+constexpr int MTH = 32, MTW = 16;   // output tile; warpgroup g: columns 8g..
+constexpr int MHH = MTH + 2, MHW = MTW + 2, MHPX = MHH * MHW;   // its halo
+constexpr int KC = 16;              // input channels a step: one k16
+constexpr int CHUNKS = NF / KC;
+constexpr int STAGES = 4;
+// one 8-channel half of a staged halo: MHPX rows of 16 bytes, padded to
+// the 128 bytes a tensor copy's destination is aligned to
+constexpr int HALF = (MHPX * 16 + 127) / 128 * 128;
+constexpr int STAGE = 2 * HALF;
+constexpr int HALO_TX = 2 * MHPX * 16;   // bytes the two tensor copies bring
+// the A operand of one (tap, chunk): 2 halves x 64 rows of 16 bytes
+constexpr int A_BYTES = 2 * NF * 16;
+constexpr int OROW = odd_units(NF * 2) * 16;   // a staged output pixel
+constexpr int WG_PX = MTH * 8;                 // a warpgroup's pixels: N
+constexpr size_t W_AT = (size_t)STAGES * STAGE;
+constexpr size_t OUT_AT = W_AT + (size_t)9 * CHUNKS * A_BYTES;
+constexpr size_t BARS_AT = OUT_AT + (size_t)2 * WG_PX * OROW;
+constexpr size_t MID_SMEM = BARS_AT + STAGES * sizeof(uint64_t);
+static_assert(MID_SMEM <= 232448, "one block's shared memory on an H100");
+
+// D (64 x 256 f32, in registers) = A (64 x 16 bf16) * B (16 x 256 bf16)
+// [+ D], A and B K-major in shared memory without swizzle; warp w of the
+// warpgroup holds rows 16w + g and 16w + g + 8 (g = lane / 4) of each n8
+// block j at d[4j .. 4j + 3]: {(g, 8j + 2t), (g, 8j + 2t + 1), (g + 8, 8j +
+// 2t), (g + 8, 8j + 2t + 1)} with t = lane % 4.
+__device__ __forceinline__ void wgmma_m64n256(float (&d)[128], uint64_t a,
+                                              uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, "
+      "%10, %11, %12, %13, %14, %15, %16, %17, %18, %19, "
+      "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63, %64, %65, %66, %67, %68, %69, "
+      "%70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, "
+      "%90, %91, %92, %93, %94, %95, %96, %97, %98, %99, "
+      "%100, %101, %102, %103, %104, %105, %106, %107, %108, %109, "
+      "%110, %111, %112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127"
+      "}, "
+      "%128, %129, p, 1, 1, 0, 0;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
+        "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
+        "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),
+        "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]),
+        "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]),
+        "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "l"(a), "l"(b), "r"(scale_d));
 }
 
-// st(i, ld(i)) for i < n over the block, ld(i) the 16 bits of one bf16
-// read from device memory.  Each thread issues eight loads before any
-// store, so that their latencies overlap: a loop that stores to shared
-// memory after each load waits out every load in turn.
-template <typename Ld, typename St>
-__device__ __forceinline__ void fill(int n, Ld&& ld, St&& st) {
-  for (int i0 = threadIdx.x; i0 < n; i0 += 8 * THREADS) {
-    uint16_t v[8];
+// four 8x8 b16 matrices from the mma fragment layout, each stored
+// transposed: lane l gives the address of row l % 8 of matrix l / 8, which
+// receives column l % 8 of the fragment's matrix
+__device__ __forceinline__ void stsm_x4_t(void* p, const uint32_t (&r)[4]) {
+  asm volatile(
+      "stmatrix.sync.aligned.m8n8.x4.trans.shared.b16 [%0], {%1, %2, %3, "
+      "%4};\n" ::"r"(smem_addr(p)),
+      "r"(r[0]), "r"(r[1]), "r"(r[2]), "r"(r[3])
+      : "memory");
+}
+
+// the level's HWIO weights (3, 3, 64, 64) into shared memory as the A
+// operands: element (tap, ci, co) at byte ((tap * CHUNKS + ci / 16) * 2 +
+// ci / 8 % 2) * 1024 + co * 16 + ci % 8 * 2.  A thread reads an 8 x 8
+// block (8 input rows of 8 output channels, 16 bytes each) and writes it
+// transposed, 8 channels of an output row as one 16-byte store.
+__device__ __forceinline__ void fill_a(unsigned char* sa,
+                                       const bf16* __restrict__ w) {
+  for (int u = threadIdx.x; u < 9 * 8 * 8; u += THREADS) {
+    const int tap = u >> 6, cg = (u >> 3) & 7, og = u & 7;
+    uint32_t v[8][4];
+#pragma unroll
+    for (int r = 0; r < 8; ++r) {
+      const uint4 q = __ldg(reinterpret_cast<const uint4*>(
+          w + ((size_t)(tap * NF + cg * 8 + r) * NF + og * 8)));
+      v[r][0] = q.x;
+      v[r][1] = q.y;
+      v[r][2] = q.z;
+      v[r][3] = q.w;
+    }
+    unsigned char* dst = sa + (size_t)(tap * 8 + cg) * 1024 + og * 8 * 16;
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
-      const int i = i0 + j * THREADS;
-      v[j] = i < n ? ld(i) : (uint16_t)0;
-    }
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int i = i0 + j * THREADS;
-      if (i < n) st(i, v[j]);
-    }
-  }
-}
-
-// the A fragment rows of a lane: rows g and g + 8 of each m-tile, as
-// offsets into staged pixels `stride` elements apart, iw to a row, where
-// the rectangle's input pixel (0, 0) is staged pixel (row0, col0) (a row
-// past the rectangle reads its pixel 0)
-__device__ __forceinline__ void lane_rows(const MTiles& mt, int iw, int row0,
-                                          int col0, int stride,
-                                          int off[2][2]) {
-  const int g = (threadIdx.x & 31) >> 2;
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      int p = mt.pixel(mi * 16 + g + 8 * r);
-      if (p >= mt.npx) p = 0;
-      off[mi][r] =
-          ((row0 + mt.cw.div(p)) * iw + col0 + mt.cw.mod(p)) * stride;
-    }
-}
-
-// zero the sums of a warp's two m-tiles x NT n-tiles
-template <int NT>
-__device__ __forceinline__ void zero(float (&acc)[2][NT][4]) {
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) acc[mi][nt][i] = 0.f;
-}
-
-// issue the copies of one rectangle's input: tile rows [ry0 - 1, ry0 + rh
-// + 1) and columns [rx0 - 1, rx0 + cw + 1), which the level before wrote
-// where they lie in the image (its region is one pixel wider, clipped to
-// the image); pixels outside the image arrive as zeros (zero fill)
-__device__ __forceinline__ void load_rect(bf16* dst, const bf16* src,
-                                          const Tile& tl, int ry0, int rx0,
-                                          int rh, int cw) {
-  const int iw = cw + 2, npx = (rh + 2) * iw;
-  const FastDiv fiw(iw);
-  for (int i = threadIdx.x; i < npx * 8; i += THREADS) {
-    const int p = i >> 3, u = i & 7, py = fiw.div(p);
-    const int ly = ry0 - 1 + py, lx = rx0 - 1 + p - py * iw;
-    const bool in = tl.in_image(ly, lx);
-    cp_async16(dst + p * ROW + u * 8,
-               in ? src + ((size_t)(ly + tl.Hh) * tl.S + lx + tl.Hh) * NF +
-                        u * 8
-                  : src,
-               in ? 16 : 0);
-  }
-}
-
-// ldmatrix row addresses of a lane for the A fragments of a warp's two
-// m-tiles over a rectangle staged by load_rect: pixel lane % 16 of each
-// m-tile (pixel 0 past the rectangle's end), 16-byte unit lane / 16
-__device__ __forceinline__ void a_rows(const MTiles& mt, int a[2]) {
-  const int lane = threadIdx.x & 31, iw = mt.cw.d + 2;
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi) {
-    int p = mt.pixel(mi * 16 + (lane & 15));
-    if (p >= mt.npx) p = 0;
-    a[mi] = (mt.cw.div(p) * iw + mt.cw.mod(p)) * ROW + (lane >> 4) * 8;
-  }
-}
-
-// start a warp's 64-channel sums (conv1, the mids) at the bias: the lane's
-// channels are nt * 8 + 2 tig and that + 1
-__device__ __forceinline__ void bias_init(float (&acc)[2][8][4],
-                                          const float* sb) {
-  const int tig = threadIdx.x & 3;
-#pragma unroll
-  for (int nt = 0; nt < 8; ++nt) {
-    const float2 b = *reinterpret_cast<const float2*>(sb + nt * 8 + 2 * tig);
-#pragma unroll
-    for (int mi = 0; mi < 2; ++mi) {
-      acc[mi][nt][0] = acc[mi][nt][2] = b.x;
-      acc[mi][nt][1] = acc[mi][nt][3] = b.y;
+      const unsigned sel = j & 1 ? 0x7632u : 0x5410u;
+      uint4 o;
+      o.x = __byte_perm(v[0][j >> 1], v[1][j >> 1], sel);
+      o.y = __byte_perm(v[2][j >> 1], v[3][j >> 1], sel);
+      o.z = __byte_perm(v[4][j >> 1], v[5][j >> 1], sel);
+      o.w = __byte_perm(v[6][j >> 1], v[7][j >> 1], sel);
+      *reinterpret_cast<uint4*>(dst + j * 16) = o;
     }
   }
 }
 
-// 64-channel outputs of a warp's two m-tiles (conv1, the mids), their sums
-// started at the bias: lrelu in f32, one rounding (regions are clipped to
-// the image, so every pixel lies in it); staged, then 16-byte stores into
-// the level buffer, a whole pixel per 8 lanes
-__device__ void emit64(const float (&acc)[2][8][4], const MTiles& mt,
-                       const Tile& tl, float slope, bf16* stage, bf16* dst) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, tig = lane & 3;
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int q = mi * 16 + g + 8 * r;
-#pragma unroll
-      for (int nt = 0; nt < 8; ++nt) {
-        const int co = nt * 8 + 2 * tig;
-        *reinterpret_cast<uint32_t*>(stage + q * ROW + co) =
-            pack_bf16(lrelu(acc[mi][nt][2 * r], slope),
-                      lrelu(acc[mi][nt][2 * r + 1], slope));
-      }
-    }
-  __syncwarp();
-#pragma unroll
-  for (int k = 0; k < 8; ++k) {
-    const int i = k * 32 + lane, q = i >> 3, u = i & 7, p = mt.pixel(q);
-    if (p < mt.npx) {
-      const int py = mt.cw.div(p);
-      const int by = tl.Hh + mt.ry0 + py;
-      const int bx = tl.Hh + mt.rx0 + p - py * mt.cw.d;
-      *reinterpret_cast<uint4*>(dst + ((size_t)by * tl.S + bx) * NF +
-                                u * 8) =
-          *reinterpret_cast<const uint4*>(stage + q * ROW + u * 8);
-    }
-  }
-  __syncwarp();
-}
-
-// one rectangle of a mid level: 3x3 64->64 + bias + lrelu, N = 64, K = 9
-// taps x 64 channels; A by ldmatrix from the staged rectangle, B by
-// ldmatrix.trans from the HWIO weights ([tap * 64 + ci][co], rows of ROW)
-__device__ void mid_rect(const bf16* sx, bf16* dst, const bf16* sw,
-                         const float* sb, bf16* stage, const Tile& tl,
-                         int ry0, int rx0, int rh, int cw, float slope) {
+__global__ void __launch_bounds__(THREADS, 1)
+dncnn_head_mid_kernel(const __grid_constant__ CUtensorMap xmap,
+                      const bf16* __restrict__ w,
+                      const bf16* __restrict__ bias, bf16* __restrict__ y,
+                      int Nb, int H, int W, float slope) {
+  extern __shared__ __align__(128) unsigned char mid_smem[];
+  uint64_t* bars = reinterpret_cast<uint64_t*>(mid_smem + BARS_AT);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int npx = rh * cw, nmt = (npx + 15) / 16, iw = cw + 2;
-  for (int mt0 = warp; mt0 < nmt; mt0 += 2 * WARPS) {
-    const MTiles mt{mt0, npx, FastDiv(cw), ry0, rx0};
-    int abase[2];
-    a_rows(mt, abase);
-    float acc[2][8][4];
-    bias_init(acc, sb);
-#pragma unroll 1
-    for (int tap = 0; tap < 9; ++tap) {
-      const int shift = ((tap / 3) * iw + tap % 3) * ROW;
-      const bf16* a0 = sx + abase[0] + shift;
-      const bf16* a1 = sx + abase[1] + shift;
-      // B: lane l addresses matrix l / 8 = (k half, n tile of the pair)
-      const bf16* b0 = sw + (tap * NF + ((lane >> 3) & 1) * 8 + (lane & 7)) *
-                                ROW + (lane >> 4) * 8;
-#pragma unroll
-      for (int kb = 0; kb < 4; ++kb) {
-        uint32_t af[2][4];
-        ldsm_x4(af[0], a0 + kb * 16);
-        ldsm_x4(af[1], a1 + kb * 16);
-#pragma unroll
-        for (int np = 0; np < 4; ++np) {
-          uint32_t bfr[4];
-          ldsm_x4_t(bfr, b0 + kb * 16 * ROW + np * 16);
-#pragma unroll
-          for (int mi = 0; mi < 2; ++mi) {
-            mma_16816(acc[mi][2 * np], af[mi], bfr);
-            mma_16816(acc[mi][2 * np + 1], af[mi], bfr + 2);
-          }
-        }
-      }
-    }
-    emit64(acc, mt, tl, slope, stage, dst);
+  const int wg = warp >> 2, wq = warp & 3;   // warpgroup, warp in it
+  const int g = lane >> 2;
+  const TileGrid tg(Nb, H, W, MTH, MTW);
+  const int items = blockIdx.x < tg.count
+                        ? (tg.count - 1 - blockIdx.x) / gridDim.x + 1
+                        : 0;
+  const int steps = items * CHUNKS;   // (tile, chunk) pairs of the block
+  if (steps == 0) return;
+
+  if (threadIdx.x == 0) {
+    for (int k = 0; k < STAGES; ++k) mbar_init(bars + k);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-}
+  __syncthreads();   // the barriers are initialized
 
-// compute(staged input, ry0, rx0, rh, cw) over the rectangles of the
-// margin-m region (tile coordinates), each rectangle's input (from src) in
-// flight while the one before is computed; copies the caller issued
-// before are waited for with the first rectangle's.  Ends with the block
-// in step.
-template <typename F>
-__device__ void level_rects(const bf16* src, bf16* sx, const Tile& tl, int m,
-                            F&& compute) {
-  const Region rg(tl, m);
-  const Cut cut(rg.h, rg.w);
-  const int nrect = cut.nr * cut.nc;
-  int ry0, rx0, rh, cw;
-  cut.at(0, rg, ry0, rx0, rh, cw);
-  load_rect(sx, src, tl, ry0, rx0, rh, cw);
-  cp_async_commit();
-  for (int r = 0; r < nrect; ++r) {
-    if (r + 1 < nrect) {
-      cut.at(r + 1, rg, ry0, rx0, rh, cw);
-      load_rect(sx + ((r + 1) & 1) * IN_PX * ROW, src, tl, ry0, rx0, rh, cw);
-    }
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-    cut.at(r, rg, ry0, rx0, rh, cw);
-    compute(sx + (r & 1) * IN_PX * ROW, ry0, rx0, rh, cw);
-    __syncthreads();  // this input buffer is the target of the next copy
-  }
-}
-
-// one mid level, src (margin m + 1) -> dst (margin m)
-__device__ void mid_level(const bf16* src, bf16* dst, const bf16* wm,
-                          const bf16* bm, bf16* sw, bf16* sx, float* sb,
-                          bf16* stage, const Tile& tl, int m, float slope) {
-  __syncthreads();  // sw, sx and sb are free; src is complete
-  for (int i = threadIdx.x; i < 9 * NF * 8; i += THREADS)
-    cp_async16(sw + (i >> 3) * ROW + (i & 7) * 8, wm + i * 8, 16);
-  if (threadIdx.x < NF) sb[threadIdx.x] = tof(bm[threadIdx.x]);
-  level_rects(src, sx, tl, m,
-              [&](const bf16* sxr, int ry0, int rx0, int rh, int cw) {
-                mid_rect(sxr, dst, sw, sb, stage, tl, ry0, rx0, rh, cw,
-                         slope);
-              });
-}
-
-// conv1 3->64 + lrelu over the margin-Hh region -> dst: N = 64, K = 27
-// (tap, channel) padded to 32, rectangle by rectangle.  The x pixels the
-// rectangles read are staged once, XC channels apart with zeros outside
-// the image (the whole region's at any usual depth; in chunks of
-// rectangles when it does not fit), and A is gathered from them; B by
-// ldmatrix.trans from [k][64] weights whose rows 27..31 are zero.
-__device__ void conv1_level(const Args& a, const Tile& tl, bf16* dst,
-                            bf16* sw, bf16* sx, float* sb, bf16* stage) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int tig = lane & 3;
-  __syncthreads();  // sw, sx and sb are free
-  fill(
-      32 * NF,
-      [&](int i) -> uint16_t { return i < 9 * CI * NF ? bits(a.w1[i]) : 0; },
-      [&](int i, uint16_t v) {
-        sw[(i / NF) * ROW + i % NF] = __ushort_as_bfloat16(v);
-      });
-  if (threadIdx.x < NF) sb[threadIdx.x] = tof(a.b1[threadIdx.x]);
-  uint16_t* xs = reinterpret_cast<uint16_t*>(sx);
-  const Region rg(tl, tl.Hh);
-  const Cut cut(rg.h, rg.w);
-  // a chunk: nb rows of rectangles x gc columns of them
-  constexpr int CAP = (int)(2 * IN_BYTES / (XC * 2));  // staged pixels
-  int nb = (CAP / (rg.w + 2) - 2) / cut.rh, gc = cut.nc;
-  if (nb < 1) {
-    nb = 1;
-    gc = (CAP / (cut.rh + 2) - 2) / cut.cw;
-  }
-  for (int bi0 = 0; bi0 < cut.nr; bi0 += nb)
-    for (int cj0 = 0; cj0 < cut.nc; cj0 += gc) {
-      const int bi1 = min(cut.nr, bi0 + nb), cj1 = min(cut.nc, cj0 + gc);
-      // the chunk's first output pixel, in tile coordinates
-      const int by0 = rg.y0 + bi0 * cut.rh, bx0 = rg.x0 + cj0 * cut.cw;
-      const int ih = min(rg.h, bi1 * cut.rh) - bi0 * cut.rh + 2;
-      const int iw = min(rg.w, cj1 * cut.cw) - cj0 * cut.cw + 2;
-      __syncthreads();  // the chunk before is done with xs
-      const FastDiv fiw(iw);
-      fill(
-          ih * iw * XC,
-          [&](int i) -> uint16_t {
-            const int p = i / XC, c = i % XC, py = fiw.div(p);
-            return c < CI ? x_at(a, tl, by0 - 1 + py, bx0 - 1 + p - py * iw,
-                                 c)
-                          : 0;
-          },
-          [&](int i, uint16_t v) { xs[i] = v; });
-      __syncthreads();
-      // the lane's k columns: kb * 16 + 8j + 2 tig + e, as offsets into a
-      // staged pixel's neighbourhood (-1: a zero column past K = 27)
-      int koff[2][2][2];
-#pragma unroll
-      for (int kb = 0; kb < 2; ++kb)
-#pragma unroll
-        for (int j = 0; j < 2; ++j)
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            const int k = kb * 16 + 8 * j + 2 * tig + e, tap = k / CI;
-            koff[kb][j][e] =
-                k < 9 * CI ? ((tap / 3) * iw + tap % 3) * XC + k % CI : -1;
-          }
-      for (int bi = bi0; bi < bi1; ++bi)
-        for (int cj = cj0; cj < cj1; ++cj) {
-          int ry0, rx0, rh, cw;
-          cut.at(bi * cut.nc + cj, rg, ry0, rx0, rh, cw);
-          const int npx = rh * cw, nmt = (npx + 15) / 16;
-          for (int mt0 = warp; mt0 < nmt; mt0 += 2 * WARPS) {
-            const MTiles mt{mt0, npx, FastDiv(cw), ry0, rx0};
-            int off[2][2];
-            lane_rows(mt, iw, ry0 - by0, rx0 - bx0, XC, off);
-            float acc[2][8][4];
-            bias_init(acc, sb);
-#pragma unroll
-            for (int kb = 0; kb < 2; ++kb) {
-              uint32_t af[2][4];
-#pragma unroll
-              for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-                for (int i = 0; i < 4; ++i) {  // (row g | g + 8, k | k + 8)
-                  const int rr = i & 1, j = i >> 1;
-                  const int k0 = koff[kb][j][0], k1 = koff[kb][j][1];
-                  af[mi][i] = pack_raw(k0 < 0 ? 0 : xs[off[mi][rr] + k0],
-                                       k1 < 0 ? 0 : xs[off[mi][rr] + k1]);
-                }
-              const bf16* b0 =
-                  sw + (kb * 16 + ((lane >> 3) & 1) * 8 + (lane & 7)) * ROW +
-                  (lane >> 4) * 8;
-#pragma unroll
-              for (int np = 0; np < 4; ++np) {
-                uint32_t bfr[4];
-                ldsm_x4_t(bfr, b0 + np * 16);
-#pragma unroll
-                for (int mi = 0; mi < 2; ++mi) {
-                  mma_16816(acc[mi][2 * np], af[mi], bfr);
-                  mma_16816(acc[mi][2 * np + 1], af[mi], bfr + 2);
-                }
-              }
-            }
-            emit64(acc, mt, tl, a.slope, stage, dst);
-          }
-        }
-    }
-}
-
-// conv_last 64->co over the tile and a 1-pixel ring (the head reads the
-// ring): N = 8 of which co are used, K = 9 x 64; the mids' staging and A,
-// B by ldmatrix.trans from [tap * 64 + ci][8] weights.  Epilogue in f32:
-// logits rounded, sigma = exp(clip) out for the tile's pixels, rounded
-// sqrt(sigma) into the head's plane xe (zeroed first: outside the image
-// it stays zero).
-__device__ void last_level(const Args& a, const Tile& tl, const bf16* src,
-                           bf16* sw, bf16* sx, float* sb, uint16_t* xe) {
-  const int CO = a.CO;
-  __syncthreads();  // sw, sx, sb and xe are free
-  fill(
-      9 * NF * 8,
-      [&](int i) -> uint16_t {
-        return (i & 7) < CO ? bits(a.wl[(i >> 3) * CO + (i & 7)]) : 0;
-      },
-      [&](int i, uint16_t v) { sw[i] = __ushort_as_bfloat16(v); });
-  if (threadIdx.x < CO) sb[threadIdx.x] = tof(a.bl[threadIdx.x]);
-  // the head's plane, (TH + 2) x ES pixels: x in channels 0..2, zero
-  // outside the image, and zeros in the sqrt(sigma) channels
-  fill(
-      (tl.TH + 2) * ES * EC,
-      [&](int i) -> uint16_t {
-        const int p = i / EC, c = i - p * EC, py = p / ES;
-        return c < CI ? x_at(a, tl, py - 1, p - py * ES - 1, c) : 0;
-      },
-      [&](int i, uint16_t v) { xe[i] = v; });
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, tig = lane & 3;
-  level_rects(src, sx, tl, 1, [&](const bf16* sxr, int ry0, int rx0, int rh,
-                                  int cw) {
-    const int npx = rh * cw, nmt = (npx + 15) / 16, iw = cw + 2;
-    for (int mt0 = warp; mt0 < nmt; mt0 += 2 * WARPS) {
-      const MTiles mt{mt0, npx, FastDiv(cw), ry0, rx0};
-      int abase[2];
-      a_rows(mt, abase);
-      float acc[2][1][4];
-      zero(acc);
-#pragma unroll 1
-      for (int tap = 0; tap < 9; ++tap) {
-        const int shift = ((tap / 3) * iw + tap % 3) * ROW;
-        // B: lane l addresses k row 8 (l / 8) + l % 8 of a 32-row block
-        const bf16* b0 = sw + (tap * NF + lane) * 8;
-#pragma unroll
-        for (int kp = 0; kp < 2; ++kp) {
-          uint32_t bfr[4];
-          ldsm_x4_t(bfr, b0 + kp * 32 * 8);
-#pragma unroll
-          for (int h = 0; h < 2; ++h) {
-            const int kb = 2 * kp + h;
-#pragma unroll
-            for (int mi = 0; mi < 2; ++mi) {
-              uint32_t af[4];
-              ldsm_x4(af, sxr + abase[mi] + shift + kb * 16);
-              mma_16816(acc[mi][0], af, bfr + 2 * h);
-            }
-          }
-        }
-      }
-      if (2 * tig < CO) {  // lanes holding outputs 0..co-1
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-        for (int r = 0; r < 2; ++r) {
-          const int p = mt.pixel(mi * 16 + g + 8 * r);
-          if (p >= npx) continue;
-          const int ly = ry0 + mt.cw.div(p);
-          const int lx = rx0 + mt.cw.mod(p);
-          const bool own = ly >= 0 && ly < tl.TH && lx >= 0 && lx < TILE;
-          uint16_t* ep = xe + ((ly + 1) * ES + lx + 1) * EC + CI;
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            const int c = 2 * tig + e;
-            if (c >= CO) continue;
-            const float lg = round_to<bf16>(acc[mi][0][2 * r + e] + sb[c]);
-            const float sig = expf(fminf(fmaxf(lg, a.lmin), a.lmax));
-            if (own)
-              a.sigma[(((size_t)tl.n * a.H + tl.ty0 + ly) * a.W + tl.tx0 +
-                       lx) * CO + c] = __float2bfloat16(sig);
-            ep[c] = __bfloat16_as_ushort(__float2bfloat16(sqrtf(sig)));
-          }
-        }
-      }
-      __syncwarp();  // in step again before the next m-tiles' mma
-    }
-  });
-}
-
-// head conv on [x | sqrt(sigma)] over the tile: N = CF in passes of 64,
-// K = 9 (3 + co) (tap, channel) padded to a multiple of 16.  A is gathered
-// from the plane xe, B by ldmatrix.trans from [k][CF] weights (rows padded
-// to an odd number of 16-byte units, zero past K); bias in f32, one
-// rounding, staged, out as 16-byte stores.  One m-tile per warp at a time.
-__device__ void head_level(const Args& a, const Tile& tl, bf16* sw,
-                           float* sb, const uint16_t* xe, bf16* stage) {
-  const int CC = CI + a.CO, K = 9 * CC, nkb = (K + 15) / 16, CF = a.CF;
-  const int CFP = odd_units(CF * 2) * 8;
-  __syncthreads();  // xe is complete; sw and sb are free
-  const FastDiv fcf(CF);
-  fill(
-      nkb * 16 * CF,
-      [&](int i) -> uint16_t { return i < K * CF ? bits(a.wh[i]) : 0; },
-      [&](int i, uint16_t v) {
-        const int k = fcf.div(i);
-        sw[k * CFP + i - k * CF] = __ushort_as_bfloat16(v);
-      });
-  for (int i = threadIdx.x; i < CF; i += THREADS) sb[i] = tof(a.bh[i]);
+  // step st's halo into stage st % STAGES (thread 0)
+  auto issue = [&](int st) {
+    const int k = st % STAGES, c = st % CHUNKS;
+    int n, y0, x0;
+    tg.at(blockIdx.x + st / CHUNKS * gridDim.x, n, y0, x0);
+    unsigned char* s = mid_smem + (size_t)k * STAGE;
+    mbar_expect(bars + k, HALO_TX);
+    tma_box(s, &xmap, c * KC, x0 - 1, y0 - 1, n, bars + k);
+    tma_box(s + HALF, &xmap, c * KC + 8, x0 - 1, y0 - 1, n, bars + k);
+  };
+  if (threadIdx.x == 0)
+    for (int st = 0; st < STAGES - 1 && st < steps; ++st) issue(st);
+  fill_a(mid_smem + W_AT, w);
+  // this thread's output channels, 16 wq + g and + 8
+  const float b_lo = __bfloat162float(bias[16 * wq + g]);
+  const float b_hi = __bfloat162float(bias[16 * wq + g + 8]);
+  fence_async_smem();   // the A operands, written by threads, seen by wgmma
   __syncthreads();
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, tig = lane & 3;
-  int koff[4][2][2];  // as in conv1_level, into xe
+
+  float acc[128];
 #pragma unroll
-  for (int kb = 0; kb < 4; ++kb)
+  for (int i = 0; i < 128; ++i) acc[i] = 0.f;
+  unsigned char* ow = mid_smem + OUT_AT + (size_t)wg * WG_PX * OROW;
+
+  for (int s = 0; s < steps; ++s) {
+    const int c = s % CHUNKS;
+    unsigned char* st = mid_smem + (size_t)(s % STAGES) * STAGE;
+    mbar_wait(bars + s % STAGES, (s / STAGES) & 1);
+    wgmma_fence();
 #pragma unroll
-    for (int j = 0; j < 2; ++j)
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int k = kb * 16 + 8 * j + 2 * tig + e, tap = k / CC;
-        koff[kb][j][e] =
-            k < K ? ((tap / 3) * ES + tap % 3) * EC + k % CC : -1;
-      }
-  const int tpx = tl.TH * TILE;  // the tile's pixels
-  for (int mt = warp; mt < (tpx + 15) / 16; mt += WARPS) {
-    int off[2];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      int p = mt * 16 + g + 8 * r;
-      if (p >= tpx) p = 0;  // past the tile: read pixel 0, store nothing
-      off[r] = ((p / TILE) * ES + p % TILE) * EC;
+    for (int tap = 0; tap < 9; ++tap) {
+      const int dy = tap / 3, dx = tap % 3;
+      const uint64_t da =
+          mat_desc(mid_smem + W_AT + (size_t)(tap * CHUNKS + c) * A_BYTES,
+                   NF * 16, 128);
+      const uint64_t db =
+          mat_desc(st + (dy * MHW + 8 * wg + dx) * 16, HALF, MHW * 16);
+      wgmma_m64n256(acc, da, db, c > 0 || tap > 0);
     }
-    uint32_t af[4][4];
+    wgmma_commit();
+    // step s - 1's products are done in both warpgroups: its stage, the
+    // one step s + STAGES - 1 takes, is free
+    wgmma_wait<1>();
+    __syncthreads();
+    if (threadIdx.x == 0 && s + STAGES - 1 < steps) issue(s + STAGES - 1);
+    if (c == CHUNKS - 1) {
+      wgmma_wait<0>();
 #pragma unroll
-    for (int kb = 0; kb < 4; ++kb)
+      for (int i = 0; i < 128; ++i) pin(acc[i]);
+      // epilogue: bias and LeakyReLU in f32, one rounding; tile rows 2j2
+      // and 2j2 + 1 of this warp's 16 channels as four 8 x 8 matrices
+      // stored transposed, pixel-major, into the warpgroup's rows
+      const int mi = lane >> 3;   // the matrix this lane addresses
+      unsigned char* sp = ow + ((mi >> 1) * 8 + (lane & 7)) * OROW +
+                          (16 * wq + (mi & 1) * 8) * 2;
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int rr = i & 1, j = i >> 1;
-        const int k0 = koff[kb][j][0], k1 = koff[kb][j][1];
-        af[kb][i] = pack_raw(k0 < 0 ? 0 : xe[off[rr] + k0],
-                             k1 < 0 ? 0 : xe[off[rr] + k1]);
-      }
-#pragma unroll 1
-    for (int c0 = 0; c0 < CF; c0 += 64) {
-      const int nnt = min(8, (CF - c0) / 8);  // even: CF % 16 == 0
-      float acc[8][4];
+      for (int j2 = 0; j2 < MTH / 2; ++j2) {
+        uint32_t r[4];
 #pragma unroll
-      for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-        for (int i = 0; i < 4; ++i) acc[nt][i] = 0.f;
-#pragma unroll
-      for (int kb = 0; kb < 4; ++kb) {
-        if (kb >= nkb) break;
-        const bf16* b0 = sw + (kb * 16 + ((lane >> 3) & 1) * 8 + (lane & 7)) *
-                                  CFP + c0 + (lane >> 4) * 8;
-#pragma unroll
-        for (int np = 0; np < 4; ++np) {
-          if (2 * np >= nnt) break;
-          uint32_t bfr[4];
-          ldsm_x4_t(bfr, b0 + np * 16);
-          mma_16816(acc[2 * np], af[kb], bfr);
-          mma_16816(acc[2 * np + 1], af[kb], bfr + 2);
+        for (int h = 0; h < 2; ++h) {
+          const float* d = acc + 4 * (2 * j2 + h);
+          r[2 * h] = pack_bf16(lrelu(d[0] + b_lo, slope),
+                               lrelu(d[1] + b_lo, slope));
+          r[2 * h + 1] = pack_bf16(lrelu(d[2] + b_hi, slope),
+                                   lrelu(d[3] + b_hi, slope));
         }
+        stsm_x4_t(sp + j2 * 16 * OROW, r);
       }
-#pragma unroll
-      for (int nt = 0; nt < 8; ++nt) {
-        if (nt >= nnt) break;
-        const int co = nt * 8 + 2 * tig;
-#pragma unroll
-        for (int r = 0; r < 2; ++r)
-          *reinterpret_cast<uint32_t*>(stage + (g + 8 * r) * ROW + co) =
-              pack_bf16(acc[nt][2 * r] + sb[c0 + co],
-                        acc[nt][2 * r + 1] + sb[c0 + co + 1]);
-      }
-      __syncwarp();
-      for (int i = lane; i < 16 * nnt; i += 32) {
-        const int q = i / nnt, u = i % nnt, p = mt * 16 + q;
-        const int gy = tl.ty0 + p / TILE, gx = tl.tx0 + p % TILE;
-        if (p < tpx && gy < a.H && gx < a.W)
+      asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
+      // staged pixel p: tile row p / 8, column 8 wg + p % 8; 8 lanes a
+      // pixel's 128 bytes
+      int n, y0, x0;
+      tg.at(blockIdx.x + s / CHUNKS * gridDim.x, n, y0, x0);
+      const int t = threadIdx.x & 127;
+#pragma unroll 4
+      for (int k = 0; k < WG_PX * 8 / 128; ++k) {
+        const int i = k * 128 + t, p = i >> 3, u = i & 7;
+        const int oy = y0 + (p >> 3), ox = x0 + 8 * wg + (p & 7);
+        if (oy < H && ox < W)
           *reinterpret_cast<uint4*>(
-              a.head + (((size_t)tl.n * a.H + gy) * a.W + gx) * CF + c0 +
-              u * 8) = *reinterpret_cast<const uint4*>(stage + q * ROW +
-                                                       u * 8);
+              y + ((size_t)(n * H + oy) * W + ox) * NF + u * 8) =
+              *reinterpret_cast<const uint4*>(ow + p * OROW + u * 16);
       }
-      __syncwarp();
+      // the staging rows are written again only after the next step's
+      // __syncthreads
     }
   }
+  // the last step's products were waited for in its epilogue; said again
+  // here, so that ptxas need not add a wait of its own on the way out
+  wgmma_wait<0>();
 }
 
-__global__ void __launch_bounds__(THREADS) dncnn_head_bf16_kernel(Args a) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* sw = reinterpret_cast<bf16*>(smem_raw);
-  bf16* sx = reinterpret_cast<bf16*>(smem_raw + W_BYTES);
-  bf16* stage = reinterpret_cast<bf16*>(smem_raw + W_BYTES + 2 * IN_BYTES) +
-                (threadIdx.x >> 5) * 32 * ROW;
-  float* sb = reinterpret_cast<float*>(smem_raw + W_BYTES + 2 * IN_BYTES +
-                                       STAGE_BYTES);
-  uint16_t* xe = reinterpret_cast<uint16_t*>(sb + MAX_CF);
-
-  Tile tl;
-  tl.H = a.H;
-  tl.W = a.W;
-  tl.TH = a.TH;
-  tl.Hh = a.L + 2;
-  tl.S = TILE + 2 * tl.Hh;
-  const size_t level = (size_t)(a.TH + 2 * tl.Hh) * tl.S * NF;
-  bf16* buf0 = a.scratch + (size_t)blockIdx.x * 2 * level;
-  bf16* buf1 = buf0 + level;
-  const TileGrid tg(a.N, a.H, a.W, a.TH, TILE);
-
-  for (int t = blockIdx.x; t < tg.count; t += gridDim.x) {
-    tg.at(t, tl.n, tl.ty0, tl.tx0);
-    // K8: row 0 of an input image's first slab reads the zero row above
-    tl.zr = a.XS > 0 && tl.n % a.XS == 0 ? -tl.ty0 : -(1 << 30);
-    conv1_level(a, tl, buf0, sw, sx, sb, stage);
-    for (int lev = 1; lev <= a.L; ++lev)
-      mid_level(lev % 2 ? buf0 : buf1, lev % 2 ? buf1 : buf0,
-                a.wm + (size_t)(lev - 1) * 9 * NF * NF,
-                a.bm + (size_t)(lev - 1) * NF, sw, sx, sb, stage, tl,
-                tl.Hh - lev, a.slope);
-    last_level(a, tl, a.L % 2 ? buf1 : buf0, sw, sx, sb, xe);
-    head_level(a, tl, sw, sb, xe, stage);
-  }
-}
-
-cudaError_t prepare() {
-  return cudaFuncSetAttribute(dncnn_head_bf16_kernel,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)SMEM);
+template <int CO>
+int last(const LastArgs& a, cudaStream_t stream) {
+  return launch_last(dncnn_head_last_kernel<CO>, last_smem<CO, true>(a.CF),
+                     a, stream);
 }
 
 }  // namespace
 
-// Persistent grid at this image size and tile height TH (bf16 only): the
-// wrapper sizes the block-private scratch from it, grid *
-// vt_dncnn_head_scratch_elems(L, TH).
-extern "C" int vt_dncnn_head_grid(int dtype, int N, int H, int W, int TH,
-                                  int* grid) {
-  if (dtype != VT_BF16 || N < 1 || H < 1 || W < 1 || TH < 1 || TH > MAX_TH)
+// conv1: x (N,H,W,3), w HWIO (3,3,3,64), b (64) -> y (N,H,W,64) =
+// lrelu(conv(x, w) + b), all bf16; y 16-byte aligned.  With xs > 0 (K8: N
+// slabs, xs of them per input image) x is read one row up.
+extern "C" int vt_dncnn_head_conv1(const void* x, const void* w,
+                                   const void* b, void* y, int N, int H,
+                                   int W, int xs, float slope, void* stream) {
+  if (N < 1 || H < 1 || W < 1 || xs < 0 || (xs > 0 && N % xs != 0))
     return cudaErrorInvalidValue;
-  cudaError_t err = prepare();
+  return launch_conv1<bf16>(dncnn_head_conv1_kernel, x, w, b, y, N, H, W, xs,
+                            slope, static_cast<cudaStream_t>(stream));
+}
+
+// one mid level: x (N,H,W,64), w HWIO (3,3,64,64), b (64) -> y (N,H,W,64)
+// = lrelu(conv(x, w) + b), all bf16; x, w and y 16-byte aligned, y not x.
+extern "C" int vt_dncnn_head_mid(const void* x, const void* w, const void* b,
+                                 void* y, int N, int H, int W, float slope,
+                                 void* stream) {
+  if (N < 1 || H < 1 || W < 1 || (long long)N * H * W > INT_MAX ||
+      x == y || reinterpret_cast<uintptr_t>(x) % 16 ||
+      reinterpret_cast<uintptr_t>(w) % 16 ||
+      reinterpret_cast<uintptr_t>(y) % 16)
+    return cudaErrorInvalidValue;
+  const CUtensorMap* map = nullptr;
+  const int bad = cached_nhwc_bf16_map(&map, x, N, H, W, NF, 8, MHW, MHH);
+  if (bad != 0) return bad;
+  cudaError_t err = cudaFuncSetAttribute(
+      dncnn_head_mid_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)MID_SMEM);
   if (err != cudaSuccess) return err;
-  const TileGrid tg(N, H, W, TH, TILE);
+  const TileGrid tg(N, H, W, MTH, MTW);
   const int blocks =
-      persistent_blocks(dncnn_head_bf16_kernel, THREADS, SMEM, tg.count);
-  if (blocks <= 0) {
-    err = cudaGetLastError();
-    return err != cudaSuccess ? err : cudaErrorInvalidConfiguration;
-  }
-  *grid = blocks;
-  return cudaSuccess;
-}
-
-// Scratch elements one block needs: two (TH + 2 (L + 2)) x (TILE + 2 (L +
-// 2)) x 64 buffers.
-extern "C" long long vt_dncnn_head_scratch_elems(int L, int TH) {
-  const long long hh = L + 2;
-  return 2 * (TH + 2 * hh) * (TILE + 2 * hh) * NF;
-}
-
-// x (N,H,W,3); w1 HWIO (3,3,3,64), b1 (64); wm (L,3,3,64,64), bm (L,64);
-// wl (3,3,64,CO), bl (CO); wh (3,3,3+CO,CF), bh (CF).  head = out0
-// (N,H,W,CF), sigma = out1 (N,H,W,CO).  All bf16; wm and out0 16-byte
-// aligned.  Tiles of TH (1..32) x 24 pixels: K3 takes TH = 24 and XS = 0.
-// K8 passes the slab view, N * H / r images of r rows, with TH = min(r,
-// 32) and XS = H / r: x is then read one row up, with zeros in row -1 of
-// every input image (the first row of every XS-th slab).
-extern "C" int vt_dncnn_head(const void* x, const void* w1, const void* b1,
-                             const void* wm, const void* bm, const void* wl,
-                             const void* bl, const void* wh, const void* bh,
-                             void* out0, void* out1, void* scratch, int grid,
-                             int N, int H, int W, int L, int CO, int CF,
-                             int TH, int XS, int dtype, float slope,
-                             float lmin, float lmax, void* stream) {
-  if (dtype != VT_BF16 || grid < 1 || N < 1 || H < 1 || W < 1 || L < 1 ||
-      CO < 1 || CO > 3 || CF < 0 || CF % 16 != 0 || CF > MAX_CF || TH < 1 ||
-      TH > MAX_TH || XS < 0 || (XS > 0 && N % XS != 0))
-    return cudaErrorInvalidValue;
-  cudaError_t err = prepare();
-  if (err != cudaSuccess) return err;
-  Args a{static_cast<const bf16*>(x),  static_cast<const bf16*>(w1),
-         static_cast<const bf16*>(b1), static_cast<const bf16*>(wm),
-         static_cast<const bf16*>(bm), static_cast<const bf16*>(wl),
-         static_cast<const bf16*>(bl), static_cast<const bf16*>(wh),
-         static_cast<const bf16*>(bh), static_cast<bf16*>(out0),
-         static_cast<bf16*>(out1),     static_cast<bf16*>(scratch),
-         N, H, W, L, CO, CF, TH, XS, slope, lmin, lmax};
-  dncnn_head_bf16_kernel<<<grid, THREADS, SMEM,
-                           static_cast<cudaStream_t>(stream)>>>(a);
+      persistent_blocks(dncnn_head_mid_kernel, THREADS, MID_SMEM, tg.count);
+  if (blocks <= 0) return error_or(cudaErrorInvalidConfiguration);
+  dncnn_head_mid_kernel<<<blocks, THREADS, MID_SMEM,
+                          static_cast<cudaStream_t>(stream)>>>(
+      *map, static_cast<const bf16*>(w), static_cast<const bf16*>(b),
+      static_cast<bf16*>(y), N, H, W, slope);
   return cudaGetLastError();
+}
+
+// the last level: lev (N,H,W,64); wl HWIO (3,3,64,CO), bl (CO); x
+// (N,H,W,3), wh HWIO (3,3,3+CO,CF), bh (CF) -> head (N,H,W,CF), sigma
+// (N,H,W,CO).  All bf16; lev and head 16-byte aligned.  With xs > 0 (K8)
+// x is read one row up, as in vt_dncnn_head_conv1.
+extern "C" int vt_dncnn_head_last(const void* lev, const void* x,
+                                  const void* wl, const void* bl,
+                                  const void* wh, const void* bh, void* head,
+                                  void* sigma, int N, int H, int W, int CO,
+                                  int CF, int xs, float lmin, float lmax,
+                                  void* stream) {
+  if (last_args_bad(N, H, W, CO, CF, 1, xs)) return cudaErrorInvalidValue;
+  const LastArgs a{lev, x, wl, bl, wh, bh, head, sigma,
+                   N, H, W, CF, xs, lmin, lmax};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (CO) {
+    case 1: return last<1>(a, s);
+    case 2: return last<2>(a, s);
+    case 3: return last<3>(a, s);
+  }
+  return cudaErrorInvalidValue;
 }

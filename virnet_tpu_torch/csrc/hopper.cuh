@@ -1,7 +1,9 @@
-// Hopper device helpers shared by the wgmma kernels, K9 (conv_w8a8.cu) and
-// K11 (resblock_conv.cu): shared-memory matrix descriptors and the
-// wgmma fences, mbarriers, tensor and bulk copies (TMA), and
-// cuTensorMapEncodeTiled looked up at run time (no link against libcuda).
+// Hopper device helpers shared by the wgmma kernels, K9 (conv_w8a8.cu),
+// K11 (resblock_conv.cu) and the SNet's mid levels of K3 and K8 in bf16
+// (dncnn_head.cu): shared-memory matrix descriptors and the wgmma fences,
+// mbarriers, tensor and bulk copies (TMA), and cuTensorMapEncodeTiled
+// looked up at run time (no link against libcuda), with a cache of the
+// maps it encoded.
 #pragma once
 
 #include <cuda.h>
@@ -132,5 +134,40 @@ inline int nhwc_bf16_map(CUtensorMap* map, const void* x, int Nb, int H,
              CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
     return cudaErrorInvalidValue;
+  return 0;
+}
+
+// The last tensor maps of nhwc_bf16_map encoded on this thread, by what
+// they encode: the caching allocator hands a serving loop's activations the
+// same addresses request after request, so a launch mostly finds its map
+// here.  Returns 0 with *out set, or the error of a refused map.
+inline int cached_nhwc_bf16_map(const CUtensorMap** out, const void* x,
+                                int Nb, int H, int W, int C, int bc, int bw,
+                                int bh) {
+  struct Entry {
+    const void* x;
+    int key[7];
+    CUtensorMap map;
+  };
+  constexpr int SIZE = 16;
+  static thread_local Entry cache[SIZE];
+  static thread_local int used = 0, next = 0;
+  const int key[7] = {Nb, H, W, C, bc, bw, bh};
+  for (int i = 0; i < used; ++i) {
+    bool same = cache[i].x == x;
+    for (int k = 0; k < 7 && same; ++k) same = cache[i].key[k] == key[k];
+    if (same) {
+      *out = &cache[i].map;
+      return 0;
+    }
+  }
+  Entry& e = cache[next];
+  const int bad = nhwc_bf16_map(&e.map, x, Nb, H, W, C, bc, bw, bh);
+  if (bad != 0) return bad;
+  e.x = x;
+  for (int k = 0; k < 7; ++k) e.key[k] = key[k];
+  next = (next + 1) % SIZE;
+  if (used < SIZE) ++used;
+  *out = &e.map;
   return 0;
 }

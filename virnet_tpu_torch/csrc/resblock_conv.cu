@@ -410,48 +410,6 @@ resblock_conv_bf16_kernel(const __grid_constant__ CUtensorMap xmap,
   wgmma_wait<0>();
 }
 
-// The last tensor maps encoded on this thread, by what they encode: the
-// caching allocator hands a serving loop's activations the same addresses
-// request after request, so a launch mostly finds its map here.
-struct MapCache {
-  static constexpr int SIZE = 16;
-  struct Entry {
-    const void* x;
-    int Nb, H, W, C;
-    CUtensorMap map;
-  };
-  Entry e[SIZE];
-  int used = 0, next = 0;
-  const CUtensorMap* find(const void* x, int Nb, int H, int W, int C) const {
-    for (int i = 0; i < used; ++i)
-      if (e[i].x == x && e[i].Nb == Nb && e[i].H == H && e[i].W == W &&
-          e[i].C == C)
-        return &e[i].map;
-    return nullptr;
-  }
-};
-
-int halo_map(const CUtensorMap** out, const void* x, int Nb, int H, int W,
-             int C) {
-  static thread_local MapCache cache;
-  const CUtensorMap* hit = cache.find(x, Nb, H, W, C);
-  if (hit == nullptr) {
-    MapCache::Entry& e = cache.e[cache.next];
-    const int bad = nhwc_bf16_map(&e.map, x, Nb, H, W, C, 8, HW, HH);
-    if (bad != 0) return bad;
-    e.x = x;
-    e.Nb = Nb;
-    e.H = H;
-    e.W = W;
-    e.C = C;
-    hit = &e.map;
-    cache.next = (cache.next + 1) % MapCache::SIZE;
-    if (cache.used < MapCache::SIZE) ++cache.used;
-  }
-  *out = hit;
-  return 0;
-}
-
 template <int MODE, int N>
 int launch_n(const CUtensorMap& map, const void* w, const void* bias,
              const void* res, void* y, int Nb, int H, int W, int Ci, int Co,
@@ -522,7 +480,7 @@ extern "C" int vt_resblock_conv(const void* x, const void* w,
       reinterpret_cast<uintptr_t>(res) % 4)
     return cudaErrorInvalidValue;
   const CUtensorMap* map = nullptr;
-  const int bad = halo_map(&map, x, Nb, H, W, Ci);
+  const int bad = cached_nhwc_bf16_map(&map, x, Nb, H, W, Ci, 8, HW, HH);
   if (bad != 0) return bad;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return mode == FIRST

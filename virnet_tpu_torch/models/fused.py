@@ -1,8 +1,8 @@
 """The fused denoise prologue (counterpart of virnet_tpu/models/fused.py):
 SNet, sigma = exp(clip(logits)), sqrt(sigma) and RNet's head conv on
-[x | sqrt(sigma)] through K3 (ops/fused_conv.dncnn_head_fused: one launch
-in bf16, the SNet level chain in fp32), then
-RNet continues from the head activation.  It applies to the denoising
+[x | sqrt(sigma)] through K3 (ops/fused_conv.dncnn_head_fused: the SNet
+level chain, its last level computing sigma and the head conv), then RNet
+continues from the head activation.  It applies to the denoising
 VIRNet with extra_mode 'input', at sizes where RNet's reflect pad is a
 no-op.  ``mode='slabzero'`` runs the halo-free probe K8 in K3's place: a
 measurement tool with wrong values near slab edges, reached only through

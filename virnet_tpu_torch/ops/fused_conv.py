@@ -7,9 +7,10 @@ version (counterpart of virnet_tpu/ops/pallas_conv.py).
                                   level kernels: snet_conv1, L x K1,
                                   snet_last (csrc/snet_levels.cu)
   K3 ``dncnn_head_fused``      <- pallas_conv.dncnn_head_fused (halo, carry);
-                                  bf16 one launch of csrc/dncnn_head.cu,
-                                  fp32 the chain of K2 with snet_last's
-                                  sigma + head mode
+                                  the level chain with the last level's
+                                  sigma + head mode: in bf16 the kernels of
+                                  csrc/dncnn_head.cu, mids on its wgmma
+                                  ``dncnn_head_mid``; in fp32 K2's kernels
   K4 ``conv3x3_tail_residual`` <- pallas_conv.conv3x3_tail_residual
   K8 ``dncnn_head_slabzero``   <- pallas_conv.dncnn_head_fused (slabzero),
                                   a speed probe that no product path routes:
@@ -41,7 +42,8 @@ import torch.nn.functional as F
 from . import _build
 
 LAUNCHES = {"conv3x3_mid": 0, "dncnn_fused": 0, "dncnn_head_fused": 0,
-            "conv3x3_tail_residual": 0, "dncnn_head_slabzero": 0,
+            "dncnn_head_mid": 0, "conv3x3_tail_residual": 0,
+            "dncnn_head_slabzero": 0,
             "blur_valid": 0, "blur_dx": 0, "blur_dw": 0, "conv_w8a8": 0,
             "absmax_nhwc": 0, "resblock_conv": 0}
 # copies a wrapper had to make of an input it was handed in another layout
@@ -56,10 +58,9 @@ _SIGNATURES = {
                        [_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P]),
     "vt_snet_conv1": ("snet_levels", [_P] * 4 + [_I] * 5 + [_F, _P]),
     "vt_snet_last": ("snet_levels", [_P] * 8 + [_I] * 8 + [_F, _F, _P]),
-    "vt_dncnn_head_grid": ("dncnn_head", [_I] * 5 + [ctypes.POINTER(_I)]),
-    "vt_dncnn_head_scratch_elems": ("dncnn_head", [_I, _I]),
-    "vt_dncnn_head": ("dncnn_head",
-                      [_P] * 12 + [_I] * 10 + [_F, _F, _F, _P]),
+    "vt_dncnn_head_conv1": ("dncnn_head", [_P] * 4 + [_I] * 4 + [_F, _P]),
+    "vt_dncnn_head_mid": ("dncnn_head", [_P] * 4 + [_I] * 3 + [_F, _P]),
+    "vt_dncnn_head_last": ("dncnn_head", [_P] * 8 + [_I] * 6 + [_F, _F, _P]),
     "vt_tail_residual": ("tail_residual", [_P] * 5 + [_I] * 7 + [_P]),
     "vt_blur_valid": ("blur", [_P] * 3 + [_I] * 5 + [_P]),
     "vt_blur_dx": ("blur", [_P] * 3 + [_I] * 5 + [_P]),
@@ -279,14 +280,43 @@ def conv3x3_mid_stack(x, wms, bms, slope=None) -> torch.Tensor:
     return x
 
 
+def dncnn_head_mid(x, w, b, slope=0.25) -> torch.Tensor:
+    """One mid level of K3 and K8 in bf16: lrelu(conv3x3(x, w) + b, slope)
+    with f32 sums and one rounding, x (N, H, W, 64), w HWIO (3, 3, 64,
+    64), b (64,) -> (N, H, W, 64).  On the card every tensor is bfloat16
+    and contiguous, x and w start 16-byte aligned; any N, H, W >= 1
+    (csrc/dncnn_head.cu's wgmma kernel)."""
+    _forward_only("dncnn_head_mid", x, w, b)
+    if _on_cpu(x, w, b):
+        return conv3x3_plain(x, w, b, slope)
+    n, h, wd, _ = x.shape
+    bf = torch.bfloat16
+    _check(x, "x", bf, (n, h, wd, 64))
+    _check(w, "w", bf, (3, 3, 64, 64))
+    _check(b, "b", bf, (64,))
+    y = torch.empty_like(x)
+    _aligned(x=x, w=w, y=y)
+    _ret(_fn("vt_dncnn_head_mid")(
+        x.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(), n, h, wd,
+        float(slope), _stream(x)), "vt_dncnn_head_mid")
+    LAUNCHES["dncnn_head_mid"] += 1
+    return y
+
+
 def _dncnn_launch(head: bool, x, w1, b1, wms, bms, wl, bl, wh, bh, slope,
                   lmin, lmax, rows=None):
-    """Check and launch K2 (``head`` False), K3, or with ``rows`` K8.  K2,
-    and K3 and K8 in fp32, are the level chain (``_snet_chain``); K3 and K8
-    in bf16 are one launch of csrc/dncnn_head.cu's kernel, which sizes its
-    block-private scratch from its persistent grid.  K8 runs them on the
-    view of x cut into slabs of ``rows`` rows, with x read one row up
-    (``xs`` slabs per image); its outputs are x's shape."""
+    """Check and launch K2 (``head`` False), K3, or with ``rows`` K8: the
+    SNet level by level, conv1 into a 64-channel level map, one launch per
+    mid level, then the last level: the logits (``head`` False), or sigma
+    and the head conv on [x | sqrt(sigma)].  K3 and K8 in bf16 (``head``
+    and bf16) launch csrc/dncnn_head.cu's kernels, the mids on
+    ``dncnn_head_mid``; K2, and K3 and K8 in fp32, launch
+    csrc/snet_levels.cu's snet_conv1 and snet_last with K1 for the mids
+    (counted under ``conv3x3_mid``).  K8 runs the chain on the view of x
+    cut into slabs of ``rows`` rows (``xs`` slabs per image), conv1 and
+    the last level reading x one row up; its outputs are x's shape.  Level
+    maps are ``torch.empty`` on x's device; every launch goes on its
+    current stream."""
     n, h, wd, ci = x.shape
     dt = x.dtype
     code = _dtype_code(x)
@@ -313,66 +343,42 @@ def _dncnn_launch(head: bool, x, w1, b1, wms, bms, wl, bl, wh, bh, slope,
                              f"256, got {cf}")
         _check(wh, "wh", dt, (3, 3, 3 + co, cf))
         _check(bh, "bh", dt, (cf,))
+    _aligned(wms=wm)
     xs = 0
     if rows is not None:           # K8: the slab view
         xs = h // rows
         n, h = n * xs, rows
-    if not (head and dt == torch.bfloat16):
-        return _snet_chain(head, x, w1, b1, wm, bm, wl, bl, wh, bh, slope,
-                           lmin, lmax, (n, h, xs))
-    th = 24 if rows is None else min(rows, 32)   # tile rows
-    _aligned(x=x, wms=wm)
-    grid = ctypes.c_int(0)
-    _ret(_fn("vt_dncnn_head_grid")(code, n, h, wd, th, ctypes.byref(grid)),
-         "vt_dncnn_head_grid")
-    per_block = _fn("vt_dncnn_head_scratch_elems")(L, th)
-    scratch = torch.empty(grid.value * per_block, dtype=dt, device=x.device)
-    out0 = torch.empty((*x.shape[:3], cf), dtype=dt, device=x.device)
-    out1 = torch.empty((*x.shape[:3], co), dtype=dt, device=x.device)
-    _ret(_fn("vt_dncnn_head")(
-        x.data_ptr(), w1.data_ptr(), b1.data_ptr(), wm.data_ptr(),
-        bm.data_ptr(), wl.data_ptr(), bl.data_ptr(), wh.data_ptr(),
-        bh.data_ptr(), out0.data_ptr(), out1.data_ptr(), scratch.data_ptr(),
-        grid.value, n, h, wd, L, co, cf, th, xs, code, float(slope),
-        float(lmin), float(lmax), _stream(x)), "vt_dncnn_head")
-    return out0, out1
-
-
-def _snet_chain(head: bool, x, w1, b1, wm, bm, wl, bl, wh, bh, slope, lmin,
-                lmax, view=None):
-    """The SNet level by level (csrc/snet_levels.cu): snet_conv1 into a
-    64-channel level map, one K1 launch per mid level (counted under
-    ``conv3x3_mid``), then snet_last: the logits (``head`` False), or sigma
-    and the head conv on [x | sqrt(sigma)].  ``view`` (n, h, xs) runs the
-    chain on x seen as n images of h rows (K8's slabs), snet_conv1 and
-    snet_last reading x one row up when xs > 0; outputs have x's shape.
-    Level maps are ``torch.empty`` on x's device; every launch goes on its
-    current stream.  Arguments checked by ``_dncnn_launch``; wm and bm
-    stacked."""
-    n, h, wd, _ = x.shape
-    xs = 0
-    if view is not None:
-        n, h, xs = view
-    code = _dtype_code(x)
-    co = wl.shape[3]
-    cf = wh.shape[3] if head else 0
-    _aligned(wms=wm)
-    y = torch.empty((n, h, wd, 64), dtype=x.dtype, device=x.device)
-    _ret(_fn("vt_snet_conv1")(
-        x.data_ptr(), w1.data_ptr(), b1.data_ptr(), y.data_ptr(), n, h, wd,
-        xs, code, float(slope), _stream(x)), "vt_snet_conv1")
+    ours = head and dt == torch.bfloat16
+    st = _stream(x)
+    y = torch.empty((n, h, wd, 64), dtype=dt, device=x.device)
+    if ours:
+        _ret(_fn("vt_dncnn_head_conv1")(
+            x.data_ptr(), w1.data_ptr(), b1.data_ptr(), y.data_ptr(), n, h,
+            wd, xs, float(slope), st), "vt_dncnn_head_conv1")
+    else:
+        _ret(_fn("vt_snet_conv1")(
+            x.data_ptr(), w1.data_ptr(), b1.data_ptr(), y.data_ptr(), n, h,
+            wd, xs, code, float(slope), st), "vt_snet_conv1")
+    mid = dncnn_head_mid if ours else conv3x3_mid
     for w, b in zip(wm, bm):
-        y = conv3x3_mid(y, w, b, slope)
-    out0 = torch.empty((*x.shape[:3], cf if head else co), dtype=x.dtype,
+        y = mid(y, w, b, slope)
+    out0 = torch.empty((*x.shape[:3], cf if head else co), dtype=dt,
                        device=x.device)
-    out1 = (torch.empty((*x.shape[:3], co), dtype=x.dtype, device=x.device)
+    out1 = (torch.empty((*x.shape[:3], co), dtype=dt, device=x.device)
             if head else None)
-    _ret(_fn("vt_snet_last")(
-        y.data_ptr(), x.data_ptr(), wl.data_ptr(), bl.data_ptr(),
-        wh.data_ptr() if head else None, bh.data_ptr() if head else None,
-        out0.data_ptr(), out1.data_ptr() if head else None, n, h, wd, co,
-        cf, int(head), xs, code, float(lmin), float(lmax), _stream(x)),
-        "vt_snet_last")
+    if ours:
+        _ret(_fn("vt_dncnn_head_last")(
+            y.data_ptr(), x.data_ptr(), wl.data_ptr(), bl.data_ptr(),
+            wh.data_ptr(), bh.data_ptr(), out0.data_ptr(), out1.data_ptr(),
+            n, h, wd, co, cf, xs, float(lmin), float(lmax), st),
+            "vt_dncnn_head_last")
+    else:
+        _ret(_fn("vt_snet_last")(
+            y.data_ptr(), x.data_ptr(), wl.data_ptr(), bl.data_ptr(),
+            wh.data_ptr() if head else None, bh.data_ptr() if head else None,
+            out0.data_ptr(), out1.data_ptr() if head else None, n, h, wd,
+            co, cf, int(head), xs, code, float(lmin), float(lmax), st),
+            "vt_snet_last")
     return out0, out1
 
 
@@ -396,11 +402,12 @@ def dncnn_head_fused(x, w1, b1, wms, bms, wl, bl, wh, bh, slope=0.25,
     """K3, SNet + sigma epilogue + RNet head conv: x (N, H, W, 3) ->
     (head (N, H, W, cf), sigma (N, H, W, co)).  sigma = exp(clip(logits,
     lmin, lmax)); head = conv3x3([x | sqrt(sigma)], wh) + bh with
-    sqrt(sigma) zero outside the image.  On the card, bf16 is one launch
-    of csrc/dncnn_head.cu (x and the stacked mid weights must start
-    16-byte aligned) and fp32 the level chain of csrc/snet_levels.cu with
-    K1 for the mids (the stacked mid weights must start 16-byte
-    aligned)."""
+    sqrt(sigma) zero outside the image.  On the card the level chain
+    (``_dncnn_launch``), 2 + L launches: in bf16 csrc/dncnn_head.cu's conv1,
+    L ``dncnn_head_mid`` and last level; in fp32 csrc/snet_levels.cu's
+    snet_conv1 and snet_last with K1 for the mids.  The stacked mid
+    weights must start 16-byte aligned.  One ``dncnn_head_fused`` count a
+    call, and in bf16 one ``dncnn_head_mid`` count a mid level."""
     _forward_only("dncnn_head_fused", x, w1, b1, *_seq(wms), *_seq(bms), wl,
                   bl, wh, bh)
     if _on_cpu(x, w1, b1, wl, bl, wh, bh):
@@ -426,13 +433,12 @@ def dncnn_head_slabzero(x, w1, b1, wms, bms, wl, bl, wh, bh, rows=32,
     (cli/bench_fused_head).  ``rows`` must divide H; there is no automatic
     slab size.
 
-    On the card it runs K3's own kernels on the view of x cut into slabs,
-    with x read one row up (no shifted copy is made): in bf16 one launch of
-    csrc/dncnn_head.cu with tiles of min(rows, 32) x 24, each level's
-    region clipped to its slab, so that only the column halo is recomputed
-    up to rows = 32 and K3 minus K8 is the cost of K3's row halo; in fp32
-    the level chain (snet_conv1, K1 per mid level under ``conv3x3_mid``,
-    snet_last), which recomputes nothing, as for K3."""
+    On the card it runs K3's own level chain on the view of x cut into
+    slabs, with x read one row up (no shifted copy is made): conv1 and the
+    last level read x in place, the level maps and the mids see slab edges
+    as image edges, and nothing is recomputed, as for K3 (bf16: the
+    kernels of csrc/dncnn_head.cu, mids under ``dncnn_head_mid``; fp32:
+    snet_conv1, K1 per mid level under ``conv3x3_mid``, snet_last)."""
     _forward_only("dncnn_head_slabzero", x, w1, b1, *_seq(wms), *_seq(bms),
                   wl, bl, wh, bh)
     _check_rows(x.shape[1], rows)
